@@ -1,0 +1,655 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (volsync_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N] [--stream-gib G]
+
+Run from the repository root on a machine with a CUDA card and nvcc. It
+imports nothing of JAX or of the JAX package, and every phase raises on
+a mismatch:
+
+1. build: compiles every CUDA source of the port (one nvcc per source,
+   started together) and prints nvcc's register report, the
+   instructions of one K1 message block as compiled (``cuobjdump
+   -sass``), the card's name and power limit, and the torch and CUDA
+   versions;
+2. kernels: runs one real 48 MiB segment through ``chunk_hash_segment``
+   while recording each kernel wrapper's inputs, then holds every
+   kernel (K3 transpose_u32, K1 sha256_pages, sha256_lanes,
+   fastcdc_walk) against its plain PyTorch twin on those inputs with
+   ``torch.equal`` (K1 also against hashlib per page, K3 also on
+   [8192, 1024] and on a ragged shape) and times kernel, twin and, for
+   K3, the one PyTorch call computing the same function;
+3. stream: sets every launch count to 0, streams a seeded ``--stream-gib``
+   GiB + 12,345-byte volume (half of its 64 MiB blocks repeat earlier
+   ones; one block is all zero) through ``stream_chunk_batches`` with
+   ``DeviceChunkHasher(DEFAULT_PARAMS)`` in 32 MiB segments, reads the
+   counts, and holds the cut list and every blob id against a host
+   oracle (numpy gear candidates, the host FastCDC walk, hashlib blob
+   ids); prints GiB/s and the dedup ratio. A second pass with each
+   stage's functions bracketed by CUDA events gives per-stage device
+   time, and a third plain pass the GiB/s spread; both must give the
+   first pass's chunks;
+4. verify: ``verify_blob_batch`` over 256 produced chunks returns [] and,
+   with one byte flipped, exactly that chunk's id.
+
+The line before the last is the kernels JSON (launches on the stream
+phase, max difference from the twin, times and bounds); the last line
+is ``{"ok": true, "device": {...}}``. Exits nonzero, with no result,
+when CUDA is unavailable or any phase fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import contextlib
+import re
+import hashlib
+import json
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+
+GIB = 1 << 30
+BLOCK = 64 << 20  # unit of the stream's redundancy pattern
+SEGMENT_P = 48 << 20  # padded device buffer of a full 32 MiB segment
+
+# Published H100 SXM peaks (700 W): 3.35 TB/s of HBM; 67 TFLOP/s fp32
+# outside the tensor cores = 132 SMs x 128 lanes x 2 (FMA) x 1.98 GHz.
+HBM_BYTES_PER_S = 3.35e12
+# Integer logic and shifts (LOP3, SHF) issue only on the integer ALU
+# pipe, 16 lanes in each of an SM's 4 sub-partitions:
+# 132 x 64 x 1.98e9 = 16.7e12 instructions/s.
+INT32_ALU_OPS_PER_S = 132 * 64 * 1.98e9
+# Least integer work of one SHA-256 compression in sm_90's instructions:
+# a rotation is one funnel shift (SHF), any logic function of three
+# words one LOP3, a sum of three words one IADD3. A round has Sigma0 and
+# Sigma1 (3 SHF + 1 LOP3 each), Ch and Maj (1 LOP3 each): 10 logic and
+# shift ops, plus 4 IADD3 (T1 = h+S1+ch+K+W, e = d+T1, a = T1+S0+maj).
+# A schedule step has sigma0 and sigma1 (3 SHF + 1 LOP3 each): 8, plus 2
+# IADD3. 8 adds fold the state. So a block (64 rounds, 48 steps) is
+# 1,024 logic and shift ops and 360 adds. The adds can issue as IMAD on
+# the FMA pipe beside the ALU pipe, and 1,024 + 600 two-input IMADs over
+# the SM's 128-lane issue rate is less than 1,024 over the ALU pipe's 64
+# lanes, so the ALU ops bound the time. K1's pad block is a constant
+# message: its schedule and K+W sums fold away, leaving the rounds' 640.
+# main() prints the compiled K1 block's instruction classes beside this.
+SHA_BLOCK_ALU_OPS = 64 * 10 + 48 * 8
+SHA_PAD_BLOCK_ALU_OPS = 64 * 10
+
+REPLACES = {
+    "transpose_u32": "volsync_tpu/ops/segment.py:248",
+    "sha256_pages": "volsync_tpu/ops/sha256.py:367",
+    "sha256_lanes": "volsync_tpu/ops/sha256.py:144",
+    "fastcdc_walk": "volsync_tpu/ops/segment.py:205",
+}
+SOURCES = {
+    "transpose_u32": "volsync_tpu_torch/csrc/transpose.cu",
+    "sha256_pages": "volsync_tpu_torch/csrc/sha256.cu",
+    "sha256_lanes": "volsync_tpu_torch/csrc/sha256.cu",
+    "fastcdc_walk": "volsync_tpu_torch/csrc/fastcdc.cu",
+}
+
+
+#: Device of every phase; the card unless a rehearsal sets "cpu".
+DEVICE = "cuda"
+
+
+def sync(torch) -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+class _HostEvent:
+    """perf_counter stand-in for a CUDA event (CPU rehearsals)."""
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, other) -> float:
+        return (other.t - self.t) * 1e3
+
+
+def new_event(torch):
+    if DEVICE == "cuda":
+        return torch.cuda.Event(enable_timing=True)
+    return _HostEvent()
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+class StageTimer:
+    """``timer(name)`` brackets a device stage with CUDA events on the
+    current stream; ``totals_ms()`` sums each stage's elapsed times."""
+
+    def __init__(self, torch):
+        self._torch = torch
+        self._events = defaultdict(list)
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        a, b = new_event(self._torch), new_event(self._torch)
+        a.record()
+        yield
+        b.record()
+        self._events[name].append((a, b))
+
+    def count(self, name: str) -> int:
+        return len(self._events[name])
+
+    def totals_ms(self) -> dict:
+        sync(self._torch)
+        return {k: sum(a.elapsed_time(b) for a, b in v)
+                for k, v in self._events.items()}
+
+
+def time_ms(torch, fn, reps: int) -> float:
+    """Mean device time of ``fn()`` over ``reps`` runs after a warm-up,
+    from CUDA events."""
+    fn()
+    sync(torch)
+    a, b = new_event(torch), new_event(torch)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    sync(torch)
+    return a.elapsed_time(b) / reps
+
+
+class SeededStream:
+    """A ``readinto`` source of ``total`` bytes made from ``seed``: 64 MiB
+    blocks, each odd block a repeat of a random earlier fresh block, the
+    block at ``zero_block`` all zero. Fresh blocks are drawn on the card
+    and held in host memory; nothing touches the disk."""
+
+    def __init__(self, torch, seed: int, total: int):
+        self.total = total
+        nblocks = (total + BLOCK - 1) // BLOCK
+        self.zero_block = (nblocks // 2) & ~1
+        rng = np.random.default_rng(seed)
+        self.plan, fresh = [], 0
+        for b in range(nblocks):
+            if b == self.zero_block:
+                self.plan.append(-1)
+            elif b % 2 == 1 and fresh:
+                self.plan.append(int(rng.integers(fresh)))
+            else:
+                self.plan.append(fresh)
+                fresh += 1
+        gen = torch.Generator(device=DEVICE)
+        self.unique = []
+        for k in range(fresh):
+            gen.manual_seed(seed * 1_000_003 + k)
+            self.unique.append(torch.randint(
+                0, 256, (BLOCK,), dtype=torch.uint8, device=DEVICE,
+                generator=gen).cpu().numpy())
+        self.zero = np.zeros((BLOCK,), np.uint8)
+        self.pos = 0
+
+    def block(self, b: int) -> np.ndarray:
+        k = self.plan[b]
+        return self.zero if k < 0 else self.unique[k]
+
+    def view(self, off: int, n: int):
+        """Bytes [off, off+n) of the stream (a view within one block)."""
+        b, o = divmod(off, BLOCK)
+        if o + n <= BLOCK:
+            return memoryview(self.block(b))[o: o + n]
+        return bytes(self.view(off, BLOCK - o)) + bytes(
+            self.view(off + BLOCK - o, n - (BLOCK - o)))
+
+    def readinto(self, mv) -> int:
+        n = min(len(mv), self.total - self.pos, BLOCK - self.pos % BLOCK)
+        if n <= 0:
+            return 0
+        np.frombuffer(mv, np.uint8, count=n)[:] = np.asarray(
+            self.view(self.pos, n))
+        self.pos += n
+        return n
+
+    def read(self, n: int) -> bytes:
+        n = min(n, self.total - self.pos, BLOCK - self.pos % BLOCK)
+        out = bytes(self.view(self.pos, n)) if n > 0 else b""
+        self.pos += len(out)
+        return out
+
+
+@contextlib.contextmanager
+def patched(module, wrappers: dict):
+    """Within the block, ``module.<name>`` is ``wrappers[name](original)``;
+    the originals come back on exit."""
+    saved = {n: getattr(module, n) for n in wrappers}
+    try:
+        for n, make in wrappers.items():
+            setattr(module, n, make(saved[n]))
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def capture_calls(seg, sha, run) -> list:
+    """Run ``run()`` with every kernel wrapper of the segment pipeline
+    recording (clones of) its inputs; returns [(kernel, args, kwargs)]."""
+    import torch
+
+    calls = []
+
+    def recorder(kernel):
+        def make(fn):
+            def wrapper(*args, **kwargs):
+                calls.append((kernel,
+                              [a.clone() if isinstance(a, torch.Tensor)
+                               else a for a in args], dict(kwargs)))
+                return fn(*args, **kwargs)
+            return wrapper
+        return make
+
+    with patched(seg, {"transpose_u32": recorder("transpose_u32"),
+                       "sha256_pages": recorder("sha256_pages"),
+                       "fastcdc_walk": recorder("fastcdc_walk"),
+                       "sha256_blocks": recorder("sha256_lanes")}), \
+            patched(sha, {"sha256_blocks": recorder("sha256_lanes")}):
+        run()
+    return calls
+
+
+#: Device stages of ``chunk_hash_segments``, each the segment-module
+#: functions it is timed over; "pages.K3", "pages.K1" and "roots.lanes"
+#: are the kernels inside "pages" and "roots".
+STAGES = {
+    "gear": ("gear_at_aligned", "_compact_candidates"),
+    "walk": ("_select_boundaries_device",),
+    "pages": ("_page_digests_flat",),
+    "pages.K3": ("transpose_u32",),
+    "pages.K1": ("sha256_pages",),
+    "roots": ("sha256_chunks_device", "_apply_tail_overrides",
+              "_root_digests_loop"),
+    "roots.lanes": ("sha256_blocks",),
+}
+
+
+def stage_probes(seg, timer: "StageTimer"):
+    """Context in which every function of ``STAGES`` runs inside
+    ``timer(stage)``."""
+    def probe(stage):
+        def make(fn):
+            def wrapper(*args, **kwargs):
+                with timer(stage):
+                    return fn(*args, **kwargs)
+            return wrapper
+        return make
+
+    return patched(seg, {fn: probe(stage) for stage, fns in STAGES.items()
+                         for fn in fns})
+
+
+def sass_block_counts(sass: str, kernel: str, loads: int) -> dict | None:
+    """Instructions of one message block of ``kernel`` in ``cuobjdump
+    -sass`` text, by class: the body of the kernel's block loop (the
+    backward branch whose span holds the most global loads) divided by
+    the blocks it covers (``loads`` global loads each). None when no
+    such loop is found."""
+    fn = re.search(rf"Function : \S*{kernel}\S*\n(.*?)(?=Function : |\Z)",
+                   sass, re.S)
+    if fn is None:
+        return None
+    ins = [(int(a, 16), op, rest) for a, op, rest in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?\w+\s+)?([A-Z][A-Z0-9_.]*)"
+        r"\s*([^;]*);", fn.group(1))]
+    loops = []
+    for addr, op, rest in ins:
+        tgt = re.match(r"0x([0-9a-f]+)", rest.strip())
+        if op.startswith("BRA") and tgt and int(tgt.group(1), 16) < addr:
+            lo = int(tgt.group(1), 16)
+            loops.append([o for a, o, _ in ins if lo <= a <= addr])
+    n_ldg = [sum(o.startswith("LDG") for o in body) for body in loops]
+    if not loops or max(n_ldg) < loads:
+        return None
+    body = loops[n_ldg.index(max(n_ldg))]
+    classes = {"LOP3/SHF": ("LOP3", "LOP", "SHF", "PRMT"),
+               "IADD3": ("IADD3", "IADD"), "IMAD": ("IMAD",),
+               "LDG": ("LDG",)}
+    out = dict.fromkeys([*classes, "other"], 0)
+    for op in body:
+        base = op.split(".")[0]
+        out[next((k for k, v in classes.items() if base in v), "other")] += 1
+    nblk = max(n_ldg) // loads
+    return {k: v / nblk for k, v in out.items()}
+
+
+def k1_sass_block() -> dict | None:
+    """``sass_block_counts`` of K1 (16 page-word loads a block) in the
+    built library; None when the toolkit has no cuobjdump."""
+    from volsync_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass",
+                           str(_build.library_path("sha256.cu"))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    return sass_block_counts(sass, "sha256_pages_kernel", 16)
+
+
+def as_list(x):
+    return list(x) if isinstance(x, tuple) else [x]
+
+
+def max_abs_err(torch, got, want) -> int:
+    err = 0
+    for g, w in zip(as_list(got), as_list(want)):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"shape/dtype {g.shape} {g.dtype} vs "
+                                 f"{w.shape} {w.dtype}")
+        d = ((g.to(torch.int64) & 0xFFFFFFFF)
+             - (w.to(torch.int64) & 0xFFFFFFFF)).abs()
+        err = max(err, int(d.max()) if d.numel() else 0)
+    return err
+
+
+def kernel_phase(torch, stream, p, seg_bytes: int) -> dict:
+    from volsync_tpu_torch.ops import segment as seg
+    from volsync_tpu_torch.ops import sha256 as sha
+
+    host = np.concatenate([stream.block(0), stream.block(1)])[:seg_bytes]
+    valid = seg_bytes - 5 * 4096 - 777  # a full segment, non-eof
+    data = torch.from_numpy(host).to(DEVICE)
+    cc, kc = seg.segment_caps(seg_bytes, p)
+    kw = dict(min_size=p.min_size, avg_size=p.avg_size,
+              max_size=p.max_size, seed=p.seed, mask_s=p.mask_s,
+              mask_l=p.mask_l, align=p.align, eof=False, cand_cap=cc,
+              chunk_cap=kc)
+    calls = capture_calls(seg, sha, lambda: seg.chunk_hash_segment(
+        data, valid, **kw))
+    sync(torch)
+    got = sorted(n for n, _, _ in calls)
+    want = sorted(["transpose_u32", "sha256_pages", "fastcdc_walk",
+                   "sha256_lanes", "sha256_lanes"])
+    if got != want:
+        raise AssertionError(f"segment launched {got}, expected {want}")
+
+    kernel = {"transpose_u32": seg.transpose_u32,
+              "sha256_pages": sha.sha256_pages,
+              "fastcdc_walk": seg.fastcdc_walk,
+              "sha256_lanes": sha.sha256_blocks}
+    plain = {"transpose_u32": seg._transpose_plain,
+             "sha256_pages": sha._sha256_pages_plain,
+             "fastcdc_walk": seg._fastcdc_walk_plain,
+             "sha256_lanes": sha._sha256_lanes_plain}
+    extra = [("transpose_u32", [torch.randint(
+        -2**31, 2**31 - 1, (8192, 1024), dtype=torch.int32,
+        device=DEVICE)], {}),
+        ("transpose_u32", [torch.randint(
+            -2**31, 2**31 - 1, (1000, 77), dtype=torch.int32,
+            device=DEVICE)], {})]
+    stats = defaultdict(lambda: {"err": 0, "ms": [], "plain_ms": [],
+                                 "bound": [], "bound_by": "", "lib": []})
+    for i, (name, args, kwargs) in enumerate(calls + extra):
+        main_path = i < len(calls)
+        out_k = kernel[name](*args, **kwargs)
+        sync(torch)
+        t0 = time.perf_counter()
+        out_p = plain[name](*args, **kwargs)
+        sync(torch)
+        plain_s = time.perf_counter() - t0
+        err = max_abs_err(torch, out_k, out_p)
+        if not all(torch.equal(a, b) for a, b in zip(as_list(out_k),
+                                                      as_list(out_p))):
+            raise AssertionError(f"{name} differs from its plain twin "
+                                 f"(max abs err {err}) at "
+                                 f"{[tuple(a.shape) for a in args if hasattr(a, 'shape')]}")
+        st = stats[name]
+        st["err"] = max(st["err"], err)
+        if name == "sha256_pages":
+            npp = args[0].shape[1]
+            F = seg_bytes // 4096
+            dig = out_k.cpu().numpy().view(np.uint32).reshape(8, npp)
+            for pg in range(F):
+                want_d = hashlib.sha256(
+                    host[pg * 4096: (pg + 1) * 4096]).digest()
+                if dig[:, pg].astype(">u4").tobytes() != want_d:
+                    raise AssertionError(f"K1 page {pg} != hashlib")
+            log(f"K1 sha256_pages: {F} pages equal hashlib and the twin")
+        if not main_path:
+            log(f"K3 transpose_u32 {tuple(args[0].shape)}: equals twin")
+            continue
+        reps = {"sha256_lanes": 5, "fastcdc_walk": 20}.get(name, 20)
+        st["ms"].append(time_ms(torch, lambda: kernel[name](*args, **kwargs),
+                                reps))
+        st["plain_ms"].append(plain_s * 1e3)
+        if name == "transpose_u32":
+            x = args[0]
+            nbytes = 2 * x.numel() * 4
+            st["bound"].append(nbytes / HBM_BYTES_PER_S * 1e3)
+            st["bound_by"] = "bytes"
+            st["lib"].append(time_ms(torch, lambda: x.t().contiguous(), 20))
+        elif name == "sha256_pages":
+            npp = args[0].shape[1]
+            ops = npp * (64 * SHA_BLOCK_ALU_OPS + SHA_PAD_BLOCK_ALU_OPS)
+            nbytes = npp * (4096 + 32)
+            st["bound"].append(max(ops / INT32_ALU_OPS_PER_S,
+                                   nbytes / HBM_BYTES_PER_S) * 1e3)
+            st["bound_by"] = ("operations" if ops / INT32_ALU_OPS_PER_S
+                              > nbytes / HBM_BYTES_PER_S else "bytes")
+        elif name == "sha256_lanes":
+            blocks, nblocks = args
+            nb = int(nblocks.clamp(min=0).sum())
+            ops = nb * SHA_BLOCK_ALU_OPS
+            nbytes = nb * 64 + blocks.shape[0] * 36
+            st["bound"].append(max(ops / INT32_ALU_OPS_PER_S,
+                                   nbytes / HBM_BYTES_PER_S) * 1e3)
+            st["bound_by"] = ("operations" if ops / INT32_ALU_OPS_PER_S
+                              > nbytes / HBM_BYTES_PER_S else "bytes")
+            log(f"sha256_lanes: {blocks.shape[0]} lanes, {nb} blocks, "
+                f"kernel {st['ms'][-1]:.4f} ms, twin {plain_s*1e3:.1f} ms")
+        else:  # fastcdc_walk: a few table reads and writes per chunk
+            starts, lens, count, consumed = out_k
+            n = int(count.sum())
+            S = count.shape[0]
+            nbytes = (n + S) * 8 + n * 8 + S * 12
+            st["bound"].append(nbytes / HBM_BYTES_PER_S * 1e3)
+            st["bound_by"] = "bytes"
+        log(f"{name}: equals twin; kernel {st['ms'][-1]:.4f} ms/launch, "
+            f"twin {plain_s*1e3:.1f} ms")
+    return stats
+
+
+def stream_once(torch, stream, params, hasher) -> tuple:
+    """One pass of ``stream_chunk_batches`` over the whole stream:
+    ([(offset, length, blob id)], the first 256 (id, memoryview) pairs,
+    seconds to the last chunk with the card synchronised)."""
+    from volsync_tpu_torch.engine import stream_chunk_batches
+
+    stream.pos = 0
+    results, views = [], []
+    off = 0
+    sync(torch)
+    t0 = time.perf_counter()
+    for batch in stream_chunk_batches(stream.read, params, hasher=hasher):
+        for mv, bid in batch:
+            results.append((off, len(mv), bid))
+            if len(views) < 256:
+                views.append((bid, mv))
+            off += len(mv)
+    sync(torch)
+    return results, views, time.perf_counter() - t0
+
+
+def stream_phase(torch, stream, params) -> dict:
+    from volsync_tpu_torch.engine import DeviceChunkHasher
+    from volsync_tpu_torch.ops import segment as seg
+    from volsync_tpu_torch.ops._build import KERNELS
+    from volsync_tpu_torch.ops.gearcdc import host_candidates, select_boundaries
+    from volsync_tpu_torch.repo import blobid
+
+    hasher = DeviceChunkHasher(params, device=DEVICE)
+    for k in KERNELS:
+        k.launches = 0
+    results, views, secs = stream_once(torch, stream, params, hasher)
+    launches = {k.name: k.launches for k in KERNELS}
+    off = sum(n for _, n, _ in results)
+    if off != stream.total:
+        raise AssertionError(f"stream covered {off} of {stream.total} bytes")
+    for name, n in launches.items():
+        if n == 0 and DEVICE == "cuda":
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"stream")
+    gibs = stream.total / GIB / secs
+    log(f"stream: {stream.total} bytes, {len(results)} chunks in "
+        f"{secs:.3f} s = {gibs:.4f} GiB/s")
+    log(f"stream launches: {json.dumps(launches)}")
+
+    # Per-stage device time, from a pass of its own: the probes' events
+    # stay out of the GiB/s above, and this pass's GiB/s shows their cost.
+    timer = StageTimer(torch)
+    with stage_probes(seg, timer):
+        staged, _, staged_secs = stream_once(torch, stream, params, hasher)
+    stages = timer.totals_ms()
+    segments = timer.count("walk")  # device passes, retries included
+    again, _, again_secs = stream_once(torch, stream, params, hasher)
+    if staged != results or again != results:
+        raise AssertionError("a repeated stream pass gave other chunks")
+    log(f"stream with stage probes: {staged_secs:.3f} s = "
+        f"{stream.total / GIB / staged_secs:.4f} GiB/s; plain again: "
+        f"{again_secs:.3f} s = {stream.total / GIB / again_secs:.4f} GiB/s")
+    log(f"stream device ms by stage over {segments} device passes (CUDA "
+        f"events, summed): "
+        + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+
+    # Host oracle: numpy gear candidates + the host walk + hashlib ids.
+    t1 = time.perf_counter()
+    cs, cl = [], []
+    for b in range(len(stream.plan)):
+        s, l = host_candidates(stream.block(b), params,
+                               stream.total - b * BLOCK, base=b * BLOCK)
+        cs.append(s)
+        cl.append(l)
+    cuts = select_boundaries(np.concatenate(cs), np.concatenate(cl),
+                             stream.total, params, eof=True)
+    if [(o, n) for o, n, _ in results] != cuts:
+        bad = next(i for i, (a, b) in enumerate(zip(results, cuts))
+                   if a[:2] != b)
+        raise AssertionError(f"cut list differs from the host oracle at "
+                             f"chunk {bad}: {results[bad][:2]} vs {cuts[bad]}")
+    with concurrent.futures.ThreadPoolExecutor(8) as ex:
+        ids = list(ex.map(lambda c: blobid.blob_id(stream.view(*c)), cuts,
+                          chunksize=16))
+    for (o, n, bid), want in zip(results, ids):
+        if bid != want:
+            raise AssertionError(f"blob id of chunk ({o}, {n}) differs "
+                                 f"from hashlib")
+    uniq = {}
+    for _, n, bid in results:
+        uniq[bid] = n
+    ratio = sum(uniq.values()) / stream.total
+    log(f"oracle: {len(cuts)} cuts and every blob id equal "
+        f"({time.perf_counter() - t1:.1f} s); dedup ratio (unique-id "
+        f"bytes / total) {ratio:.4f}")
+    return {"launches": launches, "segments": segments, "views": views,
+            "gibs": gibs, "stages": stages}
+
+
+def verify_phase(views) -> None:
+    from volsync_tpu_torch.engine import verify_blob_batch
+
+    pairs = [(bid, bytes(mv)) for bid, mv in views]
+    bad = verify_blob_batch(pairs, device=DEVICE)
+    if bad != []:
+        raise AssertionError(f"verify_blob_batch flagged {len(bad)} good "
+                             f"chunks")
+    k = len(pairs) // 2
+    flipped = bytearray(pairs[k][1])
+    flipped[len(flipped) // 3] ^= 0x40
+    pairs[k] = (pairs[k][0], bytes(flipped))
+    bad = verify_blob_batch(pairs, device=DEVICE)
+    if bad != [pairs[k][0]]:
+        raise AssertionError(f"verify_blob_batch returned {bad}, expected "
+                             f"the flipped chunk's id")
+    log(f"verify: {len(pairs)} chunks pass; one flipped byte is caught")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--stream-gib", type=float, default=10.0)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from volsync_tpu_torch.ops import _build
+    from volsync_tpu_torch.ops.gearcdc import DEFAULT_PARAMS
+
+    t0 = time.perf_counter()
+    reports = _build.build_all()
+    log(f"build: {len(reports)} CUDA sources compiled in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for src, rep in reports.items():
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {src}: {line.strip()}")
+    sass = k1_sass_block()
+    log("K1 one message block as compiled (cuobjdump -sass, instructions "
+        "by class): " + (json.dumps(sass) if sass else "not available")
+        + f"; least work {SHA_BLOCK_ALU_OPS} LOP3/SHF and 360 adds")
+    card = card_line()
+    log(card)
+    log(f"torch {torch.__version__} CUDA {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+
+    total = int(args.stream_gib * GIB) + 12345
+    t1 = time.perf_counter()
+    stream = SeededStream(torch, args.seed, total)
+    log(f"data: {len(stream.unique)} fresh 64 MiB blocks of "
+        f"{len(stream.plan)} made in {time.perf_counter() - t1:.1f} s "
+        f"(zero block {stream.zero_block})")
+
+    stats = kernel_phase(torch, stream, DEFAULT_PARAMS, SEGMENT_P)
+    res = stream_phase(torch, stream, DEFAULT_PARAMS)
+    verify_phase(res.pop("views"))
+
+    per_seg = {k: v / res["segments"] for k, v in res["launches"].items()}
+    log(f"launches per segment pass: {json.dumps(per_seg)} ({card})")
+    kernels = []
+    for name in ("transpose_u32", "sha256_pages", "sha256_lanes",
+                 "fastcdc_walk"):
+        st = stats[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "launches": res["launches"][name],
+            "max_abs_err": st["err"],
+            "ms": float(np.mean(st["ms"])),
+            "plain_ms": float(np.mean(st["plain_ms"])),
+            "bound_ms": float(np.mean(st["bound"])),
+            "bound_by": st["bound_by"],
+            "library_ms": float(np.mean(st["lib"])) if st["lib"] else None,
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

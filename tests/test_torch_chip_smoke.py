@@ -1,0 +1,109 @@
+"""chip_smoke.py rehearsed on the CPU: its seeded stream, host oracle,
+verify check and kernel-input capture run at a tiny size with the
+kernels' plain twins, and the script itself refuses to report without
+CUDA or without the package beside it."""
+
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+import chip_smoke
+from volsync_tpu_torch.ops import segment as seg
+from volsync_tpu_torch.ops import sha256 as sha
+from volsync_tpu_torch.ops.gearcdc import GearParams
+
+# Parallel test workers share the cores: keep the CPU twins single-threaded.
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+PARAMS = GearParams(min_size=4096, avg_size=32768, max_size=65536,
+                    align=4096)
+
+
+def test_seeded_stream_layout(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "BLOCK", 64 * 1024)
+    s = chip_smoke.SeededStream(torch, 3, 6 * 64 * 1024 + 12345)
+    assert s.plan[s.zero_block] == -1
+    # every odd block repeats an earlier block; even ones are fresh
+    assert all(s.plan[b] in s.plan[:b] for b in range(1, 7, 2))
+    assert len(s.unique) == len({k for k in s.plan if k >= 0})
+    pieces = []
+    while piece := s.read(100_000):  # short reads stop at block edges
+        pieces.append(piece)
+    data = b"".join(pieces)
+    assert len(data) == s.total and max(map(len, pieces)) <= 64 * 1024
+    assert bytes(s.view(64 * 1024 - 5, 10)) == data[64 * 1024 - 5:
+                                                     64 * 1024 + 5]
+
+
+def test_stream_and_verify_phases_on_cpu(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "BLOCK", 256 * 1024)
+    stream = chip_smoke.SeededStream(torch, 0, 3 * 256 * 1024 + 12345)
+    res = chip_smoke.stream_phase(torch, stream, PARAMS)
+    assert res["segments"] == 1 and res["gibs"] > 0
+    assert set(res["stages"]) == set(chip_smoke.STAGES)
+    chip_smoke.verify_phase(res.pop("views"))
+
+
+def test_capture_calls_records_every_kernel_wrapper(rng):
+    data = torch.from_numpy(rng.randint(0, 256, size=(64 * 1024,)).astype(
+        "uint8"))
+    cc, kc = seg.segment_caps(64 * 1024, PARAMS)
+    p = PARAMS
+    calls = chip_smoke.capture_calls(seg, sha, lambda: seg.chunk_hash_segment(
+        data, 60_000, min_size=p.min_size, avg_size=p.avg_size,
+        max_size=p.max_size, seed=p.seed, mask_s=p.mask_s, mask_l=p.mask_l,
+        align=p.align, eof=True, cand_cap=cc, chunk_cap=kc))
+    assert sorted(n for n, _, _ in calls) == sorted(
+        ["transpose_u32", "sha256_pages", "fastcdc_walk", "sha256_lanes",
+         "sha256_lanes"])
+    assert seg.sha256_blocks is sha.sha256_blocks  # wrappers restored
+
+
+def test_stage_probes_restore_the_segment_module():
+    before = {fn: getattr(seg, fn) for fns in chip_smoke.STAGES.values()
+              for fn in fns}
+    timer = chip_smoke.StageTimer(torch)
+    with chip_smoke.stage_probes(seg, timer):
+        assert seg.sha256_pages is not before["sha256_pages"]
+    assert before == {fn: getattr(seg, fn) for fn in before}
+
+
+def test_sass_block_counts_reads_the_block_loop():
+    ins = ["        /*0000*/                   S2R R0, SR_TID.X ;"]
+    addr = 0x10
+    loop = addr
+    body = (["LDG.E.CONSTANT R4, desc[UR4][R2.64]"] * 32
+            + ["SHF.R.W.U32.HI R5, R4, 0x7, R4"] * 6
+            + ["LOP3.LUT R6, R5, R7, R8, 0x96, !PT"] * 4
+            + ["IADD3 R9, R6, R9, c[0x3][0x10]"] * 2
+            + ["IMAD.MOV.U32 R1, RZ, RZ, R2", "ISETP.NE.AND P0, PT, R3, RZ, PT"])
+    for text in body:
+        ins.append(f"        /*{addr:04x}*/                   {text} ;")
+        addr += 0x10
+    ins.append(f"        /*{addr:04x}*/              @P0 BRA 0x{loop:x} ;")
+    ins.append(f"        /*{addr + 0x10:04x}*/                   EXIT ;")
+    sass = ("\t\tFunction : _Z19sha256_pages_kernelPKjPji\n"
+            + "\n".join(ins) + "\n\t\tFunction : _Z5otherv\n")
+    got = chip_smoke.sass_block_counts(sass, "sha256_pages_kernel", 16)
+    # two blocks in the loop body: every count halves
+    assert got == {"LOP3/SHF": 5.0, "IADD3": 1.0, "IMAD": 0.5, "LDG": 16.0,
+                   "other": 1.0}
+    assert chip_smoke.sass_block_counts(sass, "missing_kernel", 16) is None
+
+
+def test_script_fails_without_cuda_or_package(tmp_path):
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", lone)
+    for cwd, script in ((tmp_path, lone), (ROOT, ROOT / "chip_smoke.py")):
+        out = subprocess.run([sys.executable, str(script)], cwd=str(cwd),
+                             capture_output=True, text=True, timeout=300,
+                             env={"PATH": "/usr/bin:/bin",
+                                  "CUDA_VISIBLE_DEVICES": ""})
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout

@@ -1,0 +1,222 @@
+"""The port's fused segment pipeline (volsync_tpu_torch/ops/segment.py)
+against the JAX package's ops/segment.py, on the CPU: packed results
+element for element on random, redundant and zero-entropy data,
+non-eof tails, forced small capacities (the overflow retry), batched
+lanes and page-aligned spans."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from volsync_tpu.ops import segment as jseg
+from volsync_tpu.ops.gearcdc import GearParams
+from volsync_tpu.repo import blobid
+from volsync_tpu_torch.engine.chunker import params_from_reference
+from volsync_tpu_torch.ops import segment as tseg
+from volsync_tpu_torch.ops.gearcdc import select_boundaries
+
+# Parallel test workers share the cores: keep the CPU twins single-threaded.
+torch.set_num_threads(1)
+
+# The page-aligned fused format at test scale (tests/test_fused_segment.py).
+PARAMS = GearParams(min_size=4096, avg_size=32768, max_size=65536,
+                    align=4096)
+TPARAMS = params_from_reference(dataclasses.asdict(PARAMS))
+P = 512 * 1024  # the bucket of a 400,000-byte segment
+
+
+def _kw(eof, cand_cap, chunk_cap):
+    p = PARAMS
+    return dict(min_size=p.min_size, avg_size=p.avg_size,
+                max_size=p.max_size, seed=p.seed, mask_s=p.mask_s,
+                mask_l=p.mask_l, align=p.align, eof=eof, cand_cap=cand_cap,
+                chunk_cap=chunk_cap)
+
+
+def _both(data: np.ndarray, n: int, eof: bool, caps=None):
+    cc, kc = caps or jseg.segment_caps(data.shape[0], PARAMS)
+    ref = np.asarray(jseg.chunk_hash_segment(jnp.asarray(data), n,
+                                             **_kw(eof, cc, kc)))
+    got = tseg.chunk_hash_segment(torch.from_numpy(data), n,
+                                  **_kw(eof, cc, kc))
+    return ref, got.numpy().view(np.uint32), kc
+
+
+def _padded(payload: bytes, size: int = P) -> np.ndarray:
+    out = np.zeros((size,), np.uint8)
+    out[: len(payload)] = np.frombuffer(payload, np.uint8)
+    return out
+
+
+def _redundant(rng) -> bytes:
+    block = rng.bytes(131072)
+    return block * 3 + rng.bytes(400_000 - 3 * 131072)
+
+
+@pytest.mark.parametrize("kind", ["random", "redundant", "zero"])
+def test_chunk_hash_segment_matches_reference(rng, kind):
+    payload = {"random": lambda: rng.bytes(400_000),
+               "redundant": lambda: _redundant(rng),
+               "zero": lambda: bytes(400_000)}[kind]()
+    data = _padded(payload)
+    ref, got, kc = _both(data, len(payload), True)
+    np.testing.assert_array_equal(got, ref)
+    chunks, consumed, _, _ = tseg.decode_segment(got, kc)
+    assert consumed == len(payload)
+    assert [d for _, _, d in chunks] == [
+        blobid.blob_id(payload[s:s + n]) for s, n, _ in chunks]
+    assert all(n <= PARAMS.max_size for _, n, _ in chunks)
+    if kind == "redundant":
+        ids = [d for _, _, d in chunks]
+        assert len(set(ids)) < len(ids)
+
+
+def test_chunk_hash_segment_non_eof_tail(rng):
+    payload = rng.bytes(300_000)
+    ref, got, kc = _both(_padded(payload), len(payload), False)
+    np.testing.assert_array_equal(got, ref)
+    chunks, consumed, _, _ = tseg.decode_segment(got, kc)
+    assert 0 < consumed < len(payload) and consumed % 4096 == 0
+
+
+def test_chunk_hash_segment_forced_small_caps_and_retry(rng):
+    """Truncated tables (chunk_cap 16 < the true count) pack the same
+    words as the reference, and the host retry converges to the
+    reference's chunk list."""
+    data = np.frombuffer(rng.bytes(P), np.uint8).copy()
+    ref, got, _ = _both(data, P, True, caps=(4096, 16))
+    np.testing.assert_array_equal(got, ref)
+    assert got[0] == 16 and got[1] < P  # truncated walk
+
+    jf = jseg.FusedSegmentHasher(PARAMS)
+    jdev = jnp.asarray(data)
+    want = jf.finish(jdev, P, jf.dispatch(jdev, P, eof=True, cand_cap=4096,
+                                          chunk_cap=16), eof=True)
+    tf = tseg.FusedSegmentHasher(TPARAMS)
+    tdev = torch.from_numpy(data)
+    have = tf.finish(tdev, P, tf.dispatch(tdev, P, eof=True, cand_cap=4096,
+                                          chunk_cap=16), eof=True)
+    assert have == want and have[1] == P
+
+
+def test_chunk_hash_segments_batched_matches_reference(rng):
+    """Mixed lanes (full, eof tail, empty padding lane, zero data) in
+    one batched pass == the JAX batched program, row for row; and each
+    row == the single-segment program."""
+    Pb = 128 * 1024
+    rows = np.zeros((4, Pb), np.uint8)
+    rows[0] = np.frombuffer(rng.bytes(Pb), np.uint8)
+    rows[1, :90_000] = np.frombuffer(rng.bytes(90_000), np.uint8)
+    valid = [Pb, 90_000, 0, 100_000]
+    eof = [False, True, False, True]
+    cc, kc = jseg.segment_caps(Pb, PARAMS)
+    kw = _kw(True, cc, kc)
+    del kw["eof"]
+    ref = np.asarray(jseg.chunk_hash_segments(
+        jnp.asarray(rows), jnp.asarray(valid, jnp.int32),
+        jnp.asarray(eof), **kw))
+    got = tseg.chunk_hash_segments(torch.from_numpy(rows), valid, eof,
+                                   **kw).numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, ref)
+    single = tseg.chunk_hash_segment(torch.from_numpy(rows[1]), valid[1],
+                                     **_kw(True, cc, kc))
+    np.testing.assert_array_equal(single.numpy().view(np.uint32), got[1])
+
+
+def test_batched_hasher_split_matches_reference(rng, monkeypatch):
+    """A batch over the (shrunk) flat-bytes bound splits into the same
+    sub-batches in both packages and gives the same chunks."""
+    monkeypatch.setattr(jseg, "_MAX_FLAT_BYTES", 2 * 64 * 1024)
+    monkeypatch.setattr(tseg, "_MAX_FLAT_BYTES", 2 * 64 * 1024)
+    items = [(rng.bytes(n), n, True) for n in (40_000, 60_000, 20_000)]
+    want = jseg.BatchedSegmentHasher(PARAMS).hash_segments(items)
+    have = tseg.BatchedSegmentHasher(TPARAMS, device="cpu").hash_segments(
+        items)
+    assert have == want
+    for (buf, _, _), (chunks, consumed) in zip(items, have):
+        assert consumed == len(buf)
+        assert [d for _, _, d in chunks] == [
+            blobid.blob_id(buf[s:s + n]) for s, n, _ in chunks]
+
+
+def test_span_roots_device_matches_reference(rng):
+    sizes = [1, 4095, 4096, 4097, 12288, 50_000]
+    starts, off = [], 0
+    for n in sizes:
+        starts.append(off)
+        off += n + (-n % 4096)
+    data = np.frombuffer(rng.bytes(128 * 1024), np.uint8).copy()
+    st = np.array(starts + [0, 0], np.int32)
+    ln = np.array(sizes + [-1, -1], np.int32)  # two padding lanes
+    ref = np.asarray(jseg.span_roots_device(jnp.asarray(data),
+                                            jnp.asarray(st), jnp.asarray(ln)))
+    got = tseg.span_roots_device(torch.from_numpy(data),
+                                 torch.from_numpy(st), torch.from_numpy(ln))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), ref)
+    for i, (s, n) in enumerate(zip(starts, sizes)):
+        assert got.numpy().view(np.uint32)[i].astype(">u4").tobytes().hex() \
+            == blobid.blob_id(data[s:s + n].tobytes())
+
+
+def test_compact_candidates_matches_reference(rng):
+    mask = rng.rand(3, 300) < 0.2
+    ref = np.stack([np.asarray(jseg._compact_candidates(
+        jnp.asarray(m), 64, 300, 4096)) for m in mask])
+    got = tseg._compact_candidates(torch.from_numpy(mask), 64, 4096)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert (got.numpy()[:, -1] == 2**31 - 2).any()
+
+
+def test_walk_tables_and_twin_match_scalar_reference(rng):
+    """The successor-table walk (tables + fastcdc_walk's twin) on random
+    candidate sets == the host walk, truncated at chunk_cap, with
+    consumed == the end of the last emitted chunk."""
+    p = TPARAMS
+    cap, sent = 128, 2**31 - 2
+    for trial in range(24):
+        n_rows = int(rng.randint(1, 64))
+        rows_l = np.nonzero(rng.rand(n_rows)
+                            < rng.choice([0.0, 0.05, 0.3, 0.8]))[0]
+        rows_s = rows_l[rng.rand(rows_l.shape[0]) < 0.4]
+        L = [n_rows * 4096, int(rng.randint(1, n_rows * 4096 + 1)),
+             max(1, n_rows * 4096 - int(rng.randint(0, 4096)))][trial % 3]
+        idx_l = (rows_l * 4096 + 4095)
+        idx_s = (rows_s * 4096 + 4095)
+        idx_l, idx_s = idx_l[idx_l < L], idx_s[idx_s < L]
+        eof = bool(rng.randint(0, 2))
+        chunk_cap = int(rng.choice([2, 4, 256]))
+
+        def padded(a):
+            out = np.full((1, cap), sent, np.int64)
+            out[0, : a.shape[0]] = a
+            return torch.from_numpy(out)
+
+        starts, lens, count, consumed = tseg._select_boundaries_device(
+            padded(idx_s), torch.tensor([len(idx_s)]), padded(idx_l),
+            torch.tensor([len(idx_l)]), torch.tensor([L]),
+            torch.tensor([eof]), min_size=p.min_size, avg_size=p.avg_size,
+            max_size=p.max_size, chunk_cap=chunk_cap, align=4096,
+            n_rows=n_rows)
+        c = int(count[0])
+        got = [(int(starts[0, i]), int(lens[0, i])) for i in range(c)]
+        ref = select_boundaries(idx_s, idx_l, L, p, eof=eof)
+        assert got == ref[:chunk_cap], (trial, L, eof, chunk_cap)
+        assert int(consumed[0]) == (got[-1][0] + got[-1][1] if got else 0)
+
+
+def test_page_digests_and_decode(rng):
+    data = np.frombuffer(rng.bytes(3 * 4096), np.uint8).copy()
+    ref = jseg.page_digests(jnp.asarray(data))
+    np.testing.assert_array_equal(tseg.page_digests(torch.from_numpy(data)),
+                                  ref)
+    cc, kc = tseg.segment_caps(65536, TPARAMS)
+    assert (cc, kc) == jseg.segment_caps(65536, PARAMS)
+    packed = np.zeros((4 + kc * 10,), np.uint32)
+    packed[0], packed[1], packed[4 + kc] = 1, 123, 123
+    chunks, consumed, _, _ = tseg.decode_segment(packed, kc)
+    assert chunks[0][:2] == (0, 123) and consumed == 123
+    assert tseg.decode_segment(torch.from_numpy(packed.view(np.int32)),
+                               kc)[0] == chunks

@@ -1,0 +1,128 @@
+"""The port's SHA-256 (volsync_tpu_torch/ops/sha256.py and the page
+stage of ops/segment.py) against hashlib and the JAX package, on the
+CPU: the kernels' plain twins must be bit-exact with the reference."""
+
+import hashlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from volsync_tpu.ops import segment as jseg
+from volsync_tpu.ops import sha256 as jsha
+from volsync_tpu_torch.ops import segment as tseg
+from volsync_tpu_torch.ops import sha256 as tsha
+
+# Parallel test workers share the cores: keep the CPU twins single-threaded.
+torch.set_num_threads(1)
+
+LENGTHS = [0, 55, 56, 63, 64, 4096]
+
+
+def _u32(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.uint32)
+
+
+def test_sha256_many_matches_hashlib_and_reference(rng):
+    msgs = [rng.bytes(n) for n in LENGTHS] + [rng.bytes(int(rng.randint(
+        1, 3000)))]
+    got = tsha.sha256_many(msgs, device="cpu")
+    assert got == [hashlib.sha256(m).digest() for m in msgs]
+    blocks, nblocks = tsha.sha256_pack_host(msgs, pad_batch_to=8,
+                                            pad_blocks_to=1)
+    jblocks, jnblocks = jsha.sha256_pack_host(msgs, pad_batch_to=8,
+                                              pad_blocks_to=1)
+    np.testing.assert_array_equal(blocks, jblocks)
+    np.testing.assert_array_equal(nblocks, jnblocks)
+    ref = np.asarray(jsha.sha256_blocks(jnp.asarray(jblocks),
+                                        jnp.asarray(jnblocks)))
+    port = tsha.sha256_blocks(torch.from_numpy(blocks.view(np.int32)),
+                              torch.from_numpy(nblocks))
+    np.testing.assert_array_equal(_u32(port), ref)
+
+
+def test_sha256_many_empty_list():
+    assert tsha.sha256_many([], device="cpu") == []
+
+
+@pytest.mark.parametrize("little_endian", [False, True])
+def test_pack_words_rows_matches_reference(rng, little_endian):
+    rows = rng.randint(0, 256, size=(3, 64), dtype=np.uint8)
+    ref = np.asarray(jsha.pack_words_rows(jnp.asarray(rows),
+                                          little_endian=little_endian))
+    got = tsha.pack_words_rows(torch.from_numpy(rows),
+                               little_endian=little_endian)
+    np.testing.assert_array_equal(_u32(got), ref)
+
+
+def test_page_digests_match_reference(rng):
+    """K1's twin behind K3's twin (the CPU page stage) == the JAX
+    _page_digests_flat, word-major; and == hashlib per page."""
+    F = 12
+    data = rng.randint(0, 256, size=(F * 4096,), dtype=np.uint8)
+    ref = np.asarray(jseg._page_digests_flat(jnp.asarray(data), F,
+                                             pagemajor=False))
+    got = _u32(tseg._page_digests_flat(torch.from_numpy(data), F))
+    np.testing.assert_array_equal(got, ref)
+    for p in range(F):
+        assert got.reshape(8, F)[:, p].astype(">u4").tobytes() == \
+            hashlib.sha256(data[p * 4096:(p + 1) * 4096]).digest()
+
+
+def test_page_digests_pad_pages_hash_zeros(rng):
+    """With n_pages_pad > F (the CUDA padding) real pages keep their
+    digests and pad pages hash zero pages."""
+    data = rng.randint(0, 256, size=(3 * 4096,), dtype=np.uint8)
+    got = _u32(tseg._page_digests_flat(torch.from_numpy(data), 5))
+    tab = got.reshape(8, 5)
+    assert tab[:, 1].astype(">u4").tobytes() == \
+        hashlib.sha256(data[4096:8192]).digest()
+    assert tab[:, 4].astype(">u4").tobytes() == \
+        hashlib.sha256(bytes(4096)).digest()
+
+
+def test_sha256_rows_matches_reference(rng):
+    data = rng.randint(0, 256, size=(6 * 4096,), dtype=np.uint8)
+    rows0 = np.array([0, 64, 3 * 64 + 7], np.int32)
+    ref = np.asarray(jsha._sha256_rows(jsha.pack_words(jnp.asarray(data)),
+                                       jnp.asarray(rows0), 4096))
+    got = tsha._sha256_rows(tsha.pack_words(torch.from_numpy(data)),
+                            torch.from_numpy(rows0), 4096)
+    np.testing.assert_array_equal(_u32(got), ref)
+
+
+def test_sha256_chunks_device_matches_reference(rng):
+    """Device-built FIPS padding (the tail-leaf path) at the padding
+    edge lengths, bit-exact vs the JAX function and hashlib."""
+    data = rng.randint(0, 256, size=(20_000,), dtype=np.uint8)
+    starts = np.array([0, 100, 4096, 7, 12_000, 19_990, 5], np.int32)
+    lengths = np.array([0, 55, 56, 63, 64, 10, 4096], np.int32)
+    ref = np.asarray(jsha.sha256_chunks_device(
+        jnp.asarray(data), jnp.asarray(starts), jnp.asarray(lengths),
+        max_len=4096))
+    got = tsha.sha256_chunks_device(
+        torch.from_numpy(data), torch.from_numpy(starts),
+        torch.from_numpy(lengths), max_len=4096)
+    np.testing.assert_array_equal(_u32(got), ref)
+    for i, (s, n) in enumerate(zip(starts, lengths)):
+        assert _u32(got)[i].astype(">u4").tobytes() == \
+            hashlib.sha256(data[s:s + n]).digest()
+
+
+def test_sha256_lanes_twin_respects_nblocks(rng):
+    """Lanes stop at their own block count; nblocks 0 leaves H0."""
+    blocks = rng.randint(-2**31, 2**31 - 1, size=(3, 4, 16)).astype(np.int32)
+    nblocks = np.array([0, 1, 4], np.int32)
+    ref = np.asarray(jsha.sha256_blocks(jnp.asarray(blocks.view(np.uint32)),
+                                        jnp.asarray(nblocks)))
+    got = tsha.sha256_blocks(torch.from_numpy(blocks),
+                             torch.from_numpy(nblocks))
+    np.testing.assert_array_equal(_u32(got), ref)
+    np.testing.assert_array_equal(_u32(got)[0], tsha._H0)
+
+
+def test_word_conversions_round_trip():
+    vals = torch.tensor([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF],
+                        dtype=torch.int64)
+    assert torch.equal(tsha._u32(tsha._i32(vals)), vals)

@@ -1,0 +1,48 @@
+// K3: 32-bit transpose [R, C] -> [C, R] through shared-memory tiles.
+//
+// Replaces volsync_tpu/ops/segment.py _pallas_transpose /
+// _transpose_kernel (256x256 VMEM tiles on the TPU). Here a 32x32 tile
+// with one pad column (no shared-memory bank conflicts on the
+// column-wise read) is staged by a 32x8 thread block: each thread moves
+// four words in and four words out, and both the global read and the
+// global write are row-contiguous across a warp. The ragged edge is
+// masked, so any R and C work. Bound: bytes (each word read once and
+// written once).
+#include "common.cuh"
+
+static constexpr int kTile = 32;
+static constexpr int kRows = 8;
+
+__global__ void transpose_u32_kernel(const uint32_t* __restrict__ in,
+                                     uint32_t* __restrict__ out, int R,
+                                     int C) {
+  __shared__ uint32_t tile[kTile][kTile + 1];
+  const int c0 = blockIdx.x * kTile;
+  const int r0 = blockIdx.y * kTile;
+  const int tx = threadIdx.x;
+#pragma unroll
+  for (int k = threadIdx.y; k < kTile; k += kRows) {
+    const int r = r0 + k, c = c0 + tx;
+    if (r < R && c < C) tile[k][tx] = in[static_cast<size_t>(r) * C + c];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = threadIdx.y; k < kTile; k += kRows) {
+    const int c = c0 + k, r = r0 + tx;
+    if (c < C && r < R) out[static_cast<size_t>(c) * R + r] = tile[tx][k];
+  }
+}
+
+VT_EXPORT int vt_transpose_u32(const void* in, void* out, int R, int C,
+                               int device, void* stream) {
+  int rc = vt_begin(device);
+  if (rc != 0) return rc;
+  if (R > 0 && C > 0) {
+    const dim3 grid((C + kTile - 1) / kTile, (R + kTile - 1) / kTile);
+    const dim3 block(kTile, kRows);
+    transpose_u32_kernel<<<grid, block, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), R, C);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

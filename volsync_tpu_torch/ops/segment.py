@@ -1,0 +1,635 @@
+"""Fused segment pipeline on the card: chunk + hash + Merkle roots.
+
+Ports ``volsync_tpu/ops/segment.py``. One call per segment runs every
+stage on the device and returns ONE small packed result, fetched once:
+
+1. aligned gear candidates and their compaction (torch; cumsum ranks
+   and a scatter, so no host sync);
+2. the FastCDC walk: successor tables from ``torch.searchsorted``, then
+   the ``fastcdc_walk`` kernel (``csrc/fastcdc.cu``);
+3. SHA-256 of every 4 KiB page: a big-endian byte swap, the K3
+   ``transpose_u32`` kernel (``csrc/transpose.cu``), then K1
+   ``sha256_pages`` (``csrc/sha256.cu``);
+4. the one partial tail leaf (``sha256_chunks_device``);
+5. the Merkle roots: "VMRK1" || le64(len) || leaf digests message
+   blocks assembled with torch gathers up to a static block bound, then
+   the ``sha256_lanes`` kernel, one thread per chunk.
+
+With ``GearParams.align == 4096`` every interior cut lands on the page
+grid, so every full leaf of every chunk IS a page of the segment and
+only the final chunk's last leaf can be partial.
+
+The packed result is ``[4 + chunk_cap*10]`` 32-bit words (int32
+tensors carrying u32 bit patterns): header (count, consumed, true lax
+candidate count, leaf count), starts[chunk_cap], lens[chunk_cap],
+roots[chunk_cap*8]; bit-identical to the reference's. The host retries
+with doubled capacities iff real data overflowed them.
+
+Every kernel wrapper here and in ``ops/sha256.py`` runs the kernel on a
+CUDA tensor and its plain PyTorch twin on a CPU tensor. The reference's
+page-major digest layout (K4, ``VOLSYNC_PAGEMAJOR``) is not ported:
+digests are always word-major.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from volsync_tpu_torch import resolve_device
+from volsync_tpu_torch.obs import record_copy
+from volsync_tpu_torch.ops._build import Kernel, check_cuda
+from volsync_tpu_torch.ops.gearcdc import GearParams, gear_at_aligned
+from volsync_tpu_torch.ops.gearcdc import _pow2ceil_int as _pow2ceil
+from volsync_tpu_torch.ops.sha256 import (
+    _M,
+    _i32,
+    _u32,
+    sha256_blocks,
+    sha256_chunks_device,
+    sha256_pages,
+)
+
+LEAF_SIZE = 4096  # == repo.blobid.LEAF_SIZE
+
+#: Largest flat [S*P] byte view one batched dispatch may address. Torch
+#: indexes in int64, but the reference gathers with int32 indices and
+#: splits bigger batches; the port keeps the split so that batch
+#: compositions (and so results) match.
+_MAX_FLAT_BYTES = (1 << 31) - 1
+_DOMAIN_WORD0 = int.from_bytes(b"VMRK", "big")  # "VMRK1" header, word 0
+_DOMAIN_BYTE4 = b"VMRK1"[4]
+_SENTINEL = 2**31 - 2  # compacted-candidate padding, > any position
+
+#: Pages per thread block of K1; on CUDA the page table pads to it.
+_PAGE_BLOCK = 64
+
+TRANSPOSE_U32 = Kernel("transpose_u32", "transpose.cu", "vt_transpose_u32",
+                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_int])
+FASTCDC_WALK = Kernel("fastcdc_walk", "fastcdc.cu", "vt_fastcdc_walk",
+                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4)
+
+
+def segment_caps(padded_len: int, params: GearParams) -> tuple[int, int]:
+    """(cand_cap, chunk_cap) for a padded segment length (the
+    reference's sizing: ~8-16x candidate headroom, chunk_cap covers the
+    min_size packing bound plus the eof tail)."""
+    chunk_cap = _pow2ceil(padded_len // params.min_size + 2, 16)
+    cand_cap = max(4096, _pow2ceil(4 * padded_len // params.avg_size, 4096))
+    return cand_cap, chunk_cap
+
+
+def _compact_candidates(mask: torch.Tensor, cand_cap: int,
+                        align: int) -> torch.Tensor:
+    """[S, R] bool candidate mask -> [S, cand_cap] int64 sorted aligned
+    cut positions, padded with ``_SENTINEL`` (the reference's
+    nonzero(size=cand_cap) protocol). Ranks come from a cumsum and the
+    positions scatter into their rank; ranks >= cand_cap and
+    non-candidates land in one extra slot that is dropped."""
+    S, R = mask.shape
+    rank = torch.cumsum(mask, dim=1) - 1
+    slot = torch.where(mask & (rank < cand_cap), rank, cand_cap)
+    pos = torch.arange(R, dtype=torch.int64, device=mask.device) * align \
+        + (align - 1)
+    out = torch.full((S, cand_cap + 1), _SENTINEL, dtype=torch.int64,
+                     device=mask.device)
+    out.scatter_(1, slot, pos.expand(S, R))
+    return out[:, :cand_cap].contiguous()
+
+
+def _word_index_fn(n_pages_pad: int):
+    """THE home of the digest-table index formula (word-major: word j of
+    page p at j*n_pages_pad + p); producers, the tail override, the root
+    gather and the host decode all route through it."""
+    return lambda j, p: j * n_pages_pad + p
+
+
+def _apply_tail_overrides(flat: torch.Tensor, n_pages_pad: int,
+                          tail_pages: torch.Tensor, tail_digs: torch.Tensor,
+                          has_tail: torch.Tensor) -> torch.Tensor:
+    """Overwrite the page-digest table with per-lane partial tail-leaf
+    digests. tail_pages/has_tail: [N]; tail_digs: [N, 8] int32. Lanes
+    with has_tail False write one slot past the table, which is
+    dropped."""
+    wi = _word_index_fn(n_pages_pad)
+    j8 = torch.arange(8, dtype=torch.int64, device=flat.device)[None, :]
+    idx = torch.where(has_tail[:, None], wi(j8, tail_pages[:, None]),
+                      8 * n_pages_pad)
+    ext = torch.cat([flat, flat.new_zeros(1)])
+    ext.scatter_(0, idx.reshape(-1), tail_digs.reshape(-1))
+    return ext[:-1]
+
+
+# ---------------------------------------------------------------------------
+# FastCDC walk: successor tables + the fastcdc_walk kernel
+# ---------------------------------------------------------------------------
+
+def _fastcdc_walk_plain(cut_tab, emit_tab, valid_len, *, chunk_cap: int,
+                        shift: int):
+    """Twin of the ``fastcdc_walk`` kernel (same arguments and results):
+    the walk as a host loop over each lane's tables."""
+    S, n_rows = cut_tab.shape
+    dev = cut_tab.device
+    starts = torch.zeros((S, chunk_cap), dtype=torch.int32, device=dev)
+    lens = torch.zeros((S, chunk_cap), dtype=torch.int32, device=dev)
+    count = torch.zeros((S,), dtype=torch.int32, device=dev)
+    consumed = torch.zeros((S,), dtype=torch.int32, device=dev)
+    cuts, emits, L = cut_tab.tolist(), emit_tab.tolist(), valid_len.tolist()
+    for s in range(S):
+        pos = cnt = 0
+        st, ln = [], []
+        while pos < L[s] and cnt < chunk_cap:
+            r = min(pos >> shift, n_rows - 1)
+            if not emits[s][r]:
+                break
+            cut = cuts[s][r]
+            st.append(pos)
+            ln.append(cut - pos + 1)
+            cnt += 1
+            pos = cut + 1
+        starts[s, :cnt] = torch.tensor(st, dtype=torch.int32)
+        lens[s, :cnt] = torch.tensor(ln, dtype=torch.int32)
+        count[s] = cnt
+        consumed[s] = pos
+    return starts, lens, count, consumed
+
+
+def fastcdc_walk(cut_tab: torch.Tensor, emit_tab: torch.Tensor,
+                 valid_len: torch.Tensor, *, chunk_cap: int, shift: int):
+    """Walk the successor tables of S segment lanes.
+
+    cut_tab/emit_tab: [S, n_rows] int32, the cut position and the emit
+    flag of a chunk starting at row r; valid_len: [S] int32. Returns
+    (starts [S, chunk_cap], lens [S, chunk_cap], count [S], consumed
+    [S]), int32. CUDA: the ``fastcdc_walk`` kernel; CPU: its twin."""
+    if cut_tab.device.type == "cpu":
+        return _fastcdc_walk_plain(cut_tab, emit_tab, valid_len,
+                                   chunk_cap=chunk_cap, shift=shift)
+    check_cuda("fastcdc_walk", cut_tab, torch.int32, 2)
+    check_cuda("fastcdc_walk", emit_tab, torch.int32, 2)
+    check_cuda("fastcdc_walk", valid_len, torch.int32, 1)
+    S, n_rows = cut_tab.shape
+    if emit_tab.shape != cut_tab.shape or valid_len.shape[0] != S:
+        raise ValueError("fastcdc_walk: table/lane shapes disagree")
+    dev = cut_tab.device
+    starts = torch.zeros((S, chunk_cap), dtype=torch.int32, device=dev)
+    lens = torch.zeros((S, chunk_cap), dtype=torch.int32, device=dev)
+    count = torch.empty((S,), dtype=torch.int32, device=dev)
+    consumed = torch.empty((S,), dtype=torch.int32, device=dev)
+    FASTCDC_WALK.launch(dev, cut_tab.data_ptr(), emit_tab.data_ptr(),
+                        valid_len.data_ptr(), starts.data_ptr(),
+                        lens.data_ptr(), count.data_ptr(),
+                        consumed.data_ptr(), S, n_rows, chunk_cap, shift)
+    return starts, lens, count, consumed
+
+
+def _walk_tables(pos_s, ns, pos_l, nl, valid_len, eof, *, min_size: int,
+                 avg_size: int, max_size: int, align: int, n_rows: int):
+    """(cut_tab, emit_tab) [S, n_rows] int32: the FastCDC decision for a
+    chunk starting at every row, from two batched searchsorted calls
+    (side="left", as the reference's ``cut_emit``)."""
+    S = pos_s.shape[0]
+    dev = pos_s.device
+    pos = torch.arange(n_rows, dtype=torch.int64, device=dev)[None, :] \
+        * align
+    L = valid_len[:, None]
+    lo = (pos + (min_size - 1)).expand(S, n_rows).contiguous()
+    mid = pos + (avg_size - 1)
+    hi = pos + (max_size - 1)
+    cap_s, cap_l = pos_s.shape[1], pos_l.shape[1]
+    i = torch.searchsorted(pos_s, lo, side="left")
+    cs = pos_s.gather(1, i.clamp(0, cap_s - 1))
+    lim_s = torch.minimum(torch.minimum(mid - 1, L - 1), hi)
+    found_s = (i < ns[:, None]) & (cs <= lim_s)
+    j = torch.searchsorted(pos_l, torch.maximum(lo, mid).contiguous(),
+                           side="left")
+    cl = pos_l.gather(1, j.clamp(0, cap_l - 1))
+    found_l = (j < nl[:, None]) & (cl <= torch.minimum(hi, L - 1))
+    hi_ok = hi <= L - 1
+    cut = torch.where(found_s, cs,
+                      torch.where(found_l, cl, torch.where(hi_ok, hi, L - 1)))
+    emit = found_s | found_l | hi_ok | eof[:, None]
+    return cut.to(torch.int32), emit.to(torch.int32)
+
+
+def _select_boundaries_device(pos_s, ns, pos_l, nl, valid_len, eof, *,
+                              min_size: int, avg_size: int, max_size: int,
+                              chunk_cap: int, align: int, n_rows: int):
+    """FastCDC walk == gearcdc.select_boundaries, successor-table form,
+    for S lanes. pos_s/pos_l: [S, cap] sorted sentinel-padded candidate
+    positions; ns/nl/valid_len: [S] int64; eof: [S] bool. Returns
+    (starts, lens, count, consumed) as ``fastcdc_walk``."""
+    if not (align & (align - 1) == 0 and min_size % align == 0
+            and avg_size % align == 0 and max_size % align == 0):
+        raise ValueError("the table walk needs page-multiple sizes")
+    cut_tab, emit_tab = _walk_tables(
+        pos_s, ns, pos_l, nl, valid_len, eof, min_size=min_size,
+        avg_size=avg_size, max_size=max_size, align=align, n_rows=n_rows)
+    return fastcdc_walk(cut_tab, emit_tab, valid_len.to(torch.int32),
+                        chunk_cap=chunk_cap,
+                        shift=int(align).bit_length() - 1)
+
+
+# ---------------------------------------------------------------------------
+# Page-digest stage: byte swap -> K3 transpose -> K1 page hashing
+# ---------------------------------------------------------------------------
+
+def _n_pages_pad(F: int, device: torch.device) -> int:
+    """Page count padded to K1's thread block on CUDA (identity on the
+    CPU). The single source of truth: every user of the word-major
+    table must index it with the same ``n_pages_pad``."""
+    if device.type == "cpu":
+        return F
+    return max(_PAGE_BLOCK, (F + _PAGE_BLOCK - 1) // _PAGE_BLOCK
+               * _PAGE_BLOCK)
+
+
+def _transpose_plain(x: torch.Tensor) -> torch.Tensor:
+    """Twin of K3."""
+    return x.t().contiguous()
+
+
+def transpose_u32(x: torch.Tensor) -> torch.Tensor:
+    """[R, C] 32-bit words -> [C, R]. CUDA: the K3 kernel; CPU: its
+    twin."""
+    if x.device.type == "cpu":
+        return _transpose_plain(x)
+    check_cuda("transpose_u32", x, torch.int32, 2)
+    R, C = x.shape
+    out = torch.empty((C, R), dtype=torch.int32, device=x.device)
+    TRANSPOSE_U32.launch(x.device, x.data_ptr(), out.data_ptr(), R, C)
+    return out
+
+
+def _page_digests_flat(data: torch.Tensor, n_pages_pad: int) -> torch.Tensor:
+    """SHA-256 of every 4 KiB page of ``data`` ([P] uint8, P % 4096 ==
+    0) -> [8 * n_pages_pad] int32, word-major (word j of page p at
+    j * n_pages_pad + p). Pad pages hash zeros and are never read."""
+    F = data.shape[0] // LEAF_SIZE
+    # Big-endian words as a byte-reversed view, zero rows to npp.
+    x2 = torch.zeros((n_pages_pad, LEAF_SIZE), dtype=torch.uint8,
+                     device=data.device)
+    x2[:F] = data.view(F, LEAF_SIZE // 4, 4).flip(2).reshape(F, -1)
+    xt = transpose_u32(x2.view(torch.int32))  # [1024, n_pages_pad]
+    return sha256_pages(xt)
+
+
+# ---------------------------------------------------------------------------
+# Root stage: message assembly by gathers, one sha256_lanes launch
+# ---------------------------------------------------------------------------
+
+def _root_blocks_bound(max_len: int) -> int:
+    """Message blocks of the longest possible root message for blobs of
+    at most ``max_len`` bytes (1,025 at the 8 MiB default max_size)."""
+    leaves = max((max_len + LEAF_SIZE - 1) // LEAF_SIZE, 1)
+    return (32 * leaves + 13 + 9 + 63) // 64
+
+
+def _root_digests_loop(flat: torch.Tensor, n_pages_pad: int,
+                       page0: torch.Tensor, nleaves: torch.Tensor,
+                       lens: torch.Tensor, live: torch.Tensor, *,
+                       nb_max: int) -> torch.Tensor:
+    """Blob ids (repo/blobid.py) from word-major page digests -> [C, 8]
+    int32. page0/nleaves/lens/live: [C] chunk table; ``nb_max`` a static
+    bound on any lane's block count.
+
+    The digest stream of lane c is D(t) = flat[word_index(t%8, page0[c]
+    + t//8)]. The 13-byte header shifts it to byte offset 13, so message
+    word q >= 4 is (D(q-4) << 24) | (D(q-3) >> 8) (for q < 4 the formula
+    reads masked zeros); words 0..2 are header constants, and the FIPS
+    terminator and bit length overlay computed word indices. As in the
+    reference, dead lanes hash the empty leaf list and every lane is
+    left at H0 when no lane is live."""
+    C = page0.shape[0]
+    dev = flat.device
+    nl8 = 8 * nleaves
+    nb = (32 * nleaves + 13 + 9 + 63) // 64
+    nblocks = nb * live.any()  # the reference loop runs to max live nb
+    qterm = 3 + nl8  # word holding the 0x80 terminator (byte 1)
+    qlen = nb * 16 - 1  # word holding the bit length
+    bitlen = ((13 + 32 * nleaves) * 8) & _M
+    w1 = ((_DOMAIN_BYTE4 << 24) | ((lens & 0xFF) << 16)
+          | (((lens >> 8) & 0xFF) << 8) | ((lens >> 16) & 0xFF))
+    w2 = ((lens >> 24) & 0xFF) << 24
+
+    wi = _word_index_fn(n_pages_pad)
+    t = torch.arange(-4, 16 * nb_max - 3, dtype=torch.int64,
+                     device=dev)[None, :]  # D index of word q=t+4
+    tc = t.clamp(0, n_pages_pad * 8 - 1)
+    idx = wi(tc % 8, page0[:, None] + tc // 8).clamp(0, flat.shape[0] - 1)
+    d = torch.where((t >= 0) & (t < nl8[:, None]), _u32(flat)[idx], 0)
+    blk = ((d[:, :-1] << 24) & _M) | (d[:, 1:] >> 8)  # [C, 16*nb_max]
+    q = torch.arange(16 * nb_max, dtype=torch.int64, device=dev)[None, :]
+    blk = torch.where(q == 0, _DOMAIN_WORD0, blk)
+    blk = torch.where(q == 1, w1[:, None], blk)
+    blk = torch.where(q == 2, w2[:, None], blk)
+    blk = torch.where(q == qterm[:, None], blk | 0x00800000, blk)
+    blk = torch.where(q == qlen[:, None], bitlen[:, None], blk)
+    return sha256_blocks(_i32(blk).view(C, nb_max, 16),
+                         nblocks.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# The segment programs
+# ---------------------------------------------------------------------------
+
+def chunk_hash_segments(data: torch.Tensor, valid_len, eof, *,
+                        min_size: int, avg_size: int, max_size: int,
+                        seed: int, mask_s: int, mask_l: int, align: int,
+                        cand_cap: int, chunk_cap: int) -> torch.Tensor:
+    """MANY independent segments in one pass (ports
+    ``_chunk_hash_segments_impl`` / ``chunk_hash_segments``).
+
+    data: [S, P] uint8 (zero-padded rows, P % 4096 == 0); valid_len: [S]
+    ints; eof: [S] bools; padding lanes use valid_len == 0. Returns
+    [S, 4 + chunk_cap*10] int32 packed rows, each decodable with
+    ``decode_segment``. Page hashing runs as one K1 batch over all S*P/4096
+    pages and root assembly as one S*chunk_cap-lane ``sha256_lanes``
+    launch."""
+    if align != LEAF_SIZE:
+        raise ValueError("the fused path requires page-aligned cuts")
+    S, P = data.shape
+    if S * P > _MAX_FLAT_BYTES:
+        raise ValueError(f"batched dispatch of {S}x{P} bytes exceeds the "
+                         f"2 GiB batch bound; split the batch")
+    dev = data.device
+    R = P // align
+    F = P // LEAF_SIZE
+    npp = _n_pages_pad(S * F, dev)
+    valid_len = torch.as_tensor(valid_len, dtype=torch.int64, device=dev)
+    eof = torch.as_tensor(eof, dtype=torch.bool, device=dev)
+    flat = data.reshape(S * P)
+    i64 = dict(dtype=torch.int64, device=dev)
+
+    # gear is page-local, so the flat evaluation equals the per-segment one
+    h = gear_at_aligned(flat, seed, align).view(S, R)
+    pos_all = torch.arange(R, **i64) * align + (align - 1)
+    ok = pos_all[None, :] < valid_len[:, None]
+    is_s = ((h & mask_s) == 0) & ok
+    is_l = ((h & mask_l) == 0) & ok
+    pos_s = _compact_candidates(is_s, cand_cap, align)
+    pos_l = _compact_candidates(is_l, cand_cap, align)
+    ns = is_s.sum(dim=1)
+    nl = is_l.sum(dim=1)
+
+    starts, lens, count, consumed = _select_boundaries_device(
+        pos_s, ns.clamp(max=cand_cap), pos_l, nl.clamp(max=cand_cap),
+        valid_len, eof, min_size=min_size, avg_size=avg_size,
+        max_size=max_size, chunk_cap=chunk_cap, align=align, n_rows=R)
+
+    digests = _page_digests_flat(flat, npp)
+
+    starts64, lens64 = starts.to(torch.int64), lens.to(torch.int64)
+    count64 = count.to(torch.int64)
+    live = torch.arange(chunk_cap, **i64)[None, :] < count64[:, None]
+    last = (count64 - 1).clamp(min=0)[:, None]
+    end = torch.where(count64 > 0,
+                      (starts64.gather(1, last)
+                       + lens64.gather(1, last))[:, 0], 0)
+    # The ONE possibly-partial leaf per lane: the final chunk's tail.
+    has_tail = (count64 > 0) & (end % LEAF_SIZE != 0)
+    tail_page_local = (end - 1).clamp(min=0) // LEAF_SIZE
+    tail_page = torch.arange(S, **i64) * F + tail_page_local
+    tail_len = end - tail_page_local * LEAF_SIZE
+    tail_dig = sha256_chunks_device(
+        flat, (tail_page * LEAF_SIZE).clamp(0, S * P - 1),
+        torch.where(has_tail, tail_len, 0), max_len=LEAF_SIZE)
+    digests = _apply_tail_overrides(digests, npp, tail_page, tail_dig,
+                                    has_tail)
+    nleaves = torch.where(live, (lens64 + (LEAF_SIZE - 1)) // LEAF_SIZE,
+                          0)
+    page0 = starts64 // LEAF_SIZE + (torch.arange(S, **i64) * F)[:, None]
+    roots = _root_digests_loop(
+        digests, npp, page0.reshape(-1), nleaves.reshape(-1),
+        lens64.reshape(-1), live.reshape(-1),
+        nb_max=_root_blocks_bound(max_size))
+
+    header = torch.stack([count64, consumed.to(torch.int64), nl,
+                          nleaves.sum(dim=1)], dim=1)
+    return torch.cat([_i32(header & _M), starts, lens,
+                      roots.view(S, chunk_cap * 8)], dim=1)
+
+
+def chunk_hash_segment(data: torch.Tensor, valid_len: int, *, min_size: int,
+                       avg_size: int, max_size: int, seed: int, mask_s: int,
+                       mask_l: int, align: int, eof: bool, cand_cap: int,
+                       chunk_cap: int) -> torch.Tensor:
+    """The whole segment on the device, one small result.
+
+    data: [P] uint8, P % 4096 == 0 (zero-padded; candidates at or beyond
+    ``valid_len`` are masked). Returns [4 + chunk_cap*10] int32, decoded
+    by ``decode_segment``. Equal to ``chunk_hash_segments`` with one
+    lane, exactly as the reference's single and batched programs agree.
+    """
+    return chunk_hash_segments(
+        data[None, :], [valid_len], [eof], min_size=min_size,
+        avg_size=avg_size, max_size=max_size, seed=seed, mask_s=mask_s,
+        mask_l=mask_l, align=align, cand_cap=cand_cap,
+        chunk_cap=chunk_cap)[0]
+
+
+def page_digests(dev: torch.Tensor) -> np.ndarray:
+    """SHA-256 of every full 4 KiB page of a resident buffer -> [P/4096,
+    8] uint32 ndarray (one pass, one fetch of 32 bytes per page)."""
+    F = dev.shape[0] // LEAF_SIZE
+    npp = _n_pages_pad(F, dev.device)
+    flat = _page_digests_flat(dev, npp).cpu().numpy().view(np.uint32)
+    return flat.reshape(8, npp)[:, :F].T
+
+
+def span_roots_device(data: torch.Tensor, starts: torch.Tensor,
+                      lens: torch.Tensor, *,
+                      max_len: int | None = None) -> torch.Tensor:
+    """Blob ids for page-aligned spans of a resident buffer -> [N, 8]
+    int32 (garbage on padding lanes, lens < 0).
+
+    data: [P] uint8, P % 4096 == 0; every start % 4096 == 0 and the
+    spans page-DISJOINT (the tail override mutates the shared page-digest
+    table; engine/chunker._spans_page_disjoint is the gate). ``max_len``
+    bounds the span lengths (the root message bound); when omitted it is
+    read from ``lens`` (one host sync)."""
+    dev = data.device
+    P = data.shape[0]
+    F = P // LEAF_SIZE
+    npp = _n_pages_pad(F, dev)
+    starts = starts.to(device=dev, dtype=torch.int64)
+    lens = lens.to(device=dev, dtype=torch.int64)
+    live = lens > 0
+    lens_c = lens.clamp(min=0)
+    if max_len is None:
+        max_len = int(lens_c.max()) if lens_c.numel() else 0
+
+    flat = _page_digests_flat(data, npp)
+    end = starts + lens_c
+    has_tail = live & (lens_c % LEAF_SIZE != 0)
+    tail_page = (end - 1).clamp(min=0) // LEAF_SIZE
+    tail_len = end - tail_page * LEAF_SIZE
+    tail_dig = sha256_chunks_device(
+        data, (tail_page * LEAF_SIZE).clamp(0, P - 1),
+        torch.where(has_tail, tail_len, 0), max_len=LEAF_SIZE)
+    flat = _apply_tail_overrides(flat, npp, tail_page, tail_dig, has_tail)
+    nleaves = torch.where(
+        live, ((lens_c + LEAF_SIZE - 1) // LEAF_SIZE).clamp(min=1), 0)
+    return _root_digests_loop(flat, npp, starts // LEAF_SIZE, nleaves,
+                              lens_c, live,
+                              nb_max=_root_blocks_bound(max_len))
+
+
+def decode_segment(packed, chunk_cap: int
+                   ) -> tuple[list[tuple[int, int, str]], int, int, int]:
+    """packed 32-bit words (tensor or ndarray) -> ([(start, len,
+    root-hex)], consumed, true_candidates, total_leaves)."""
+    if isinstance(packed, torch.Tensor):
+        packed = packed.cpu().numpy()
+    packed = np.ascontiguousarray(packed)
+    if packed.dtype == np.int32:
+        packed = packed.view(np.uint32)
+    count = int(packed[0])
+    consumed = int(packed[1])
+    n_cand = int(packed[2])
+    n_leaves = int(packed[3])
+    starts = packed[4: 4 + chunk_cap].astype(np.int64)
+    lens = packed[4 + chunk_cap: 4 + 2 * chunk_cap].astype(np.int64)
+    roots = packed[4 + 2 * chunk_cap:].reshape(chunk_cap, 8).astype(">u4")
+    out = [(int(starts[c]), int(lens[c]), roots[c].tobytes().hex())
+           for c in range(count)]
+    return out, consumed, n_cand, n_leaves
+
+
+def decode_with_overflow_check(packed, length: int, cand_cap: int,
+                               chunk_cap: int):
+    """Decode one packed result and apply the capacity-retry protocol:
+    (chunks, consumed, grown) with ``grown`` None when the result is
+    trustworthy, else the (cand_cap, chunk_cap) to re-dispatch with."""
+    chunks, consumed, n_cand, _ = decode_segment(packed, chunk_cap)
+    grown_cand, grown_chunk = cand_cap, chunk_cap
+    retry = False
+    if n_cand > cand_cap:
+        grown_cand = _pow2ceil(n_cand, cand_cap * 2)
+        retry = True
+    if len(chunks) >= chunk_cap and consumed < length:
+        grown_chunk = chunk_cap * 2
+        retry = True
+    return chunks, consumed, (grown_cand, grown_chunk) if retry else None
+
+
+class FusedSegmentHasher:
+    """Host side of ``chunk_hash_segment``: capacity bucketing and
+    the overflow retry. Stateless apart from the params; safe to share
+    across threads."""
+
+    def __init__(self, params: GearParams):
+        if params.align != LEAF_SIZE:
+            raise ValueError("the fused path requires the page-aligned cut "
+                             "format (align=4096)")
+        self.params = params
+
+    def dispatch(self, dev: torch.Tensor, length: int, *, eof: bool,
+                 cand_cap: int | None = None, chunk_cap: int | None = None):
+        """Launch the segment's device work; returns the in-flight
+        (packed tensor, (cand_cap, chunk_cap))."""
+        p = self.params
+        cc, kc = segment_caps(int(dev.shape[0]), p)
+        cand_cap = cand_cap or cc
+        chunk_cap = chunk_cap or kc
+        return chunk_hash_segment(
+            dev, length, min_size=p.min_size, avg_size=p.avg_size,
+            max_size=p.max_size, seed=p.seed, mask_s=p.mask_s,
+            mask_l=p.mask_l, align=p.align, eof=eof, cand_cap=cand_cap,
+            chunk_cap=chunk_cap), \
+            (cand_cap, chunk_cap)
+
+    def finish(self, dev: torch.Tensor, length: int, inflight, *, eof: bool):
+        """Fetch + decode; re-dispatch with doubled capacities iff the
+        true counts overflowed the tables (adversarial data)."""
+        handle, (cand_cap, chunk_cap) = inflight
+        while True:
+            chunks, consumed, grown = decode_with_overflow_check(
+                handle.cpu(), length, cand_cap, chunk_cap)
+            if grown is None:
+                return chunks, consumed
+            handle, (cand_cap, chunk_cap) = self.dispatch(
+                dev, length, eof=eof, cand_cap=grown[0], chunk_cap=grown[1])
+
+
+class BatchedSegmentHasher:
+    """Host side of ``chunk_hash_segments``: many independent
+    streams' segments in one pass and one fetch.
+
+    ``hash_segments(items)`` takes ``[(bytes-like, valid_len, eof)]``,
+    groups lanes by buffer bucket, and returns ``[(chunks, consumed)]``
+    per lane. Lanes whose true counts overflow the capacities retry
+    alone through the single-segment path."""
+
+    def __init__(self, params: GearParams, device=None):
+        if params.align != LEAF_SIZE:
+            raise ValueError("the batched path requires the page-aligned "
+                             "cut format (align=4096)")
+        self.params = params
+        self.device = resolve_device(device)
+        self._single = FusedSegmentHasher(params)
+
+    def hash_segments(self, items) -> list:
+        from volsync_tpu_torch.engine.chunker import _buffer_bucket
+
+        if not items:
+            return []
+        groups: dict[int, list[int]] = {}
+        for i, (buf, _, _) in enumerate(items):
+            groups.setdefault(_buffer_bucket(max(len(buf), 1)),
+                              []).append(i)
+        out: list = [None] * len(items)
+        for P, idxs in groups.items():
+            for i, res in zip(idxs,
+                              self._hash_bucket(P,
+                                                [items[i] for i in idxs])):
+                out[i] = res
+        return out
+
+    def _hash_bucket(self, P: int, items) -> list:
+        """One pass for same-bucket lanes (lane count padded to a pow2;
+        padding lanes carry valid_len == 0). Batches whose padded shape
+        would cross ``_MAX_FLAT_BYTES`` split."""
+        max_lanes = max(1, _MAX_FLAT_BYTES // P)
+        if _pow2ceil(len(items), 1) > max_lanes:
+            half = max(1, len(items) // 2)
+            return (self._hash_bucket(P, items[:half])
+                    + self._hash_bucket(P, items[half:]))
+
+        p = self.params
+        cand_cap, chunk_cap = segment_caps(P, p)
+        S = _pow2ceil(len(items), 1)
+        rows = np.zeros((S, P), dtype=np.uint8)
+        lens = np.zeros((S,), dtype=np.int64)
+        eofs = np.zeros((S,), dtype=bool)
+        staged = 0
+        for i, (buf, n, eof) in enumerate(items):
+            arr = np.frombuffer(buf, dtype=np.uint8, count=len(buf))
+            rows[i, : arr.shape[0]] = arr
+            staged += arr.shape[0]
+            lens[i] = n
+            eofs[i] = eof
+        record_copy("device.stage", staged)
+        dev_rows = torch.from_numpy(rows).to(self.device)
+        packed = chunk_hash_segments(
+            dev_rows, lens.tolist(), eofs.tolist(), min_size=p.min_size,
+            avg_size=p.avg_size, max_size=p.max_size, seed=p.seed,
+            mask_s=p.mask_s, mask_l=p.mask_l, align=p.align,
+            cand_cap=cand_cap, chunk_cap=chunk_cap).cpu().numpy()
+        out = []
+        for i in range(len(items)):
+            chunks, consumed, grown = decode_with_overflow_check(
+                packed[i], int(lens[i]), cand_cap, chunk_cap)
+            if grown is not None:
+                # adversarial lane: retry alone with doubled capacities
+                dev = dev_rows[i]
+                inflight = self._single.dispatch(
+                    dev, int(lens[i]), eof=bool(eofs[i]),
+                    cand_cap=grown[0], chunk_cap=grown[1])
+                chunks, consumed = self._single.finish(
+                    dev, int(lens[i]), inflight, eof=bool(eofs[i]))
+            out.append((chunks, consumed))
+        return out
