@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (volsync_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--stream-gib G]
+    python3 chip_smoke.py [--seed N] [--stream-gib G] [--align64-gib G]
+                          [--align1-mib M] [--pagemajor-gib G]
 
 Run from the repository root on a machine with a CUDA card and nvcc. It
 imports nothing of JAX or of the JAX package, and every phase raises on
@@ -18,7 +19,15 @@ a mismatch:
    fastcdc_walk) against its plain PyTorch twin on those inputs with
    ``torch.equal`` (K1 also against hashlib per page, K3 also on
    [8192, 1024] and on a ragged shape) and times kernel, twin and, for
-   K3, the one PyTorch call computing the same function;
+   K3, the one PyTorch call computing the same function. Then K5: K1 at
+   32/64/128/256 threads per block on that segment's page table, each
+   equal to the twin and timed; K4: the same segment under
+   ``VOLSYNC_PAGEMAJOR=1``, whose ``pagemajor_u32`` launch equals its
+   twin and whose packed result equals the word-major one; K2: a stream
+   segment (48 MiB buffer, non-eof) through
+   ``DeviceChunkHasher(align=64).begin``, which launches exactly one
+   ``sha256_rows`` and one ``sha256_lanes``, each equal to its twin, K2
+   also to hashlib per leaf;
 3. stream: sets every launch count to 0, streams a seeded ``--stream-gib``
    GiB + 12,345-byte volume (half of its 64 MiB blocks repeat earlier
    ones; one block is all zero) through ``stream_chunk_batches`` with
@@ -30,12 +39,24 @@ a mismatch:
    time, and a third plain pass the GiB/s spread; both must give the
    first pass's chunks;
 4. verify: ``verify_blob_batch`` over 256 produced chunks returns [] and,
-   with one byte flipped, exactly that chunk's id.
+   with one byte flipped, exactly that chunk's id;
+5. the other engines, each over its own seeded volume of the same
+   pattern with the counts set to 0 before and read after, held against
+   its own host oracle and against the launches it must make per device
+   pass: the split-phase engine (``GearParams(align=64)``,
+   ``--align64-gib``; exactly one ``sha256_rows`` and one
+   ``sha256_lanes`` per pass; then ``verify_blob_batch``), the legacy
+   engine (``GearParams(align=1)``, ``--align1-mib``; a numpy
+   per-position gear oracle; one ``sha256_lanes`` per pass) and the
+   fused engine under ``VOLSYNC_PAGEMAJOR=1`` (``--pagemajor-gib``; one
+   ``pagemajor_u32`` per pass; chunks and ids equal to word-major passes
+   over the same bytes, the layouts alternating pm/wm/wm/pm). Each
+   stream also prints its host seconds by ``obs.span``.
 
 The line before the last is the kernels JSON (launches on the stream
-phase, max difference from the twin, times and bounds); the last line
-is ``{"ok": true, "device": {...}}``. Exits nonzero, with no result,
-when CUDA is unavailable or any phase fails.
+phase that runs each kernel, max difference from the twin, times and
+bounds); the last line is ``{"ok": true, "device": {...}}``. Exits
+nonzero, with no result, when CUDA is unavailable or any phase fails.
 """
 
 from __future__ import annotations
@@ -43,9 +64,10 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
-import re
 import hashlib
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -86,13 +108,27 @@ REPLACES = {
     "sha256_pages": "volsync_tpu/ops/sha256.py:367",
     "sha256_lanes": "volsync_tpu/ops/sha256.py:144",
     "fastcdc_walk": "volsync_tpu/ops/segment.py:205",
+    "sha256_rows": "volsync_tpu/ops/sha256.py:411",
+    "pagemajor_u32": "volsync_tpu/ops/segment.py:282",
+    "sha256_pages_sweep": "scripts/tune_sha.py:72",
 }
 SOURCES = {
     "transpose_u32": "volsync_tpu_torch/csrc/transpose.cu",
     "sha256_pages": "volsync_tpu_torch/csrc/sha256.cu",
     "sha256_lanes": "volsync_tpu_torch/csrc/sha256.cu",
     "fastcdc_walk": "volsync_tpu_torch/csrc/fastcdc.cu",
+    "sha256_rows": "volsync_tpu_torch/csrc/sha256.cu",
+    "pagemajor_u32": "volsync_tpu_torch/csrc/transpose.cu",
+    "sha256_pages_sweep": "volsync_tpu_torch/csrc/sha256.cu",
 }
+#: K1 block sizes of the K5 sweep (the library launches 64).
+SWEEP_THREADS = (32, 64, 128, 256)
+#: Kernel launches per device pass of each engine's stream.
+FUSED_PER_PASS = {"transpose_u32": 1, "sha256_pages": 1, "fastcdc_walk": 1,
+                  "sha256_lanes": 2}
+SPLIT_PER_PASS = {"sha256_rows": 1, "sha256_lanes": 1}
+LEGACY_PER_PASS = {"sha256_lanes": 1}
+PAGEMAJOR_PER_PASS = {**FUSED_PER_PASS, "pagemajor_u32": 1}
 
 
 #: Device of every phase; the card unless a rehearsal sets "cpu".
@@ -157,16 +193,30 @@ class StageTimer:
                 for k, v in self._events.items()}
 
 
-def time_ms(torch, fn, reps: int) -> float:
+def time_ms(torch, fn, reps: int, *, graph: bool = True) -> float:
     """Mean device time of ``fn()`` over ``reps`` runs after a warm-up,
-    from CUDA events."""
+    from CUDA events. On the card with ``graph`` the runs are captured
+    into one CUDA graph and replayed between the events, so the time is
+    the device's alone; without it (``graph=False``) the events also
+    hold any gaps in which the card waits for Python to launch."""
     fn()
     sync(torch)
     a, b = new_event(torch), new_event(torch)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
+    if graph and DEVICE == "cuda":
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        sync(torch)
+        a.record()
+        g.replay()
+        b.record()
+    else:
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
     sync(torch)
     return a.elapsed_time(b) / reps
 
@@ -263,10 +313,29 @@ def capture_calls(seg, sha, run) -> list:
     with patched(seg, {"transpose_u32": recorder("transpose_u32"),
                        "sha256_pages": recorder("sha256_pages"),
                        "fastcdc_walk": recorder("fastcdc_walk"),
+                       "pagemajor_u32": recorder("pagemajor_u32"),
                        "sha256_blocks": recorder("sha256_lanes")}), \
-            patched(sha, {"sha256_blocks": recorder("sha256_lanes")}):
+            patched(sha, {"sha256_blocks": recorder("sha256_lanes"),
+                          "sha256_rows": recorder("sha256_rows")}):
         run()
     return calls
+
+
+@contextlib.contextmanager
+def pagemajor_env(on: bool = True):
+    """Within the block, ``VOLSYNC_PAGEMAJOR`` is set (or unset)."""
+    saved = os.environ.get("VOLSYNC_PAGEMAJOR")
+    if on:
+        os.environ["VOLSYNC_PAGEMAJOR"] = "1"
+    else:
+        os.environ.pop("VOLSYNC_PAGEMAJOR", None)
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("VOLSYNC_PAGEMAJOR", None)
+        else:
+            os.environ["VOLSYNC_PAGEMAJOR"] = saved
 
 
 #: Device stages of ``chunk_hash_segments``, each the segment-module
@@ -364,7 +433,68 @@ def max_abs_err(torch, got, want) -> int:
     return err
 
 
-def kernel_phase(torch, stream, p, seg_bytes: int) -> dict:
+def kernel_fns(seg, sha) -> tuple:
+    """(wrapper, plain twin) dicts by kernel name; taken outside any
+    ``capture_calls`` block, so the wrappers are the library's own."""
+    kernel = {"transpose_u32": seg.transpose_u32,
+              "sha256_pages": sha.sha256_pages,
+              "fastcdc_walk": seg.fastcdc_walk,
+              "sha256_lanes": sha.sha256_blocks,
+              "sha256_rows": sha.sha256_rows,
+              "pagemajor_u32": seg.pagemajor_u32}
+    plain = {"transpose_u32": seg._transpose_plain,
+             "sha256_pages": sha._sha256_pages_plain,
+             "fastcdc_walk": seg._fastcdc_walk_plain,
+             "sha256_lanes": sha._sha256_lanes_plain,
+             "sha256_rows": lambda data, rows0, leaf_len=4096:
+                 sha._sha256_rows(sha.pack_words(data), rows0, leaf_len),
+             "pagemajor_u32": seg._pagemajor_plain}
+    return kernel, plain
+
+
+def against_twin(torch, fns, name, args, kwargs) -> tuple:
+    """Kernel ``name`` and its twin on the same inputs; raises unless
+    they are equal -> (kernel output, twin output, max abs err, twin
+    seconds)."""
+    kernel, plain = fns
+    out_k = kernel[name](*args, **kwargs)
+    sync(torch)
+    t0 = time.perf_counter()
+    out_p = plain[name](*args, **kwargs)
+    sync(torch)
+    plain_s = time.perf_counter() - t0
+    err = max_abs_err(torch, out_k, out_p)
+    if not all(torch.equal(a, b) for a, b in zip(as_list(out_k),
+                                                  as_list(out_p))):
+        shapes = [tuple(a.shape) for a in args if hasattr(a, "shape")]
+        raise AssertionError(f"{name} differs from its plain twin (max abs "
+                             f"err {err}) at {shapes}")
+    return out_k, out_p, err, plain_s
+
+
+def expect_calls(label: str, calls, want: list) -> None:
+    got = sorted(n for n, _, _ in calls)
+    if got != sorted(want):
+        raise AssertionError(f"{label} launched {got}, expected "
+                             f"{sorted(want)}")
+
+
+def sha_bound(data_blocks: int, pad_blocks: int, nbytes: int) -> tuple:
+    """(bound ms, what bounds it) of SHA-256 over ``data_blocks``
+    message blocks and ``pad_blocks`` constant pad blocks that move
+    ``nbytes``."""
+    t_ops = (data_blocks * SHA_BLOCK_ALU_OPS
+             + pad_blocks * SHA_PAD_BLOCK_ALU_OPS) / INT32_ALU_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+FUSED_CALLS = ["transpose_u32", "sha256_pages", "fastcdc_walk",
+               "sha256_lanes", "sha256_lanes"]
+
+
+def kernel_phase(torch, stream, p, seg_bytes: int, p64) -> dict:
     from volsync_tpu_torch.ops import segment as seg
     from volsync_tpu_torch.ops import sha256 as sha
 
@@ -376,48 +506,32 @@ def kernel_phase(torch, stream, p, seg_bytes: int) -> dict:
               max_size=p.max_size, seed=p.seed, mask_s=p.mask_s,
               mask_l=p.mask_l, align=p.align, eof=False, cand_cap=cc,
               chunk_cap=kc)
-    calls = capture_calls(seg, sha, lambda: seg.chunk_hash_segment(
-        data, valid, **kw))
+    packed = []
+    with pagemajor_env(False):
+        calls = capture_calls(seg, sha, lambda: packed.append(
+            seg.chunk_hash_segment(data, valid, **kw)))
     sync(torch)
-    got = sorted(n for n, _, _ in calls)
-    want = sorted(["transpose_u32", "sha256_pages", "fastcdc_walk",
-                   "sha256_lanes", "sha256_lanes"])
-    if got != want:
-        raise AssertionError(f"segment launched {got}, expected {want}")
+    expect_calls("fused segment", calls, FUSED_CALLS)
 
-    kernel = {"transpose_u32": seg.transpose_u32,
-              "sha256_pages": sha.sha256_pages,
-              "fastcdc_walk": seg.fastcdc_walk,
-              "sha256_lanes": sha.sha256_blocks}
-    plain = {"transpose_u32": seg._transpose_plain,
-             "sha256_pages": sha._sha256_pages_plain,
-             "fastcdc_walk": seg._fastcdc_walk_plain,
-             "sha256_lanes": sha._sha256_lanes_plain}
+    fns = kernel_fns(seg, sha)
     extra = [("transpose_u32", [torch.randint(
         -2**31, 2**31 - 1, (8192, 1024), dtype=torch.int32,
         device=DEVICE)], {}),
         ("transpose_u32", [torch.randint(
             -2**31, 2**31 - 1, (1000, 77), dtype=torch.int32,
             device=DEVICE)], {})]
-    stats = defaultdict(lambda: {"err": 0, "ms": [], "plain_ms": [],
-                                 "bound": [], "bound_by": "", "lib": []})
+    stats = defaultdict(lambda: {"err": 0, "ms": [], "eager_ms": [],
+                                 "plain_ms": [], "bound": [],
+                                 "bound_by": "", "lib": []})
+    k1 = None
     for i, (name, args, kwargs) in enumerate(calls + extra):
         main_path = i < len(calls)
-        out_k = kernel[name](*args, **kwargs)
-        sync(torch)
-        t0 = time.perf_counter()
-        out_p = plain[name](*args, **kwargs)
-        sync(torch)
-        plain_s = time.perf_counter() - t0
-        err = max_abs_err(torch, out_k, out_p)
-        if not all(torch.equal(a, b) for a, b in zip(as_list(out_k),
-                                                      as_list(out_p))):
-            raise AssertionError(f"{name} differs from its plain twin "
-                                 f"(max abs err {err}) at "
-                                 f"{[tuple(a.shape) for a in args if hasattr(a, 'shape')]}")
+        out_k, out_p, err, plain_s = against_twin(torch, fns, name, args,
+                                                  kwargs)
         st = stats[name]
         st["err"] = max(st["err"], err)
         if name == "sha256_pages":
+            k1 = (args[0], out_p)
             npp = args[0].shape[1]
             F = seg_bytes // 4096
             dig = out_k.cpu().numpy().view(np.uint32).reshape(8, npp)
@@ -431,8 +545,10 @@ def kernel_phase(torch, stream, p, seg_bytes: int) -> dict:
             log(f"K3 transpose_u32 {tuple(args[0].shape)}: equals twin")
             continue
         reps = {"sha256_lanes": 5, "fastcdc_walk": 20}.get(name, 20)
-        st["ms"].append(time_ms(torch, lambda: kernel[name](*args, **kwargs),
-                                reps))
+        st["ms"].append(time_ms(
+            torch, lambda: fns[0][name](*args, **kwargs), reps))
+        st["eager_ms"].append(time_ms(
+            torch, lambda: fns[0][name](*args, **kwargs), reps, graph=False))
         st["plain_ms"].append(plain_s * 1e3)
         if name == "transpose_u32":
             x = args[0]
@@ -442,21 +558,15 @@ def kernel_phase(torch, stream, p, seg_bytes: int) -> dict:
             st["lib"].append(time_ms(torch, lambda: x.t().contiguous(), 20))
         elif name == "sha256_pages":
             npp = args[0].shape[1]
-            ops = npp * (64 * SHA_BLOCK_ALU_OPS + SHA_PAD_BLOCK_ALU_OPS)
-            nbytes = npp * (4096 + 32)
-            st["bound"].append(max(ops / INT32_ALU_OPS_PER_S,
-                                   nbytes / HBM_BYTES_PER_S) * 1e3)
-            st["bound_by"] = ("operations" if ops / INT32_ALU_OPS_PER_S
-                              > nbytes / HBM_BYTES_PER_S else "bytes")
+            bound, st["bound_by"] = sha_bound(64 * npp, npp,
+                                              npp * (4096 + 32))
+            st["bound"].append(bound)
         elif name == "sha256_lanes":
             blocks, nblocks = args
             nb = int(nblocks.clamp(min=0).sum())
-            ops = nb * SHA_BLOCK_ALU_OPS
-            nbytes = nb * 64 + blocks.shape[0] * 36
-            st["bound"].append(max(ops / INT32_ALU_OPS_PER_S,
-                                   nbytes / HBM_BYTES_PER_S) * 1e3)
-            st["bound_by"] = ("operations" if ops / INT32_ALU_OPS_PER_S
-                              > nbytes / HBM_BYTES_PER_S else "bytes")
+            bound, st["bound_by"] = sha_bound(
+                nb, 0, nb * 64 + blocks.shape[0] * 36)
+            st["bound"].append(bound)
             log(f"sha256_lanes: {blocks.shape[0]} lanes, {nb} blocks, "
                 f"kernel {st['ms'][-1]:.4f} ms, twin {plain_s*1e3:.1f} ms")
         else:  # fastcdc_walk: a few table reads and writes per chunk
@@ -466,9 +576,123 @@ def kernel_phase(torch, stream, p, seg_bytes: int) -> dict:
             nbytes = (n + S) * 8 + n * 8 + S * 12
             st["bound"].append(nbytes / HBM_BYTES_PER_S * 1e3)
             st["bound_by"] = "bytes"
-        log(f"{name}: equals twin; kernel {st['ms'][-1]:.4f} ms/launch, "
-            f"twin {plain_s*1e3:.1f} ms")
+        log(f"{name}: equals twin; kernel {st['ms'][-1]:.4f} ms/launch "
+            f"(eager {st['eager_ms'][-1]:.4f}), twin {plain_s*1e3:.1f} ms")
+
+    sweep_k1(torch, stats, *k1)
+    pagemajor_check(torch, fns, stats, data, valid, kw, packed[0])
+    split_segment_check(torch, fns, stats, host, p64)
     return stats
+
+
+def sweep_k1(torch, stats, xt, want) -> None:
+    """K5: K1 at each of ``SWEEP_THREADS`` threads per block on the
+    segment's page table, each equal to the twin's digests, timed."""
+    from volsync_tpu_torch.ops import sha256 as sha
+
+    times = {}
+    for t in SWEEP_THREADS:
+        def run(t=t):
+            return sha.sha256_pages(xt, threads=t)
+        if not torch.equal(run(), want):
+            raise AssertionError(f"K1 at {t} threads differs from its twin")
+        times[t] = time_ms(torch, run, 20)
+    k1 = stats["sha256_pages"]
+    stats["sha256_pages_sweep"].update(
+        ms=[min(times.values())], eager_ms=list(k1["eager_ms"]),
+        plain_ms=list(k1["plain_ms"]),
+        bound=list(k1["bound"]), bound_by=k1["bound_by"],
+        threads_ms={str(t): v for t, v in times.items()})
+    log(f"K5 sweep of K1 ({xt.shape[1]} pages), ms per launch by threads "
+        f"per block: {json.dumps({t: round(v, 4) for t, v in times.items()})}"
+        f"; every launch equals the twin")
+
+
+def pagemajor_check(torch, fns, stats, data, valid, kw, packed_wm) -> None:
+    """K4: the fused segment under ``VOLSYNC_PAGEMAJOR=1`` launches
+    ``pagemajor_u32`` once, which equals its twin, and packs the same
+    words as the word-major pass."""
+    from volsync_tpu_torch.ops import segment as seg
+    from volsync_tpu_torch.ops import sha256 as sha
+
+    packed = []
+    with pagemajor_env():
+        calls = capture_calls(seg, sha, lambda: packed.append(
+            seg.chunk_hash_segment(data, valid, **kw)))
+    sync(torch)
+    expect_calls("page-major segment", calls,
+                 FUSED_CALLS + ["pagemajor_u32"])
+    if not torch.equal(packed[0], packed_wm):
+        raise AssertionError("the page-major packed result differs from "
+                             "the word-major one")
+    name, args, kwargs = next(c for c in calls if c[0] == "pagemajor_u32")
+    _, _, err, plain_s = against_twin(torch, fns, name, args, kwargs)
+    x = args[0]
+    st = stats[name]
+    st["err"] = max(st["err"], err)
+    st["ms"].append(time_ms(torch, lambda: fns[0][name](x), 50))
+    st["eager_ms"].append(time_ms(torch, lambda: fns[0][name](x), 50,
+                                  graph=False))
+    st["plain_ms"].append(plain_s * 1e3)
+    st["bound"].append(x.shape[1] * 64 / HBM_BYTES_PER_S * 1e3)
+    st["bound_by"] = "bytes"
+    st["lib"].append(time_ms(torch, lambda: x.t().contiguous(), 50))
+    log(f"K4 pagemajor_u32 ({x.shape[1]} pages): equals twin, packed "
+        f"result equals word-major; kernel {st['ms'][-1]:.4f} ms (eager "
+        f"{st['eager_ms'][-1]:.4f}), x.t().contiguous() "
+        f"{st['lib'][-1]:.4f} ms")
+
+
+def split_segment_check(torch, fns, stats, host, p64) -> None:
+    """K2: a stream segment (40 MiB read plus a carried tail, a 48 MiB
+    buffer, non-eof) through the split-phase engine launches exactly one
+    ``sha256_rows`` and one ``sha256_lanes``; both equal their twins,
+    every K2 lane equals hashlib, every id equals ``blob_id``."""
+    from volsync_tpu_torch.engine import DeviceChunkHasher
+    from volsync_tpu_torch.engine.chunker import _leaf_plan
+    from volsync_tpu_torch.ops import segment as seg
+    from volsync_tpu_torch.ops import sha256 as sha
+    from volsync_tpu_torch.repo import blobid
+
+    valid = host.shape[0] - host.shape[0] // 16 - 777  # 45 MiB at 48
+    hasher = DeviceChunkHasher(p64, device=DEVICE)
+    pending = []
+    calls = capture_calls(seg, sha, lambda: pending.append(
+        hasher.begin(host, eof=False, valid_len=valid)))
+    sync(torch)
+    expect_calls("split-phase segment", calls,
+                 ["sha256_rows", "sha256_lanes"])
+    chunks = pending[0].finish()
+    for s, n, bid in chunks:
+        if bid != blobid.blob_id(host[s: s + n]):
+            raise AssertionError(f"split-phase id of ({s}, {n}) differs "
+                                 f"from blob_id")
+    n_full = len(_leaf_plan(pending[0].chunks)[0])
+    for name, args, kwargs in calls:
+        out_k, _, err, plain_s = against_twin(torch, fns, name, args,
+                                              kwargs)
+        if name == "sha256_lanes":
+            log(f"split-phase tail sha256_lanes ({args[0].shape[0]} "
+                f"lanes): equals twin")
+            continue
+        dig = out_k.cpu().numpy().view(np.uint32).astype(">u4")
+        for b, r in enumerate(args[1].cpu().tolist()):
+            if dig[b].tobytes() != hashlib.sha256(
+                    host[64 * r: 64 * r + 4096]).digest():
+                raise AssertionError(f"K2 lane {b} (row {r}) != hashlib")
+        st = stats[name]
+        st["err"] = max(st["err"], err)
+        st["ms"].append(time_ms(
+            torch, lambda: fns[0][name](*args, **kwargs), 20))
+        st["eager_ms"].append(time_ms(
+            torch, lambda: fns[0][name](*args, **kwargs), 20, graph=False))
+        st["plain_ms"].append(plain_s * 1e3)
+        bound, st["bound_by"] = sha_bound(64 * n_full, n_full,
+                                          n_full * (4096 + 32 + 4))
+        st["bound"].append(bound)
+        log(f"K2 sha256_rows: {args[1].shape[0]} lanes ({n_full} full "
+            f"leaves of {len(chunks)} chunks) equal the twin and hashlib; "
+            f"kernel {st['ms'][-1]:.4f} ms, twin {plain_s*1e3:.1f} ms")
 
 
 def stream_once(torch, stream, params, hasher) -> tuple:
@@ -492,32 +716,136 @@ def stream_once(torch, stream, params, hasher) -> tuple:
     return results, views, time.perf_counter() - t0
 
 
-def stream_phase(torch, stream, params) -> dict:
+def count_passes(hasher) -> list:
+    """Wrap ``hasher.begin_device``; ``n[0]`` counts its device passes."""
+    n = [0]
+    inner = hasher.begin_device
+
+    def counted(*args, **kwargs):
+        n[0] += 1
+        return inner(*args, **kwargs)
+
+    hasher.begin_device = counted
+    return n
+
+
+def drive(torch, stream, params, per_pass: dict, label: str) -> dict:
+    """One pass of ``stream_chunk_batches`` through a fresh hasher with
+    every launch count set to 0 just before and read just after. On the
+    card every kernel must have launched ``per_pass[name]`` times per
+    device pass (0 when absent)."""
     from volsync_tpu_torch.engine import DeviceChunkHasher
-    from volsync_tpu_torch.ops import segment as seg
+    from volsync_tpu_torch.obs import span_totals
     from volsync_tpu_torch.ops._build import KERNELS
-    from volsync_tpu_torch.ops.gearcdc import host_candidates, select_boundaries
-    from volsync_tpu_torch.repo import blobid
 
     hasher = DeviceChunkHasher(params, device=DEVICE)
+    passes = count_passes(hasher)
+    before = span_totals()
     for k in KERNELS:
         k.launches = 0
     results, views, secs = stream_once(torch, stream, params, hasher)
     launches = {k.name: k.launches for k in KERNELS}
+    spans = {k: round(s - before.get(k, (0, 0.0))[1], 4)
+             for k, (n, s) in span_totals().items()
+             if n != before.get(k, (0, 0.0))[0]}
     off = sum(n for _, n, _ in results)
     if off != stream.total:
-        raise AssertionError(f"stream covered {off} of {stream.total} bytes")
-    for name, n in launches.items():
-        if n == 0 and DEVICE == "cuda":
-            raise AssertionError(f"kernel {name} was not launched by the "
-                                 f"stream")
+        raise AssertionError(f"{label} covered {off} of {stream.total} "
+                             f"bytes")
+    want = {k: per_pass.get(k, 0) * passes[0] for k in launches}
+    if DEVICE == "cuda" and launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{want} over {passes[0]} device passes")
     gibs = stream.total / GIB / secs
-    log(f"stream: {stream.total} bytes, {len(results)} chunks in "
-        f"{secs:.3f} s = {gibs:.4f} GiB/s")
-    log(f"stream launches: {json.dumps(launches)}")
+    per_pass = {k: v / max(passes[0], 1) for k, v in launches.items() if v}
+    log(f"{label}: {stream.total} bytes, {len(results)} chunks in "
+        f"{secs:.3f} s = {gibs:.4f} GiB/s over {passes[0]} device passes; "
+        f"launches {json.dumps(launches)}, per pass {json.dumps(per_pass)}")
+    log(f"{label}: host seconds by span (summed; engine.read runs on the "
+        f"readahead thread): {json.dumps(spans)}")
+    return {"results": results, "views": views, "gibs": gibs,
+            "launches": launches, "passes": passes[0], "spans": spans}
+
+
+def dense_candidates(x: np.ndarray, params, skip: int) -> tuple:
+    """numpy per-position gear oracle: (strict, lax) positions of ``x``
+    at or past ``skip`` (the halo before it only feeds the windows),
+    relative to ``skip``. The shift-doubling runs on uint32 words, which
+    wrap mod 2**32 as the hash does; it uses the gear table, not the
+    device's arithmetic form."""
+    h = params.table[x]
+    for m in (1, 2, 4, 8, 16):
+        h[m:] += h[:-m] << np.uint32(m)
+    h = h[skip:]
+    pos = np.arange(h.shape[0], dtype=np.int64)
+    return (pos[(h & np.uint32(params.mask_s)) == 0],
+            pos[(h & np.uint32(params.mask_l)) == 0])
+
+
+def oracle_cuts(stream, params) -> list:
+    """The stream's cut list from host candidates (``host_candidates``
+    for aligned params, cached by block content; ``dense_candidates``
+    with a 31-byte halo at align 1) and the host FastCDC walk."""
+    from volsync_tpu_torch.ops.gearcdc import host_candidates, select_boundaries
+
+    cs, cl, cache = [], [], {}
+    halo = np.zeros((0,), np.uint8)
+    for b in range(len(stream.plan)):
+        base = b * BLOCK
+        blk = stream.block(b)[: stream.total - base]
+        if params.align == 1:
+            s, l = dense_candidates(np.concatenate([halo, blk]), params,
+                                    len(halo))
+            halo = blk[-31:]
+        else:
+            key = stream.plan[b] if len(blk) == BLOCK else None
+            if key is None or key not in cache:
+                cache[key] = host_candidates(blk, params, len(blk))
+            s, l = cache[key]
+        cs.append(s + base)
+        cl.append(l + base)
+    return select_boundaries(np.concatenate(cs), np.concatenate(cl),
+                             stream.total, params, eof=True)
+
+
+def check_oracle(label: str, results, stream, params) -> float:
+    """Every cut and blob id of ``results`` equals the host oracle's;
+    returns the dedup ratio (unique-id bytes / total)."""
+    from volsync_tpu_torch.repo import blobid
+
+    t1 = time.perf_counter()
+    cuts = oracle_cuts(stream, params)
+    if [(o, n) for o, n, _ in results] != cuts:
+        bad = next((i for i, (a, b) in enumerate(zip(results, cuts))
+                    if a[:2] != b), min(len(results), len(cuts)))
+        raise AssertionError(f"{label}: cut list differs from the host "
+                             f"oracle at chunk {bad} ({len(results)} vs "
+                             f"{len(cuts)} chunks)")
+    with concurrent.futures.ThreadPoolExecutor(8) as ex:
+        ids = list(ex.map(lambda c: blobid.blob_id(stream.view(*c)), cuts,
+                          chunksize=16))
+    for (o, n, bid), want in zip(results, ids):
+        if bid != want:
+            raise AssertionError(f"{label}: blob id of chunk ({o}, {n}) "
+                                 f"differs from hashlib")
+    uniq = {bid: n for _, n, bid in results}
+    ratio = sum(uniq.values()) / stream.total
+    log(f"{label} oracle: {len(cuts)} cuts and every blob id equal "
+        f"({time.perf_counter() - t1:.1f} s); dedup ratio (unique-id "
+        f"bytes / total) {ratio:.4f}")
+    return ratio
+
+
+def stream_phase(torch, stream, params) -> dict:
+    from volsync_tpu_torch.engine import DeviceChunkHasher
+    from volsync_tpu_torch.ops import segment as seg
+
+    res = drive(torch, stream, params, FUSED_PER_PASS, "stream")
+    results = res["results"]
 
     # Per-stage device time, from a pass of its own: the probes' events
     # stay out of the GiB/s above, and this pass's GiB/s shows their cost.
+    hasher = DeviceChunkHasher(params, device=DEVICE)
     timer = StageTimer(torch)
     with stage_probes(seg, timer):
         staged, _, staged_secs = stream_once(torch, stream, params, hasher)
@@ -532,38 +860,49 @@ def stream_phase(torch, stream, params) -> dict:
     log(f"stream device ms by stage over {segments} device passes (CUDA "
         f"events, summed): "
         + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    check_oracle("stream", results, stream, params)
+    return {"launches": res["launches"], "segments": segments,
+            "views": res["views"], "gibs": res["gibs"], "stages": stages}
 
-    # Host oracle: numpy gear candidates + the host walk + hashlib ids.
-    t1 = time.perf_counter()
-    cs, cl = [], []
-    for b in range(len(stream.plan)):
-        s, l = host_candidates(stream.block(b), params,
-                               stream.total - b * BLOCK, base=b * BLOCK)
-        cs.append(s)
-        cl.append(l)
-    cuts = select_boundaries(np.concatenate(cs), np.concatenate(cl),
-                             stream.total, params, eof=True)
-    if [(o, n) for o, n, _ in results] != cuts:
-        bad = next(i for i, (a, b) in enumerate(zip(results, cuts))
-                   if a[:2] != b)
-        raise AssertionError(f"cut list differs from the host oracle at "
-                             f"chunk {bad}: {results[bad][:2]} vs {cuts[bad]}")
-    with concurrent.futures.ThreadPoolExecutor(8) as ex:
-        ids = list(ex.map(lambda c: blobid.blob_id(stream.view(*c)), cuts,
-                          chunksize=16))
-    for (o, n, bid), want in zip(results, ids):
-        if bid != want:
-            raise AssertionError(f"blob id of chunk ({o}, {n}) differs "
-                                 f"from hashlib")
-    uniq = {}
-    for _, n, bid in results:
-        uniq[bid] = n
-    ratio = sum(uniq.values()) / stream.total
-    log(f"oracle: {len(cuts)} cuts and every blob id equal "
-        f"({time.perf_counter() - t1:.1f} s); dedup ratio (unique-id "
-        f"bytes / total) {ratio:.4f}")
-    return {"launches": launches, "segments": segments, "views": views,
-            "gibs": gibs, "stages": stages}
+
+def split_stream_phase(torch, stream, params) -> dict:
+    """The split-phase engine (align 64) over its own volume: one
+    ``sha256_rows`` and one ``sha256_lanes`` per device pass, every cut
+    and id equal to the oracle, then ``verify_blob_batch``."""
+    res = drive(torch, stream, params, SPLIT_PER_PASS, "align=64 stream")
+    check_oracle("align=64 stream", res["results"], stream, params)
+    verify_phase(res.pop("views"))
+    return res
+
+
+def legacy_stream_phase(torch, stream, params) -> dict:
+    """The legacy engine (align 1): one ``sha256_lanes`` per device
+    pass, held against the per-position gear oracle."""
+    res = drive(torch, stream, params, LEGACY_PER_PASS, "align=1 stream")
+    check_oracle("align=1 stream", res["results"], stream, params)
+    return res
+
+
+def pagemajor_stream_phase(torch, stream, params) -> dict:
+    """The fused engine under ``VOLSYNC_PAGEMAJOR=1`` (one
+    ``pagemajor_u32`` per pass) gives the chunks and ids of a word-major
+    pass over the same bytes, and those equal the oracle. The passes
+    alternate page-major, word-major, word-major, page-major, so the two
+    layouts' GiB/s compare within one call."""
+    runs = []
+    for on in (True, False, False, True):
+        with pagemajor_env(on):
+            runs.append(drive(
+                torch, stream, params,
+                PAGEMAJOR_PER_PASS if on else FUSED_PER_PASS,
+                "page-major stream" if on
+                else "word-major stream (same bytes)"))
+    if any(r["results"] != runs[0]["results"] for r in runs):
+        raise AssertionError("page-major and word-major passes differ")
+    check_oracle("page-major stream", runs[0]["results"], stream, params)
+    log("page-major / word-major GiB/s in turn: " + ", ".join(
+        f"{r['gibs']:.4f}" for r in runs))
+    return runs[0]
 
 
 def verify_phase(views) -> None:
@@ -589,6 +928,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stream-gib", type=float, default=10.0)
+    # The other engines' volumes are cut from 10 GiB to keep their host
+    # oracles (numpy candidates at 64 or 1 byte granularity) within the
+    # time limit.
+    ap.add_argument("--align64-gib", type=float, default=2.0)
+    ap.add_argument("--align1-mib", type=float, default=256.0)
+    ap.add_argument("--pagemajor-gib", type=float, default=1.0)
     args = ap.parse_args()
 
     import torch
@@ -597,7 +942,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from volsync_tpu_torch.ops import _build
-    from volsync_tpu_torch.ops.gearcdc import DEFAULT_PARAMS
+    from volsync_tpu_torch.ops.gearcdc import DEFAULT_PARAMS, GearParams
 
     t0 = time.perf_counter()
     reports = _build.build_all()
@@ -605,7 +950,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     for src, rep in reports.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 log(f"  {src}: {line.strip()}")
     sass = k1_sass_block()
     log("K1 one message block as compiled (cuobjdump -sass, instructions "
@@ -616,34 +962,61 @@ def main() -> int:
     log(f"torch {torch.__version__} CUDA {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    total = int(args.stream_gib * GIB) + 12345
-    t1 = time.perf_counter()
-    stream = SeededStream(torch, args.seed, total)
-    log(f"data: {len(stream.unique)} fresh 64 MiB blocks of "
-        f"{len(stream.plan)} made in {time.perf_counter() - t1:.1f} s "
-        f"(zero block {stream.zero_block})")
+    def volume(size: int, what: str):
+        t1 = time.perf_counter()
+        s = SeededStream(torch, args.seed, size + 12345)
+        log(f"data ({what}): {len(s.unique)} fresh 64 MiB blocks of "
+            f"{len(s.plan)} made in {time.perf_counter() - t1:.1f} s "
+            f"(zero block {s.zero_block})")
+        return s
 
-    stats = kernel_phase(torch, stream, DEFAULT_PARAMS, SEGMENT_P)
+    # The align=64 deployment: DEFAULT_CHUNKER's sizes with align 64.
+    params64 = GearParams(align=64)
+    stream = volume(int(args.stream_gib * GIB), "fused stream")
+    stats = kernel_phase(torch, stream, DEFAULT_PARAMS, SEGMENT_P, params64)
     res = stream_phase(torch, stream, DEFAULT_PARAMS)
     verify_phase(res.pop("views"))
-
     per_seg = {k: v / res["segments"] for k, v in res["launches"].items()}
     log(f"launches per segment pass: {json.dumps(per_seg)} ({card})")
+    del stream
+
+    split = split_stream_phase(
+        torch, volume(int(args.align64_gib * GIB), "align=64"), params64)
+    legacy = legacy_stream_phase(
+        torch, volume(int(args.align1_mib * (1 << 20)), "align=1"),
+        GearParams(align=1))
+    pm = pagemajor_stream_phase(
+        torch, volume(int(args.pagemajor_gib * GIB), "page-major"),
+        DEFAULT_PARAMS)
+    log(f"GiB/s by engine: fused {res['gibs']:.4f}, align=64 "
+        f"{split['gibs']:.4f}, align=1 {legacy['gibs']:.4f}, page-major "
+        f"{pm['gibs']:.4f} ({card})")
+
+    # Launches: from the stream phase of the path that runs each kernel.
+    launches = {**res["launches"],
+                "sha256_rows": split["launches"]["sha256_rows"],
+                "pagemajor_u32": pm["launches"]["pagemajor_u32"],
+                "sha256_pages_sweep": res["launches"]["sha256_pages"]}
     kernels = []
     for name in ("transpose_u32", "sha256_pages", "sha256_lanes",
-                 "fastcdc_walk"):
+                 "fastcdc_walk", "sha256_rows", "pagemajor_u32",
+                 "sha256_pages_sweep"):
         st = stats[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": res["launches"][name],
+            "launches": launches[name],
             "max_abs_err": st["err"],
             "ms": float(np.mean(st["ms"])),
+            "eager_ms": float(np.mean(st["eager_ms"])),
             "plain_ms": float(np.mean(st["plain_ms"])),
             "bound_ms": float(np.mean(st["bound"])),
             "bound_by": st["bound_by"],
             "library_ms": float(np.mean(st["lib"])) if st["lib"] else None,
-        })
+        }
+        if "threads_ms" in st:
+            entry["threads_ms"] = st["threads_ms"]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

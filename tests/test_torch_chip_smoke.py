@@ -1,13 +1,16 @@
-"""chip_smoke.py rehearsed on the CPU: its seeded stream, host oracle,
-verify check and kernel-input capture run at a tiny size with the
-kernels' plain twins, and the script itself refuses to report without
-CUDA or without the package beside it."""
+"""chip_smoke.py rehearsed on the CPU: its seeded stream, host oracles
+(aligned and per-position), verify check, the split-phase, legacy and
+page-major stream phases and kernel-input capture run at a tiny size
+with the kernels' plain twins, and the script itself refuses to report
+without CUDA or without the package beside it."""
 
 import shutil
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
+import pytest
 import torch
 
 import chip_smoke
@@ -107,3 +110,72 @@ def test_script_fails_without_cuda_or_package(tmp_path):
                                   "CUDA_VISIBLE_DEVICES": ""})
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+PARAMS_64 = GearParams(min_size=4096, avg_size=32768, max_size=65536,
+                       align=64)
+PARAMS_1 = GearParams(min_size=4096, avg_size=32768, max_size=65536,
+                      align=1)
+
+
+def _tiny_stream(monkeypatch, blocks: int):
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "BLOCK", 128 * 1024)
+    return chip_smoke.SeededStream(torch, 1, blocks * 128 * 1024 + 12345)
+
+
+def test_split_stream_phase_on_cpu(monkeypatch):
+    res = chip_smoke.split_stream_phase(torch, _tiny_stream(monkeypatch, 3),
+                                        PARAMS_64)
+    assert res["passes"] == 1 and len(res["results"]) > 5
+
+
+@pytest.mark.parametrize("phase,params", [
+    ("legacy_stream_phase", PARAMS_1),
+    ("pagemajor_stream_phase", PARAMS)], ids=["align1", "pagemajor"])
+def test_legacy_and_pagemajor_stream_phases_on_cpu(monkeypatch, phase,
+                                                   params):
+    res = getattr(chip_smoke, phase)(torch, _tiny_stream(monkeypatch, 2),
+                                     params)
+    assert res["passes"] == 1 and res["gibs"] > 0
+
+
+def test_dense_oracle_equals_the_port_gear_hash(rng):
+    """The numpy per-position oracle (with a halo) flags the positions
+    where the port's gear_hash_positions clears the masks."""
+    from volsync_tpu_torch.ops.gearcdc import gear_hash_positions
+
+    p = GearParams(min_size=256, avg_size=1024, max_size=4096, align=1)
+    x = rng.randint(0, 256, size=(20_000,)).astype(np.uint8)
+    h = gear_hash_positions(torch.from_numpy(x), p.seed).numpy()[31:]
+    s, l = chip_smoke.dense_candidates(x, p, 31)
+    np.testing.assert_array_equal(s, np.nonzero((h & p.mask_s) == 0)[0])
+    np.testing.assert_array_equal(l, np.nonzero((h & p.mask_l) == 0)[0])
+    assert len(l) > len(s) > 0
+
+
+def test_capture_calls_records_the_split_phase_leaf_dispatch(rng,
+                                                             monkeypatch):
+    from volsync_tpu_torch.engine import DeviceChunkHasher
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    host = rng.randint(0, 256, size=(128 * 1024,)).astype(np.uint8)
+    hasher = DeviceChunkHasher(PARAMS_64, device="cpu")
+    calls = chip_smoke.capture_calls(seg, sha, lambda: hasher.begin(
+        host, eof=False, valid_len=120_000))
+    chip_smoke.expect_calls("split", calls, ["sha256_rows", "sha256_lanes"])
+    with pytest.raises(AssertionError):
+        chip_smoke.expect_calls("split", calls, ["sha256_rows"])
+    assert sha.sha256_rows is chip_smoke.kernel_fns(seg, sha)[0][
+        "sha256_rows"]  # wrappers restored
+
+
+def test_pagemajor_env_restores_the_variable(monkeypatch):
+    import os
+
+    monkeypatch.setenv("VOLSYNC_PAGEMAJOR", "0")
+    with chip_smoke.pagemajor_env():
+        assert os.environ["VOLSYNC_PAGEMAJOR"] == "1"
+    with chip_smoke.pagemajor_env(False):
+        assert "VOLSYNC_PAGEMAJOR" not in os.environ
+    assert os.environ["VOLSYNC_PAGEMAJOR"] == "0"

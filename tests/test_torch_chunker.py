@@ -1,11 +1,15 @@
 """The port's streaming engine (volsync_tpu_torch/engine/chunker.py)
 against the JAX package's engine/chunker.py, on the CPU: the same chunk
-bytes, ids and batch split from ``stream_chunk_batches``, and blob ids
-from ``verify_blob_batch``, ``hash_spans`` and ``hash_file_streaming``
-that equal the host reference."""
+bytes, ids and batch split from ``stream_chunk_batches`` for the fused
+(align 4096), split-phase (align 64) and legacy (align 1) engines, and
+blob ids from ``verify_blob_batch``, ``hash_spans`` (aligned and not),
+``device_span_roots`` and ``hash_file_streaming`` that equal the host
+reference."""
 
 import dataclasses
 
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -77,10 +81,77 @@ def test_small_and_empty_buffers():
     assert h.process(tiny, eof=False) == []
 
 
-def test_unported_engines_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tch.DeviceChunkHasher(tch.params_from_reference(
-            dataclasses.asdict(GearParams())), device="cpu")
+#: The split-phase engine at test scale (chunks span many 64-byte-aligned
+#: full leaves) and the reference's own split-phase params.
+PARAMS_64 = GearParams(min_size=4096, avg_size=32768, max_size=65536,
+                       align=64)
+PARAMS64_REF = GearParams(min_size=256, avg_size=1024, max_size=4096)
+PARAMS_1 = GearParams(min_size=4096, avg_size=32768, max_size=65536,
+                      align=1)
+
+
+def _port(p):
+    return tch.params_from_reference(dataclasses.asdict(p))
+
+
+@pytest.mark.parametrize("params,eof", [
+    (PARAMS_64, True), (PARAMS_64, False), (PARAMS64_REF, True),
+    (PARAMS_1, True), (PARAMS_1, False)],
+    ids=["align64-eof", "align64-tail", "align64-ref", "align1-eof",
+         "align1-tail"])
+def test_split_phase_and_legacy_process_match_reference(rng, params, eof):
+    """align 64 and 1 run: DeviceChunkHasher.process equals the JAX
+    engine's chunks and ids (and blob_id) on random data with a zero
+    run."""
+    buf = rng.bytes(150_000) + bytes(70_000) + rng.bytes(33_333)
+    want = jch.DeviceChunkHasher(params).process(buf, eof=eof)
+    have = tch.DeviceChunkHasher(_port(params), device="cpu").process(
+        buf, eof=eof)
+    assert have == want and len(have) > 2
+    assert all(d == blobid.blob_id(buf[s:s + n]) for s, n, d in have)
+    assert tch.DeviceChunkHasher(_port(params), device="cpu").fused is None
+
+
+def test_split_phase_end_leaves_digests_in_flight(rng):
+    """On the split-phase path the chunk list is known at dispatch, so
+    ``.end`` does not fetch; ``finish()`` does."""
+    buf = np.frombuffer(rng.bytes(200_000), np.uint8)
+    seg = tch.DeviceChunkHasher(_port(PARAMS_64), device="cpu").begin(
+        buf, eof=False)
+    end = seg.end
+    assert seg._done is None and seg._inflight is not None
+    assert 0 < end == sum(n for _, n in seg.chunks) < len(buf)
+    done = seg.finish()
+    assert [(s, n) for s, n, _ in done] == seg.chunks
+    assert seg.end == end
+
+
+@pytest.mark.parametrize("params", [PARAMS_64, PARAMS_1],
+                         ids=["align64", "align1"])
+def test_stream_chunk_batches_split_and_legacy_match_reference(rng, params):
+    """Segment carry across several segments, a zero run and the eof
+    tail: the same batches, chunk bytes and ids as the reference."""
+    data = rng.bytes(90_000) + bytes(100_000) + rng.bytes(60_123)
+    want = [[(bytes(c), d) for c, d in batch]
+            for batch in jch.stream_chunk_batches(
+                _reader(data), params, segment_size=96 * 1024)]
+    have = [[(bytes(c), d) for c, d in batch]
+            for batch in tch.stream_chunk_batches(
+                _reader(data), _port(params), segment_size=96 * 1024,
+                device="cpu")]
+    assert have == want and len(have) >= 2
+    assert b"".join(c for batch in have for c, _ in batch) == data
+
+
+def test_device_span_roots_matches_reference(rng):
+    data = np.frombuffer(rng.bytes(64 * 1024), np.uint8).copy()
+    chunks = [(0, 4096), (64, 9000), (12_800, 1), (20_032, 20_000),
+              (7, 5000), (40_001, 0)]
+    want = jch.device_span_roots(jnp.asarray(data), chunks)
+    have = tch.device_span_roots(torch.from_numpy(data), chunks)
+    assert have == want
+    assert have == [blobid.blob_id(data[s:s + n].tobytes())
+                    for s, n in chunks]
 
 
 def test_verify_blob_batch_flags_corruption(rng):
@@ -110,8 +181,11 @@ def test_hash_spans_page_aligned(rng):
     got = tch.hash_spans(buf, spans, device="cpu")
     assert got == [blobid.blob_id(buf[s:s + n]) for s, n in spans]
     assert got == jch.hash_spans(buf, spans)
-    with pytest.raises(NotImplementedError):
-        tch.hash_spans(buf, [(0, 10), (10, 100)], device="cpu")
+    # unaligned or page-sharing spans take the per-leaf gather path
+    shared = [(0, 10), (10, 100), (5, 0), (4097, 8000)]
+    got = tch.hash_spans(buf, shared, device="cpu")
+    assert got == jch.hash_spans(buf, shared)
+    assert got == [blobid.blob_id(buf[s:s + n]) for s, n in shared]
 
 
 def test_hash_file_streaming_equals_blob_id(tmp_path, rng):

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch twins on a card.
+"""The port's CUDA kernels against their plain PyTorch twins on a card,
+and the engines (fused, split-phase, legacy, page-major) on the card
+against the CPU.
 
 Needs an NVIDIA card with nvcc (the kernels build from
 volsync_tpu_torch/csrc at first use); skipped elsewhere. Imports no JAX,
@@ -102,3 +104,82 @@ def test_hash_file_streaming_on_card(cuda, rng, tmp_path):
         f.write_bytes(data)
         assert hash_file_streaming(f, segment_size=128 * 1024) == \
             blobid.blob_id(data)
+
+
+def test_sha256_rows_kernel_equals_twin_and_hashlib(cuda, rng):
+    import hashlib
+
+    data = np.frombuffer(rng.bytes(256 * 1024), np.uint8).copy()
+    n_rows = data.shape[0] // 64
+    rows0 = np.concatenate([[0, n_rows - 64, 5, 5],
+                            rng.randint(0, n_rows - 63, size=296)]
+                           ).astype(np.int32)  # 300 lanes, ragged
+    d, r = torch.from_numpy(data).to(cuda), torch.from_numpy(rows0).to(cuda)
+    got = sha.sha256_rows(d, r)
+    assert torch.equal(got, sha._sha256_rows(sha.pack_words(d), r, 4096))
+    dig = got.cpu().numpy().view(np.uint32).astype(">u4")
+    for b, row in enumerate(rows0):
+        assert dig[b].tobytes() == hashlib.sha256(
+            data[64 * row: 64 * row + 4096]).digest()
+
+
+def test_sha256_rows_raises_on_what_the_kernel_does_not_take(cuda):
+    d = torch.zeros(64 * 1024 + 16, dtype=torch.uint8, device=cuda)
+    rows = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        sha.sha256_rows(d[1:65 * 1024 - 1023], rows)  # not 16-byte aligned
+    with pytest.raises(ValueError):
+        sha.sha256_rows(d[:64 * 1024], rows.to(torch.int64))
+    with pytest.raises(ValueError):
+        sha.sha256_rows(d[:2048], rows)  # shorter than a leaf
+
+
+@pytest.mark.parametrize("npp", [64, 77, 12288])
+def test_pagemajor_kernel_equals_twin(cuda, rng, npp):
+    x = _rand_i32(rng, (8, npp), cuda)
+    assert torch.equal(seg.pagemajor_u32(x), seg._pagemajor_plain(x))
+
+
+@pytest.mark.parametrize("threads", [32, 64, 128, 256, 1024])
+def test_sha256_pages_launch_sizes_equal_twin(cuda, rng, threads):
+    xt = _rand_i32(rng, (1024, 200), cuda)  # 200 pages: a ragged grid
+    assert torch.equal(sha.sha256_pages(xt, threads=threads),
+                       sha._sha256_pages_plain(xt))
+    with pytest.raises(ValueError):
+        sha.sha256_pages(xt, threads=48)
+
+
+@pytest.mark.parametrize("align", [64, 1])
+def test_split_and_legacy_engines_on_card_equal_cpu(cuda, rng, align):
+    """The align=64 engine (K2 + tail lanes) and the align=1 engine (a
+    lane per leaf) give the CPU's chunks and ids, eof and not."""
+    from volsync_tpu_torch.engine import DeviceChunkHasher
+
+    p = GearParams(min_size=4096, avg_size=32768, max_size=65536,
+                   align=align)
+    buf = rng.bytes(300_000) + bytes(70_000) + rng.bytes(33_333)
+    for eof in (True, False):
+        want = DeviceChunkHasher(p, device="cpu").process(buf, eof=eof)
+        got = DeviceChunkHasher(p, device=cuda).process(buf, eof=eof)
+        assert got == want and want
+
+
+def test_pagemajor_segment_on_card_equals_word_major(cuda, rng,
+                                                     monkeypatch):
+    data = np.zeros((512 * 1024,), np.uint8)
+    data[:400_000] = np.frombuffer(rng.bytes(400_000), np.uint8)
+    cc, kc = seg.segment_caps(data.shape[0], PARAMS)
+    p = PARAMS
+    kw = dict(min_size=p.min_size, avg_size=p.avg_size,
+              max_size=p.max_size, seed=p.seed, mask_s=p.mask_s,
+              mask_l=p.mask_l, align=p.align, eof=True, cand_cap=cc,
+              chunk_cap=kc)
+    dev = torch.from_numpy(data).to(cuda)
+    monkeypatch.delenv("VOLSYNC_PAGEMAJOR", raising=False)
+    word = seg.chunk_hash_segment(dev, 400_000, **kw)
+    pages = seg.page_digests(dev)
+    monkeypatch.setenv("VOLSYNC_PAGEMAJOR", "1")
+    launched = seg.PAGEMAJOR_U32.launches
+    assert torch.equal(seg.chunk_hash_segment(dev, 400_000, **kw), word)
+    np.testing.assert_array_equal(seg.page_digests(dev), pages)
+    assert seg.PAGEMAJOR_U32.launches == launched + 2

@@ -126,3 +126,113 @@ def test_select_boundaries_matches_reference(rng):
         assert tg.select_boundaries(idx_s, idx_l, L, tp, eof=eof,
                                     base=base) == \
             jg._select_boundaries_py(idx_s, idx_l, L, p, eof=eof, base=base)
+
+
+# The split-phase params at test scale, and the reference's own.
+P64 = jg.GearParams(min_size=4096, avg_size=32768, max_size=65536, align=64)
+P64_REF = jg.GearParams(min_size=256, avg_size=1024, max_size=4096)
+P1 = jg.GearParams(min_size=256, avg_size=1024, max_size=4096, align=1)
+
+
+def _kw(p, **extra):
+    return dict(seed=p.seed, mask_s=p.mask_s, mask_l=p.mask_l, **extra)
+
+
+@pytest.mark.parametrize("p,cap,valid_len", [
+    (P64, 4096, None), (P64, 4096, 700_001), (P64_REF, 64, 1 << 20),
+    (P64_REF, 4096, 123_457)],
+    ids=["roomy", "valid_len", "count-over-cap", "ref-params"])
+def test_cdc_candidates_aligned_packed_matches_reference(rng, p, cap,
+                                                         valid_len):
+    """The packed [2*cap + 1] array is bit-identical: fill slots hold
+    R*align + align-1 with flag 0, and the count is the true lax count
+    even when it exceeds cap."""
+    data = rng.randint(0, 256, size=(1 << 20,), dtype=np.uint8)
+    ref = np.asarray(jg.cdc_candidates_aligned_packed(
+        jnp.asarray(data), **_kw(p, align=p.align, max_candidates=cap,
+                                 valid_len=valid_len)))
+    got = tg.cdc_candidates_aligned_packed(
+        torch.from_numpy(data), **_kw(p, align=p.align, max_candidates=cap,
+                                      valid_len=valid_len))
+    assert got.dtype == torch.int32 and got.shape == (2 * cap + 1,)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    if cap == 64:
+        assert ref[-1] > cap
+    else:
+        assert (ref[:cap] == (1 << 20) + 63).any()  # fill slots
+
+
+@pytest.mark.parametrize("n", [16, 33, 40_000])
+def test_gear_hash_positions_matches_reference(rng, n):
+    data = rng.randint(0, 256, size=(n,), dtype=np.uint8)
+    ref = np.asarray(jg.gear_hash_positions(jnp.asarray(data), 0x5EEDCDC1))
+    got = tg.gear_hash_positions(torch.from_numpy(data), 0x5EEDCDC1)
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), ref)
+
+
+def test_gear_hash_positions_short_buffers(rng):
+    """Below 16 bytes (where the reference's padding cannot broadcast)
+    position i is sum_{k<=i} G[b_{i-k}] << k mod 2**32."""
+    table = tg._make_gear_table(7).astype(np.uint64)
+    for n in (1, 5, 15):
+        data = rng.randint(0, 256, size=(n,), dtype=np.uint8)
+        want = [sum(int(table[data[i - k]]) << k for k in range(i + 1))
+                & 0xFFFFFFFF for i in range(n)]
+        assert tg.gear_hash_positions(torch.from_numpy(data),
+                                      7).tolist() == want
+
+
+@pytest.mark.parametrize("cap,valid_len", [(512, None), (8, 30_000)],
+                         ids=["roomy", "truncated"])
+def test_cdc_candidates_matches_reference(rng, cap, valid_len):
+    data = rng.randint(0, 256, size=(40_000,), dtype=np.uint8)
+    ref = jg.cdc_candidates(jnp.asarray(data), **_kw(
+        P1, max_candidates=cap, valid_len=valid_len))
+    got = tg.cdc_candidates(torch.from_numpy(data), **_kw(
+        P1, max_candidates=cap, valid_len=valid_len))
+    for r, g in zip(ref, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    if cap == 8:
+        assert int(ref[3]) > cap
+
+
+def test_nonzero_fixed_batched_rows(rng):
+    mask = rng.rand(3, 50) < 0.3
+    got = tg.nonzero_fixed(torch.from_numpy(mask), 8, 50).numpy()
+    for row, m in zip(got, mask):
+        idx = np.nonzero(m)[0][:8]
+        np.testing.assert_array_equal(row[: len(idx)], idx)
+        assert (row[len(idx):] == 50).all()
+
+
+@pytest.mark.parametrize("p,eof", [(P64, True), (P64_REF, False),
+                                   (P1, True), (P1, False),
+                                   (jg.GearParams(min_size=4096,
+                                                  avg_size=32768,
+                                                  max_size=65536,
+                                                  align=4096), True)],
+                         ids=["align64", "align64-ref-tail", "align1",
+                              "align1-tail", "align4096"])
+def test_chunk_buffer_matches_reference(rng, p, eof):
+    data = rng.bytes(200_003)
+    want = jg.chunk_buffer(data, p, eof=eof)
+    assert tg.chunk_buffer(data, params_from_reference(
+        dataclasses.asdict(p)), eof=eof, device="cpu") == want
+    assert tg.chunk_buffer(torch.from_numpy(np.frombuffer(
+        data, np.uint8).copy()), params_from_reference(
+        dataclasses.asdict(p)), eof=eof, device="cpu") == want
+    assert tg.chunk_buffer(b"", p, device="cpu") == []
+
+
+def test_fetch_candidates_retries_past_the_first_capacity(rng):
+    """Dense candidates (the reference's split-phase params give ~1 lax
+    candidate per 4 aligned rows) overflow the first 4096 slots; the
+    retry returns exactly the numpy oracle's positions."""
+    tp = params_from_reference(dataclasses.asdict(P64_REF))
+    data = rng.randint(0, 256, size=(2 << 20,), dtype=np.uint8)
+    length = len(data) - 1000
+    idx_s, idx_l = tg.fetch_candidates(torch.from_numpy(data), tp, length)
+    want_s, want_l = tg.host_candidates(data, tp, length)
+    assert len(idx_l) > 4096
+    np.testing.assert_array_equal(idx_l, want_l)
+    np.testing.assert_array_equal(idx_s, want_s)

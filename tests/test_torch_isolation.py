@@ -92,6 +92,9 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         lambda: tch.hash_file_streaming(f),
         lambda: sha256.sha256_many([b"x"]),
         lambda: segment.BatchedSegmentHasher(p),
+        lambda: gearcdc.chunk_buffer(b"x" * 10, p),
+        lambda: tch.DeviceChunkHasher(gearcdc.GearParams(align=64)),
+        lambda: tch.DeviceChunkHasher(gearcdc.GearParams(align=1)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

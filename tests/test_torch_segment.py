@@ -2,7 +2,8 @@
 against the JAX package's ops/segment.py, on the CPU: packed results
 element for element on random, redundant and zero-entropy data,
 non-eof tails, forced small capacities (the overflow retry), batched
-lanes and page-aligned spans."""
+lanes and page-aligned spans, and under VOLSYNC_PAGEMAJOR=1 (the K4
+page-major digest table)."""
 
 import dataclasses
 
@@ -220,3 +221,76 @@ def test_page_digests_and_decode(rng):
     assert chunks[0][:2] == (0, 123) and consumed == 123
     assert tseg.decode_segment(torch.from_numpy(packed.view(np.int32)),
                                kc)[0] == chunks
+
+
+def test_pagemajor_twin_and_word_index(rng):
+    """K4's twin moves word j of page p from j*npp + p to p*8 + j, the
+    two index functions of ``_word_index_fn``."""
+    npp = 5
+    x = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, size=(8, npp),
+                                     dtype=np.int64).astype(np.int32))
+    pm = tseg.pagemajor_u32(x)
+    flat = x.reshape(-1)
+    for j in range(8):
+        for p in range(npp):
+            assert pm[tseg._word_index_fn(npp, True)(j, p)] == \
+                flat[tseg._word_index_fn(npp, False)(j, p)]
+    np.testing.assert_array_equal(pm.numpy(), x.numpy().T.reshape(-1))
+
+
+def _under_pagemajor(monkeypatch, run):
+    """run() with VOLSYNC_PAGEMAJOR unset, then set. The reference reads
+    the gate at trace time, so the JAX caches are cleared around the
+    page-major run; the word-major run may reuse earlier traces."""
+    import jax
+
+    monkeypatch.delenv("VOLSYNC_PAGEMAJOR", raising=False)
+    word = run()
+    jax.clear_caches()
+    monkeypatch.setenv("VOLSYNC_PAGEMAJOR", "1")
+    try:
+        page = run()
+    finally:
+        monkeypatch.delenv("VOLSYNC_PAGEMAJOR", raising=False)
+        jax.clear_caches()
+    return word, page
+
+
+def test_chunk_hash_segment_pagemajor_matches_reference(rng, monkeypatch):
+    payload = _redundant(rng)  # the shape the tests above compile
+    data = _padded(payload)
+    (ref_w, got_w, _), (ref_p, got_p, _) = _under_pagemajor(
+        monkeypatch, lambda: _both(data, len(payload), True))
+    np.testing.assert_array_equal(got_p, ref_p)
+    np.testing.assert_array_equal(got_p, got_w)
+    np.testing.assert_array_equal(ref_p, ref_w)
+
+
+def test_page_digests_pagemajor_matches_reference(rng, monkeypatch):
+    data = np.frombuffer(rng.bytes(5 * 4096), np.uint8).copy()
+    word, page = _under_pagemajor(monkeypatch, lambda: (
+        jseg.page_digests(jnp.asarray(data)),
+        tseg.page_digests(torch.from_numpy(data))))
+    for ref, got in (word, page):
+        np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(page[1], word[1])
+
+
+def test_span_roots_device_pagemajor_matches_reference(rng, monkeypatch):
+    sizes = [1, 4096, 9000]
+    starts = [0, 4096, 8192]
+    data = np.frombuffer(rng.bytes(64 * 1024), np.uint8).copy()
+    st = np.array(starts + [0], np.int32)
+    ln = np.array(sizes + [-1], np.int32)
+
+    def run():
+        ref = np.asarray(jseg.span_roots_device(
+            jnp.asarray(data), jnp.asarray(st), jnp.asarray(ln)))
+        got = tseg.span_roots_device(torch.from_numpy(data),
+                                     torch.from_numpy(st),
+                                     torch.from_numpy(ln))
+        return ref, got.numpy().view(np.uint32)
+
+    (ref_w, got_w), (ref_p, got_p) = _under_pagemajor(monkeypatch, run)
+    np.testing.assert_array_equal(got_p, ref_p)
+    np.testing.assert_array_equal(got_p[:3], got_w[:3])

@@ -126,3 +126,43 @@ def test_word_conversions_round_trip():
     vals = torch.tensor([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF],
                         dtype=torch.int64)
     assert torch.equal(tsha._u32(tsha._i32(vals)), vals)
+
+
+def test_sha256_leaves_device_matches_reference(rng):
+    """[F + T, 8] leaf digests: full leaves at 64-byte rows (K2's twin)
+    then short tails (the gather path), padding lanes included."""
+    data = rng.randint(0, 256, size=(48 * 1024,), dtype=np.uint8)
+    rows0 = np.array([0, 1, 64, 500, 0, 0, 0, 0], np.int32)  # 4 padding
+    ts = np.array([100, 40_000, 0, 0], np.int32)
+    tl = np.array([4095, 1, 0, 0], np.int32)
+    ref = np.asarray(jsha.sha256_leaves_device(
+        jnp.asarray(data), jnp.asarray(rows0), jnp.asarray(ts),
+        jnp.asarray(tl)))
+    got = tsha.sha256_leaves_device(
+        torch.from_numpy(data), torch.from_numpy(rows0),
+        torch.from_numpy(ts), torch.from_numpy(tl))
+    np.testing.assert_array_equal(_u32(got), ref)
+    for i, r in enumerate(rows0):
+        assert _u32(got)[i].astype(">u4").tobytes() == \
+            hashlib.sha256(data[64 * r: 64 * r + 4096]).digest()
+    assert _u32(got)[8].astype(">u4").tobytes() == \
+        hashlib.sha256(data[100:4195]).digest()
+
+
+def test_sha256_rows_is_its_twin_on_the_cpu(rng):
+    """K2's wrapper on a CPU tensor is ``_sha256_rows`` over
+    ``pack_words``, for any whole-block leaf length; other lengths and
+    K1's launch size are refused or ignored as on the card."""
+    data = torch.from_numpy(rng.randint(0, 256, size=(8192,),
+                                        dtype=np.uint8))
+    rows0 = torch.tensor([0, 3, 60], dtype=torch.int32)
+    for leaf_len in (64, 4096):
+        assert torch.equal(
+            tsha.sha256_rows(data, rows0, leaf_len=leaf_len),
+            tsha._sha256_rows(tsha.pack_words(data), rows0, leaf_len))
+    with pytest.raises(ValueError):
+        tsha.sha256_rows(data, rows0, leaf_len=100)
+    xt = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, size=(1024, 3),
+                                      dtype=np.int64).astype(np.int32))
+    assert torch.equal(tsha.sha256_pages(xt, threads=256),
+                       tsha._sha256_pages_plain(xt))

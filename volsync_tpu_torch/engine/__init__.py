@@ -1,12 +1,14 @@
 """Device data-plane engine of the port (ports ``volsync_tpu/engine/``).
 
-This slice carries the streaming chunk+hash pipeline only; backup and
-restore are later slices (ROADMAP.md).
+This package carries the streaming chunk+hash pipeline only (the fused,
+split-phase and legacy engines); backup and restore are later slices
+(ROADMAP.md).
 """
 
 from volsync_tpu_torch.engine.chunker import (
     DeviceChunkHasher,
     PendingSegment,
+    device_span_roots,
     hash_file_streaming,
     hash_spans,
     params_from_config,
@@ -19,6 +21,7 @@ from volsync_tpu_torch.engine.chunker import (
 __all__ = [
     "DeviceChunkHasher",
     "PendingSegment",
+    "device_span_roots",
     "hash_file_streaming",
     "hash_spans",
     "params_from_config",

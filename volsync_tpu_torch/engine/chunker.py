@@ -1,15 +1,27 @@
 """Streaming CDC chunk+hash pipeline: the mover's device hot path.
 
-Ports the fused (page-aligned, ``align == 4096``) path of
-``volsync_tpu/engine/chunker.py``: a segment of the input stream is
-uploaded to the card once, and one pass of ``ops/segment.py`` returns
-its chunk table plus one Merkle blob id per chunk. ``stream_chunk_batches``
-carries the unterminated tail of each segment into the next, so chunk
-boundaries equal one-shot chunking of the whole stream.
+Ports ``volsync_tpu/engine/chunker.py``: a segment of the input stream
+is uploaded to the card once and chunked and hashed there; only chunk
+tables and digests come back. ``stream_chunk_batches`` carries the
+unterminated tail of each segment into the next, so chunk boundaries
+equal one-shot chunking of the whole stream. ``DeviceChunkHasher`` runs
+one of three engines, picked by the repository's ``align``:
 
-Not in this slice (see ROADMAP.md): the split-phase (64 <= align < 4096)
-and legacy (align == 1) engines, which raise ``NotImplementedError``;
-the shared segment micro-batcher; hashing of unaligned spans; the
+- align == 4096 (the repo default): the fused pass of
+  ``ops/segment.py``, one small fetch per segment (ref :185-194);
+- 64 <= align < 4096, split phase (ref :195-208): aligned candidates on
+  the card, the host FastCDC walk, then one leaf dispatch
+  (``sha256_leaves_device``: K2 ``sha256_rows`` for full leaves,
+  ``sha256_lanes`` for the short tails) left in flight while the stream
+  moves on; ``_leaf_plan``, ``_dispatch_leaves``, ``_assemble_roots``
+  and ``PendingSegment.split_phase`` port ref :287-419;
+- align == 1, legacy (ref :209-213): per-byte gear candidates, the host
+  walk, and every leaf a lane of ``sha256_chunks_device``
+  (``device_span_roots``, ref :422-454), the route unaligned
+  ``hash_spans`` also takes (ref :527).
+
+Not in this slice (see ROADMAP.md): the shared segment micro-batcher,
+the benchmark hooks ``leaf_device_fn`` / ``cand_device_fn``, and the
 native ``volio`` readahead reader (plain ``open()`` here).
 """
 
@@ -27,24 +39,30 @@ import torch
 from volsync_tpu_torch import envflags, resolve_device
 from volsync_tpu_torch.engine import bufpool
 from volsync_tpu_torch.obs import record_copy, span
-from volsync_tpu_torch.ops.gearcdc import GearParams
+from volsync_tpu_torch.ops.gearcdc import (
+    GearParams,
+    fetch_candidates,
+    select_boundaries,
+)
 from volsync_tpu_torch.ops.segment import (
     LEAF_SIZE,
     FusedSegmentHasher,
     page_digests,
     span_roots_device,
 )
+from volsync_tpu_torch.ops.sha256 import (
+    sha256_chunks_device,
+    sha256_leaves_device,
+)
 from volsync_tpu_torch.repo import blobid
-
-_NOT_PORTED = ("only the page-aligned fused engine (align == 4096) is "
-               "ported; the split-phase and legacy engines are a later "
-               "slice (ROADMAP.md, queue 1)")
 
 
 def params_from_config(cfg: dict) -> GearParams:
     """GearParams from a repository's persisted chunker config. Repos
     written before the aligned-cut format carry no "align" key and keep
-    align=1 (which this slice's engine does not run)."""
+    align=1 (the legacy engine) forever, so their chunk boundaries and
+    dedup stay valid; align 64 runs the split-phase engine and 4096 the
+    fused one."""
     return GearParams(min_size=cfg["min_size"], avg_size=cfg["avg_size"],
                       max_size=cfg["max_size"], seed=cfg["seed"],
                       align=cfg.get("align", 1))
@@ -87,17 +105,19 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 class DeviceChunkHasher:
     """chunk+hash a byte buffer with one host->device upload.
 
-    The whole segment runs as one fused pass (ops/segment.py) with one
-    small result fetch: candidates, the FastCDC walk, leaf hashing and
-    Merkle-root assembly stay on the card, and only the chunk table and
-    32-byte roots come back."""
+    With align == 4096 the whole segment runs as one fused pass
+    (ops/segment.py) with one small result fetch: candidates, the
+    FastCDC walk, leaf hashing and Merkle-root assembly stay on the
+    card, and only the chunk table and 32-byte roots come back. Other
+    aligns fetch the candidates, walk on the host, and hash leaves on
+    the card (split phase for align >= 64, legacy below; see the module
+    docstring)."""
 
     def __init__(self, params: GearParams, device=None):
-        if params.align != LEAF_SIZE:
-            raise NotImplementedError(_NOT_PORTED)
         self.params = params
         self.device = resolve_device(device)
-        self.fused = FusedSegmentHasher(params)
+        self.fused = (FusedSegmentHasher(params)
+                      if params.align == LEAF_SIZE else None)
 
     def process(self, buffer, *, eof: bool = True
                 ) -> list[tuple[int, int, str]]:
@@ -108,8 +128,11 @@ class DeviceChunkHasher:
     def begin(self, buffer, *, eof: bool = True,
               valid_len: Optional[int] = None) -> "PendingSegment":
         """Upload + launch the segment's device work, leaving it IN
-        FLIGHT (``.end``/``.finish()`` fetch it). Callers
-        that hold a bucket-padded view pass it plus ``valid_len``."""
+        FLIGHT. On the fused path the chunk table is part of the one
+        in-flight result, so ``.end`` fetches it; on the split-phase
+        path the walk runs here and only the leaf digests stay in
+        flight until ``finish()``. Callers that hold a bucket-padded
+        view pass it plus ``valid_len``."""
         if isinstance(buffer, (bytes, bytearray, memoryview)):
             buffer = np.frombuffer(buffer, dtype=np.uint8)
         have = int(buffer.shape[0])
@@ -133,44 +156,194 @@ class DeviceChunkHasher:
 
     def begin_device(self, dev: torch.Tensor, length: int, *,
                      eof: bool = True) -> "PendingSegment":
-        with span("engine.fused_dispatch"):
-            inflight = self.fused.dispatch(dev, length, eof=eof)
-        return PendingSegment.fused_segment(self.fused, dev, length,
-                                            inflight, eof)
+        p = self.params
+        if self.fused is not None:
+            with span("engine.fused_dispatch"):
+                inflight = self.fused.dispatch(dev, length, eof=eof)
+            return PendingSegment.fused_segment(self.fused, dev, length,
+                                                inflight, eof)
+        with span("engine.candidates"):
+            idx_s, idx_l = fetch_candidates(dev, p, length)
+        with span("engine.boundary_walk"):
+            chunks = select_boundaries(idx_s, idx_l, length, p, eof=eof)
+        if not chunks:
+            return PendingSegment([])
+        if p.align >= 64:
+            with span("engine.leaf_dispatch"):
+                plan = _leaf_plan(chunks)
+                inflight = _dispatch_leaves(dev, *plan[:3])
+            return PendingSegment.split_phase(chunks, plan, inflight)
+        with span("engine.leaf_roots"):
+            hexes = device_span_roots(dev, chunks)
+        return PendingSegment([(s, l, h)
+                               for (s, l), h in zip(chunks, hexes)])
+
+
+def device_leaf_digests(dev: torch.Tensor, leaf_starts: list[int],
+                        leaf_lengths: list[int]) -> list[bytes]:
+    """SHA-256 digests of arbitrary <= 4 KiB slices of a resident
+    buffer, every slice one ``sha256_chunks_device`` lane (lanes padded
+    to a pow2 >= 128); one fetch of 32 bytes per lane."""
+    lanes = _pow2ceil(len(leaf_starts), 128)
+    starts = np.zeros((lanes,), np.int32)
+    lengths = np.zeros((lanes,), np.int32)
+    starts[: len(leaf_starts)] = leaf_starts
+    lengths[: len(leaf_lengths)] = leaf_lengths
+    digests = sha256_chunks_device(
+        dev, torch.from_numpy(starts).to(dev.device),
+        torch.from_numpy(lengths).to(dev.device), max_len=LEAF_SIZE)
+    flat = digests.cpu().numpy().view(np.uint32).astype(">u4").tobytes()
+    return [flat[32 * k: 32 * (k + 1)] for k in range(len(leaf_starts))]
+
+
+def _leaf_plan(chunks: list[tuple[int, int]]):
+    """Host-side leaf assignment for a chunk list with 64-byte-aligned
+    cuts: which leaves are full (K2, by 64-byte row) and which are short
+    tails (the gather path), plus the bookkeeping that reassembles each
+    chunk's leaf sequence -> (full_rows, short_starts, short_lengths,
+    slot, spans)."""
+    full_rows: list[int] = []
+    short_starts: list[int] = []
+    short_lengths: list[int] = []
+    slot: list[tuple[bool, int]] = []  # leaf -> (is_full, index)
+    spans: list[tuple[int, int]] = []  # chunk -> (first leaf, count)
+    for start, length in chunks:
+        first = len(slot)
+        n = blobid.leaf_count(length)
+        for k in range(n):
+            s = start + k * LEAF_SIZE
+            l = min(LEAF_SIZE, length - k * LEAF_SIZE)
+            if l == LEAF_SIZE:
+                if s % 64:
+                    raise ValueError("the split-phase path needs 64-byte "
+                                     "aligned leaf starts")
+                slot.append((True, len(full_rows)))
+                full_rows.append(s // 64)
+            else:
+                slot.append((False, len(short_starts)))
+                short_starts.append(s)
+                short_lengths.append(l)
+        spans.append((first, n))
+    return full_rows, short_starts, short_lengths, slot, spans
+
+
+def _dispatch_leaves(dev: torch.Tensor, full_rows, short_starts,
+                     short_lengths):
+    """Launch the segment's one leaf dispatch -> (the in-flight [F + T,
+    8] digests, F). Full-leaf lanes pad to a pow2 >= 128 with row 0,
+    tail lanes to a pow2 >= 8 with empty slices."""
+    lanes_f = _pow2ceil(len(full_rows), 128)
+    lanes_t = _pow2ceil(max(len(short_starts), 1), 8)
+    rows = np.zeros((lanes_f,), np.int32)
+    rows[: len(full_rows)] = full_rows
+    ts = np.zeros((lanes_t,), np.int32)
+    tl = np.zeros((lanes_t,), np.int32)
+    ts[: len(short_starts)] = short_starts
+    tl[: len(short_lengths)] = short_lengths
+    on_dev = [torch.from_numpy(a).to(dev.device) for a in (rows, ts, tl)]
+    return sha256_leaves_device(dev, *on_dev, leaf_len=LEAF_SIZE), lanes_f
+
+
+def _assemble_roots(chunks, plan, digests: np.ndarray,
+                    lanes_f: int) -> list[str]:
+    """Blob ids from the fetched [F + T, 8] leaf digests and the plan."""
+    _, _, _, slot, spans = plan
+    flat = digests.view(np.uint32).astype(">u4").tobytes()
+
+    def leaf(is_full: bool, i: int) -> bytes:
+        base = (i if is_full else lanes_f + i) * 32
+        return flat[base: base + 32]
+
+    return [blobid.root_from_leaves(
+        length, [leaf(*slot[first + k]) for k in range(n)])
+        for (first, n), (_, length) in zip(spans, chunks)]
+
+
+def device_span_roots(dev: torch.Tensor,
+                      chunks: list[tuple[int, int]]) -> list[str]:
+    """Blob ids for (start, length) slices of a resident buffer at any
+    offsets: every 4 KiB leaf of every slice is one
+    ``sha256_chunks_device`` lane, and the roots combine on the host.
+    (The reference's ``aligned=True`` form, which no caller uses, is the
+    split-phase leaf dispatch that ``begin_device`` runs directly.)"""
+    leaf_starts: list[int] = []
+    leaf_lengths: list[int] = []
+    spans: list[tuple[int, int]] = []  # (first leaf, count) per slice
+    for start, length in chunks:
+        first = len(leaf_starts)
+        n = blobid.leaf_count(length)
+        for k in range(n):
+            leaf_starts.append(start + k * LEAF_SIZE)
+            leaf_lengths.append(min(LEAF_SIZE, length - k * LEAF_SIZE))
+        spans.append((first, n))
+    leaves = device_leaf_digests(dev, leaf_starts, leaf_lengths)
+    return [blobid.root_from_leaves(length, leaves[first: first + n])
+            for (first, n), (_, length) in zip(spans, chunks)]
 
 
 class PendingSegment:
     """A segment whose device work may still be in flight: ``.end`` =
-    bytes consumed, ``finish()`` -> [(start, length, blob-id-hex)]; the
-    first of them fetches."""
+    bytes consumed, ``finish()`` -> [(start, length, blob-id-hex)].
+
+    Split-phase and legacy segments know their chunk list at once, so
+    ``.chunks``/``.end`` leave the leaf digests in flight; the fused
+    path learns it from its one fetch, so there they force
+    ``finish()``."""
 
     def __init__(self, done):
         self._done = done
+        self._chunks = [(s, l) for s, l, _ in done]
         self._fused = None
-        self._consumed = sum(l for _, l, _ in done)
+        self._inflight = None
 
     @classmethod
     def fused_segment(cls, fsh, dev, length, inflight, eof):
         seg = cls([])
-        seg._done = None
+        seg._done = seg._chunks = None
         seg._fused = (fsh, dev, length, inflight, eof)
         return seg
+
+    @classmethod
+    def split_phase(cls, chunks, plan, inflight):
+        """``inflight`` = (device digests, lanes_f) of ``_dispatch_leaves``."""
+        seg = cls([])
+        seg._done = None
+        seg._chunks = list(chunks)
+        seg._inflight = (plan, inflight)
+        return seg
+
+    @property
+    def chunks(self) -> list[tuple[int, int]]:
+        if self._chunks is None:
+            self.finish()
+        return self._chunks
 
     @property
     def end(self) -> int:
         """One past the last covered byte (0 if nothing was emitted)."""
-        self.finish()
-        return self._consumed
+        if not self.chunks:
+            return 0
+        s, l = self.chunks[-1]
+        return s + l
 
     def finish(self) -> list[tuple[int, int, str]]:
-        if self._done is None:
+        if self._done is not None:
+            return self._done
+        if self._fused is not None:
             fsh, dev, length, inflight, eof = self._fused
             with span("engine.fused_fetch"):
-                chunks, consumed = fsh.finish(dev, length, inflight, eof=eof)
-            self._done = chunks
-            self._consumed = consumed
+                chunks, _ = fsh.finish(dev, length, inflight, eof=eof)
             self._fused = None
-        return self._done
+            self._chunks = [(s, l) for s, l, _ in chunks]
+        else:
+            plan, (digests, lanes_f) = self._inflight
+            with span("engine.leaf_fetch_assemble"):
+                hexes = _assemble_roots(self._chunks, plan,
+                                        digests.cpu().numpy(), lanes_f)
+            self._inflight = None
+            chunks = [(s, l, h) for (s, l), h in zip(self._chunks, hexes)]
+        self._done = chunks
+        return chunks
 
 
 def _spans_page_disjoint(spans: list[tuple[int, int]]) -> bool:
@@ -207,15 +380,13 @@ def hash_spans(buffer, spans: list[tuple[int, int]],
     """Device-batched blob ids for (start, length) spans of one buffer.
 
     Page-aligned, page-disjoint spans take ``span_roots_device``: one
-    pass and one [N, 8] fetch. Other spans are a later slice and raise
-    ``NotImplementedError``."""
+    pass and one [N, 8] fetch. Other spans fall back to the per-leaf
+    gather batch of ``device_span_roots`` (ref chunker.py:527)."""
     dev = resolve_device(device)
     if not spans:
         return []
     if not _spans_page_disjoint(spans):
-        raise NotImplementedError(
-            "hash_spans: unaligned or page-sharing spans are a later "
-            "slice (ROADMAP.md, queue 1)")
+        return device_span_roots(_upload_padded(buffer, dev), spans)
     n_cap = _pow2ceil(len(spans), 128)
     starts = np.zeros((n_cap,), np.int64)
     lengths = np.full((n_cap,), -1, np.int64)  # padding lanes
@@ -458,8 +629,10 @@ def stream_chunk_batches(reader: Callable[[int], bytes],
     host copy is the sub-max_size tail carried between segments.
     ``reader(n)`` returns up to n bytes, b"" at EOF.
 
-    Each segment is one device pass and one small fetch; the buffer
-    advances once that fetch lands. ``readahead`` (default: env
+    Each segment is one device pass; the buffer advances once its chunk
+    list is known (the fused pass's one fetch; on the split-phase path
+    the host walk, with the segment's leaf digests still in flight
+    until the batch is yielded). ``readahead`` (default: env
     VOLSYNC_TPU_READAHEAD, 0 under VOLSYNC_TPU_PIPELINE=0) runs the fill
     that many buffers ahead on a producer thread. The hasher (default
     ``DeviceChunkHasher(params, device)``) is made before the first

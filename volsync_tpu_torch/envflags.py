@@ -1,9 +1,11 @@
 """Env-knob parsing for the port: copies of the knobs this slice reads.
 
 Ports the part of ``volsync_tpu/envflags.py`` the stream engine uses
-(``pipeline_enabled``, ``readahead_segments``) with the same names,
-defaults and falsy-token set, so one environment configures both
-packages alike.
+(``pipeline_enabled``, ``readahead_segments``) and the page-major
+digest-table gate of ``volsync_tpu/ops/segment.py`` (``pagemajor``),
+with the same names, defaults and falsy-token set, so one environment
+configures both packages alike. The reference's ``VOLSYNC_NO_PALLAS``
+has no counterpart: on a CUDA tensor the port always runs its kernels.
 """
 
 from __future__ import annotations
@@ -45,3 +47,11 @@ def readahead_segments() -> int:
     if not pipeline_enabled():
         return 0
     return env_int("VOLSYNC_TPU_READAHEAD", 2, minimum=0)
+
+
+def pagemajor() -> bool:
+    """Opt-in page-major digest-table layout of the fused path
+    (``VOLSYNC_PAGEMAJOR``, ref ``segment._use_pagemajor``): word j of
+    page p at p*8 + j instead of j*n_pages_pad + p. Read once per call
+    by the functions of ``ops/segment.py`` that build a table."""
+    return env_bool("VOLSYNC_PAGEMAJOR")

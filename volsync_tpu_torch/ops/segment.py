@@ -25,10 +25,18 @@ candidate count, leaf count), starts[chunk_cap], lens[chunk_cap],
 roots[chunk_cap*8]; bit-identical to the reference's. The host retries
 with doubled capacities iff real data overflowed them.
 
+The page-digest table is word-major (word j of page p at j*npp + p) by
+default; under ``VOLSYNC_PAGEMAJOR=1`` K1's output passes through the
+K4 ``pagemajor_u32`` kernel (``csrc/transpose.cu``, replaces the
+reference's ``_pallas_pagemajor``, segment.py:267-292) into page-major
+order (p*8 + j). ``chunk_hash_segments``, ``page_digests`` and
+``span_roots_device`` read the gate once per call and pass it down, and
+``_word_index_fn`` is the one index formula every producer, tail
+override, root gather and host decode uses. The packed results do not
+depend on the layout.
+
 Every kernel wrapper here and in ``ops/sha256.py`` runs the kernel on a
-CUDA tensor and its plain PyTorch twin on a CPU tensor. The reference's
-page-major digest layout (K4, ``VOLSYNC_PAGEMAJOR``) is not ported:
-digests are always word-major.
+CUDA tensor and its plain PyTorch twin on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -38,13 +46,18 @@ import ctypes
 import numpy as np
 import torch
 
-from volsync_tpu_torch import resolve_device
+from volsync_tpu_torch import envflags, resolve_device
 from volsync_tpu_torch.obs import record_copy
 from volsync_tpu_torch.ops._build import Kernel, check_cuda
-from volsync_tpu_torch.ops.gearcdc import GearParams, gear_at_aligned
+from volsync_tpu_torch.ops.gearcdc import (
+    GearParams,
+    gear_at_aligned,
+    nonzero_fixed,
+)
 from volsync_tpu_torch.ops.gearcdc import _pow2ceil_int as _pow2ceil
 from volsync_tpu_torch.ops.sha256 import (
     _M,
+    PAGES_THREADS,
     _i32,
     _u32,
     sha256_blocks,
@@ -63,12 +76,11 @@ _DOMAIN_WORD0 = int.from_bytes(b"VMRK", "big")  # "VMRK1" header, word 0
 _DOMAIN_BYTE4 = b"VMRK1"[4]
 _SENTINEL = 2**31 - 2  # compacted-candidate padding, > any position
 
-#: Pages per thread block of K1; on CUDA the page table pads to it.
-_PAGE_BLOCK = 64
-
 TRANSPOSE_U32 = Kernel("transpose_u32", "transpose.cu", "vt_transpose_u32",
                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                         ctypes.c_int])
+PAGEMAJOR_U32 = Kernel("pagemajor_u32", "transpose.cu", "vt_pagemajor_u32",
+                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int])
 FASTCDC_WALK = Kernel("fastcdc_walk", "fastcdc.cu", "vt_fastcdc_walk",
                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4)
 
@@ -86,35 +98,31 @@ def _compact_candidates(mask: torch.Tensor, cand_cap: int,
                         align: int) -> torch.Tensor:
     """[S, R] bool candidate mask -> [S, cand_cap] int64 sorted aligned
     cut positions, padded with ``_SENTINEL`` (the reference's
-    nonzero(size=cand_cap) protocol). Ranks come from a cumsum and the
-    positions scatter into their rank; ranks >= cand_cap and
-    non-candidates land in one extra slot that is dropped."""
-    S, R = mask.shape
-    rank = torch.cumsum(mask, dim=1) - 1
-    slot = torch.where(mask & (rank < cand_cap), rank, cand_cap)
-    pos = torch.arange(R, dtype=torch.int64, device=mask.device) * align \
-        + (align - 1)
-    out = torch.full((S, cand_cap + 1), _SENTINEL, dtype=torch.int64,
-                     device=mask.device)
-    out.scatter_(1, slot, pos.expand(S, R))
-    return out[:, :cand_cap].contiguous()
+    nonzero(size=cand_cap) protocol)."""
+    R = mask.shape[1]
+    ridx = nonzero_fixed(mask, cand_cap, R)
+    return torch.where(ridx < R, ridx * align + (align - 1), _SENTINEL)
 
 
-def _word_index_fn(n_pages_pad: int):
+def _word_index_fn(n_pages_pad: int, pagemajor: bool):
     """THE home of the digest-table index formula (word-major: word j of
-    page p at j*n_pages_pad + p); producers, the tail override, the root
-    gather and the host decode all route through it."""
+    page p at j*n_pages_pad + p; page-major: at p*8 + j); producers, the
+    tail override, the root gather and the host decode all route
+    through it."""
+    if pagemajor:
+        return lambda j, p: p * 8 + j
     return lambda j, p: j * n_pages_pad + p
 
 
 def _apply_tail_overrides(flat: torch.Tensor, n_pages_pad: int,
                           tail_pages: torch.Tensor, tail_digs: torch.Tensor,
-                          has_tail: torch.Tensor) -> torch.Tensor:
+                          has_tail: torch.Tensor,
+                          pagemajor: bool) -> torch.Tensor:
     """Overwrite the page-digest table with per-lane partial tail-leaf
     digests. tail_pages/has_tail: [N]; tail_digs: [N, 8] int32. Lanes
     with has_tail False write one slot past the table, which is
     dropped."""
-    wi = _word_index_fn(n_pages_pad)
+    wi = _word_index_fn(n_pages_pad, pagemajor)
     j8 = torch.arange(8, dtype=torch.int64, device=flat.device)[None, :]
     idx = torch.where(has_tail[:, None], wi(j8, tail_pages[:, None]),
                       8 * n_pages_pad)
@@ -243,8 +251,8 @@ def _n_pages_pad(F: int, device: torch.device) -> int:
     table must index it with the same ``n_pages_pad``."""
     if device.type == "cpu":
         return F
-    return max(_PAGE_BLOCK, (F + _PAGE_BLOCK - 1) // _PAGE_BLOCK
-               * _PAGE_BLOCK)
+    return max(PAGES_THREADS, (F + PAGES_THREADS - 1) // PAGES_THREADS
+               * PAGES_THREADS)
 
 
 def _transpose_plain(x: torch.Tensor) -> torch.Tensor:
@@ -264,17 +272,41 @@ def transpose_u32(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _page_digests_flat(data: torch.Tensor, n_pages_pad: int) -> torch.Tensor:
+def _pagemajor_plain(x: torch.Tensor) -> torch.Tensor:
+    """Twin of K4."""
+    return x.t().contiguous().view(-1)
+
+
+def pagemajor_u32(x: torch.Tensor) -> torch.Tensor:
+    """Word-major digest table [8, npp] -> page-major [npp * 8] (word j
+    of page p at p*8 + j). CUDA: the K4 kernel; CPU: its twin."""
+    if x.device.type == "cpu":
+        return _pagemajor_plain(x)
+    check_cuda("pagemajor_u32", x, torch.int32, 2)
+    if x.shape[0] != 8:
+        raise ValueError("pagemajor_u32: expected an [8, npp] table")
+    npp = x.shape[1]
+    out = torch.empty((npp * 8,), dtype=torch.int32, device=x.device)
+    PAGEMAJOR_U32.launch(x.device, x.data_ptr(), out.data_ptr(), npp)
+    return out
+
+
+def _page_digests_flat(data: torch.Tensor, n_pages_pad: int,
+                       pagemajor: bool = False) -> torch.Tensor:
     """SHA-256 of every 4 KiB page of ``data`` ([P] uint8, P % 4096 ==
     0) -> [8 * n_pages_pad] int32, word-major (word j of page p at
-    j * n_pages_pad + p). Pad pages hash zeros and are never read."""
+    j * n_pages_pad + p), or page-major (p*8 + j) through K4 when
+    ``pagemajor``. Pad pages hash zeros and are never read."""
     F = data.shape[0] // LEAF_SIZE
     # Big-endian words as a byte-reversed view, zero rows to npp.
     x2 = torch.zeros((n_pages_pad, LEAF_SIZE), dtype=torch.uint8,
                      device=data.device)
     x2[:F] = data.view(F, LEAF_SIZE // 4, 4).flip(2).reshape(F, -1)
     xt = transpose_u32(x2.view(torch.int32))  # [1024, n_pages_pad]
-    return sha256_pages(xt)
+    flat = sha256_pages(xt)
+    if pagemajor:
+        return pagemajor_u32(flat.view(8, n_pages_pad))
+    return flat
 
 
 # ---------------------------------------------------------------------------
@@ -291,9 +323,10 @@ def _root_blocks_bound(max_len: int) -> int:
 def _root_digests_loop(flat: torch.Tensor, n_pages_pad: int,
                        page0: torch.Tensor, nleaves: torch.Tensor,
                        lens: torch.Tensor, live: torch.Tensor, *,
-                       nb_max: int) -> torch.Tensor:
-    """Blob ids (repo/blobid.py) from word-major page digests -> [C, 8]
-    int32. page0/nleaves/lens/live: [C] chunk table; ``nb_max`` a static
+                       nb_max: int, pagemajor: bool) -> torch.Tensor:
+    """Blob ids (repo/blobid.py) from a page-digest table (word-major,
+    or page-major when ``pagemajor``) -> [C, 8] int32.
+    page0/nleaves/lens/live: [C] chunk table; ``nb_max`` a static
     bound on any lane's block count.
 
     The digest stream of lane c is D(t) = flat[word_index(t%8, page0[c]
@@ -315,7 +348,7 @@ def _root_digests_loop(flat: torch.Tensor, n_pages_pad: int,
           | (((lens >> 8) & 0xFF) << 8) | ((lens >> 16) & 0xFF))
     w2 = ((lens >> 24) & 0xFF) << 24
 
-    wi = _word_index_fn(n_pages_pad)
+    wi = _word_index_fn(n_pages_pad, pagemajor)
     t = torch.arange(-4, 16 * nb_max - 3, dtype=torch.int64,
                      device=dev)[None, :]  # D index of word q=t+4
     tc = t.clamp(0, n_pages_pad * 8 - 1)
@@ -348,9 +381,11 @@ def chunk_hash_segments(data: torch.Tensor, valid_len, eof, *,
     [S, 4 + chunk_cap*10] int32 packed rows, each decodable with
     ``decode_segment``. Page hashing runs as one K1 batch over all S*P/4096
     pages and root assembly as one S*chunk_cap-lane ``sha256_lanes``
-    launch."""
+    launch. ``VOLSYNC_PAGEMAJOR`` is read once here and picks the digest
+    table's layout for every stage of the call."""
     if align != LEAF_SIZE:
         raise ValueError("the fused path requires page-aligned cuts")
+    pagemajor = envflags.pagemajor()
     S, P = data.shape
     if S * P > _MAX_FLAT_BYTES:
         raise ValueError(f"batched dispatch of {S}x{P} bytes exceeds the "
@@ -380,7 +415,7 @@ def chunk_hash_segments(data: torch.Tensor, valid_len, eof, *,
         valid_len, eof, min_size=min_size, avg_size=avg_size,
         max_size=max_size, chunk_cap=chunk_cap, align=align, n_rows=R)
 
-    digests = _page_digests_flat(flat, npp)
+    digests = _page_digests_flat(flat, npp, pagemajor)
 
     starts64, lens64 = starts.to(torch.int64), lens.to(torch.int64)
     count64 = count.to(torch.int64)
@@ -398,14 +433,14 @@ def chunk_hash_segments(data: torch.Tensor, valid_len, eof, *,
         flat, (tail_page * LEAF_SIZE).clamp(0, S * P - 1),
         torch.where(has_tail, tail_len, 0), max_len=LEAF_SIZE)
     digests = _apply_tail_overrides(digests, npp, tail_page, tail_dig,
-                                    has_tail)
+                                    has_tail, pagemajor)
     nleaves = torch.where(live, (lens64 + (LEAF_SIZE - 1)) // LEAF_SIZE,
                           0)
     page0 = starts64 // LEAF_SIZE + (torch.arange(S, **i64) * F)[:, None]
     roots = _root_digests_loop(
         digests, npp, page0.reshape(-1), nleaves.reshape(-1),
         lens64.reshape(-1), live.reshape(-1),
-        nb_max=_root_blocks_bound(max_size))
+        nb_max=_root_blocks_bound(max_size), pagemajor=pagemajor)
 
     header = torch.stack([count64, consumed.to(torch.int64), nl,
                           nleaves.sum(dim=1)], dim=1)
@@ -433,11 +468,14 @@ def chunk_hash_segment(data: torch.Tensor, valid_len: int, *, min_size: int,
 
 def page_digests(dev: torch.Tensor) -> np.ndarray:
     """SHA-256 of every full 4 KiB page of a resident buffer -> [P/4096,
-    8] uint32 ndarray (one pass, one fetch of 32 bytes per page)."""
+    8] uint32 ndarray (one pass, one fetch of 32 bytes per page). The
+    layout gate is read once, so the table and its decode agree."""
     F = dev.shape[0] // LEAF_SIZE
     npp = _n_pages_pad(F, dev.device)
-    flat = _page_digests_flat(dev, npp).cpu().numpy().view(np.uint32)
-    return flat.reshape(8, npp)[:, :F].T
+    pm = envflags.pagemajor()
+    flat = _page_digests_flat(dev, npp, pm).cpu().numpy().view(np.uint32)
+    j, p = np.meshgrid(np.arange(8), np.arange(F), indexing="xy")
+    return flat[_word_index_fn(npp, pm)(j, p)]  # [F, 8]
 
 
 def span_roots_device(data: torch.Tensor, starts: torch.Tensor,
@@ -451,6 +489,7 @@ def span_roots_device(data: torch.Tensor, starts: torch.Tensor,
     table; engine/chunker._spans_page_disjoint is the gate). ``max_len``
     bounds the span lengths (the root message bound); when omitted it is
     read from ``lens`` (one host sync)."""
+    pagemajor = envflags.pagemajor()
     dev = data.device
     P = data.shape[0]
     F = P // LEAF_SIZE
@@ -462,7 +501,7 @@ def span_roots_device(data: torch.Tensor, starts: torch.Tensor,
     if max_len is None:
         max_len = int(lens_c.max()) if lens_c.numel() else 0
 
-    flat = _page_digests_flat(data, npp)
+    flat = _page_digests_flat(data, npp, pagemajor)
     end = starts + lens_c
     has_tail = live & (lens_c % LEAF_SIZE != 0)
     tail_page = (end - 1).clamp(min=0) // LEAF_SIZE
@@ -470,12 +509,14 @@ def span_roots_device(data: torch.Tensor, starts: torch.Tensor,
     tail_dig = sha256_chunks_device(
         data, (tail_page * LEAF_SIZE).clamp(0, P - 1),
         torch.where(has_tail, tail_len, 0), max_len=LEAF_SIZE)
-    flat = _apply_tail_overrides(flat, npp, tail_page, tail_dig, has_tail)
+    flat = _apply_tail_overrides(flat, npp, tail_page, tail_dig, has_tail,
+                                 pagemajor)
     nleaves = torch.where(
         live, ((lens_c + LEAF_SIZE - 1) // LEAF_SIZE).clamp(min=1), 0)
     return _root_digests_loop(flat, npp, starts // LEAF_SIZE, nleaves,
                               lens_c, live,
-                              nb_max=_root_blocks_bound(max_len))
+                              nb_max=_root_blocks_bound(max_len),
+                              pagemajor=pagemajor)
 
 
 def decode_segment(packed, chunk_cap: int

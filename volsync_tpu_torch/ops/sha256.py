@@ -1,6 +1,7 @@
-"""Batched SHA-256 on the card: message lanes and 4 KiB pages.
+"""Batched SHA-256 on the card: message lanes, 4 KiB pages and 4 KiB
+leaves at 64-byte-aligned offsets.
 
-Ports ``volsync_tpu/ops/sha256.py``. Two kernels written for Hopper
+Ports ``volsync_tpu/ops/sha256.py``. Three kernels written for Hopper
 (``csrc/sha256.cu``) carry the device work:
 
 - ``sha256_blocks`` launches ``sha256_lanes`` (replaces the XLA scan
@@ -8,10 +9,18 @@ Ports ``volsync_tpu/ops/sha256.py``. Two kernels written for Hopper
   compressions over pre-padded big-endian blocks;
 - ``sha256_pages`` launches K1 (replaces the Pallas
   ``_sha256_leaf_kernel``, sha256.py:367-395): SHA-256 of every page of
-  a transposed page-word table, word-major output.
+  a transposed page-word table, word-major output. Its ``threads``
+  argument is the launch configuration that ``chip_smoke.py`` sweeps in
+  place of the lane-tile sweep of ``scripts/tune_sha.py`` (K5);
+- ``sha256_rows`` launches K2 (replaces ``_sha256_rows_pallas``,
+  sha256.py:398-422): SHA-256 of full leaves read straight from the raw
+  segment bytes at ``64*rows0[b]``; ``sha256_leaves_device`` (ref
+  :260-286) pairs it with ``sha256_chunks_device`` for the short tail
+  leaves, the split-phase engine's one leaf dispatch.
 
 On a CPU tensor each runs its plain PyTorch twin (``_sha256_lanes_plain``,
-``_sha256_pages_plain``); on a CUDA tensor the kernel, always.
+``_sha256_pages_plain``, ``_sha256_rows`` over ``pack_words``); on a
+CUDA tensor the kernel, always.
 
 Word convention: 32-bit message and digest words travel as int32
 tensors holding the u32 bit pattern (``_i32``/``_u32`` convert). The
@@ -67,10 +76,18 @@ _H0 = np.array(
 _K_INT = [int(k) for k in _K]
 
 SHA256_PAGES = Kernel("sha256_pages", "sha256.cu", "vt_sha256_pages",
-                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int])
+                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int])
 SHA256_LANES = Kernel("sha256_lanes", "sha256.cu", "vt_sha256_lanes",
                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int])
+SHA256_ROWS = Kernel("sha256_rows", "sha256.cu", "vt_sha256_rows",
+                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int])
+
+#: K1's threads per block as the library launches it; the card's page
+#: table pads to a multiple of it (ops/segment.py _n_pages_pad).
+PAGES_THREADS = 64
 
 
 def _u32(x: torch.Tensor) -> torch.Tensor:
@@ -171,21 +188,27 @@ def _sha256_pages_plain(xt: torch.Tensor) -> torch.Tensor:
     return _i32(torch.stack(state, dim=0)).reshape(-1)
 
 
-def sha256_pages(xt: torch.Tensor) -> torch.Tensor:
+def sha256_pages(xt: torch.Tensor, *,
+                 threads: int = PAGES_THREADS) -> torch.Tensor:
     """SHA-256 of every 4 KiB page of a transposed page-word table.
 
     xt: [1024, npp] int32, word w of page p at ``xt[w, p]``;
     returns [8 * npp] int32 digests, word j of page p at ``j*npp + p``
-    (the TPU kernel's word-major layout). CUDA: K1; CPU: its plain
-    twin."""
+    (the TPU kernel's word-major layout). ``threads`` per block (a
+    multiple of 32, at most 1024) is K1's launch configuration; it does
+    not change the result. CUDA: K1; CPU: its plain twin."""
     if xt.device.type == "cpu":
         return _sha256_pages_plain(xt)
     check_cuda("sha256_pages", xt, torch.int32, 2)
     if xt.shape[0] != 1024:
         raise ValueError("sha256_pages: expected [1024, npp] page words")
+    if threads % 32 or not 32 <= threads <= 1024:
+        raise ValueError(f"sha256_pages: threads {threads} is not a "
+                         f"multiple of 32 in [32, 1024]")
     npp = xt.shape[1]
     out = torch.empty((8 * npp,), dtype=torch.int32, device=xt.device)
-    SHA256_PAGES.launch(xt.device, xt.data_ptr(), out.data_ptr(), npp)
+    SHA256_PAGES.launch(xt.device, xt.data_ptr(), out.data_ptr(), npp,
+                        threads)
     return out
 
 
@@ -278,6 +301,47 @@ def _sha256_rows(wb: torch.Tensor, rows0: torch.Tensor,
     pad = [zero + 0x80000000] + [zero] * 13 + [zero + (bits >> 32),
                                                zero + (bits & _M)]
     return _i32(torch.stack(_compress(state, pad), dim=1))
+
+
+def sha256_rows(data: torch.Tensor, rows0: torch.Tensor, *,
+                leaf_len: int = 4096) -> torch.Tensor:
+    """SHA-256 of full ``leaf_len``-byte leaves of a resident buffer:
+    data [L] uint8 (L % 64 == 0); rows0 [B] int32, leaf b starts at byte
+    ``64 * rows0[b]`` and lies inside ``data`` -> [B, 8] int32 digests.
+    CUDA: the K2 kernel, which reads the raw bytes itself (no packed
+    copy of the buffer); CPU: its twin ``_sha256_rows(pack_words(data),
+    rows0, leaf_len)``."""
+    if leaf_len % 64 or leaf_len <= 0:
+        raise ValueError("sha256_rows: leaf_len must be a positive "
+                         "multiple of 64")
+    if data.device.type == "cpu":
+        return _sha256_rows(pack_words(data), rows0, leaf_len)
+    check_cuda("sha256_rows", data, torch.uint8, 1)
+    check_cuda("sha256_rows", rows0, torch.int32, 1)
+    L = data.shape[0]
+    if L % 64 or L < leaf_len or data.data_ptr() % 16:
+        raise ValueError("sha256_rows: need a 16-byte aligned buffer of "
+                         "whole 64-byte rows holding at least one leaf")
+    B = rows0.shape[0]
+    out = torch.empty((B, 8), dtype=torch.int32, device=data.device)
+    SHA256_ROWS.launch(data.device, data.data_ptr(), rows0.data_ptr(),
+                       out.data_ptr(), B, L // 64, leaf_len // 64)
+    return out
+
+
+def sha256_leaves_device(data: torch.Tensor, rows0: torch.Tensor,
+                         tail_starts: torch.Tensor,
+                         tail_lengths: torch.Tensor, *,
+                         leaf_len: int = 4096) -> torch.Tensor:
+    """One dispatch for a segment's Merkle leaves (aligned cuts): full
+    leaves at 64-byte rows ``rows0`` [F] through ``sha256_rows``, short
+    tail leaves (< leaf_len) at ``tail_starts``/``tail_lengths`` [T]
+    through ``sha256_chunks_device`` -> [F + T, 8] int32 (full digests,
+    then tail digests), fetched by the host in one copy."""
+    full = sha256_rows(data, rows0, leaf_len=leaf_len)
+    tail = sha256_chunks_device(data, tail_starts, tail_lengths,
+                                max_len=leaf_len)
+    return torch.cat([full, tail], dim=0)
 
 
 def sha256_chunks_device(data: torch.Tensor, starts: torch.Tensor,
