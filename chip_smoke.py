@@ -10,18 +10,22 @@ a mismatch:
 
 1. build: compiles every CUDA source of the port (one nvcc per source,
    started together) and prints nvcc's register report, the
-   instructions of one K1 message block as compiled (``cuobjdump
-   -sass``), the card's name and power limit, and the torch and CUDA
-   versions;
+   instructions of one K1 and one merkle_roots message block as
+   compiled (``cuobjdump -sass``), the card's name and power limit, and
+   the torch and CUDA versions;
 2. kernels: runs one real 48 MiB segment through ``chunk_hash_segment``
    while recording each kernel wrapper's inputs, then holds every
-   kernel (K3 transpose_u32, K1 sha256_pages, sha256_lanes,
-   fastcdc_walk) against its plain PyTorch twin on those inputs with
-   ``torch.equal`` (K1 also against hashlib per page, K3 also on
-   [8192, 1024] and on a ragged shape) and times kernel, twin and, for
-   K3, the one PyTorch call computing the same function. Then K5: K1 at
-   32/64/128/256 threads per block on that segment's page table, each
-   equal to the twin and timed; K4: the same segment under
+   kernel of that pass (K1 sha256_pages, fastcdc_walk, the tail
+   sha256_lanes, merkle_roots) against its plain PyTorch twin on those
+   inputs with ``torch.equal`` (K1 also against hashlib per page) and
+   times kernel and twin; logs the root launch's longest lane in
+   blocks and times ``merkle_roots`` on one 1,025-block lane alone (the
+   per-block chain latency behind the chain bounds). K3 transpose_u32,
+   off the fused path, is held and timed on [12,288, 1,024] (the
+   segment's page-word table) and a ragged shape, beside the one
+   PyTorch call computing the same function. Then K5: K1 at
+   32/64/128/256 threads per block on that segment's bytes, each equal
+   to hashlib per page and timed; K4: the same segment under
    ``VOLSYNC_PAGEMAJOR=1``, whose ``pagemajor_u32`` launch equals its
    twin and whose packed result equals the word-major one; K2: a stream
    segment (48 MiB buffer, non-eof) through
@@ -102,6 +106,9 @@ INT32_ALU_OPS_PER_S = 132 * 64 * 1.98e9
 # main() prints the compiled K1 block's instruction classes beside this.
 SHA_BLOCK_ALU_OPS = 64 * 10 + 48 * 8
 SHA_PAD_BLOCK_ALU_OPS = 64 * 10
+#: merkle_roots' chain runs the rounds alone (its schedules are built a
+#: tile at a time, one block a thread), so this is its per-block work.
+SHA_ROUNDS_ALU_OPS = 64 * 10
 
 REPLACES = {
     "transpose_u32": "volsync_tpu/ops/segment.py:248",
@@ -111,6 +118,7 @@ REPLACES = {
     "sha256_rows": "volsync_tpu/ops/sha256.py:411",
     "pagemajor_u32": "volsync_tpu/ops/segment.py:282",
     "sha256_pages_sweep": "scripts/tune_sha.py:72",
+    "merkle_roots": "volsync_tpu/ops/segment.py:367",
 }
 SOURCES = {
     "transpose_u32": "volsync_tpu_torch/csrc/transpose.cu",
@@ -120,12 +128,13 @@ SOURCES = {
     "sha256_rows": "volsync_tpu_torch/csrc/sha256.cu",
     "pagemajor_u32": "volsync_tpu_torch/csrc/transpose.cu",
     "sha256_pages_sweep": "volsync_tpu_torch/csrc/sha256.cu",
+    "merkle_roots": "volsync_tpu_torch/csrc/merkle.cu",
 }
 #: K1 block sizes of the K5 sweep (the library launches 64).
 SWEEP_THREADS = (32, 64, 128, 256)
 #: Kernel launches per device pass of each engine's stream.
-FUSED_PER_PASS = {"transpose_u32": 1, "sha256_pages": 1, "fastcdc_walk": 1,
-                  "sha256_lanes": 2}
+FUSED_PER_PASS = {"sha256_pages": 1, "fastcdc_walk": 1, "sha256_lanes": 1,
+                  "merkle_roots": 1}
 SPLIT_PER_PASS = {"sha256_rows": 1, "sha256_lanes": 1}
 LEGACY_PER_PASS = {"sha256_lanes": 1}
 PAGEMAJOR_PER_PASS = {**FUSED_PER_PASS, "pagemajor_u32": 1}
@@ -314,7 +323,7 @@ def capture_calls(seg, sha, run) -> list:
                        "sha256_pages": recorder("sha256_pages"),
                        "fastcdc_walk": recorder("fastcdc_walk"),
                        "pagemajor_u32": recorder("pagemajor_u32"),
-                       "sha256_blocks": recorder("sha256_lanes")}), \
+                       "_root_digests_loop": recorder("merkle_roots")}), \
             patched(sha, {"sha256_blocks": recorder("sha256_lanes"),
                           "sha256_rows": recorder("sha256_rows")}):
         run()
@@ -339,41 +348,47 @@ def pagemajor_env(on: bool = True):
 
 
 #: Device stages of ``chunk_hash_segments``, each the segment-module
-#: functions it is timed over; "pages.K3", "pages.K1" and "roots.lanes"
-#: are the kernels inside "pages" and "roots".
+#: functions it is timed over; "pages.K1" and "roots.merkle" are the
+#: kernels inside "pages" and "roots".
 STAGES = {
     "gear": ("gear_at_aligned", "_compact_candidates"),
     "walk": ("_select_boundaries_device",),
     "pages": ("_page_digests_flat",),
-    "pages.K3": ("transpose_u32",),
     "pages.K1": ("sha256_pages",),
     "roots": ("sha256_chunks_device", "_apply_tail_overrides",
               "_root_digests_loop"),
-    "roots.lanes": ("sha256_blocks",),
+    "roots.merkle": ("_root_digests_loop",),
 }
 
 
 def stage_probes(seg, timer: "StageTimer"):
     """Context in which every function of ``STAGES`` runs inside
-    ``timer(stage)``."""
-    def probe(stage):
+    ``timer(stage)`` for each stage that lists it."""
+    stages = defaultdict(list)
+    for stage, fns in STAGES.items():
+        for fn in fns:
+            stages[fn].append(stage)
+
+    def probe(names):
         def make(fn):
             def wrapper(*args, **kwargs):
-                with timer(stage):
+                with contextlib.ExitStack() as stack:
+                    for name in names:
+                        stack.enter_context(timer(name))
                     return fn(*args, **kwargs)
             return wrapper
         return make
 
-    return patched(seg, {fn: probe(stage) for stage, fns in STAGES.items()
-                         for fn in fns})
+    return patched(seg, {fn: probe(names) for fn, names in stages.items()})
 
 
-def sass_block_counts(sass: str, kernel: str, loads: int) -> dict | None:
+def sass_block_counts(sass: str, kernel: str, loads: int,
+                      load_op: str = "LDGSTS") -> dict | None:
     """Instructions of one message block of ``kernel`` in ``cuobjdump
     -sass`` text, by class: the body of the kernel's block loop (the
-    backward branch whose span holds the most global loads) divided by
-    the blocks it covers (``loads`` global loads each). None when no
-    such loop is found."""
+    shortest backward branch whose span holds at least ``loads``
+    ``load_op`` instructions) divided by the blocks it covers
+    (``loads`` each). None when no such loop is found."""
     fn = re.search(rf"Function : \S*{kernel}\S*\n(.*?)(?=Function : |\Z)",
                    sass, re.S)
     if fn is None:
@@ -386,35 +401,46 @@ def sass_block_counts(sass: str, kernel: str, loads: int) -> dict | None:
         tgt = re.match(r"0x([0-9a-f]+)", rest.strip())
         if op.startswith("BRA") and tgt and int(tgt.group(1), 16) < addr:
             lo = int(tgt.group(1), 16)
-            loops.append([o for a, o, _ in ins if lo <= a <= addr])
-    n_ldg = [sum(o.startswith("LDG") for o in body) for body in loops]
-    if not loops or max(n_ldg) < loads:
+            body = [o for a, o, _ in ins if lo <= a <= addr]
+            n_ld = sum(o.split(".")[0] == load_op for o in body)
+            if n_ld >= loads:
+                loops.append((len(body), n_ld, body))
+    if not loops:
         return None
-    body = loops[n_ldg.index(max(n_ldg))]
+    _, n_ld, body = min(loops, key=lambda x: x[0])
     classes = {"LOP3/SHF": ("LOP3", "LOP", "SHF", "PRMT"),
                "IADD3": ("IADD3", "IADD"), "IMAD": ("IMAD",),
-               "LDG": ("LDG",)}
+               load_op: (load_op,)}
     out = dict.fromkeys([*classes, "other"], 0)
     for op in body:
         base = op.split(".")[0]
         out[next((k for k, v in classes.items() if base in v), "other")] += 1
-    nblk = max(n_ldg) // loads
+    nblk = n_ld // loads
     return {k: v / nblk for k, v in out.items()}
 
 
-def k1_sass_block() -> dict | None:
-    """``sass_block_counts`` of K1 (16 page-word loads a block) in the
-    built library; None when the toolkit has no cuobjdump."""
+def sass_blocks() -> dict:
+    """``sass_block_counts`` of K1 (4 16-byte cp.async a block: a
+    thread copies 64 bytes of its block's pages per message block) and
+    of merkle_roots' chain (64 shared K+W reads a block) in the built
+    libraries; empty when the toolkit has no cuobjdump."""
     from volsync_tpu_torch.ops import _build
 
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     if not tool.exists():
-        return None
-    sass = subprocess.run([str(tool), "-sass",
-                           str(_build.library_path("sha256.cu"))],
-                          capture_output=True, text=True, timeout=120,
-                          check=True).stdout
-    return sass_block_counts(sass, "sha256_pages_kernel", 16)
+        return {}
+
+    def dump(src):
+        return subprocess.run([str(tool), "-sass",
+                               str(_build.library_path(src))],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+
+    return {"K1": sass_block_counts(dump("sha256.cu"),
+                                    "sha256_pages_kernel", 4),
+            "merkle_roots": sass_block_counts(dump("merkle.cu"),
+                                              "merkle_roots_kernel", 64,
+                                              "LDS")}
 
 
 def as_list(x):
@@ -441,14 +467,16 @@ def kernel_fns(seg, sha) -> tuple:
               "fastcdc_walk": seg.fastcdc_walk,
               "sha256_lanes": sha.sha256_blocks,
               "sha256_rows": sha.sha256_rows,
-              "pagemajor_u32": seg.pagemajor_u32}
+              "pagemajor_u32": seg.pagemajor_u32,
+              "merkle_roots": seg._root_digests_loop}
     plain = {"transpose_u32": seg._transpose_plain,
              "sha256_pages": sha._sha256_pages_plain,
              "fastcdc_walk": seg._fastcdc_walk_plain,
              "sha256_lanes": sha._sha256_lanes_plain,
              "sha256_rows": lambda data, rows0, leaf_len=4096:
                  sha._sha256_rows(sha.pack_words(data), rows0, leaf_len),
-             "pagemajor_u32": seg._pagemajor_plain}
+             "pagemajor_u32": seg._pagemajor_plain,
+             "merkle_roots": seg._root_digests_plain}
     return kernel, plain
 
 
@@ -490,8 +518,41 @@ def sha_bound(data_blocks: int, pad_blocks: int, nbytes: int) -> tuple:
             "operations" if t_ops > t_bytes else "bytes")
 
 
-FUSED_CALLS = ["transpose_u32", "sha256_pages", "fastcdc_walk",
-               "sha256_lanes", "sha256_lanes"]
+FUSED_CALLS = ["sha256_pages", "fastcdc_walk", "sha256_lanes",
+               "merkle_roots"]
+
+# One SM sub-partition (scheduler) issues a warp's ALU instruction over
+# 2 cycles (16 lanes), so a warp alone on its scheduler runs at most 16
+# ALU lanes a cycle.
+CLOCK_HZ = 1.98e9
+
+
+def page_table(host: np.ndarray, npp: int) -> np.ndarray:
+    """hashlib's SHA-256 of every page of ``host`` and of zero pages up
+    to ``npp``, as the word-major [8, npp] u32 table K1 writes."""
+    F = host.shape[0] // 4096
+    raw = b"".join(hashlib.sha256(host[p * 4096:(p + 1) * 4096]).digest()
+                   for p in range(F))
+    raw += hashlib.sha256(bytes(4096)).digest() * (npp - F)
+    return np.frombuffer(raw, ">u4").reshape(npp, 8).T.astype(np.uint32)
+
+
+def k1_warp_floor_ms(npp: int, threads: int) -> float:
+    """K1's per-warp floor: the blocks spread over the 132 SMs, an SM's
+    warps over its 4 schedulers, and each scheduler's warps issue their
+    64 data blocks and one pad block of ALU instructions (65 x 1,024 +
+    640 for a page) at 16 lanes a cycle, one after another."""
+    blocks_per_sm = -(-(-(-npp // threads)) // 132)
+    per_sched = -(-blocks_per_sm * (threads // 32) // 4)
+    cycles = per_sched * (64 * SHA_BLOCK_ALU_OPS + SHA_PAD_BLOCK_ALU_OPS) * 2
+    return cycles / CLOCK_HZ * 1e3
+
+
+def root_lane_blocks(torch, nleaves, live, nb_max: int):
+    """Blocks each lane of a root launch runs ([C] int64), as the kernel
+    and the reference count them."""
+    nb = (32 * nleaves + 13 + 9 + 63) // 64
+    return nb.clamp(max=nb_max) * live.any()
 
 
 def kernel_phase(torch, stream, p, seg_bytes: int, p64) -> dict:
@@ -514,8 +575,11 @@ def kernel_phase(torch, stream, p, seg_bytes: int, p64) -> dict:
     expect_calls("fused segment", calls, FUSED_CALLS)
 
     fns = kernel_fns(seg, sha)
+    F = seg_bytes // 4096
+    # K3 left the fused path: it is held on the segment's page-word table
+    # shape, which it transposed there, and on a ragged shape.
     extra = [("transpose_u32", [torch.randint(
-        -2**31, 2**31 - 1, (8192, 1024), dtype=torch.int32,
+        -2**31, 2**31 - 1, (F, 1024), dtype=torch.int32,
         device=DEVICE)], {}),
         ("transpose_u32", [torch.randint(
             -2**31, 2**31 - 1, (1000, 77), dtype=torch.int32,
@@ -524,27 +588,25 @@ def kernel_phase(torch, stream, p, seg_bytes: int, p64) -> dict:
                                  "plain_ms": [], "bound": [],
                                  "bound_by": "", "lib": []})
     k1 = None
-    for i, (name, args, kwargs) in enumerate(calls + extra):
-        main_path = i < len(calls)
+    for name, args, kwargs in calls + extra:
         out_k, out_p, err, plain_s = against_twin(torch, fns, name, args,
                                                   kwargs)
         st = stats[name]
         st["err"] = max(st["err"], err)
-        if name == "sha256_pages":
-            k1 = (args[0], out_p)
-            npp = args[0].shape[1]
-            F = seg_bytes // 4096
-            dig = out_k.cpu().numpy().view(np.uint32).reshape(8, npp)
-            for pg in range(F):
-                want_d = hashlib.sha256(
-                    host[pg * 4096: (pg + 1) * 4096]).digest()
-                if dig[:, pg].astype(">u4").tobytes() != want_d:
-                    raise AssertionError(f"K1 page {pg} != hashlib")
-            log(f"K1 sha256_pages: {F} pages equal hashlib and the twin")
-        if not main_path:
+        if name == "transpose_u32" and args[0].shape[1] != 1024:
             log(f"K3 transpose_u32 {tuple(args[0].shape)}: equals twin")
             continue
-        reps = {"sha256_lanes": 5, "fastcdc_walk": 20}.get(name, 20)
+        if name == "sha256_pages":
+            npp = args[1]
+            want = page_table(host, npp)
+            if not np.array_equal(
+                    out_k.cpu().numpy().view(np.uint32).reshape(8, npp),
+                    want):
+                raise AssertionError("K1 differs from hashlib")
+            k1 = (args[0], npp, want)
+            log(f"K1 sha256_pages: {F} pages (of {npp}) equal hashlib and "
+                f"the twin")
+        reps = {"merkle_roots": 10}.get(name, 20)
         st["ms"].append(time_ms(
             torch, lambda: fns[0][name](*args, **kwargs), reps))
         st["eager_ms"].append(time_ms(
@@ -557,18 +619,27 @@ def kernel_phase(torch, stream, p, seg_bytes: int, p64) -> dict:
             st["bound_by"] = "bytes"
             st["lib"].append(time_ms(torch, lambda: x.t().contiguous(), 20))
         elif name == "sha256_pages":
-            npp = args[0].shape[1]
             bound, st["bound_by"] = sha_bound(64 * npp, npp,
-                                              npp * (4096 + 32))
+                                              F * 4096 + npp * 32)
             st["bound"].append(bound)
+            st["warp_floor_ms"] = k1_warp_floor_ms(npp, sha.PAGES_THREADS)
+            retired_pages_ms = retired_page_staging_ms(torch, seg, args[0],
+                                                       npp)
+            log(f"K1: per-warp floor {st['warp_floor_ms']:.4f} ms; the "
+                f"staging it retired (zeros, byte-flip copy, K3) "
+                f"{retired_pages_ms:.4f} ms on the same segment")
         elif name == "sha256_lanes":
             blocks, nblocks = args
             nb = int(nblocks.clamp(min=0).sum())
             bound, st["bound_by"] = sha_bound(
                 nb, 0, nb * 64 + blocks.shape[0] * 36)
             st["bound"].append(bound)
-            log(f"sha256_lanes: {blocks.shape[0]} lanes, {nb} blocks, "
-                f"kernel {st['ms'][-1]:.4f} ms, twin {plain_s*1e3:.1f} ms")
+            st["longest"] = int(nblocks.clamp(min=0, max=blocks.shape[1])
+                                .max())
+            log(f"sha256_lanes (tail): {blocks.shape[0]} lanes, {nb} "
+                f"blocks, longest lane {st['longest']}")
+        elif name == "merkle_roots":
+            root_checks(torch, seg, sha, st, args, kwargs)
         else:  # fastcdc_walk: a few table reads and writes per chunk
             starts, lens, count, consumed = out_k
             n = int(count.sum())
@@ -579,33 +650,91 @@ def kernel_phase(torch, stream, p, seg_bytes: int, p64) -> dict:
         log(f"{name}: equals twin; kernel {st['ms'][-1]:.4f} ms/launch "
             f"(eager {st['eager_ms'][-1]:.4f}), twin {plain_s*1e3:.1f} ms")
 
+    block_ms = stats["merkle_roots"]["chain_block_ms"]
+    tail = stats["sha256_lanes"]
+    tail["chain_ms"] = tail["longest"] * block_ms
     sweep_k1(torch, stats, *k1)
     pagemajor_check(torch, fns, stats, data, valid, kw, packed[0])
     split_segment_check(torch, fns, stats, host, p64)
     return stats
 
 
-def sweep_k1(torch, stats, xt, want) -> None:
+def retired_page_staging_ms(torch, seg, data, npp: int) -> float:
+    """Device time of the page stage's staging before K1 read raw bytes:
+    a zeroed [npp, 4096] buffer, the byte-reversed copy of the segment
+    into it and the K3 transpose."""
+    F = data.shape[0] // 4096
+
+    def staging():
+        x2 = torch.zeros((npp, 4096), dtype=torch.uint8, device=DEVICE)
+        x2[:F] = data.view(F, 1024, 4).flip(2).reshape(F, -1)
+        return seg.transpose_u32(x2.view(torch.int32))
+
+    return time_ms(torch, staging, 20)
+
+
+def root_checks(torch, seg, sha, st, args, kwargs) -> None:
+    """Bound, longest lane and chain bound of the segment's root launch;
+    beside it, in this call, the route it replaced (torch message
+    assembly then ``sha256_lanes``) and the same blocks through
+    ``sha256_lanes`` alone. The chain bound is the longest lane's blocks
+    x one block's dependent latency, measured as ``merkle_roots`` on one
+    1,025-block lane (its message staged through shared memory) over
+    1,025."""
+    flat, npp, page0, nleaves, lens, live = args
+    nb_max = kwargs["nb_max"]
+    lanes = root_lane_blocks(torch, nleaves, live, nb_max)
+    total, longest = int(lanes.sum()), int(lanes.max())
+    C = page0.shape[0]
+    nbytes = int(nleaves.sum()) * 32 + C * (3 * 8 + 1) + C * 32
+    bound, st["bound_by"] = sha_bound(total, 0, nbytes)
+    st["bound"].append(bound)
+
+    one = [flat, npp] + [torch.tensor([v], dtype=torch.int64, device=DEVICE)
+                         for v in (0, 2048, 8 << 20)] + [
+        torch.tensor([True], device=DEVICE)]
+    one_ms = time_ms(torch, lambda: seg._root_digests_loop(*one, **kwargs),
+                     10)
+    st["chain_block_ms"] = one_ms / 1025
+    st["chain_ms"] = longest * st["chain_block_ms"]
+    blocks, nblocks = seg._root_message_blocks(*args, **kwargs)
+    lanes_ms = time_ms(torch, lambda: sha.sha256_blocks(blocks, nblocks), 5)
+    old_ms = time_ms(torch, lambda: sha.sha256_blocks(
+        *seg._root_message_blocks(*args, **kwargs)), 5)
+    st["retired"] = {"sha256_lanes_ms": lanes_ms,
+                     "assembly_and_lanes_ms": old_ms}
+    log(f"merkle_roots: {C} lanes, {int(live.sum())} live, {total} blocks, "
+        f"longest lane {longest} blocks; one 1,025-block lane "
+        f"{one_ms:.4f} ms = {st['chain_block_ms'] * 1e3:.4f} us a block, "
+        f"chain bound {st['chain_ms']:.4f} ms; the route it replaced, same "
+        f"call: sha256_lanes {lanes_ms:.4f} ms, assembly + sha256_lanes "
+        f"{old_ms:.4f} ms")
+
+
+def sweep_k1(torch, stats, data, npp, want) -> None:
     """K5: K1 at each of ``SWEEP_THREADS`` threads per block on the
-    segment's page table, each equal to the twin's digests, timed."""
+    segment's bytes, each equal to hashlib on every page, timed."""
     from volsync_tpu_torch.ops import sha256 as sha
 
     times = {}
     for t in SWEEP_THREADS:
         def run(t=t):
-            return sha.sha256_pages(xt, threads=t)
-        if not torch.equal(run(), want):
-            raise AssertionError(f"K1 at {t} threads differs from its twin")
+            return sha.sha256_pages(data, npp, threads=t)
+        got = run().cpu().numpy().view(np.uint32).reshape(8, npp)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"K1 at {t} threads differs from hashlib")
         times[t] = time_ms(torch, run, 20)
     k1 = stats["sha256_pages"]
     stats["sha256_pages_sweep"].update(
         ms=[min(times.values())], eager_ms=list(k1["eager_ms"]),
         plain_ms=list(k1["plain_ms"]),
         bound=list(k1["bound"]), bound_by=k1["bound_by"],
-        threads_ms={str(t): v for t, v in times.items()})
-    log(f"K5 sweep of K1 ({xt.shape[1]} pages), ms per launch by threads "
-        f"per block: {json.dumps({t: round(v, 4) for t, v in times.items()})}"
-        f"; every launch equals the twin")
+        threads_ms={str(t): v for t, v in times.items()},
+        warp_floor_ms={str(t): k1_warp_floor_ms(npp, t)
+                       for t in SWEEP_THREADS})
+    log(f"K5 sweep of K1 ({npp} pages), ms per launch by threads per "
+        f"block: {json.dumps({t: round(v, 4) for t, v in times.items()})}"
+        f"; every launch equals hashlib on every page")
 
 
 def pagemajor_check(torch, fns, stats, data, valid, kw, packed_wm) -> None:
@@ -847,9 +976,20 @@ def stream_phase(torch, stream, params) -> dict:
     # stay out of the GiB/s above, and this pass's GiB/s shows their cost.
     hasher = DeviceChunkHasher(params, device=DEVICE)
     timer = StageTimer(torch)
-    with stage_probes(seg, timer):
+    longest = []  # each root launch's longest lane, read after the pass
+
+    def root_lanes(fn):
+        def wrapper(flat, npp, page0, nleaves, lens, live, **kw):
+            longest.append(root_lane_blocks(torch, nleaves, live,
+                                            kw["nb_max"]).max())
+            return fn(flat, npp, page0, nleaves, lens, live, **kw)
+        return wrapper
+
+    with stage_probes(seg, timer), \
+            patched(seg, {"_root_digests_loop": root_lanes}):
         staged, _, staged_secs = stream_once(torch, stream, params, hasher)
     stages = timer.totals_ms()
+    longest = [int(x) for x in longest]
     segments = timer.count("walk")  # device passes, retries included
     again, _, again_secs = stream_once(torch, stream, params, hasher)
     if staged != results or again != results:
@@ -860,9 +1000,16 @@ def stream_phase(torch, stream, params) -> dict:
     log(f"stream device ms by stage over {segments} device passes (CUDA "
         f"events, summed): "
         + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    log("stream device ms by stage a pass: " + json.dumps(
+        {k: round(v / max(segments, 1), 4) for k, v in stages.items()}))
+    log(f"root launches' longest lane in blocks over {len(longest)} "
+        f"launches: min {min(longest, default=0)}, median "
+        f"{int(np.median(longest)) if longest else 0}, max "
+        f"{max(longest, default=0)}, sum {sum(longest)}")
     check_oracle("stream", results, stream, params)
     return {"launches": res["launches"], "segments": segments,
-            "views": res["views"], "gibs": res["gibs"], "stages": stages}
+            "views": res["views"], "gibs": res["gibs"], "stages": stages,
+            "longest": longest}
 
 
 def split_stream_phase(torch, stream, params) -> dict:
@@ -953,10 +1100,12 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers",
                                        "spill")):
                 log(f"  {src}: {line.strip()}")
-    sass = k1_sass_block()
-    log("K1 one message block as compiled (cuobjdump -sass, instructions "
-        "by class): " + (json.dumps(sass) if sass else "not available")
-        + f"; least work {SHA_BLOCK_ALU_OPS} LOP3/SHF and 360 adds")
+    for name, counts in sass_blocks().items():
+        log(f"{name} one message block as compiled (cuobjdump -sass, "
+            f"instructions by class): "
+            + (json.dumps(counts) if counts else "not available")
+            + f"; least work {SHA_BLOCK_ALU_OPS} LOP3/SHF and 360 adds, "
+              f"{SHA_ROUNDS_ALU_OPS} LOP3/SHF in the rounds alone")
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} CUDA {torch.version.cuda} "
@@ -978,6 +1127,10 @@ def main() -> int:
     verify_phase(res.pop("views"))
     per_seg = {k: v / res["segments"] for k, v in res["launches"].items()}
     log(f"launches per segment pass: {json.dumps(per_seg)} ({card})")
+    chain = sum(res["longest"]) * stats["merkle_roots"]["chain_block_ms"]
+    log(f"stream roots.merkle {res['stages'].get('roots.merkle', 0):.3f} ms "
+        f"over {res['segments']} passes against a summed chain bound of "
+        f"{chain:.3f} ms ({card})")
     del stream
 
     split = split_stream_phase(
@@ -1000,7 +1153,7 @@ def main() -> int:
     kernels = []
     for name in ("transpose_u32", "sha256_pages", "sha256_lanes",
                  "fastcdc_walk", "sha256_rows", "pagemajor_u32",
-                 "sha256_pages_sweep"):
+                 "sha256_pages_sweep", "merkle_roots"):
         st = stats[name]
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -1014,8 +1167,10 @@ def main() -> int:
             "bound_by": st["bound_by"],
             "library_ms": float(np.mean(st["lib"])) if st["lib"] else None,
         }
-        if "threads_ms" in st:
-            entry["threads_ms"] = st["threads_ms"]
+        for extra in ("threads_ms", "warp_floor_ms", "chain_ms",
+                      "chain_block_ms", "retired"):
+            if extra in st:
+                entry[extra] = st[extra]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

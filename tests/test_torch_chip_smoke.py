@@ -62,10 +62,11 @@ def test_capture_calls_records_every_kernel_wrapper(rng):
         data, 60_000, min_size=p.min_size, avg_size=p.avg_size,
         max_size=p.max_size, seed=p.seed, mask_s=p.mask_s, mask_l=p.mask_l,
         align=p.align, eof=True, cand_cap=cc, chunk_cap=kc))
-    assert sorted(n for n, _, _ in calls) == sorted(
-        ["transpose_u32", "sha256_pages", "fastcdc_walk", "sha256_lanes",
-         "sha256_lanes"])
-    assert seg.sha256_blocks is sha.sha256_blocks  # wrappers restored
+    assert sorted(n for n, _, _ in calls) == sorted(chip_smoke.FUSED_CALLS)
+    assert sorted(chip_smoke.FUSED_CALLS) == sorted(
+        ["sha256_pages", "fastcdc_walk", "sha256_lanes", "merkle_roots"])
+    assert seg._root_digests_loop is chip_smoke.kernel_fns(seg, sha)[0][
+        "merkle_roots"]  # wrappers restored
 
 
 def test_stage_probes_restore_the_segment_module():
@@ -81,7 +82,7 @@ def test_sass_block_counts_reads_the_block_loop():
     ins = ["        /*0000*/                   S2R R0, SR_TID.X ;"]
     addr = 0x10
     loop = addr
-    body = (["LDG.E.CONSTANT R4, desc[UR4][R2.64]"] * 32
+    body = (["LDGSTS.E.BYPASS.128 [R3], desc[UR4][R4.64]"] * 8
             + ["SHF.R.W.U32.HI R5, R4, 0x7, R4"] * 6
             + ["LOP3.LUT R6, R5, R7, R8, 0x96, !PT"] * 4
             + ["IADD3 R9, R6, R9, c[0x3][0x10]"] * 2
@@ -91,13 +92,16 @@ def test_sass_block_counts_reads_the_block_loop():
         addr += 0x10
     ins.append(f"        /*{addr:04x}*/              @P0 BRA 0x{loop:x} ;")
     ins.append(f"        /*{addr + 0x10:04x}*/                   EXIT ;")
-    sass = ("\t\tFunction : _Z19sha256_pages_kernelPKjPji\n"
+    sass = ("\t\tFunction : _Z19sha256_pages_kernelILi4EEvPKhPjii\n"
             + "\n".join(ins) + "\n\t\tFunction : _Z5otherv\n")
-    got = chip_smoke.sass_block_counts(sass, "sha256_pages_kernel", 16)
-    # two blocks in the loop body: every count halves
-    assert got == {"LOP3/SHF": 5.0, "IADD3": 1.0, "IMAD": 0.5, "LDG": 16.0,
-                   "other": 1.0}
-    assert chip_smoke.sass_block_counts(sass, "missing_kernel", 16) is None
+    got = chip_smoke.sass_block_counts(sass, "sha256_pages_kernel", 4)
+    # two blocks in the loop body (4 cp.async each): every count halves
+    assert got == {"LOP3/SHF": 5.0, "IADD3": 1.0, "IMAD": 0.5,
+                   "LDGSTS": 4.0, "other": 1.0}
+    assert chip_smoke.sass_block_counts(sass, "missing_kernel", 4) is None
+    # an LDG-counted loop finds no block loop here
+    assert chip_smoke.sass_block_counts(sass, "sha256_pages_kernel", 4,
+                                        "LDG") is None
 
 
 def test_script_fails_without_cuda_or_package(tmp_path):

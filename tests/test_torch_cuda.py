@@ -45,9 +45,15 @@ def test_transpose_kernel_equals_twin(cuda, rng, shape):
     assert torch.equal(seg.transpose_u32(x), seg._transpose_plain(x))
 
 
+def _pages(rng, F, device):
+    return torch.from_numpy(np.frombuffer(rng.bytes(F * 4096), np.uint8)
+                            .copy()).to(device)
+
+
 def test_sha256_pages_kernel_equals_twin(cuda, rng):
-    xt = _rand_i32(rng, (1024, 128), cuda)
-    assert torch.equal(sha.sha256_pages(xt), sha._sha256_pages_plain(xt))
+    data = _pages(rng, 100, cuda)
+    assert torch.equal(sha.sha256_pages(data, 128),
+                       sha._sha256_pages_plain(data, 128))
 
 
 def test_sha256_lanes_kernel_equals_twin(cuda, rng):
@@ -142,11 +148,67 @@ def test_pagemajor_kernel_equals_twin(cuda, rng, npp):
 
 @pytest.mark.parametrize("threads", [32, 64, 128, 256, 1024])
 def test_sha256_pages_launch_sizes_equal_twin(cuda, rng, threads):
-    xt = _rand_i32(rng, (1024, 200), cuda)  # 200 pages: a ragged grid
-    assert torch.equal(sha.sha256_pages(xt, threads=threads),
-                       sha._sha256_pages_plain(xt))
+    """K1 at every sweep size (and 1,024, its 1-block stages), npp past
+    the buffer on a ragged grid: the twin's digests, hashlib's per page,
+    a zero page's past the buffer."""
+    import hashlib
+
+    F, npp = 200, 333
+    data = _pages(rng, F, cuda)
+    got = sha.sha256_pages(data, npp, threads=threads)
+    assert torch.equal(got, sha._sha256_pages_plain(data, npp))
+    host = data.cpu().numpy()
+    tab = got.cpu().numpy().view(np.uint32).reshape(8, npp)
+    for p in range(npp):
+        want = host[p * 4096:(p + 1) * 4096] if p < F else bytes(4096)
+        assert tab[:, p].astype(">u4").tobytes() == \
+            hashlib.sha256(want).digest()
     with pytest.raises(ValueError):
-        sha.sha256_pages(xt, threads=48)
+        sha.sha256_pages(data, npp, threads=48)
+    with pytest.raises(ValueError):
+        sha.sha256_pages(data[:4000], 1)  # not whole pages
+    with pytest.raises(ValueError):
+        sha.sha256_pages(torch.zeros(8192 + 4, dtype=torch.uint8,
+                                     device=cuda)[4:], 2)  # misaligned
+
+
+@pytest.mark.parametrize("pagemajor", [False, True], ids=["wm", "pm"])
+def test_merkle_roots_zero_segment_equals_twin(cuda, pagemajor,
+                                               monkeypatch):
+    """merkle_roots on a zero-entropy segment of four 8 MiB chunks
+    (1,025-block root messages, 124 dead lanes) == its twin on the card,
+    and the fused segment's ids == blob_id of 8 MiB of zeros."""
+    from volsync_tpu_torch.ops.gearcdc import DEFAULT_PARAMS
+    from volsync_tpu_torch.repo import blobid
+
+    P = 32 << 20
+    data = torch.zeros(P, dtype=torch.uint8, device=cuda)
+    npp = P // 4096
+    flat = seg._page_digests_flat(data, npp, pagemajor)
+    C = 128
+    i64 = dict(dtype=torch.int64, device=cuda)
+    live = torch.arange(C, device=cuda) < 4
+    page0 = torch.where(live, torch.arange(C, **i64) * 2048, 0)
+    nleaves = torch.where(live, 2048, 0).to(torch.int64)
+    lens = torch.where(live, 8 << 20, 0).to(torch.int64)
+    args = (flat, npp, page0, nleaves, lens, live)
+    kw = dict(nb_max=seg._root_blocks_bound(8 << 20), pagemajor=pagemajor)
+    launched = seg.MERKLE_ROOTS.launches
+    got = seg._root_digests_loop(*args, **kw)
+    assert seg.MERKLE_ROOTS.launches == launched + 1
+    assert torch.equal(got, seg._root_digests_plain(*args, **kw))
+
+    if pagemajor:
+        monkeypatch.setenv("VOLSYNC_PAGEMAJOR", "1")
+    p = DEFAULT_PARAMS
+    cc, kc = seg.segment_caps(P, p)
+    packed = seg.chunk_hash_segment(
+        data, P, min_size=p.min_size, avg_size=p.avg_size,
+        max_size=p.max_size, seed=p.seed, mask_s=p.mask_s, mask_l=p.mask_l,
+        align=p.align, eof=True, cand_cap=cc, chunk_cap=kc)
+    chunks, consumed, _, _ = seg.decode_segment(packed, kc)
+    assert consumed == P and len(chunks) == 4
+    assert {h for _, _, h in chunks} == {blobid.blob_id(bytes(8 << 20))}
 
 
 @pytest.mark.parametrize("align", [64, 1])

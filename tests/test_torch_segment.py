@@ -17,6 +17,7 @@ from volsync_tpu.ops.gearcdc import GearParams
 from volsync_tpu.repo import blobid
 from volsync_tpu_torch.engine.chunker import params_from_reference
 from volsync_tpu_torch.ops import segment as tseg
+from volsync_tpu_torch.ops import sha256 as tsha
 from volsync_tpu_torch.ops.gearcdc import select_boundaries
 
 # Parallel test workers share the cores: keep the CPU twins single-threaded.
@@ -294,3 +295,56 @@ def test_span_roots_device_pagemajor_matches_reference(rng, monkeypatch):
     (ref_w, got_w), (ref_p, got_p) = _under_pagemajor(monkeypatch, run)
     np.testing.assert_array_equal(got_p, ref_p)
     np.testing.assert_array_equal(got_p[:3], got_w[:3])
+
+
+def _root_case(rng, npp, lanes, live):
+    """A seeded digest table of ``npp`` pages and a chunk table of
+    (page0, nleaves, len) lanes, as numpy."""
+    flat = rng.randint(0, 2**32, size=(8 * npp,), dtype=np.int64).astype(
+        np.uint32)
+    page0, nleaves, lens = (np.array(c, np.int64) for c in zip(*lanes))
+    return flat, page0, nleaves, lens, np.array(live, bool)
+
+
+def _roots_both(flat, npp, page0, nleaves, lens, live, pagemajor):
+    ref = np.asarray(jseg._root_digests_loop(
+        jnp.asarray(flat), npp, jnp.asarray(page0, jnp.int32),
+        jnp.asarray(nleaves, jnp.int32), jnp.asarray(lens, jnp.int32),
+        jnp.asarray(live), word_index=jseg._word_index_fn(npp, pagemajor)))
+    got = tseg._root_digests_plain(
+        torch.from_numpy(flat.view(np.int32)), npp, torch.from_numpy(page0),
+        torch.from_numpy(nleaves), torch.from_numpy(lens),
+        torch.from_numpy(live),
+        nb_max=tseg._root_blocks_bound(int(lens.max())),
+        pagemajor=pagemajor)
+    return ref, got.numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("pagemajor", [False, True], ids=["wm", "pm"])
+@pytest.mark.parametrize("any_live", [True, False], ids=["mixed", "none"])
+def test_root_digests_plain_matches_reference(rng, pagemajor, any_live):
+    """merkle_roots' twin == the JAX root loop on a seeded table: lanes
+    of 1, 2 and 7 leaves with lengths off the page grid, dead lanes
+    (nleaves 0, any length), and a chunk table with no live lane (every
+    lane stays at H0)."""
+    npp = 20
+    lanes = [(3, 1, 100), (5, 2, 4097), (0, 0, 0), (9, 7, 7 * 4096 - 5),
+             (2, 0, 77)]
+    live = [any_live and n > 0 for _, n, _ in lanes]
+    case = _root_case(rng, npp, lanes, live)
+    ref, got = _roots_both(case[0], npp, *case[1:], pagemajor)
+    np.testing.assert_array_equal(got, ref)
+    if not any_live:
+        np.testing.assert_array_equal(got, np.broadcast_to(tsha._H0,
+                                                           got.shape))
+
+
+def test_root_digests_plain_long_chain_matches_reference(rng):
+    """A 2,048-leaf chunk (an 8 MiB blob: a 1,025-block root message)
+    beside a dead lane, word-major, == the JAX root loop."""
+    npp = 2056
+    lanes = [(5, 2048, 8 << 20), (0, 0, 0)]
+    case = _root_case(rng, npp, lanes, [True, False])
+    ref, got = _roots_both(case[0], npp, *case[1:], False)
+    np.testing.assert_array_equal(got, ref)
+    assert tseg._root_blocks_bound(8 << 20) == 1025

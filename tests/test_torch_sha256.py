@@ -162,7 +162,26 @@ def test_sha256_rows_is_its_twin_on_the_cpu(rng):
             tsha._sha256_rows(tsha.pack_words(data), rows0, leaf_len))
     with pytest.raises(ValueError):
         tsha.sha256_rows(data, rows0, leaf_len=100)
-    xt = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, size=(1024, 3),
-                                      dtype=np.int64).astype(np.int32))
-    assert torch.equal(tsha.sha256_pages(xt, threads=256),
-                       tsha._sha256_pages_plain(xt))
+    assert torch.equal(tsha.sha256_pages(data, 3, threads=256),
+                       tsha._sha256_pages_plain(data, 3))
+    with pytest.raises(ValueError):
+        tsha.sha256_pages(data, 1)  # fewer pages than the buffer holds
+    with pytest.raises(ValueError):
+        tsha.sha256_pages(data[:4000], 1)  # not whole pages
+
+
+@pytest.mark.parametrize("F,npp", [(3, 3), (2, 7)])
+def test_sha256_pages_twin_matches_reference_on_raw_bytes(rng, F, npp):
+    """K1's twin reads raw bytes: its first F pages == the JAX
+    _page_digests_flat (CPU path) word for word, and pad pages hash a
+    zero page (the reference's CPU path hashes them as the last real
+    page, which no reader sees)."""
+    data = rng.randint(0, 256, size=(F * 4096,), dtype=np.uint8)
+    ref = np.asarray(jseg._page_digests_flat(jnp.asarray(data), npp,
+                                             pagemajor=False))
+    got = _u32(tsha.sha256_pages(torch.from_numpy(data), npp))
+    np.testing.assert_array_equal(got.reshape(8, npp)[:, :F],
+                                  ref.reshape(8, npp)[:, :F])
+    zero = hashlib.sha256(bytes(4096)).digest()
+    for p in range(F, npp):
+        assert got.reshape(8, npp)[:, p].astype(">u4").tobytes() == zero

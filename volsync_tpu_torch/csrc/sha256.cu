@@ -5,19 +5,36 @@
 // _sha256_leaf_kernel as launched by ops/segment.py _page_digests_flat:
 // SHA-256 of every 4 KiB page of a segment. The TPU kernel walks a
 // (lane tile, message block) grid in order and carries the state in VMEM
-// scratch across the 64 block steps; here blocks run in no order, so one
-// thread owns one page and loops over its 64 message blocks with the
+// scratch across the 64 block steps, over words that an elementwise pack
+// and the K3 transpose laid out first; here blocks run in no order, so
+// one thread owns one page and loops over its 64 message blocks with the
 // state in registers, then compresses the constant FIPS pad block of a
-// 4096-byte message. Input is the transposed page-word table
-// xt[w * npp + p] (word w of page p, big-endian, from K3), so the 32
-// threads of a warp read 32 consecutive words: coalesced 128-byte loads.
-// Output keeps the TPU kernel's word-major layout out[j * npp + p].
-// Bound: integer logic and shifts (1,024 LOP3/SHF per 64-byte block,
-// 65 blocks a page) on the ALU pipe; the page bytes are read once. The
-// threads per block are a launch argument: scripts/tune_sha.py swept the
-// TPU kernel's lane tile (lane_sub 32/16/8), and its counterpart here is
-// a sweep of K1's block size (chip_smoke.py, 32 to 256 threads); the
-// library launches ops/sha256.py PAGES_THREADS (64) a block.
+// 4096-byte message. It reads the raw segment bytes: no byte-swapped,
+// zero-padded or transposed copy of the segment is made. A block of T
+// threads owns T consecutive pages and keeps a ring of NS stages in
+// dynamic shared memory; stage t holds message block t (64 bytes) of
+// each of its pages, one row a page, rows padded to 80 bytes so that
+// each thread's 16-byte reads of its own row are free of bank conflicts
+// (a quarter-warp's 8 rows start 20 words apart: 8 disjoint bank quads).
+// Stages fill with 16-byte cp.async: 4 consecutive threads copy one
+// page's 64 contiguous bytes, so every 32-byte sector fetched is used,
+// and pages past the segment's end are zero-filled copies (they hash a
+// zero page). While a thread compresses block t, the copies of blocks
+// t+1 .. t+NS-1 are in flight: the memory latency that one warp per
+// scheduler left exposed is off its chain. One barrier a block orders
+// the ring. The loop body is one compression, so the instructions a
+// warp streams through stay about 24 KB. Each thread byte-swaps its
+// words with __byte_perm. Output keeps the TPU kernel's word-major
+// layout out[j * npp + p]. Bound: integer logic and shifts (1,024
+// LOP3/SHF per 64-byte block, 65 blocks a page) on the ALU pipe; with
+// 12,288 pages a scheduler holds at most one warp, whose 65 x 1,024 ALU
+// instructions at 16 lanes a cycle floor it above the whole card's
+// operations bound. The threads per block are a launch argument:
+// scripts/tune_sha.py swept the TPU kernel's lane tile (lane_sub
+// 32/16/8), and its counterpart here is a sweep of K1's block size
+// (chip_smoke.py, 32 to 256 threads); the library launches
+// ops/sha256.py PAGES_THREADS (64) a block. Up to 256 threads the ring
+// has 4 stages (80 KiB at 256), above 2 (160 KiB at 1,024).
 //
 // sha256_rows (K2) replaces volsync_tpu/ops/sha256.py _sha256_rows_pallas
 // (the split-phase engine's full 4 KiB leaves): the TPU route packs the
@@ -35,11 +52,12 @@
 //
 // sha256_lanes replaces the XLA-level sha256_blocks scan
 // (volsync_tpu/ops/sha256.py:144-169) as used by the tail leaf
-// (sha256_chunks_device) and the Merkle root loop
-// (ops/segment.py _root_digests_loop): lane b runs nblocks[b]
-// compressions over blocks[b, 0:nblocks[b], 16]. One thread per lane, so
-// the chained compressions of a long chunk run in one thread while lanes
-// run in parallel; each block is read as four 16-byte loads.
+// (sha256_chunks_device) and the split-phase and legacy engines' leaf
+// lanes: lane b runs nblocks[b] compressions over blocks[b, 0:nblocks[b],
+// 16]. One thread per lane, so the chained compressions of a long
+// message run in one thread while lanes run in parallel; each block is
+// read as four 16-byte loads. The fused path's Merkle roots have their
+// own kernel (merkle.cu).
 #include "common.cuh"
 #include "sha256.cuh"
 
@@ -52,21 +70,73 @@ __device__ __forceinline__ uint32_t vt_bswap32(uint32_t x) {
   return __byte_perm(x, 0, 0x0123);
 }
 
-__global__ void sha256_pages_kernel(const uint32_t* __restrict__ xt,
-                                    uint32_t* __restrict__ out, int npp) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= npp) return;
+// K1's ring: NS stages, each one message block (64 bytes) of every page
+// of the thread block, one 80-byte row a page.
+static constexpr int kPagesPitch = 64 + 16;
+
+template <int NS>
+static size_t pages_ring_bytes(int threads) {
+  return static_cast<size_t>(NS) * threads * kPagesPitch;
+}
+
+// 4 stages up to 256 threads a block, 2 (and a register cap of 64) up
+// to 1,024.
+template <int NS>
+__global__ void __launch_bounds__(NS == 2 ? 1024 : 256)
+sha256_pages_kernel(const uint8_t* __restrict__ data,
+                    uint32_t* __restrict__ out, int n_pages, int npp) {
+  extern __shared__ __align__(16) uint8_t pages_ring[];
+  const int T = blockDim.x;
+  const int first = blockIdx.x * T;
+  const int stage_bytes = T * kPagesPitch;
+
+  // Copies of message block t of every page into slot t % NS: 4
+  // consecutive threads copy one page's 64 bytes, 16 each.
+  auto issue = [&](int t) {
+    uint8_t* slot = pages_ring + (t % NS) * stage_bytes;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int c = r * T + threadIdx.x;
+      const int row = c >> 2;
+      const int piece = c & 3;
+      const int page = first + row;
+      const bool real = page < n_pages;
+      const uint8_t* src =
+          real ? data + static_cast<size_t>(page) * 4096 + t * 64 +
+                     piece * 16
+               : data;
+      vt_cp_async16(slot + row * kPagesPitch + piece * 16, src,
+                    real ? 16 : 0);
+    }
+  };
+
+  for (int t = 0; t < NS - 1; ++t) {
+    issue(t);
+    vt_cp_async_commit();
+  }
   uint32_t s[8];
   sha256_init(s);
-  const uint32_t* col = xt + p;
+#pragma unroll 1
   for (int t = 0; t < 64; ++t) {
+    vt_cp_async_wait<NS - 2>();  // this thread's copies of block t landed
+    __syncthreads();  // everyone's have, and slot (t-1) % NS is read
+    if (t + NS - 1 < 64) issue(t + NS - 1);
+    vt_cp_async_commit();  // one group a block (empty at the end)
+    const uint4* row = reinterpret_cast<const uint4*>(
+        pages_ring + (t % NS) * stage_bytes + threadIdx.x * kPagesPitch);
     uint32_t w[16];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      w[j] = __ldg(col + static_cast<size_t>(t * 16 + j) * npp);
+    for (int q = 0; q < 4; ++q) {
+      const uint4 v = row[q];
+      w[4 * q] = vt_bswap32(v.x);
+      w[4 * q + 1] = vt_bswap32(v.y);
+      w[4 * q + 2] = vt_bswap32(v.z);
+      w[4 * q + 3] = vt_bswap32(v.w);
     }
     sha256_compress(s, w);
   }
+  const int p = first + threadIdx.x;
+  if (p >= npp) return;
   uint32_t pad[16];
 #pragma unroll
   for (int j = 0; j < 16; ++j) pad[j] = 0u;
@@ -142,17 +212,33 @@ __global__ void sha256_lanes_kernel(const uint32_t* __restrict__ blocks,
   for (int j = 0; j < 8; ++j) out[static_cast<size_t>(b) * 8 + j] = s[j];
 }
 
-VT_EXPORT int vt_sha256_pages(const void* xt, void* out, int npp, int threads,
-                              int device, void* stream) {
+template <int NS>
+static int launch_pages(const void* data, void* out, int n_pages, int npp,
+                        int threads, cudaStream_t stream) {
+  const size_t smem = pages_ring_bytes<NS>(threads);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sha256_pages_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int grid = (npp + threads - 1) / threads;
+  sha256_pages_kernel<NS><<<grid, threads, smem, stream>>>(
+      static_cast<const uint8_t*>(data), static_cast<uint32_t*>(out),
+      n_pages, npp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+VT_EXPORT int vt_sha256_pages(const void* data, void* out, int n_pages,
+                              int npp, int threads, int device,
+                              void* stream) {
   int rc = vt_begin(device);
   if (rc != 0) return rc;
-  if (npp > 0) {
-    const int grid = (npp + threads - 1) / threads;
-    sha256_pages_kernel<<<grid, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(xt), static_cast<uint32_t*>(out), npp);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (npp <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return threads <= 256
+             ? launch_pages<4>(data, out, n_pages, npp, threads, st)
+             : launch_pages<2>(data, out, n_pages, npp, threads, st);
 }
 
 VT_EXPORT int vt_sha256_rows(const void* data, const void* rows0, void* out,

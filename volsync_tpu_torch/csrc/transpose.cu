@@ -8,7 +8,10 @@
 // moves four words in and four words out, and both the global read and
 // the global write are row-contiguous across a warp. The ragged edge is
 // masked, so any R and C work. Bound: bytes (each word read once and
-// written once).
+// written once). The fused page stage no longer needs it (K1 reads the
+// raw segment bytes); it stays for the rsync MD5 path, whose reference
+// (volsync_tpu/ops/md5.py md5_contiguous_blocks_device) reuses the
+// transpose.
 //
 // K4 pagemajor_u32: the word-major digest table [8, npp] -> page-major
 // [npp * 8] (word j of page p at p*8 + j). Replaces

@@ -7,13 +7,17 @@ stage on the device and returns ONE small packed result, fetched once:
    and a scatter, so no host sync);
 2. the FastCDC walk: successor tables from ``torch.searchsorted``, then
    the ``fastcdc_walk`` kernel (``csrc/fastcdc.cu``);
-3. SHA-256 of every 4 KiB page: a big-endian byte swap, the K3
-   ``transpose_u32`` kernel (``csrc/transpose.cu``), then K1
-   ``sha256_pages`` (``csrc/sha256.cu``);
-4. the one partial tail leaf (``sha256_chunks_device``);
-5. the Merkle roots: "VMRK1" || le64(len) || leaf digests message
-   blocks assembled with torch gathers up to a static block bound, then
-   the ``sha256_lanes`` kernel, one thread per chunk.
+3. SHA-256 of every 4 KiB page: K1 ``sha256_pages``
+   (``csrc/sha256.cu``) over the raw segment bytes;
+4. the one partial tail leaf (``sha256_chunks_device``, one
+   ``sha256_lanes`` launch);
+5. the Merkle roots: the ``merkle_roots`` kernel (``csrc/merkle.cu``),
+   one warp per chunk, builds the "VMRK1" || le64(len) || leaf digests
+   message blocks from the page-digest table itself and chains them.
+
+K3 ``transpose_u32`` (``csrc/transpose.cu``, the counterpart of the
+reference's ``_pallas_transpose``) is no longer on this path; it stays
+for the rsync MD5 path that reuses it.
 
 With ``GearParams.align == 4096`` every interior cut lands on the page
 grid, so every full leaf of every chunk IS a page of the segment and
@@ -57,10 +61,9 @@ from volsync_tpu_torch.ops.gearcdc import (
 from volsync_tpu_torch.ops.gearcdc import _pow2ceil_int as _pow2ceil
 from volsync_tpu_torch.ops.sha256 import (
     _M,
-    PAGES_THREADS,
     _i32,
+    _sha256_lanes_plain,
     _u32,
-    sha256_blocks,
     sha256_chunks_device,
     sha256_pages,
 )
@@ -83,6 +86,9 @@ PAGEMAJOR_U32 = Kernel("pagemajor_u32", "transpose.cu", "vt_pagemajor_u32",
                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int])
 FASTCDC_WALK = Kernel("fastcdc_walk", "fastcdc.cu", "vt_fastcdc_walk",
                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4)
+MERKLE_ROOTS = Kernel("merkle_roots", "merkle.cu", "vt_merkle_roots",
+                      [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
+                      + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3)
 
 
 def segment_caps(padded_len: int, params: GearParams) -> tuple[int, int]:
@@ -242,18 +248,8 @@ def _select_boundaries_device(pos_s, ns, pos_l, nl, valid_len, eof, *,
 
 
 # ---------------------------------------------------------------------------
-# Page-digest stage: byte swap -> K3 transpose -> K1 page hashing
+# Page-digest stage: K1 page hashing of the raw bytes (K4 for page-major)
 # ---------------------------------------------------------------------------
-
-def _n_pages_pad(F: int, device: torch.device) -> int:
-    """Page count padded to K1's thread block on CUDA (identity on the
-    CPU). The single source of truth: every user of the word-major
-    table must index it with the same ``n_pages_pad``."""
-    if device.type == "cpu":
-        return F
-    return max(PAGES_THREADS, (F + PAGES_THREADS - 1) // PAGES_THREADS
-               * PAGES_THREADS)
-
 
 def _transpose_plain(x: torch.Tensor) -> torch.Tensor:
     """Twin of K3."""
@@ -296,21 +292,16 @@ def _page_digests_flat(data: torch.Tensor, n_pages_pad: int,
     """SHA-256 of every 4 KiB page of ``data`` ([P] uint8, P % 4096 ==
     0) -> [8 * n_pages_pad] int32, word-major (word j of page p at
     j * n_pages_pad + p), or page-major (p*8 + j) through K4 when
-    ``pagemajor``. Pad pages hash zeros and are never read."""
-    F = data.shape[0] // LEAF_SIZE
-    # Big-endian words as a byte-reversed view, zero rows to npp.
-    x2 = torch.zeros((n_pages_pad, LEAF_SIZE), dtype=torch.uint8,
-                     device=data.device)
-    x2[:F] = data.view(F, LEAF_SIZE // 4, 4).flip(2).reshape(F, -1)
-    xt = transpose_u32(x2.view(torch.int32))  # [1024, n_pages_pad]
-    flat = sha256_pages(xt)
+    ``pagemajor``. Pad pages hash zeros and are never read. K1 reads the
+    raw bytes: no staged copy of the segment."""
+    flat = sha256_pages(data, n_pages_pad)
     if pagemajor:
         return pagemajor_u32(flat.view(8, n_pages_pad))
     return flat
 
 
 # ---------------------------------------------------------------------------
-# Root stage: message assembly by gathers, one sha256_lanes launch
+# Root stage: the merkle_roots kernel over the page-digest table
 # ---------------------------------------------------------------------------
 
 def _root_blocks_bound(max_len: int) -> int:
@@ -320,14 +311,24 @@ def _root_blocks_bound(max_len: int) -> int:
     return (32 * leaves + 13 + 9 + 63) // 64
 
 
-def _root_digests_loop(flat: torch.Tensor, n_pages_pad: int,
-                       page0: torch.Tensor, nleaves: torch.Tensor,
-                       lens: torch.Tensor, live: torch.Tensor, *,
-                       nb_max: int, pagemajor: bool) -> torch.Tensor:
-    """Blob ids (repo/blobid.py) from a page-digest table (word-major,
-    or page-major when ``pagemajor``) -> [C, 8] int32.
-    page0/nleaves/lens/live: [C] chunk table; ``nb_max`` a static
-    bound on any lane's block count.
+def _root_digests_plain(flat: torch.Tensor, n_pages_pad: int,
+                        page0: torch.Tensor, nleaves: torch.Tensor,
+                        lens: torch.Tensor, live: torch.Tensor, *,
+                        nb_max: int, pagemajor: bool) -> torch.Tensor:
+    """Twin of ``merkle_roots``: the message blocks assembled with torch
+    gathers up to the static bound ``nb_max``, then
+    ``_sha256_lanes_plain`` (no kernel, on any device)."""
+    return _sha256_lanes_plain(*_root_message_blocks(
+        flat, n_pages_pad, page0, nleaves, lens, live, nb_max=nb_max,
+        pagemajor=pagemajor))
+
+
+def _root_message_blocks(flat: torch.Tensor, n_pages_pad: int,
+                         page0: torch.Tensor, nleaves: torch.Tensor,
+                         lens: torch.Tensor, live: torch.Tensor, *,
+                         nb_max: int, pagemajor: bool):
+    """The root messages as ``sha256_blocks`` takes them: ([C, nb_max,
+    16] int32 blocks, [C] int32 block counts).
 
     The digest stream of lane c is D(t) = flat[word_index(t%8, page0[c]
     + t//8)]. The 13-byte header shifts it to byte offset 13, so message
@@ -361,8 +362,37 @@ def _root_digests_loop(flat: torch.Tensor, n_pages_pad: int,
     blk = torch.where(q == 2, w2[:, None], blk)
     blk = torch.where(q == qterm[:, None], blk | 0x00800000, blk)
     blk = torch.where(q == qlen[:, None], bitlen[:, None], blk)
-    return sha256_blocks(_i32(blk).view(C, nb_max, 16),
-                         nblocks.to(torch.int32))
+    return _i32(blk).view(C, nb_max, 16), nblocks.to(torch.int32)
+
+
+def _root_digests_loop(flat: torch.Tensor, n_pages_pad: int,
+                       page0: torch.Tensor, nleaves: torch.Tensor,
+                       lens: torch.Tensor, live: torch.Tensor, *,
+                       nb_max: int, pagemajor: bool) -> torch.Tensor:
+    """Blob ids (repo/blobid.py) from a page-digest table (word-major,
+    or page-major when ``pagemajor``) -> [C, 8] int32.
+    page0/nleaves/lens: [C] int64 chunk table, live: [C] bool; ``nb_max``
+    a static bound on any lane's block count. Every lane's pages lie in
+    the table. CUDA: one ``merkle_roots`` launch, which reads the table
+    directly (csrc/merkle.cu); CPU: its twin ``_root_digests_plain``."""
+    if flat.device.type == "cpu":
+        return _root_digests_plain(flat, n_pages_pad, page0, nleaves, lens,
+                                   live, nb_max=nb_max, pagemajor=pagemajor)
+    check_cuda("merkle_roots", flat, torch.int32, 1)
+    for x in (page0, nleaves, lens):
+        check_cuda("merkle_roots", x, torch.int64, 1)
+    check_cuda("merkle_roots", live, torch.bool, 1)
+    C = page0.shape[0]
+    if not (nleaves.shape[0] == lens.shape[0] == live.shape[0] == C) \
+            or flat.shape[0] != 8 * n_pages_pad or flat.data_ptr() % 16:
+        raise ValueError("merkle_roots: need a 16-byte aligned [8 * npp] "
+                         "table and [C] chunk-table tensors")
+    out = torch.empty((C, 8), dtype=torch.int32, device=flat.device)
+    MERKLE_ROOTS.launch(flat.device, flat.data_ptr(), flat.shape[0],
+                        n_pages_pad, page0.data_ptr(), nleaves.data_ptr(),
+                        lens.data_ptr(), live.data_ptr(), out.data_ptr(), C,
+                        nb_max, int(pagemajor))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -380,7 +410,7 @@ def chunk_hash_segments(data: torch.Tensor, valid_len, eof, *,
     ints; eof: [S] bools; padding lanes use valid_len == 0. Returns
     [S, 4 + chunk_cap*10] int32 packed rows, each decodable with
     ``decode_segment``. Page hashing runs as one K1 batch over all S*P/4096
-    pages and root assembly as one S*chunk_cap-lane ``sha256_lanes``
+    pages and the roots as one S*chunk_cap-lane ``merkle_roots``
     launch. ``VOLSYNC_PAGEMAJOR`` is read once here and picks the digest
     table's layout for every stage of the call."""
     if align != LEAF_SIZE:
@@ -393,7 +423,7 @@ def chunk_hash_segments(data: torch.Tensor, valid_len, eof, *,
     dev = data.device
     R = P // align
     F = P // LEAF_SIZE
-    npp = _n_pages_pad(S * F, dev)
+    npp = S * F
     valid_len = torch.as_tensor(valid_len, dtype=torch.int64, device=dev)
     eof = torch.as_tensor(eof, dtype=torch.bool, device=dev)
     flat = data.reshape(S * P)
@@ -471,11 +501,10 @@ def page_digests(dev: torch.Tensor) -> np.ndarray:
     8] uint32 ndarray (one pass, one fetch of 32 bytes per page). The
     layout gate is read once, so the table and its decode agree."""
     F = dev.shape[0] // LEAF_SIZE
-    npp = _n_pages_pad(F, dev.device)
     pm = envflags.pagemajor()
-    flat = _page_digests_flat(dev, npp, pm).cpu().numpy().view(np.uint32)
+    flat = _page_digests_flat(dev, F, pm).cpu().numpy().view(np.uint32)
     j, p = np.meshgrid(np.arange(8), np.arange(F), indexing="xy")
-    return flat[_word_index_fn(npp, pm)(j, p)]  # [F, 8]
+    return flat[_word_index_fn(F, pm)(j, p)]  # [F, 8]
 
 
 def span_roots_device(data: torch.Tensor, starts: torch.Tensor,
@@ -492,8 +521,7 @@ def span_roots_device(data: torch.Tensor, starts: torch.Tensor,
     pagemajor = envflags.pagemajor()
     dev = data.device
     P = data.shape[0]
-    F = P // LEAF_SIZE
-    npp = _n_pages_pad(F, dev)
+    npp = P // LEAF_SIZE
     starts = starts.to(device=dev, dtype=torch.int64)
     lens = lens.to(device=dev, dtype=torch.int64)
     live = lens > 0

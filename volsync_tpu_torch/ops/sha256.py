@@ -9,7 +9,8 @@ Ports ``volsync_tpu/ops/sha256.py``. Three kernels written for Hopper
   compressions over pre-padded big-endian blocks;
 - ``sha256_pages`` launches K1 (replaces the Pallas
   ``_sha256_leaf_kernel``, sha256.py:367-395): SHA-256 of every page of
-  a transposed page-word table, word-major output. Its ``threads``
+  a buffer, read as raw bytes through a shared-memory ``cp.async``
+  ring, word-major output. Its ``threads``
   argument is the launch configuration that ``chip_smoke.py`` sweeps in
   place of the lane-tile sweep of ``scripts/tune_sha.py`` (K5);
 - ``sha256_rows`` launches K2 (replaces ``_sha256_rows_pallas``,
@@ -77,7 +78,7 @@ _K_INT = [int(k) for k in _K]
 
 SHA256_PAGES = Kernel("sha256_pages", "sha256.cu", "vt_sha256_pages",
                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int])
+                       ctypes.c_int, ctypes.c_int])
 SHA256_LANES = Kernel("sha256_lanes", "sha256.cu", "vt_sha256_lanes",
                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int])
@@ -85,8 +86,7 @@ SHA256_ROWS = Kernel("sha256_rows", "sha256.cu", "vt_sha256_rows",
                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                       ctypes.c_int, ctypes.c_int, ctypes.c_int])
 
-#: K1's threads per block as the library launches it; the card's page
-#: table pads to a multiple of it (ops/segment.py _n_pages_pad).
+#: K1's threads per block as the library launches it.
 PAGES_THREADS = 64
 
 
@@ -174,41 +174,49 @@ def sha256_blocks(blocks: torch.Tensor, nblocks: torch.Tensor
     return out
 
 
-def _sha256_pages_plain(xt: torch.Tensor) -> torch.Tensor:
-    """Twin of K1: [1024, npp] int32 big-endian page words (word w of
-    page p at xt[w, p]) -> [8 * npp] int32 word-major digests."""
-    npp = xt.shape[1]
-    x = _u32(xt)
-    state = _h0_state((npp,), xt.device)
+def _sha256_pages_plain(data: torch.Tensor, npp: int) -> torch.Tensor:
+    """Twin of K1: [P] uint8 (P % 4096 == 0) -> [8 * npp] int32
+    word-major digests of its pages, zero pages past P / 4096."""
+    F = data.shape[0] // 4096
+    x = torch.zeros((npp, 1024), dtype=torch.int64, device=data.device)
+    x[:F] = _u32(pack_words_rows(data.view(F, 4096)))  # big-endian words
+    x = x.t().contiguous()  # [1024, npp]: word w of every page
+    state = _h0_state((npp,), data.device)
     for t in range(64):
         state = _compress(state, [x[16 * t + j] for j in range(16)])
-    zero = torch.zeros((npp,), dtype=torch.int64, device=xt.device)
+    zero = torch.zeros((npp,), dtype=torch.int64, device=data.device)
     pad = [zero + 0x80000000] + [zero] * 14 + [zero + 4096 * 8]
     state = _compress(state, pad)
     return _i32(torch.stack(state, dim=0)).reshape(-1)
 
 
-def sha256_pages(xt: torch.Tensor, *,
+def sha256_pages(data: torch.Tensor, npp: int, *,
                  threads: int = PAGES_THREADS) -> torch.Tensor:
-    """SHA-256 of every 4 KiB page of a transposed page-word table.
+    """SHA-256 of every 4 KiB page of a resident buffer.
 
-    xt: [1024, npp] int32, word w of page p at ``xt[w, p]``;
-    returns [8 * npp] int32 digests, word j of page p at ``j*npp + p``
-    (the TPU kernel's word-major layout). ``threads`` per block (a
-    multiple of 32, at most 1024) is K1's launch configuration; it does
-    not change the result. CUDA: K1; CPU: its plain twin."""
-    if xt.device.type == "cpu":
-        return _sha256_pages_plain(xt)
-    check_cuda("sha256_pages", xt, torch.int32, 2)
-    if xt.shape[0] != 1024:
-        raise ValueError("sha256_pages: expected [1024, npp] page words")
+    data: [P] uint8, P % 4096 == 0 (16-byte aligned on the card);
+    ``npp`` >= P / 4096 pages are hashed, those past the buffer as zero
+    pages. Returns [8 * npp] int32 digests, word j of page p at
+    ``j*npp + p`` (the TPU kernel's word-major layout). ``threads`` per
+    block (a multiple of 32, at most 1024) is K1's launch configuration;
+    it does not change the result. CUDA: K1, which reads the raw bytes;
+    CPU: its plain twin."""
+    P = data.shape[0]
+    if data.dim() != 1 or P % 4096 or npp < P // 4096:
+        raise ValueError(f"sha256_pages: need [P] bytes with P % 4096 == 0 "
+                         f"and npp >= P/4096, got {tuple(data.shape)}, "
+                         f"npp {npp}")
+    if data.device.type == "cpu":
+        return _sha256_pages_plain(data, npp)
+    check_cuda("sha256_pages", data, torch.uint8, 1)
+    if data.data_ptr() % 16:
+        raise ValueError("sha256_pages: the buffer must be 16-byte aligned")
     if threads % 32 or not 32 <= threads <= 1024:
         raise ValueError(f"sha256_pages: threads {threads} is not a "
                          f"multiple of 32 in [32, 1024]")
-    npp = xt.shape[1]
-    out = torch.empty((8 * npp,), dtype=torch.int32, device=xt.device)
-    SHA256_PAGES.launch(xt.device, xt.data_ptr(), out.data_ptr(), npp,
-                        threads)
+    out = torch.empty((8 * npp,), dtype=torch.int32, device=data.device)
+    SHA256_PAGES.launch(data.device, data.data_ptr(), out.data_ptr(),
+                        P // 4096, npp, threads)
     return out
 
 
