@@ -10,17 +10,18 @@ a mismatch:
 
 1. build: compiles every CUDA source of the port (one nvcc per source,
    started together) and prints nvcc's register report, the
-   instructions of one K1 and one merkle_roots message block as
-   compiled (``cuobjdump -sass``), the card's name and power limit, and
+   instructions of one K1, merkle_roots and sha256_lanes message block
+   as compiled (``cuobjdump -sass``), the card's name and power limit, and
    the torch and CUDA versions;
 2. kernels: runs one real 48 MiB segment through ``chunk_hash_segment``
    while recording each kernel wrapper's inputs, then holds every
    kernel of that pass (K1 sha256_pages, fastcdc_walk, the tail
    sha256_lanes, merkle_roots) against its plain PyTorch twin on those
    inputs with ``torch.equal`` (K1 also against hashlib per page) and
-   times kernel and twin; logs the root launch's longest lane in
-   blocks and times ``merkle_roots`` on one 1,025-block lane alone (the
-   per-block chain latency behind the chain bounds). K3 transpose_u32,
+   times kernel and twin; logs each serial chain's chain bound (its
+   longest lane in blocks x the least time of a block, from the
+   compiled block's instruction issue) and times ``merkle_roots`` on
+   one 1,025-block lane alone. K3 transpose_u32,
    off the fused path, is held and timed on [12,288, 1,024] (the
    segment's page-word table) and a ragged shape, beside the one
    PyTorch call computing the same function. Then K5: K1 at
@@ -302,6 +303,16 @@ def patched(module, wrappers: dict):
             setattr(module, n, fn)
 
 
+#: The kernel wrappers ``capture_calls`` records, attribute -> kernel,
+#: in ops/segment.py and ops/sha256.py.
+SEG_WRAPPERS = {"transpose_u32": "transpose_u32",
+                "sha256_pages": "sha256_pages",
+                "fastcdc_walk": "fastcdc_walk",
+                "pagemajor_u32": "pagemajor_u32",
+                "_root_digests_loop": "merkle_roots"}
+SHA_WRAPPERS = {"sha256_blocks": "sha256_lanes", "sha256_rows": "sha256_rows"}
+
+
 def capture_calls(seg, sha, run) -> list:
     """Run ``run()`` with every kernel wrapper of the segment pipeline
     recording (clones of) its inputs; returns [(kernel, args, kwargs)]."""
@@ -319,13 +330,8 @@ def capture_calls(seg, sha, run) -> list:
             return wrapper
         return make
 
-    with patched(seg, {"transpose_u32": recorder("transpose_u32"),
-                       "sha256_pages": recorder("sha256_pages"),
-                       "fastcdc_walk": recorder("fastcdc_walk"),
-                       "pagemajor_u32": recorder("pagemajor_u32"),
-                       "_root_digests_loop": recorder("merkle_roots")}), \
-            patched(sha, {"sha256_blocks": recorder("sha256_lanes"),
-                          "sha256_rows": recorder("sha256_rows")}):
+    with patched(seg, {a: recorder(k) for a, k in SEG_WRAPPERS.items()}), \
+            patched(sha, {a: recorder(k) for a, k in SHA_WRAPPERS.items()}):
         run()
     return calls
 
@@ -421,9 +427,10 @@ def sass_block_counts(sass: str, kernel: str, loads: int,
 
 def sass_blocks() -> dict:
     """``sass_block_counts`` of K1 (4 16-byte cp.async a block: a
-    thread copies 64 bytes of its block's pages per message block) and
-    of merkle_roots' chain (64 shared K+W reads a block) in the built
-    libraries; empty when the toolkit has no cuobjdump."""
+    thread copies 64 bytes of its block's pages per message block), of
+    merkle_roots' chain (64 shared K+W reads a block) and of
+    ``sha256_lanes`` (4 16-byte loads a block) in the built libraries;
+    empty when the toolkit has no cuobjdump."""
     from volsync_tpu_torch.ops import _build
 
     tool = Path(_build._nvcc()).with_name("cuobjdump")
@@ -436,11 +443,13 @@ def sass_blocks() -> dict:
                               capture_output=True, text=True, timeout=120,
                               check=True).stdout
 
-    return {"K1": sass_block_counts(dump("sha256.cu"),
-                                    "sha256_pages_kernel", 4),
+    sha = dump("sha256.cu")
+    return {"K1": sass_block_counts(sha, "sha256_pages_kernel", 4),
             "merkle_roots": sass_block_counts(dump("merkle.cu"),
                                               "merkle_roots_kernel", 64,
-                                              "LDS")}
+                                              "LDS"),
+            "sha256_lanes": sass_block_counts(sha, "sha256_lanes_kernel", 4,
+                                              "LDG")}
 
 
 def as_list(x):
@@ -521,10 +530,23 @@ def sha_bound(data_blocks: int, pad_blocks: int, nbytes: int) -> tuple:
 FUSED_CALLS = ["sha256_pages", "fastcdc_walk", "sha256_lanes",
                "merkle_roots"]
 
-# One SM sub-partition (scheduler) issues a warp's ALU instruction over
-# 2 cycles (16 lanes), so a warp alone on its scheduler runs at most 16
-# ALU lanes a cycle.
+# One SM sub-partition (scheduler) issues one instruction a cycle, and a
+# warp's ALU instruction over 2 cycles (16 lanes), so a warp alone on its
+# scheduler runs at most 16 ALU lanes a cycle. The H100 SXM's highest SM
+# clock (nvidia-smi clocks.max.sm: 1,980 MHz).
 CLOCK_HZ = 1.98e9
+
+
+def chain_block_floor_ms(counts: dict | None) -> float | None:
+    """Least time of one message block of a serial SHA chain, from its
+    compiled instructions (``sass_block_counts``): the block's warp is
+    alone on its scheduler, so it takes at least max(2 x its ALU-pipe
+    instructions (LOP3/SHF/PRMT, IADD3), all its instructions) cycles.
+    None without the counts."""
+    if not counts:
+        return None
+    alu = counts["LOP3/SHF"] + counts["IADD3"]
+    return max(2 * alu, sum(counts.values())) / CLOCK_HZ * 1e3
 
 
 def page_table(host: np.ndarray, npp: int) -> np.ndarray:
@@ -622,12 +644,8 @@ def kernel_phase(torch, stream, p, seg_bytes: int, p64) -> dict:
             bound, st["bound_by"] = sha_bound(64 * npp, npp,
                                               F * 4096 + npp * 32)
             st["bound"].append(bound)
-            st["warp_floor_ms"] = k1_warp_floor_ms(npp, sha.PAGES_THREADS)
-            retired_pages_ms = retired_page_staging_ms(torch, seg, args[0],
-                                                       npp)
-            log(f"K1: per-warp floor {st['warp_floor_ms']:.4f} ms; the "
-                f"staging it retired (zeros, byte-flip copy, K3) "
-                f"{retired_pages_ms:.4f} ms on the same segment")
+            log(f"K1: per-warp floor "
+                f"{k1_warp_floor_ms(npp, sha.PAGES_THREADS):.4f} ms")
         elif name == "sha256_lanes":
             blocks, nblocks = args
             nb = int(nblocks.clamp(min=0).sum())
@@ -639,7 +657,7 @@ def kernel_phase(torch, stream, p, seg_bytes: int, p64) -> dict:
             log(f"sha256_lanes (tail): {blocks.shape[0]} lanes, {nb} "
                 f"blocks, longest lane {st['longest']}")
         elif name == "merkle_roots":
-            root_checks(torch, seg, sha, st, args, kwargs)
+            root_checks(torch, seg, st, args, kwargs)
         else:  # fastcdc_walk: a few table reads and writes per chunk
             starts, lens, count, consumed = out_k
             n = int(count.sum())
@@ -650,41 +668,19 @@ def kernel_phase(torch, stream, p, seg_bytes: int, p64) -> dict:
         log(f"{name}: equals twin; kernel {st['ms'][-1]:.4f} ms/launch "
             f"(eager {st['eager_ms'][-1]:.4f}), twin {plain_s*1e3:.1f} ms")
 
-    block_ms = stats["merkle_roots"]["chain_block_ms"]
-    tail = stats["sha256_lanes"]
-    tail["chain_ms"] = tail["longest"] * block_ms
     sweep_k1(torch, stats, *k1)
     pagemajor_check(torch, fns, stats, data, valid, kw, packed[0])
     split_segment_check(torch, fns, stats, host, p64)
     return stats
 
 
-def retired_page_staging_ms(torch, seg, data, npp: int) -> float:
-    """Device time of the page stage's staging before K1 read raw bytes:
-    a zeroed [npp, 4096] buffer, the byte-reversed copy of the segment
-    into it and the K3 transpose."""
-    F = data.shape[0] // 4096
-
-    def staging():
-        x2 = torch.zeros((npp, 4096), dtype=torch.uint8, device=DEVICE)
-        x2[:F] = data.view(F, 1024, 4).flip(2).reshape(F, -1)
-        return seg.transpose_u32(x2.view(torch.int32))
-
-    return time_ms(torch, staging, 20)
-
-
-def root_checks(torch, seg, sha, st, args, kwargs) -> None:
-    """Bound, longest lane and chain bound of the segment's root launch;
-    beside it, in this call, the route it replaced (torch message
-    assembly then ``sha256_lanes``) and the same blocks through
-    ``sha256_lanes`` alone. The chain bound is the longest lane's blocks
-    x one block's dependent latency, measured as ``merkle_roots`` on one
-    1,025-block lane (its message staged through shared memory) over
-    1,025."""
+def root_checks(torch, seg, st, args, kwargs) -> None:
+    """Bound and longest lane of the segment's root launch, and
+    ``merkle_roots`` on one 1,025-block lane alone (its measured time a
+    block, beside the chain floor ``main`` takes from the SASS)."""
     flat, npp, page0, nleaves, lens, live = args
-    nb_max = kwargs["nb_max"]
-    lanes = root_lane_blocks(torch, nleaves, live, nb_max)
-    total, longest = int(lanes.sum()), int(lanes.max())
+    lanes = root_lane_blocks(torch, nleaves, live, kwargs["nb_max"])
+    total, st["longest"] = int(lanes.sum()), int(lanes.max())
     C = page0.shape[0]
     nbytes = int(nleaves.sum()) * 32 + C * (3 * 8 + 1) + C * 32
     bound, st["bound_by"] = sha_bound(total, 0, nbytes)
@@ -695,20 +691,10 @@ def root_checks(torch, seg, sha, st, args, kwargs) -> None:
         torch.tensor([True], device=DEVICE)]
     one_ms = time_ms(torch, lambda: seg._root_digests_loop(*one, **kwargs),
                      10)
-    st["chain_block_ms"] = one_ms / 1025
-    st["chain_ms"] = longest * st["chain_block_ms"]
-    blocks, nblocks = seg._root_message_blocks(*args, **kwargs)
-    lanes_ms = time_ms(torch, lambda: sha.sha256_blocks(blocks, nblocks), 5)
-    old_ms = time_ms(torch, lambda: sha.sha256_blocks(
-        *seg._root_message_blocks(*args, **kwargs)), 5)
-    st["retired"] = {"sha256_lanes_ms": lanes_ms,
-                     "assembly_and_lanes_ms": old_ms}
+    st["one_lane_block_ms"] = one_ms / 1025
     log(f"merkle_roots: {C} lanes, {int(live.sum())} live, {total} blocks, "
-        f"longest lane {longest} blocks; one 1,025-block lane "
-        f"{one_ms:.4f} ms = {st['chain_block_ms'] * 1e3:.4f} us a block, "
-        f"chain bound {st['chain_ms']:.4f} ms; the route it replaced, same "
-        f"call: sha256_lanes {lanes_ms:.4f} ms, assembly + sha256_lanes "
-        f"{old_ms:.4f} ms")
+        f"longest lane {st['longest']} blocks; one 1,025-block lane "
+        f"{one_ms:.4f} ms = {st['one_lane_block_ms'] * 1e3:.4f} us a block")
 
 
 def sweep_k1(torch, stats, data, npp, want) -> None:
@@ -729,12 +715,12 @@ def sweep_k1(torch, stats, data, npp, want) -> None:
         ms=[min(times.values())], eager_ms=list(k1["eager_ms"]),
         plain_ms=list(k1["plain_ms"]),
         bound=list(k1["bound"]), bound_by=k1["bound_by"],
-        threads_ms={str(t): v for t, v in times.items()},
-        warp_floor_ms={str(t): k1_warp_floor_ms(npp, t)
-                       for t in SWEEP_THREADS})
+        threads_ms={str(t): v for t, v in times.items()})
     log(f"K5 sweep of K1 ({npp} pages), ms per launch by threads per "
         f"block: {json.dumps({t: round(v, 4) for t, v in times.items()})}"
-        f"; every launch equals hashlib on every page")
+        f", per-warp floors: " + json.dumps(
+            {t: round(k1_warp_floor_ms(npp, t), 4) for t in SWEEP_THREADS})
+        + "; every launch equals hashlib on every page")
 
 
 def pagemajor_check(torch, fns, stats, data, valid, kw, packed_wm) -> None:
@@ -1100,12 +1086,18 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers",
                                        "spill")):
                 log(f"  {src}: {line.strip()}")
-    for name, counts in sass_blocks().items():
+    sass = sass_blocks()
+    floors = {k: chain_block_floor_ms(sass.get(k))
+              for k in ("merkle_roots", "sha256_lanes")}
+    for name, counts in sass.items():
+        floor = floors.get(name)
         log(f"{name} one message block as compiled (cuobjdump -sass, "
             f"instructions by class): "
             + (json.dumps(counts) if counts else "not available")
             + f"; least work {SHA_BLOCK_ALU_OPS} LOP3/SHF and 360 adds, "
-              f"{SHA_ROUNDS_ALU_OPS} LOP3/SHF in the rounds alone")
+              f"{SHA_ROUNDS_ALU_OPS} LOP3/SHF in the rounds alone"
+            + (f"; chain floor {floor * 1e3:.4f} us a block" if floor
+               else ""))
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} CUDA {torch.version.cuda} "
@@ -1123,14 +1115,22 @@ def main() -> int:
     params64 = GearParams(align=64)
     stream = volume(int(args.stream_gib * GIB), "fused stream")
     stats = kernel_phase(torch, stream, DEFAULT_PARAMS, SEGMENT_P, params64)
+    for name, floor in floors.items():
+        st = stats[name]
+        bound = (f"{st['longest'] * floor:.4f} ms" if floor
+                 else "not available")
+        log(f"{name} chain bound (longest lane {st['longest']} blocks x the "
+            f"chain floor): {bound}, measured {np.mean(st['ms']):.4f} ms "
+            f"({card})")
     res = stream_phase(torch, stream, DEFAULT_PARAMS)
     verify_phase(res.pop("views"))
     per_seg = {k: v / res["segments"] for k, v in res["launches"].items()}
     log(f"launches per segment pass: {json.dumps(per_seg)} ({card})")
-    chain = sum(res["longest"]) * stats["merkle_roots"]["chain_block_ms"]
-    log(f"stream roots.merkle {res['stages'].get('roots.merkle', 0):.3f} ms "
-        f"over {res['segments']} passes against a summed chain bound of "
-        f"{chain:.3f} ms ({card})")
+    if floors["merkle_roots"]:
+        log(f"stream roots.merkle {res['stages'].get('roots.merkle', 0):.3f} "
+            f"ms over {res['segments']} passes against a summed chain bound "
+            f"of {sum(res['longest']) * floors['merkle_roots']:.3f} ms "
+            f"({card})")
     del stream
 
     split = split_stream_phase(
@@ -1167,10 +1167,8 @@ def main() -> int:
             "bound_by": st["bound_by"],
             "library_ms": float(np.mean(st["lib"])) if st["lib"] else None,
         }
-        for extra in ("threads_ms", "warp_floor_ms", "chain_ms",
-                      "chain_block_ms", "retired"):
-            if extra in st:
-                entry[extra] = st[extra]
+        if "threads_ms" in st:
+            entry["threads_ms"] = st["threads_ms"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

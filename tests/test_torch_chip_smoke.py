@@ -53,11 +53,25 @@ def test_stream_and_verify_phases_on_cpu(monkeypatch):
     chip_smoke.verify_phase(res.pop("views"))
 
 
+def _wrappers() -> dict:
+    """The objects behind every attribute ``capture_calls`` patches."""
+    return {**{("seg", a): getattr(seg, a) for a in chip_smoke.SEG_WRAPPERS},
+            **{("sha", a): getattr(sha, a) for a in chip_smoke.SHA_WRAPPERS}}
+
+
+def _assert_restored(before: dict) -> None:
+    after = _wrappers()
+    assert after.keys() == before.keys()
+    assert all(after[k] is before[k] for k in before), [
+        k for k in before if after[k] is not before[k]]
+
+
 def test_capture_calls_records_every_kernel_wrapper(rng):
     data = torch.from_numpy(rng.randint(0, 256, size=(64 * 1024,)).astype(
         "uint8"))
     cc, kc = seg.segment_caps(64 * 1024, PARAMS)
     p = PARAMS
+    before = _wrappers()
     calls = chip_smoke.capture_calls(seg, sha, lambda: seg.chunk_hash_segment(
         data, 60_000, min_size=p.min_size, avg_size=p.avg_size,
         max_size=p.max_size, seed=p.seed, mask_s=p.mask_s, mask_l=p.mask_l,
@@ -65,8 +79,18 @@ def test_capture_calls_records_every_kernel_wrapper(rng):
     assert sorted(n for n, _, _ in calls) == sorted(chip_smoke.FUSED_CALLS)
     assert sorted(chip_smoke.FUSED_CALLS) == sorted(
         ["sha256_pages", "fastcdc_walk", "sha256_lanes", "merkle_roots"])
-    assert seg._root_digests_loop is chip_smoke.kernel_fns(seg, sha)[0][
-        "merkle_roots"]  # wrappers restored
+    assert sorted({**chip_smoke.SEG_WRAPPERS,
+                   **chip_smoke.SHA_WRAPPERS}.values()) == sorted(
+        chip_smoke.kernel_fns(seg, sha)[0])  # every kernel is recorded
+    _assert_restored(before)
+
+    def fails():
+        assert seg.sha256_pages is not before[("seg", "sha256_pages")]
+        raise RuntimeError("run failed")
+
+    with pytest.raises(RuntimeError):
+        chip_smoke.capture_calls(seg, sha, fails)
+    _assert_restored(before)
 
 
 def test_stage_probes_restore_the_segment_module():
@@ -92,7 +116,7 @@ def test_sass_block_counts_reads_the_block_loop():
         addr += 0x10
     ins.append(f"        /*{addr:04x}*/              @P0 BRA 0x{loop:x} ;")
     ins.append(f"        /*{addr + 0x10:04x}*/                   EXIT ;")
-    sass = ("\t\tFunction : _Z19sha256_pages_kernelILi4EEvPKhPjii\n"
+    sass = ("\t\tFunction : _Z19sha256_pages_kernelPKhPjii\n"
             + "\n".join(ins) + "\n\t\tFunction : _Z5otherv\n")
     got = chip_smoke.sass_block_counts(sass, "sha256_pages_kernel", 4)
     # two blocks in the loop body (4 cp.async each): every count halves
@@ -102,6 +126,21 @@ def test_sass_block_counts_reads_the_block_loop():
     # an LDG-counted loop finds no block loop here
     assert chip_smoke.sass_block_counts(sass, "sha256_pages_kernel", 4,
                                         "LDG") is None
+
+
+def test_chain_block_floor_is_the_compiled_block_issue():
+    """A lone warp issues an ALU-pipe instruction every second cycle and
+    any instruction every cycle: the larger of the two counts."""
+    mr = {"LOP3/SHF": 640.0, "IADD3": 129.0, "IMAD": 134.0, "LDS": 64.0,
+          "other": 4.0}
+    ms = chip_smoke.chain_block_floor_ms(mr)
+    assert ms == pytest.approx(2 * 769 / chip_smoke.CLOCK_HZ * 1e3)
+    assert 0.7e-3 < ms < 0.8e-3  # about 0.78 us at 1.98 GHz
+    fma_heavy = {"LOP3/SHF": 10.0, "IADD3": 0.0, "IMAD": 100.0, "LDG": 4.0,
+                 "other": 0.0}
+    assert chip_smoke.chain_block_floor_ms(fma_heavy) == pytest.approx(
+        114 / chip_smoke.CLOCK_HZ * 1e3)
+    assert chip_smoke.chain_block_floor_ms(None) is None
 
 
 def test_script_fails_without_cuda_or_package(tmp_path):
@@ -165,13 +204,13 @@ def test_capture_calls_records_the_split_phase_leaf_dispatch(rng,
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     host = rng.randint(0, 256, size=(128 * 1024,)).astype(np.uint8)
     hasher = DeviceChunkHasher(PARAMS_64, device="cpu")
+    before = _wrappers()
     calls = chip_smoke.capture_calls(seg, sha, lambda: hasher.begin(
         host, eof=False, valid_len=120_000))
     chip_smoke.expect_calls("split", calls, ["sha256_rows", "sha256_lanes"])
     with pytest.raises(AssertionError):
         chip_smoke.expect_calls("split", calls, ["sha256_rows"])
-    assert sha.sha256_rows is chip_smoke.kernel_fns(seg, sha)[0][
-        "sha256_rows"]  # wrappers restored
+    _assert_restored(before)
 
 
 def test_pagemajor_env_restores_the_variable(monkeypatch):

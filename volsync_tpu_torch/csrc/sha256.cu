@@ -11,8 +11,8 @@
 // state in registers, then compresses the constant FIPS pad block of a
 // 4096-byte message. It reads the raw segment bytes: no byte-swapped,
 // zero-padded or transposed copy of the segment is made. A block of T
-// threads owns T consecutive pages and keeps a ring of NS stages in
-// dynamic shared memory; stage t holds message block t (64 bytes) of
+// threads owns T consecutive pages and keeps a ring of kRing (4) stages
+// in dynamic shared memory; stage t holds message block t (64 bytes) of
 // each of its pages, one row a page, rows padded to 80 bytes so that
 // each thread's 16-byte reads of its own row are free of bank conflicts
 // (a quarter-warp's 8 rows start 20 words apart: 8 disjoint bank quads).
@@ -20,7 +20,7 @@
 // page's 64 contiguous bytes, so every 32-byte sector fetched is used,
 // and pages past the segment's end are zero-filled copies (they hash a
 // zero page). While a thread compresses block t, the copies of blocks
-// t+1 .. t+NS-1 are in flight: the memory latency that one warp per
+// t+1 .. t+kRing-1 are in flight: the memory latency that one warp per
 // scheduler left exposed is off its chain. One barrier a block orders
 // the ring. The loop body is one compression, so the instructions a
 // warp streams through stay about 24 KB. Each thread byte-swaps its
@@ -33,8 +33,8 @@
 // scripts/tune_sha.py swept the TPU kernel's lane tile (lane_sub
 // 32/16/8), and its counterpart here is a sweep of K1's block size
 // (chip_smoke.py, 32 to 256 threads); the library launches
-// ops/sha256.py PAGES_THREADS (64) a block. Up to 256 threads the ring
-// has 4 stages (80 KiB at 256), above 2 (160 KiB at 1,024).
+// ops/sha256.py PAGES_THREADS (64) a block. The ring has 4 stages, 80
+// KiB at the largest block the wrapper takes (256 threads).
 //
 // sha256_rows (K2) replaces volsync_tpu/ops/sha256.py _sha256_rows_pallas
 // (the split-phase engine's full 4 KiB leaves): the TPU route packs the
@@ -70,19 +70,14 @@ __device__ __forceinline__ uint32_t vt_bswap32(uint32_t x) {
   return __byte_perm(x, 0, 0x0123);
 }
 
-// K1's ring: NS stages, each one message block (64 bytes) of every page
-// of the thread block, one 80-byte row a page.
+// K1's ring: kRing stages, each one message block (64 bytes) of every
+// page of the thread block, one 80-byte row a page; kPagesMaxThreads a
+// block at most.
+static constexpr int kRing = 4;
 static constexpr int kPagesPitch = 64 + 16;
+static constexpr int kPagesMaxThreads = 256;
 
-template <int NS>
-static size_t pages_ring_bytes(int threads) {
-  return static_cast<size_t>(NS) * threads * kPagesPitch;
-}
-
-// 4 stages up to 256 threads a block, 2 (and a register cap of 64) up
-// to 1,024.
-template <int NS>
-__global__ void __launch_bounds__(NS == 2 ? 1024 : 256)
+__global__ void __launch_bounds__(kPagesMaxThreads)
 sha256_pages_kernel(const uint8_t* __restrict__ data,
                     uint32_t* __restrict__ out, int n_pages, int npp) {
   extern __shared__ __align__(16) uint8_t pages_ring[];
@@ -90,10 +85,10 @@ sha256_pages_kernel(const uint8_t* __restrict__ data,
   const int first = blockIdx.x * T;
   const int stage_bytes = T * kPagesPitch;
 
-  // Copies of message block t of every page into slot t % NS: 4
+  // Copies of message block t of every page into slot t % kRing: 4
   // consecutive threads copy one page's 64 bytes, 16 each.
   auto issue = [&](int t) {
-    uint8_t* slot = pages_ring + (t % NS) * stage_bytes;
+    uint8_t* slot = pages_ring + (t % kRing) * stage_bytes;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int c = r * T + threadIdx.x;
@@ -110,7 +105,7 @@ sha256_pages_kernel(const uint8_t* __restrict__ data,
     }
   };
 
-  for (int t = 0; t < NS - 1; ++t) {
+  for (int t = 0; t < kRing - 1; ++t) {
     issue(t);
     vt_cp_async_commit();
   }
@@ -118,12 +113,12 @@ sha256_pages_kernel(const uint8_t* __restrict__ data,
   sha256_init(s);
 #pragma unroll 1
   for (int t = 0; t < 64; ++t) {
-    vt_cp_async_wait<NS - 2>();  // this thread's copies of block t landed
-    __syncthreads();  // everyone's have, and slot (t-1) % NS is read
-    if (t + NS - 1 < 64) issue(t + NS - 1);
+    vt_cp_async_wait<kRing - 2>();  // this thread's copies of block t landed
+    __syncthreads();  // everyone's have, and slot (t-1) % kRing is read
+    if (t + kRing - 1 < 64) issue(t + kRing - 1);
     vt_cp_async_commit();  // one group a block (empty at the end)
     const uint4* row = reinterpret_cast<const uint4*>(
-        pages_ring + (t % NS) * stage_bytes + threadIdx.x * kPagesPitch);
+        pages_ring + (t % kRing) * stage_bytes + threadIdx.x * kPagesPitch);
     uint32_t w[16];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
@@ -212,33 +207,25 @@ __global__ void sha256_lanes_kernel(const uint32_t* __restrict__ blocks,
   for (int j = 0; j < 8; ++j) out[static_cast<size_t>(b) * 8 + j] = s[j];
 }
 
-template <int NS>
-static int launch_pages(const void* data, void* out, int n_pages, int npp,
-                        int threads, cudaStream_t stream) {
-  const size_t smem = pages_ring_bytes<NS>(threads);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        sha256_pages_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int grid = (npp + threads - 1) / threads;
-  sha256_pages_kernel<NS><<<grid, threads, smem, stream>>>(
-      static_cast<const uint8_t*>(data), static_cast<uint32_t*>(out),
-      n_pages, npp);
-  return static_cast<int>(cudaGetLastError());
-}
-
 VT_EXPORT int vt_sha256_pages(const void* data, void* out, int n_pages,
                               int npp, int threads, int device,
                               void* stream) {
   int rc = vt_begin(device);
   if (rc != 0) return rc;
   if (npp <= 0) return static_cast<int>(cudaGetLastError());
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return threads <= 256
-             ? launch_pages<4>(data, out, n_pages, npp, threads, st)
-             : launch_pages<2>(data, out, n_pages, npp, threads, st);
+  const size_t smem = static_cast<size_t>(kRing) * threads * kPagesPitch;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sha256_pages_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int grid = (npp + threads - 1) / threads;
+  sha256_pages_kernel<<<grid, threads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(data), static_cast<uint32_t*>(out),
+      n_pages, npp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 VT_EXPORT int vt_sha256_rows(const void* data, const void* rows0, void* out,

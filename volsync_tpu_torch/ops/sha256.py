@@ -198,7 +198,7 @@ def sha256_pages(data: torch.Tensor, npp: int, *,
     ``npp`` >= P / 4096 pages are hashed, those past the buffer as zero
     pages. Returns [8 * npp] int32 digests, word j of page p at
     ``j*npp + p`` (the TPU kernel's word-major layout). ``threads`` per
-    block (a multiple of 32, at most 1024) is K1's launch configuration;
+    block (a multiple of 32, at most 256) is K1's launch configuration;
     it does not change the result. CUDA: K1, which reads the raw bytes;
     CPU: its plain twin."""
     P = data.shape[0]
@@ -211,9 +211,9 @@ def sha256_pages(data: torch.Tensor, npp: int, *,
     check_cuda("sha256_pages", data, torch.uint8, 1)
     if data.data_ptr() % 16:
         raise ValueError("sha256_pages: the buffer must be 16-byte aligned")
-    if threads % 32 or not 32 <= threads <= 1024:
+    if threads % 32 or not 32 <= threads <= 256:
         raise ValueError(f"sha256_pages: threads {threads} is not a "
-                         f"multiple of 32 in [32, 1024]")
+                         f"multiple of 32 in [32, 256]")
     out = torch.empty((8 * npp,), dtype=torch.int32, device=data.device)
     SHA256_PAGES.launch(data.device, data.data_ptr(), out.data_ptr(),
                         P // 4096, npp, threads)
