@@ -20,8 +20,10 @@ a mismatch:
    inputs with ``torch.equal`` (K1 also against hashlib per page) and
    times kernel and twin; logs each serial chain's chain bound (its
    longest lane in blocks x the least time of a block, from the
-   compiled block's instruction issue) and times ``merkle_roots`` on
-   one 1,025-block lane alone. K3 transpose_u32,
+   compiled block's instruction issue; for the walk its longest lane's
+   chunks x one dependent load, measured by a pointer chase,
+   ``csrc/probe.cu``) and times ``merkle_roots`` on one 1,025-block
+   lane alone. K3 transpose_u32,
    off the fused path, is held and timed on [12,288, 1,024] (the
    segment's page-word table) and a ragged shape, beside the one
    PyTorch call computing the same function. Then K5: K1 at
@@ -32,7 +34,7 @@ a mismatch:
    segment (48 MiB buffer, non-eof) through
    ``DeviceChunkHasher(align=64).begin``, which launches exactly one
    ``sha256_rows`` and one ``sha256_lanes``, each equal to its twin, K2
-   also to hashlib per leaf;
+   also to hashlib per leaf, logged with its per-warp floor;
 3. stream: sets every launch count to 0, streams a seeded ``--stream-gib``
    GiB + 12,345-byte volume (half of its 64 MiB blocks repeat earlier
    ones; one block is all zero) through ``stream_chunk_batches`` with
@@ -354,11 +356,12 @@ def pagemajor_env(on: bool = True):
 
 
 #: Device stages of ``chunk_hash_segments``, each the segment-module
-#: functions it is timed over; "pages.K1" and "roots.merkle" are the
-#: kernels inside "pages" and "roots".
+#: functions it is timed over; "walk.kernel", "pages.K1" and
+#: "roots.merkle" are the kernels inside "walk", "pages" and "roots".
 STAGES = {
     "gear": ("gear_at_aligned", "_compact_candidates"),
     "walk": ("_select_boundaries_device",),
+    "walk.kernel": ("fastcdc_walk",),
     "pages": ("_page_digests_flat",),
     "pages.K1": ("sha256_pages",),
     "roots": ("sha256_chunks_device", "_apply_tail_overrides",
@@ -426,9 +429,9 @@ def sass_block_counts(sass: str, kernel: str, loads: int,
 
 
 def sass_blocks() -> dict:
-    """``sass_block_counts`` of K1 (4 16-byte cp.async a block: a
-    thread copies 64 bytes of its block's pages per message block), of
-    merkle_roots' chain (64 shared K+W reads a block) and of
+    """``sass_block_counts`` of K1 and K2 (4 16-byte cp.async a block:
+    a thread copies 64 bytes of its block's messages per message block),
+    of merkle_roots' chain (64 shared K+W reads a block) and of
     ``sha256_lanes`` (4 16-byte loads a block) in the built libraries;
     empty when the toolkit has no cuobjdump."""
     from volsync_tpu_torch.ops import _build
@@ -445,6 +448,7 @@ def sass_blocks() -> dict:
 
     sha = dump("sha256.cu")
     return {"K1": sass_block_counts(sha, "sha256_pages_kernel", 4),
+            "K2": sass_block_counts(sha, "sha256_rows_kernel", 4),
             "merkle_roots": sass_block_counts(dump("merkle.cu"),
                                               "merkle_roots_kernel", 64,
                                               "LDS"),
@@ -480,7 +484,7 @@ def kernel_fns(seg, sha) -> tuple:
               "merkle_roots": seg._root_digests_loop}
     plain = {"transpose_u32": seg._transpose_plain,
              "sha256_pages": sha._sha256_pages_plain,
-             "fastcdc_walk": seg._fastcdc_walk_plain,
+             "fastcdc_walk": seg._fastcdc_walk_twin,
              "sha256_lanes": sha._sha256_lanes_plain,
              "sha256_rows": lambda data, rows0, leaf_len=4096:
                  sha._sha256_rows(sha.pack_words(data), rows0, leaf_len),
@@ -559,15 +563,85 @@ def page_table(host: np.ndarray, npp: int) -> np.ndarray:
     return np.frombuffer(raw, ">u4").reshape(npp, 8).T.astype(np.uint32)
 
 
-def k1_warp_floor_ms(npp: int, threads: int) -> float:
-    """K1's per-warp floor: the blocks spread over the 132 SMs, an SM's
+def warp_floor_ms(lanes: int, threads: int) -> float:
+    """Per-warp floor of K1 or K2 (a thread a 4 KiB message,
+    ``threads`` a block): the blocks spread over the 132 SMs, an SM's
     warps over its 4 schedulers, and each scheduler's warps issue their
     64 data blocks and one pad block of ALU instructions (65 x 1,024 +
-    640 for a page) at 16 lanes a cycle, one after another."""
-    blocks_per_sm = -(-(-(-npp // threads)) // 132)
+    640 for a message) at 16 lanes a cycle, one after another."""
+    blocks_per_sm = -(-(-(-lanes // threads)) // 132)
     per_sched = -(-blocks_per_sm * (threads // 32) // 4)
     cycles = per_sched * (64 * SHA_BLOCK_ALU_OPS + SHA_PAD_BLOCK_ALU_OPS) * 2
     return cycles / CLOCK_HZ * 1e3
+
+
+#: Entries of the probe's two chases: 256 KiB of cycle in L2 (its loads
+#: skip L1) and 16 KiB in shared memory.
+PROBE_L2_ENTRIES = 1 << 16
+PROBE_SHARED_ENTRIES = 4096
+PROBE_STEPS = 1 << 16
+
+
+def probe_latency_ns(torch, seed: int = 0) -> dict:
+    """One dependent load's latency from L2 and from shared memory: a
+    one-thread pointer chase over a random cycle (``csrc/probe.cu``, no
+    port of a TPU kernel), timed inside the kernel by %globaltimer (ns,
+    at the clocks the card ran) and clock64 (SM cycles); the least of 3
+    chases each -> {"l2_ns", "l2_cycles", "shared_ns",
+    "shared_cycles"}."""
+    import ctypes
+
+    from volsync_tpu_torch.ops import _build
+
+    fn = _build.load("probe.cu").vt_probe_chase
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rng = np.random.default_rng(seed)
+    res = {}
+    for name, n, shared in (("l2", PROBE_L2_ENTRIES, 0),
+                            ("shared", PROBE_SHARED_ENTRIES, 1)):
+        order = rng.permutation(n)
+        nxt = np.empty((n,), np.int32)
+        nxt[order] = np.roll(order, -1)  # one cycle through all n
+        dev_next = torch.from_numpy(nxt).to(DEVICE)
+        out = torch.zeros((3,), dtype=torch.int64, device=DEVICE)
+        runs = []
+        for _ in range(3):
+            rc = fn(dev_next.data_ptr(), n, PROBE_STEPS, shared,
+                    out.data_ptr(), torch.cuda.current_device(),
+                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"probe_chase launch failed ({rc})")
+            runs.append(out.tolist()[:2])
+        cycles, ns = min(runs, key=lambda r: r[1])
+        res[f"{name}_ns"] = ns / PROBE_STEPS
+        res[f"{name}_cycles"] = cycles / PROBE_STEPS
+    return res
+
+
+def walk_bound(torch, args, out, lat_ns: dict) -> dict:
+    """Bound of one ``fastcdc_walk`` launch, the larger of its bytes and
+    its chain. Bytes: each lane's candidates up to its last cut read
+    once, the lanes' counts, lengths and eof flags, and the outputs
+    written, over HBM's rate. Chain: the first windows' dependent L2
+    load, then one dependent step a chunk of the longest lane, each at
+    least a shared-memory load's latency (the decision's ballot and
+    shuffle on the previous cut)."""
+    pos_s, _, pos_l, _, _, _ = args
+    starts, _, count, consumed = out
+    last = consumed.to(torch.int64)[:, None] - 1
+    n_read = int((pos_s <= last).sum()) + int((pos_l <= last).sum())
+    S, chunk_cap = starts.shape
+    nbytes = n_read * 8 + S * (3 * 8 + 1) + S * chunk_cap * 8 + S * 8
+    longest = int(count.max()) if S else 0
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    chain_ms = (lat_ns["l2_ns"] + longest * lat_ns["shared_ns"]) * 1e-6
+    return {"bytes_ms": bytes_ms, "chain_ms": chain_ms,
+            "bound_ms": max(bytes_ms, chain_ms),
+            "bound_by": "bytes" if bytes_ms >= chain_ms else "operations",
+            "longest": longest, "candidates": n_read}
 
 
 def root_lane_blocks(torch, nleaves, live, nb_max: int):
@@ -577,7 +651,15 @@ def root_lane_blocks(torch, nleaves, live, nb_max: int):
     return nb.clamp(max=nb_max) * live.any()
 
 
-def kernel_phase(torch, stream, p, seg_bytes: int, p64) -> dict:
+def new_stats() -> defaultdict:
+    """Per-kernel measurements of the kernels phase, by kernel name."""
+    return defaultdict(lambda: {"err": 0, "ms": [], "eager_ms": [],
+                                "plain_ms": [], "bound": [], "bound_by": "",
+                                "lib": []})
+
+
+def kernel_phase(torch, stream, p, seg_bytes: int, p64,
+                 lat_ns: dict) -> dict:
     from volsync_tpu_torch.ops import segment as seg
     from volsync_tpu_torch.ops import sha256 as sha
 
@@ -606,9 +688,7 @@ def kernel_phase(torch, stream, p, seg_bytes: int, p64) -> dict:
         ("transpose_u32", [torch.randint(
             -2**31, 2**31 - 1, (1000, 77), dtype=torch.int32,
             device=DEVICE)], {})]
-    stats = defaultdict(lambda: {"err": 0, "ms": [], "eager_ms": [],
-                                 "plain_ms": [], "bound": [],
-                                 "bound_by": "", "lib": []})
+    stats = new_stats()
     k1 = None
     for name, args, kwargs in calls + extra:
         out_k, out_p, err, plain_s = against_twin(torch, fns, name, args,
@@ -645,7 +725,7 @@ def kernel_phase(torch, stream, p, seg_bytes: int, p64) -> dict:
                                               F * 4096 + npp * 32)
             st["bound"].append(bound)
             log(f"K1: per-warp floor "
-                f"{k1_warp_floor_ms(npp, sha.PAGES_THREADS):.4f} ms")
+                f"{warp_floor_ms(npp, sha.PAGES_THREADS):.4f} ms")
         elif name == "sha256_lanes":
             blocks, nblocks = args
             nb = int(nblocks.clamp(min=0).sum())
@@ -658,13 +738,17 @@ def kernel_phase(torch, stream, p, seg_bytes: int, p64) -> dict:
                 f"blocks, longest lane {st['longest']}")
         elif name == "merkle_roots":
             root_checks(torch, seg, st, args, kwargs)
-        else:  # fastcdc_walk: a few table reads and writes per chunk
-            starts, lens, count, consumed = out_k
-            n = int(count.sum())
-            S = count.shape[0]
-            nbytes = (n + S) * 8 + n * 8 + S * 12
-            st["bound"].append(nbytes / HBM_BYTES_PER_S * 1e3)
-            st["bound_by"] = "bytes"
+        else:  # fastcdc_walk: a serial chain of decisions
+            b = walk_bound(torch, args, out_k, lat_ns)
+            st["bound"].append(b["bound_ms"])
+            st["bound_by"] = b["bound_by"]
+            st["longest"] = b["longest"]
+            log(f"fastcdc_walk: {out_k[2].shape[0]} lanes, longest lane "
+                f"{b['longest']} chunks; bytes bound {b['bytes_ms']:.6f} "
+                f"ms ({b['candidates']} candidates up to the last cuts, "
+                f"the outputs), chain bound {b['chain_ms']:.6f} ms (one "
+                f"dependent L2 load + {b['longest']} x one dependent "
+                f"shared-memory load)")
         log(f"{name}: equals twin; kernel {st['ms'][-1]:.4f} ms/launch "
             f"(eager {st['eager_ms'][-1]:.4f}), twin {plain_s*1e3:.1f} ms")
 
@@ -719,7 +803,7 @@ def sweep_k1(torch, stats, data, npp, want) -> None:
     log(f"K5 sweep of K1 ({npp} pages), ms per launch by threads per "
         f"block: {json.dumps({t: round(v, 4) for t, v in times.items()})}"
         f", per-warp floors: " + json.dumps(
-            {t: round(k1_warp_floor_ms(npp, t), 4) for t in SWEEP_THREADS})
+            {t: round(warp_floor_ms(npp, t), 4) for t in SWEEP_THREADS})
         + "; every launch equals hashlib on every page")
 
 
@@ -805,9 +889,13 @@ def split_segment_check(torch, fns, stats, host, p64) -> None:
         bound, st["bound_by"] = sha_bound(64 * n_full, n_full,
                                           n_full * (4096 + 32 + 4))
         st["bound"].append(bound)
-        log(f"K2 sha256_rows: {args[1].shape[0]} lanes ({n_full} full "
-            f"leaves of {len(chunks)} chunks) equal the twin and hashlib; "
-            f"kernel {st['ms'][-1]:.4f} ms, twin {plain_s*1e3:.1f} ms")
+        lanes = args[1].shape[0]
+        log(f"K2 sha256_rows: {lanes} lanes ({n_full} full leaves of "
+            f"{len(chunks)} chunks) equal the twin and hashlib; kernel "
+            f"{st['ms'][-1]:.4f} ms, twin {plain_s*1e3:.1f} ms; bound "
+            f"{bound:.4f} ms ({st['bound_by']}), per-warp floor "
+            f"{warp_floor_ms(lanes, sha.ROWS_THREADS):.4f} ms "
+            f"({sha.ROWS_THREADS} threads a block)")
 
 
 def stream_once(torch, stream, params, hasher) -> tuple:
@@ -1102,6 +1190,12 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} CUDA {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    lat = probe_latency_ns(torch, args.seed)
+    log(f"probe (csrc/probe.cu, one-thread pointer chase): one dependent "
+        f"L2 load {lat['l2_ns']:.1f} ns ({lat['l2_cycles']:.1f} SM "
+        f"cycles), one dependent shared-memory load "
+        f"{lat['shared_ns']:.1f} ns ({lat['shared_cycles']:.1f} cycles) "
+        f"({card})")
 
     def volume(size: int, what: str):
         t1 = time.perf_counter()
@@ -1114,7 +1208,8 @@ def main() -> int:
     # The align=64 deployment: DEFAULT_CHUNKER's sizes with align 64.
     params64 = GearParams(align=64)
     stream = volume(int(args.stream_gib * GIB), "fused stream")
-    stats = kernel_phase(torch, stream, DEFAULT_PARAMS, SEGMENT_P, params64)
+    stats = kernel_phase(torch, stream, DEFAULT_PARAMS, SEGMENT_P, params64,
+                         lat)
     for name, floor in floors.items():
         st = stats[name]
         bound = (f"{st['longest'] * floor:.4f} ms" if floor

@@ -222,3 +222,63 @@ def test_pagemajor_env_restores_the_variable(monkeypatch):
     with chip_smoke.pagemajor_env(False):
         assert "VOLSYNC_PAGEMAJOR" not in os.environ
     assert os.environ["VOLSYNC_PAGEMAJOR"] == "0"
+
+
+def test_warp_floor_of_k1_and_k2():
+    """12,288 pages or 16,384 leaves at 64 threads a block: no scheduler
+    holds two warps, so the floor is one warp's 65 blocks of ALU
+    instructions at 16 lanes a cycle; 48 blocks of 256 threads put two
+    warps on a scheduler."""
+    one = (64 * 1024 + 640) * 2 / chip_smoke.CLOCK_HZ * 1e3
+    assert chip_smoke.warp_floor_ms(12288, 64) == pytest.approx(one)
+    assert chip_smoke.warp_floor_ms(16384, 64) == pytest.approx(one)
+    assert 0.0667 < one < 0.0669
+    assert chip_smoke.warp_floor_ms(12288, 256) == pytest.approx(2 * one)
+
+
+def test_walk_bound_on_a_captured_walk(rng):
+    """The walk's bound from the fused segment's own fastcdc_walk inputs:
+    the candidates up to each lane's last cut, the longest lane's
+    chunks, and the larger of bytes and chain."""
+    data = torch.from_numpy(rng.randint(0, 256, size=(256 * 1024,)).astype(
+        "uint8"))
+    cc, kc = seg.segment_caps(256 * 1024, PARAMS)
+    p = PARAMS
+    calls = chip_smoke.capture_calls(seg, sha, lambda: seg.chunk_hash_segment(
+        data, 250_000, min_size=p.min_size, avg_size=p.avg_size,
+        max_size=p.max_size, seed=p.seed, mask_s=p.mask_s, mask_l=p.mask_l,
+        align=p.align, eof=True, cand_cap=cc, chunk_cap=kc))
+    _, args, kwargs = next(c for c in calls if c[0] == "fastcdc_walk")
+    assert sorted(kwargs) == ["align", "avg_size", "chunk_cap", "max_size",
+                              "min_size"]
+    out = seg.fastcdc_walk(*args, **kwargs)
+    lat = {"l2_ns": 300.0, "shared_ns": 30.0}
+    b = chip_smoke.walk_bound(torch, args, out, lat)
+    pos_s, ns, pos_l, nl, valid_len, eof = args
+    assert int(out[3][0]) == 250_000 and b["longest"] == int(out[2][0]) > 3
+    n = int((pos_s[0, :ns[0]] < 250_000).sum()
+            + (pos_l[0, :nl[0]] < 250_000).sum())
+    assert b["candidates"] == n > 0
+    assert b["bytes_ms"] == pytest.approx(
+        (n * 8 + 25 + kc * 8 + 8) / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    assert b["chain_ms"] == pytest.approx((300 + 30 * b["longest"]) * 1e-6)
+    assert (b["bound_ms"], b["bound_by"]) == (b["chain_ms"], "operations")
+    lat = {"l2_ns": 0.0, "shared_ns": 0.0}
+    assert chip_smoke.walk_bound(torch, args, out, lat)["bound_by"] == "bytes"
+
+
+def test_split_segment_check_on_cpu(monkeypatch):
+    """K2's check rehearsed at a tiny size with the twins (kernel timing
+    stubbed out): one sha256_rows and one sha256_lanes, each equal to its
+    twin, every K2 lane equal to hashlib, every id to blob_id."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "time_ms",
+                        lambda torch, fn, reps, graph=True: 0.0)
+    host = np.random.RandomState(7).randint(0, 256, size=(160 * 1024,)
+                                            ).astype(np.uint8)
+    stats = chip_smoke.new_stats()
+    chip_smoke.split_segment_check(torch, chip_smoke.kernel_fns(seg, sha),
+                                   stats, host, PARAMS_64)
+    st = stats["sha256_rows"]
+    assert st["err"] == 0 and st["bound_by"] == "operations"
+    assert len(st["bound"]) == 1 and st["bound"][0] > 0

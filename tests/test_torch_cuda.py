@@ -112,21 +112,26 @@ def test_hash_file_streaming_on_card(cuda, rng, tmp_path):
             blobid.blob_id(data)
 
 
-def test_sha256_rows_kernel_equals_twin_and_hashlib(cuda, rng):
+@pytest.mark.parametrize("leaf_len", [64, 4096, 8192])
+def test_sha256_rows_kernel_equals_twin_and_hashlib(cuda, rng, leaf_len):
+    """K2 at one, 64 and 128 blocks a leaf: 301 lanes (not a multiple of
+    the 64-lane block) at rows off the page grid, the last leaf that
+    fits and the row before it, equal to the twin and hashlib."""
     import hashlib
 
     data = np.frombuffer(rng.bytes(256 * 1024), np.uint8).copy()
     n_rows = data.shape[0] // 64
-    rows0 = np.concatenate([[0, n_rows - 64, 5, 5],
-                            rng.randint(0, n_rows - 63, size=296)]
-                           ).astype(np.int32)  # 300 lanes, ragged
+    last = n_rows - leaf_len // 64
+    rows0 = np.concatenate([[0, last, last - 1, 5, 5],
+                            rng.randint(0, last + 1, size=296)]
+                           ).astype(np.int32)
     d, r = torch.from_numpy(data).to(cuda), torch.from_numpy(rows0).to(cuda)
-    got = sha.sha256_rows(d, r)
-    assert torch.equal(got, sha._sha256_rows(sha.pack_words(d), r, 4096))
+    got = sha.sha256_rows(d, r, leaf_len=leaf_len)
+    assert torch.equal(got, sha._sha256_rows(sha.pack_words(d), r, leaf_len))
     dig = got.cpu().numpy().view(np.uint32).astype(">u4")
     for b, row in enumerate(rows0):
         assert dig[b].tobytes() == hashlib.sha256(
-            data[64 * row: 64 * row + 4096]).digest()
+            data[64 * row: 64 * row + leaf_len]).digest()
 
 
 def test_sha256_rows_raises_on_what_the_kernel_does_not_take(cuda):
@@ -246,3 +251,87 @@ def test_pagemajor_segment_on_card_equals_word_major(cuda, rng,
     assert torch.equal(seg.chunk_hash_segment(dev, 400_000, **kw), word)
     np.testing.assert_array_equal(seg.page_digests(dev), pages)
     assert seg.PAGEMAJOR_U32.launches == launched + 2
+
+
+def _walk_inputs(rng, S, n_rows, cap, density):
+    """Candidate lists of S lanes on the 4096-byte grid, numpy: lax rows
+    at ``density``, strict rows a 40% subset, each list sorted, cut at
+    cap and padded with the sentinel; lane 0 spans every row, the others
+    end anywhere in the last row; eof on even lanes."""
+    pos_s = np.full((S, cap), 2**31 - 2, np.int64)
+    pos_l = pos_s.copy()
+    ns, nl = np.zeros(S, np.int64), np.zeros(S, np.int64)
+    L = n_rows * 4096 - rng.randint(0, 4096, size=S).astype(np.int64)
+    L[0] = n_rows * 4096
+    for k in range(S):
+        rows_l = np.nonzero(rng.rand(n_rows) < density)[0]
+        rows_s = rows_l[rng.rand(rows_l.shape[0]) < 0.4]
+        for rows, pos, n in ((rows_s, pos_s, ns), (rows_l, pos_l, nl)):
+            c = rows * 4096 + 4095
+            c = c[c < L[k]]
+            n[k] = min(c.shape[0], cap)
+            pos[k, :n[k]] = c[:n[k]]
+    return pos_s, ns, pos_l, nl, L, np.arange(S) % 2 == 0
+
+
+@pytest.mark.parametrize("S,density", [(1, 0.02), (5, 0.02), (1, 0.0),
+                                       (5, 1.0)],
+                         ids=["random1", "random5", "zero", "dense"])
+def test_fastcdc_walk_kernel_equals_twin(cuda, rng, S, density):
+    """The walk kernel on 48 MiB lanes (12,288 rows, 4,096-entry lists)
+    at the default sizes == its twin on the CPU, at the segment's
+    chunk_cap and at 4 (truncated walks, zero-filled tails): random
+    lanes, an all-zero segment (no candidates: max-size cuts) and a
+    dense one whose lists overflow (ns == cap). One launch a call."""
+    from volsync_tpu_torch.ops.gearcdc import DEFAULT_PARAMS as p
+
+    n_rows, cap = 12288, 4096
+    host = [torch.from_numpy(x) for x in _walk_inputs(rng, S, n_rows, cap,
+                                                      density)]
+    dev = [x.to(cuda) for x in host]
+    for chunk_cap in (seg.segment_caps(n_rows * 4096, p)[1], 4):
+        kw = dict(min_size=p.min_size, avg_size=p.avg_size,
+                  max_size=p.max_size, chunk_cap=chunk_cap, align=p.align)
+        launched = seg.FASTCDC_WALK.launches
+        got = seg.fastcdc_walk(*dev, **kw)
+        assert seg.FASTCDC_WALK.launches == launched + 1
+        want = seg.fastcdc_walk(*host, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+        assert int(want[2][0]) > 0
+
+
+def test_fastcdc_walk_raises_on_what_the_kernel_does_not_take(cuda):
+    def z(*shape, dtype=torch.int64, device=cuda):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    good = [z(2, 64), z(2), z(2, 64), z(2), z(2), z(2, dtype=torch.bool)]
+    kw = dict(min_size=4096, avg_size=32768, max_size=65536, chunk_cap=8,
+              align=4096)
+    assert int(seg.fastcdc_walk(*good, **kw)[2].sum()) == 0
+    for i, bad in ((0, z(2, 64, dtype=torch.int32)), (0, z(128)),
+                   (1, z(3)), (2, z(3, 64)), (4, z(2, dtype=torch.int32)),
+                   (5, z(2)), (3, z(2, device="cpu")),
+                   (2, z(2, 128)[:, ::2])):
+        args = list(good)
+        args[i] = bad
+        with pytest.raises(ValueError):
+            seg.fastcdc_walk(*args, **kw)
+
+
+def test_walk_stage_on_card_is_one_kernel_launch(cuda, rng, monkeypatch):
+    """On CUDA ``_select_boundaries_device`` launches one fastcdc_walk and
+    builds no successor tables (no searchsorted)."""
+    def table_path(*args, **kwargs):
+        raise AssertionError("the table path ran on CUDA")
+
+    dev = [torch.from_numpy(x).to(cuda)
+           for x in _walk_inputs(rng, 3, 64, 64, 0.3)]
+    monkeypatch.setattr(torch, "searchsorted", table_path)
+    monkeypatch.setattr(seg, "_walk_tables", table_path)
+    launched = seg.FASTCDC_WALK.launches
+    count = seg._select_boundaries_device(
+        *dev, min_size=PARAMS.min_size, avg_size=PARAMS.avg_size,
+        max_size=PARAMS.max_size, chunk_cap=16, align=4096, n_rows=64)[2]
+    assert seg.FASTCDC_WALK.launches == launched + 1
+    assert int(count.min()) > 0

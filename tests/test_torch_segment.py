@@ -3,10 +3,12 @@ against the JAX package's ops/segment.py, on the CPU: packed results
 element for element on random, redundant and zero-entropy data,
 non-eof tails, forced small capacities (the overflow retry), batched
 lanes and page-aligned spans, and under VOLSYNC_PAGEMAJOR=1 (the K4
-page-major digest table)."""
+page-major digest table); the FastCDC walk's twin against both forms of
+the reference's walk."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -207,6 +209,65 @@ def test_walk_tables_and_twin_match_scalar_reference(rng):
         ref = select_boundaries(idx_s, idx_l, L, p, eof=eof)
         assert got == ref[:chunk_cap], (trial, L, eof, chunk_cap)
         assert int(consumed[0]) == (got[-1][0] + got[-1][1] if got else 0)
+
+
+#: The reference walk jitted once per (chunk_cap, form); eof stays a
+#: traced per-lane scalar, as on the reference's batched path.
+_JWALK = jax.jit(jseg._select_boundaries_device, static_argnames=(
+    "min_size", "avg_size", "max_size", "chunk_cap", "align", "n_rows"))
+
+
+def _walk_lanes(rng, trial: int, cap: int, n_rows: int):
+    """One [3, cap] candidate batch on the 4096-byte grid, numpy: a lane
+    with an unaligned length and 0, few or many candidates; a padding
+    lane (valid_len 0); a dense lane whose true counts overflow cap
+    (ns == nl == cap, no sentinel). eof alternates on lanes 0 and 2."""
+    pos_s = np.full((3, cap), 2**31 - 2, np.int64)
+    pos_l = pos_s.copy()
+    ns, nl = np.zeros(3, np.int64), np.zeros(3, np.int64)
+    L = np.array([n_rows * 4096 - int(rng.randint(1, 4096)), 0,
+                  n_rows * 4096], np.int64)
+    for k, density in enumerate([[0.0, 0.05, 0.3][trial % 3], 0.3, 1.0]):
+        rows_l = np.nonzero(rng.rand(n_rows) < density)[0]
+        rows_s = rows_l[rng.rand(rows_l.shape[0]) < (0.4 if k < 2 else 0.8)]
+        for rows, pos, n in ((rows_s, pos_s, ns), (rows_l, pos_l, nl)):
+            c = rows * 4096 + 4095
+            c = c[c < L[k]]
+            n[k] = min(c.shape[0], cap)
+            pos[k, :n[k]] = c[:n[k]]
+    eof = np.array([trial % 2 == 0, True, trial % 2 == 1])
+    return pos_s, ns, pos_l, nl, L, eof
+
+
+@pytest.mark.parametrize("chunk_cap", [2, 4, 256])
+def test_fastcdc_walk_twin_matches_reference_both_forms(rng, chunk_cap):
+    """fastcdc_walk's twin (successor tables + the table walk) on seeded
+    [3, cap] lanes == the JAX walk lane by lane, in its generic
+    per-iteration form (align=0, n_rows=0) and its table form: starts
+    and lens (zero past count), count and consumed."""
+    p = TPARAMS
+    cap, n_rows = 16, 40
+    sizes = dict(min_size=p.min_size, avg_size=p.avg_size,
+                 max_size=p.max_size)
+    for trial in range(4):
+        lanes = _walk_lanes(rng, trial, cap, n_rows)
+        pos_s, ns, pos_l, nl, L, eof = lanes
+        assert ns[2] == nl[2] == cap
+        got = tseg.fastcdc_walk(*(torch.from_numpy(x) for x in lanes),
+                                chunk_cap=chunk_cap, align=4096, **sizes)
+        got = [x.numpy() for x in got]
+        assert got[2][1] == got[3][1] == 0  # the padding lane
+        for k in range(3):
+            for align, rows in ((0, 0), (4096, n_rows)):
+                want = _JWALK(
+                    jnp.asarray(pos_s[k], jnp.int32), jnp.int32(ns[k]),
+                    jnp.asarray(pos_l[k], jnp.int32), jnp.int32(nl[k]),
+                    jnp.int32(L[k]), chunk_cap=chunk_cap,
+                    eof=jnp.bool_(eof[k]), align=align, n_rows=rows,
+                    **sizes)
+                for g, w in zip(got, want):
+                    np.testing.assert_array_equal(
+                        g[k], np.asarray(w), err_msg=f"{trial} {k} {align}")
 
 
 def test_page_digests_and_decode(rng):

@@ -36,6 +36,17 @@ __device__ __forceinline__ void vt_cp_async16(void* smem, const void* gmem,
                :: "r"(s), "l"(gmem), "r"(src_bytes) : "memory");
 }
 
+// The same copy allocated in L1 too (cp.async.ca), for a kernel whose
+// threads on one SM copy the same bytes again (K2's padding lanes all
+// hash row 0): the repeats hit L1 instead of queueing on one L2 slice.
+__device__ __forceinline__ void vt_cp_async16_l1(void* smem,
+                                                 const void* gmem,
+                                                 int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(src_bytes) : "memory");
+}
+
 __device__ __forceinline__ void vt_cp_async4(void* smem, const void* gmem,
                                              int src_bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));

@@ -40,15 +40,21 @@
 // (the split-phase engine's full 4 KiB leaves): the TPU route packs the
 // whole segment into big-endian words (pack_words), gathers each leaf's
 // 64 rows and transposes them to [64, 16, B] before K1's kernel runs.
-// Here one thread per leaf reads its leaf straight from the raw segment
-// bytes at 64 * rows0[b] as four 16-byte loads per block, byte-swaps the
-// words in registers and runs the compressions plus the constant pad
-// block with the state in registers: the packing, gather and transpose
-// passes (a read and a write of the segment each) are gone. Leaves are
-// 64-byte aligned but may start anywhere on that grid, so a warp's 32
-// loads touch 32 leaves about 4 KiB apart: poorly coalesced, left for a
-// later redesign (staging blocks through shared memory). Bound: the same
-// ALU work as K1 per leaf.
+// Here K2 is K1 with a leaf at any 64-byte row instead of a page: it
+// reads the raw segment bytes at 64 * rows0[b] through K1's ring (the
+// packing, gather and transpose passes are gone). A block of T threads
+// (ops/sha256.py ROWS_THREADS, 64) owns lanes [first, first + T), and 4
+// consecutive threads copy one leaf's 64 contiguous bytes of a block
+// (the leaves of a warp lie about 4 KiB apart), so every 32-byte sector
+// fetched is used and a compression never waits on its own loads.
+// Each thread reads the rows of the 4 leaves it copies pieces of once,
+// clamped into the buffer, and keeps their addresses in registers.
+// Lanes past B are zero copies. The copies go through L1 (cp.async.ca):
+// the engine pads the lanes to a power of two with row 0, so thousands
+// of padding lanes copy the same 64 bytes at every stage, which through
+// L2 alone queue on one slice. The loop runs leaf_blocks (any positive
+// count) data blocks, then the FIPS pad block of leaf_blocks * 512 bits;
+// output [B, 8]. Bound: the same ALU work as K1 per leaf.
 //
 // sha256_lanes replaces the XLA-level sha256_blocks scan
 // (volsync_tpu/ops/sha256.py:144-169) as used by the tail leaf
@@ -62,63 +68,67 @@
 #include "sha256.cuh"
 
 static constexpr int kLanesBlock = 32;
-// One warp per block spreads the few thousand leaves of a segment over
-// as many SMs as possible.
-static constexpr int kRowsBlock = 32;
 
 __device__ __forceinline__ uint32_t vt_bswap32(uint32_t x) {
   return __byte_perm(x, 0, 0x0123);
 }
 
-// K1's ring: kRing stages, each one message block (64 bytes) of every
-// page of the thread block, one 80-byte row a page; kPagesMaxThreads a
-// block at most.
+// The ring of K1 and K2: kRing stages, each one message block (64 bytes)
+// of every message of the thread block, one 80-byte row a message;
+// kRingMaxThreads a block at most.
 static constexpr int kRing = 4;
-static constexpr int kPagesPitch = 64 + 16;
-static constexpr int kPagesMaxThreads = 256;
+static constexpr int kRingPitch = 64 + 16;
+static constexpr int kRingMaxThreads = 256;
 
-__global__ void __launch_bounds__(kPagesMaxThreads)
-sha256_pages_kernel(const uint8_t* __restrict__ data,
-                    uint32_t* __restrict__ out, int n_pages, int npp) {
-  extern __shared__ __align__(16) uint8_t pages_ring[];
+// The ring loop K1 and K2 share: the blockDim.x threads of a block hash
+// one message each, nblocks 64-byte blocks long, into ``s``. Copy r (0..3)
+// of a thread at a stage is piece ``piece`` (16 bytes) of the block's
+// message ``row``; ``live(row)`` says whether that message exists, and
+// ``src(r, row, t, piece)`` is the global address of the piece in its
+// message block t. A message that does not exist is zero copies, which
+// pass ``any`` as an address and read nothing. kL1 copies through L1
+// (vt_cp_async16_l1) instead of L2 alone.
+template <bool kL1, typename Live, typename Src>
+__device__ __forceinline__ void sha256_ring(uint8_t* ring,
+                                            const uint8_t* any, int nblocks,
+                                            Live live, Src src,
+                                            uint32_t s[8]) {
   const int T = blockDim.x;
-  const int first = blockIdx.x * T;
-  const int stage_bytes = T * kPagesPitch;
+  const int stage_bytes = T * kRingPitch;
 
-  // Copies of message block t of every page into slot t % kRing: 4
-  // consecutive threads copy one page's 64 bytes, 16 each.
+  // Copies of message block t of every message into slot t % kRing: 4
+  // consecutive threads copy one message's 64 bytes, 16 each.
   auto issue = [&](int t) {
-    uint8_t* slot = pages_ring + (t % kRing) * stage_bytes;
+    uint8_t* slot = ring + (t % kRing) * stage_bytes;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int c = r * T + threadIdx.x;
       const int row = c >> 2;
       const int piece = c & 3;
-      const int page = first + row;
-      const bool real = page < n_pages;
-      const uint8_t* src =
-          real ? data + static_cast<size_t>(page) * 4096 + t * 64 +
-                     piece * 16
-               : data;
-      vt_cp_async16(slot + row * kPagesPitch + piece * 16, src,
-                    real ? 16 : 0);
+      const bool real = live(row);
+      uint8_t* dst = slot + row * kRingPitch + piece * 16;
+      const uint8_t* from = real ? src(r, row, t, piece) : any;
+      if (kL1) {
+        vt_cp_async16_l1(dst, from, real ? 16 : 0);
+      } else {
+        vt_cp_async16(dst, from, real ? 16 : 0);
+      }
     }
   };
 
   for (int t = 0; t < kRing - 1; ++t) {
-    issue(t);
+    if (t < nblocks) issue(t);
     vt_cp_async_commit();
   }
-  uint32_t s[8];
   sha256_init(s);
 #pragma unroll 1
-  for (int t = 0; t < 64; ++t) {
+  for (int t = 0; t < nblocks; ++t) {
     vt_cp_async_wait<kRing - 2>();  // this thread's copies of block t landed
     __syncthreads();  // everyone's have, and slot (t-1) % kRing is read
-    if (t + kRing - 1 < 64) issue(t + kRing - 1);
+    if (t + kRing - 1 < nblocks) issue(t + kRing - 1);
     vt_cp_async_commit();  // one group a block (empty at the end)
     const uint4* row = reinterpret_cast<const uint4*>(
-        pages_ring + (t % kRing) * stage_bytes + threadIdx.x * kPagesPitch);
+        ring + (t % kRing) * stage_bytes + threadIdx.x * kRingPitch);
     uint32_t w[16];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
@@ -130,6 +140,21 @@ sha256_pages_kernel(const uint8_t* __restrict__ data,
     }
     sha256_compress(s, w);
   }
+}
+
+__global__ void __launch_bounds__(kRingMaxThreads)
+sha256_pages_kernel(const uint8_t* __restrict__ data,
+                    uint32_t* __restrict__ out, int n_pages, int npp) {
+  extern __shared__ __align__(16) uint8_t ring[];
+  const int first = blockIdx.x * blockDim.x;
+  uint32_t s[8];
+  sha256_ring<false>(
+      ring, data, 64, [&](int row) { return first + row < n_pages; },
+      [&](int, int row, int t, int piece) {
+        return data + static_cast<size_t>(first + row) * 4096 + t * 64 +
+               piece * 16;
+      },
+      s);
   const int p = first + threadIdx.x;
   if (p >= npp) return;
   uint32_t pad[16];
@@ -142,32 +167,34 @@ sha256_pages_kernel(const uint8_t* __restrict__ data,
   for (int j = 0; j < 8; ++j) out[static_cast<size_t>(j) * npp + p] = s[j];
 }
 
-__global__ void sha256_rows_kernel(const uint8_t* __restrict__ data,
-                                   const int32_t* __restrict__ rows0,
-                                   uint32_t* __restrict__ out, int B,
-                                   int n_rows, int leaf_blocks) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  // Leaf starts come from the host's leaf plan and lie inside the
-  // buffer; the clamp only keeps a bad row from reading past it.
-  int r = rows0[b];
-  r = r < 0 ? 0 : (r > n_rows - leaf_blocks ? n_rows - leaf_blocks : r);
-  const uint4* msg =
-      reinterpret_cast<const uint4*>(data) + static_cast<size_t>(r) * 4;
-  uint32_t s[8];
-  sha256_init(s);
-  for (int t = 0; t < leaf_blocks; ++t) {
-    uint32_t w[16];
+__global__ void __launch_bounds__(kRingMaxThreads)
+sha256_rows_kernel(const uint8_t* __restrict__ data,
+                   const int32_t* __restrict__ rows0,
+                   uint32_t* __restrict__ out, int B, int n_rows,
+                   int leaf_blocks) {
+  extern __shared__ __align__(16) uint8_t ring[];
+  const int first = blockIdx.x * blockDim.x;
+  // The first bytes of the 4 pieces this thread copies at every stage
+  // (copy r is piece c & 3 of lane first + c / 4, c = r * T + thread),
+  // read once. Leaf starts come from the host's leaf plan and lie
+  // inside the buffer; the clamp only keeps a bad row from reading past
+  // it.
+  const uint8_t* piece0[4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const uint4 v = __ldg(msg + static_cast<size_t>(t) * 4 + q);
-      w[4 * q] = vt_bswap32(v.x);
-      w[4 * q + 1] = vt_bswap32(v.y);
-      w[4 * q + 2] = vt_bswap32(v.z);
-      w[4 * q + 3] = vt_bswap32(v.w);
-    }
-    sha256_compress(s, w);
+  for (int r = 0; r < 4; ++r) {
+    const int c = r * blockDim.x + threadIdx.x;
+    const int lane = first + (c >> 2);
+    int row = lane < B ? rows0[lane] : 0;
+    row = row < 0 ? 0 : (row > n_rows - leaf_blocks ? n_rows - leaf_blocks
+                                                    : row);
+    piece0[r] = data + static_cast<size_t>(row) * 64 + (c & 3) * 16;
   }
+  uint32_t s[8];
+  sha256_ring<true>(
+      ring, data, leaf_blocks, [&](int row) { return first + row < B; },
+      [&](int r, int, int t, int) { return piece0[r] + t * 64; }, s);
+  const int b = first + threadIdx.x;
+  if (b >= B) return;
   // FIPS pad of a message of exactly leaf_blocks * 64 bytes.
   const uint64_t bits = static_cast<uint64_t>(leaf_blocks) * 512u;
   uint32_t pad[16];
@@ -207,41 +234,44 @@ __global__ void sha256_lanes_kernel(const uint32_t* __restrict__ blocks,
   for (int j = 0; j < 8; ++j) out[static_cast<size_t>(b) * 8 + j] = s[j];
 }
 
+// Launch a ring kernel (K1 or K2) on ``grid`` blocks of ``threads``: its
+// kRing stages take kRing * threads * 80 bytes of dynamic shared memory,
+// which above the default 48 KiB the kernel must opt into.
+template <typename Kernel, typename... Args>
+static int vt_ring_launch(Kernel kernel, int grid, int threads, void* stream,
+                          Args... args) {
+  const size_t smem = static_cast<size_t>(kRing) * threads * kRingPitch;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 VT_EXPORT int vt_sha256_pages(const void* data, void* out, int n_pages,
                               int npp, int threads, int device,
                               void* stream) {
   int rc = vt_begin(device);
   if (rc != 0) return rc;
   if (npp <= 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = static_cast<size_t>(kRing) * threads * kPagesPitch;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        sha256_pages_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int grid = (npp + threads - 1) / threads;
-  sha256_pages_kernel<<<grid, threads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(data), static_cast<uint32_t*>(out),
-      n_pages, npp);
-  return static_cast<int>(cudaGetLastError());
+  return vt_ring_launch(sha256_pages_kernel, (npp + threads - 1) / threads,
+                        threads, stream, static_cast<const uint8_t*>(data),
+                        static_cast<uint32_t*>(out), n_pages, npp);
 }
 
 VT_EXPORT int vt_sha256_rows(const void* data, const void* rows0, void* out,
-                             int B, int n_rows, int leaf_blocks, int device,
-                             void* stream) {
+                             int B, int n_rows, int leaf_blocks, int threads,
+                             int device, void* stream) {
   int rc = vt_begin(device);
   if (rc != 0) return rc;
-  if (B > 0) {
-    const int grid = (B + kRowsBlock - 1) / kRowsBlock;
-    sha256_rows_kernel<<<grid, kRowsBlock, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(data),
-        static_cast<const int32_t*>(rows0), static_cast<uint32_t*>(out), B,
-        n_rows, leaf_blocks);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (B <= 0) return static_cast<int>(cudaGetLastError());
+  return vt_ring_launch(sha256_rows_kernel, (B + threads - 1) / threads,
+                        threads, stream, static_cast<const uint8_t*>(data),
+                        static_cast<const int32_t*>(rows0),
+                        static_cast<uint32_t*>(out), B, n_rows, leaf_blocks);
 }
 
 VT_EXPORT int vt_sha256_lanes(const void* blocks, const void* nblocks,

@@ -5,8 +5,8 @@ stage on the device and returns ONE small packed result, fetched once:
 
 1. aligned gear candidates and their compaction (torch; cumsum ranks
    and a scatter, so no host sync);
-2. the FastCDC walk: successor tables from ``torch.searchsorted``, then
-   the ``fastcdc_walk`` kernel (``csrc/fastcdc.cu``);
+2. the FastCDC walk: the ``fastcdc_walk`` kernel (``csrc/fastcdc.cu``),
+   one warp a lane deciding each chunk from the candidate lists;
 3. SHA-256 of every 4 KiB page: K1 ``sha256_pages``
    (``csrc/sha256.cu``) over the raw segment bytes;
 4. the one partial tail leaf (``sha256_chunks_device``, one
@@ -85,7 +85,8 @@ TRANSPOSE_U32 = Kernel("transpose_u32", "transpose.cu", "vt_transpose_u32",
 PAGEMAJOR_U32 = Kernel("pagemajor_u32", "transpose.cu", "vt_pagemajor_u32",
                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int])
 FASTCDC_WALK = Kernel("fastcdc_walk", "fastcdc.cu", "vt_fastcdc_walk",
-                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4)
+                      [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                      + [ctypes.c_longlong] * 3)
 MERKLE_ROOTS = Kernel("merkle_roots", "merkle.cu", "vt_merkle_roots",
                       [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
                       + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3)
@@ -138,13 +139,14 @@ def _apply_tail_overrides(flat: torch.Tensor, n_pages_pad: int,
 
 
 # ---------------------------------------------------------------------------
-# FastCDC walk: successor tables + the fastcdc_walk kernel
+# FastCDC walk: the fastcdc_walk kernel, successor tables in its twin
 # ---------------------------------------------------------------------------
 
 def _fastcdc_walk_plain(cut_tab, emit_tab, valid_len, *, chunk_cap: int,
                         shift: int):
-    """Twin of the ``fastcdc_walk`` kernel (same arguments and results):
-    the walk as a host loop over each lane's tables."""
+    """The walk over successor tables (``_walk_tables``) as a host loop
+    over each lane: (starts [S, chunk_cap], lens [S, chunk_cap], count
+    [S], consumed [S]), int32."""
     S, n_rows = cut_tab.shape
     dev = cut_tab.device
     starts = torch.zeros((S, chunk_cap), dtype=torch.int32, device=dev)
@@ -168,35 +170,6 @@ def _fastcdc_walk_plain(cut_tab, emit_tab, valid_len, *, chunk_cap: int,
         lens[s, :cnt] = torch.tensor(ln, dtype=torch.int32)
         count[s] = cnt
         consumed[s] = pos
-    return starts, lens, count, consumed
-
-
-def fastcdc_walk(cut_tab: torch.Tensor, emit_tab: torch.Tensor,
-                 valid_len: torch.Tensor, *, chunk_cap: int, shift: int):
-    """Walk the successor tables of S segment lanes.
-
-    cut_tab/emit_tab: [S, n_rows] int32, the cut position and the emit
-    flag of a chunk starting at row r; valid_len: [S] int32. Returns
-    (starts [S, chunk_cap], lens [S, chunk_cap], count [S], consumed
-    [S]), int32. CUDA: the ``fastcdc_walk`` kernel; CPU: its twin."""
-    if cut_tab.device.type == "cpu":
-        return _fastcdc_walk_plain(cut_tab, emit_tab, valid_len,
-                                   chunk_cap=chunk_cap, shift=shift)
-    check_cuda("fastcdc_walk", cut_tab, torch.int32, 2)
-    check_cuda("fastcdc_walk", emit_tab, torch.int32, 2)
-    check_cuda("fastcdc_walk", valid_len, torch.int32, 1)
-    S, n_rows = cut_tab.shape
-    if emit_tab.shape != cut_tab.shape or valid_len.shape[0] != S:
-        raise ValueError("fastcdc_walk: table/lane shapes disagree")
-    dev = cut_tab.device
-    starts = torch.zeros((S, chunk_cap), dtype=torch.int32, device=dev)
-    lens = torch.zeros((S, chunk_cap), dtype=torch.int32, device=dev)
-    count = torch.empty((S,), dtype=torch.int32, device=dev)
-    consumed = torch.empty((S,), dtype=torch.int32, device=dev)
-    FASTCDC_WALK.launch(dev, cut_tab.data_ptr(), emit_tab.data_ptr(),
-                        valid_len.data_ptr(), starts.data_ptr(),
-                        lens.data_ptr(), count.data_ptr(),
-                        consumed.data_ptr(), S, n_rows, chunk_cap, shift)
     return starts, lens, count, consumed
 
 
@@ -229,22 +202,79 @@ def _walk_tables(pos_s, ns, pos_l, nl, valid_len, eof, *, min_size: int,
     return cut.to(torch.int32), emit.to(torch.int32)
 
 
-def _select_boundaries_device(pos_s, ns, pos_l, nl, valid_len, eof, *,
-                              min_size: int, avg_size: int, max_size: int,
-                              chunk_cap: int, align: int, n_rows: int):
-    """FastCDC walk == gearcdc.select_boundaries, successor-table form,
-    for S lanes. pos_s/pos_l: [S, cap] sorted sentinel-padded candidate
-    positions; ns/nl/valid_len: [S] int64; eof: [S] bool. Returns
-    (starts, lens, count, consumed) as ``fastcdc_walk``."""
-    if not (align & (align - 1) == 0 and min_size % align == 0
-            and avg_size % align == 0 and max_size % align == 0):
-        raise ValueError("the table walk needs page-multiple sizes")
+def _fastcdc_walk_twin(pos_s, ns, pos_l, nl, valid_len, eof, *,
+                       min_size: int, avg_size: int, max_size: int,
+                       chunk_cap: int, align: int):
+    """Twin of the ``fastcdc_walk`` kernel (same arguments and results):
+    the successor tables over the rows that the lanes' lengths cover
+    (``_walk_tables``), then the table walk (``_fastcdc_walk_plain``)."""
+    n_rows = max(1, -(-int(valid_len.max()) // align)) if len(valid_len) \
+        else 1
     cut_tab, emit_tab = _walk_tables(
         pos_s, ns, pos_l, nl, valid_len, eof, min_size=min_size,
         avg_size=avg_size, max_size=max_size, align=align, n_rows=n_rows)
-    return fastcdc_walk(cut_tab, emit_tab, valid_len.to(torch.int32),
-                        chunk_cap=chunk_cap,
-                        shift=int(align).bit_length() - 1)
+    return _fastcdc_walk_plain(cut_tab, emit_tab, valid_len.to(torch.int32),
+                               chunk_cap=chunk_cap,
+                               shift=int(align).bit_length() - 1)
+
+
+def fastcdc_walk(pos_s: torch.Tensor, ns: torch.Tensor, pos_l: torch.Tensor,
+                 nl: torch.Tensor, valid_len: torch.Tensor, eof: torch.Tensor,
+                 *, min_size: int, avg_size: int, max_size: int,
+                 chunk_cap: int, align: int):
+    """The FastCDC walk of S segment lanes over their candidate lists.
+
+    pos_s/pos_l: [S, cap] int64 sorted candidate cut positions, padded
+    with ``_SENTINEL``; ns/nl: [S] int64 counts (at most cap);
+    valid_len: [S] int64; eof: [S] bool. Every candidate is align - 1
+    modulo ``align`` (a power of two dividing the three sizes). Returns
+    (starts [S, chunk_cap], lens [S, chunk_cap], count [S], consumed
+    [S]), int32, zero past count. CUDA: the ``fastcdc_walk`` kernel, one
+    warp a lane deciding each chunk from the lists (it needs no
+    ``align``); CPU: its twin ``_fastcdc_walk_twin``."""
+    if pos_s.device.type == "cpu":
+        return _fastcdc_walk_twin(pos_s, ns, pos_l, nl, valid_len, eof,
+                                  min_size=min_size, avg_size=avg_size,
+                                  max_size=max_size, chunk_cap=chunk_cap,
+                                  align=align)
+    for x, dtype, ndim in ((pos_s, torch.int64, 2), (pos_l, torch.int64, 2),
+                           (ns, torch.int64, 1), (nl, torch.int64, 1),
+                           (valid_len, torch.int64, 1), (eof, torch.bool, 1)):
+        check_cuda("fastcdc_walk", x, dtype, ndim)
+    S = pos_s.shape[0]
+    if any(x.shape[0] != S for x in (pos_l, ns, nl, valid_len, eof)):
+        raise ValueError("fastcdc_walk: the lanes' tensors disagree on S")
+    dev = pos_s.device
+    n = S * chunk_cap
+    # One allocation for the four outputs (the kernel writes every word).
+    starts, lens, count, consumed = torch.empty(
+        (2 * n + 2 * S,), dtype=torch.int32, device=dev).split(
+            [n, n, S, S])
+    starts, lens = starts.view(S, chunk_cap), lens.view(S, chunk_cap)
+    FASTCDC_WALK.launch(dev, pos_s.data_ptr(), ns.data_ptr(),
+                        pos_l.data_ptr(), nl.data_ptr(), valid_len.data_ptr(),
+                        eof.data_ptr(), starts.data_ptr(), lens.data_ptr(),
+                        count.data_ptr(), consumed.data_ptr(), S,
+                        pos_s.shape[1], pos_l.shape[1], chunk_cap, min_size,
+                        avg_size, max_size)
+    return starts, lens, count, consumed
+
+
+def _select_boundaries_device(pos_s, ns, pos_l, nl, valid_len, eof, *,
+                              min_size: int, avg_size: int, max_size: int,
+                              chunk_cap: int, align: int, n_rows: int):
+    """FastCDC walk == gearcdc.select_boundaries for S lanes, with the
+    reference's arguments. pos_s/pos_l: [S, cap] sorted sentinel-padded
+    candidate positions; ns/nl/valid_len: [S] int64; eof: [S] bool;
+    ``n_rows`` the buffer's rows, which the reference's table form
+    needs and the walk does not. Returns (starts, lens, count, consumed)
+    as ``fastcdc_walk``."""
+    if not (align & (align - 1) == 0 and min_size % align == 0
+            and avg_size % align == 0 and max_size % align == 0):
+        raise ValueError("the table walk needs page-multiple sizes")
+    return fastcdc_walk(pos_s, ns, pos_l, nl, valid_len, eof,
+                        min_size=min_size, avg_size=avg_size,
+                        max_size=max_size, chunk_cap=chunk_cap, align=align)
 
 
 # ---------------------------------------------------------------------------

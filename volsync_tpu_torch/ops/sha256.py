@@ -14,10 +14,11 @@ Ports ``volsync_tpu/ops/sha256.py``. Three kernels written for Hopper
   argument is the launch configuration that ``chip_smoke.py`` sweeps in
   place of the lane-tile sweep of ``scripts/tune_sha.py`` (K5);
 - ``sha256_rows`` launches K2 (replaces ``_sha256_rows_pallas``,
-  sha256.py:398-422): SHA-256 of full leaves read straight from the raw
-  segment bytes at ``64*rows0[b]``; ``sha256_leaves_device`` (ref
-  :260-286) pairs it with ``sha256_chunks_device`` for the short tail
-  leaves, the split-phase engine's one leaf dispatch.
+  sha256.py:398-422): SHA-256 of full leaves read from the raw segment
+  bytes at ``64*rows0[b]`` through K1's ``cp.async`` ring;
+  ``sha256_leaves_device`` (ref :260-286) pairs it with
+  ``sha256_chunks_device`` for the short tail leaves, the split-phase
+  engine's one leaf dispatch.
 
 On a CPU tensor each runs its plain PyTorch twin (``_sha256_lanes_plain``,
 ``_sha256_pages_plain``, ``_sha256_rows`` over ``pack_words``); on a
@@ -84,10 +85,13 @@ SHA256_LANES = Kernel("sha256_lanes", "sha256.cu", "vt_sha256_lanes",
                        ctypes.c_int, ctypes.c_int])
 SHA256_ROWS = Kernel("sha256_rows", "sha256.cu", "vt_sha256_rows",
                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_int])
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int])
 
 #: K1's threads per block as the library launches it.
 PAGES_THREADS = 64
+#: K2's threads per block (its ring is K1's; 64 x 80 bytes a stage).
+ROWS_THREADS = 64
 
 
 def _u32(x: torch.Tensor) -> torch.Tensor:
@@ -316,9 +320,9 @@ def sha256_rows(data: torch.Tensor, rows0: torch.Tensor, *,
     """SHA-256 of full ``leaf_len``-byte leaves of a resident buffer:
     data [L] uint8 (L % 64 == 0); rows0 [B] int32, leaf b starts at byte
     ``64 * rows0[b]`` and lies inside ``data`` -> [B, 8] int32 digests.
-    CUDA: the K2 kernel, which reads the raw bytes itself (no packed
-    copy of the buffer); CPU: its twin ``_sha256_rows(pack_words(data),
-    rows0, leaf_len)``."""
+    CUDA: the K2 kernel, ``ROWS_THREADS`` lanes a block, which reads
+    the raw bytes itself (no packed copy of the buffer); CPU: its twin
+    ``_sha256_rows(pack_words(data), rows0, leaf_len)``."""
     if leaf_len % 64 or leaf_len <= 0:
         raise ValueError("sha256_rows: leaf_len must be a positive "
                          "multiple of 64")
@@ -333,7 +337,8 @@ def sha256_rows(data: torch.Tensor, rows0: torch.Tensor, *,
     B = rows0.shape[0]
     out = torch.empty((B, 8), dtype=torch.int32, device=data.device)
     SHA256_ROWS.launch(data.device, data.data_ptr(), rows0.data_ptr(),
-                       out.data_ptr(), B, L // 64, leaf_len // 64)
+                       out.data_ptr(), B, L // 64, leaf_len // 64,
+                       ROWS_THREADS)
     return out
 
 
