@@ -10,31 +10,40 @@ a mismatch:
 
 1. build: compiles every CUDA source of the port (one nvcc per source,
    started together) and prints nvcc's register report, the
-   instructions of one K1, merkle_roots and sha256_lanes message block
-   as compiled (``cuobjdump -sass``), the card's name and power limit, and
+   instructions of one message block of K1 (both instances), K2,
+   sha256_slices (its three forms' loops), merkle_roots and sha256_lanes as
+   compiled (``cuobjdump -sass``), the card's name and power limit, and
    the torch and CUDA versions;
 2. kernels: runs one real 48 MiB segment through ``chunk_hash_segment``
    while recording each kernel wrapper's inputs, then holds every
-   kernel of that pass (K1 sha256_pages, fastcdc_walk, the tail
-   sha256_lanes, merkle_roots) against its plain PyTorch twin on those
+   kernel of that pass (K1 sha256_pages, fastcdc_walk, the tail form of
+   sha256_slices, merkle_roots) against its plain PyTorch twin on those
    inputs with ``torch.equal`` (K1 also against hashlib per page) and
-   times kernel and twin; logs each serial chain's chain bound (its
-   longest lane in blocks x the least time of a block, from the
-   compiled block's instruction issue; for the walk its longest lane's
-   chunks x one dependent load, measured by a pointer chase,
-   ``csrc/probe.cu``) and times ``merkle_roots`` on one 1,025-block
-   lane alone. K3 transpose_u32,
-   off the fused path, is held and timed on [12,288, 1,024] (the
-   segment's page-word table) and a ragged shape, beside the one
-   PyTorch call computing the same function. Then K5: K1 at
+   times kernel and twin; logs merkle_roots' chain bound (its longest
+   lane in blocks x the least time of a block, from the compiled
+   block's instruction issue) and the walk's (its longest lane's chunks
+   x one dependent load, measured by a pointer chase,
+   ``csrc/probe.cu``), and times ``merkle_roots`` on one 1,025-block
+   lane alone and the tail form on a 4,095-byte tail (65 blocks). K3
+   transpose_u32, off the fused path, is held and timed on [12,288,
+   1,024] (the segment's page-word table) and a ragged shape, beside
+   the one PyTorch call computing the same function. Then K5: K1 at
    32/64/128/256 threads per block on that segment's bytes, each equal
-   to hashlib per page and timed; K4: the same segment under
-   ``VOLSYNC_PAGEMAJOR=1``, whose ``pagemajor_u32`` launch equals its
-   twin and whose packed result equals the word-major one; K2: a stream
-   segment (48 MiB buffer, non-eof) through
-   ``DeviceChunkHasher(align=64).begin``, which launches exactly one
-   ``sha256_rows`` and one ``sha256_lanes``, each equal to its twin, K2
-   also to hashlib per leaf, logged with its per-warp floor;
+   to hashlib per page and timed; page-major K1: the same segment under
+   ``VOLSYNC_PAGEMAJOR=1`` launches no ``pagemajor_u32``, its K1 launch
+   equals its twin and hashlib, timed in turns with the word-major
+   instance, and its packed result equals the word-major one; K4 timed
+   alone on the word-major table; K2: a stream segment (48 MiB buffer,
+   non-eof) through ``DeviceChunkHasher(align=64).begin``, which
+   launches exactly one ``sha256_rows`` and one ``sha256_slices``, each
+   equal to its twin, K2 also to hashlib per leaf, logged with its
+   per-warp floor; sha256_slices at the legacy shape: a 32 MiB segment
+   through ``DeviceChunkHasher(align=1).begin`` (one launch of 16,384
+   lanes), equal to its twin and hashlib per lane, timed (also at the
+   split-phase tails' shape) and bounded from the function's work (the
+   whole card's ALU rate, and the per-warp floor of its longest lane);
+   ``sha256_lanes``, which no path launches, held and timed on the
+   padded messages the reference builds for the same lanes;
 3. stream: sets every launch count to 0, streams a seeded ``--stream-gib``
    GiB + 12,345-byte volume (half of its 64 MiB blocks repeat earlier
    ones; one block is all zero) through ``stream_chunk_batches`` with
@@ -46,19 +55,21 @@ a mismatch:
    time, and a third plain pass the GiB/s spread; both must give the
    first pass's chunks;
 4. verify: ``verify_blob_batch`` over 256 produced chunks returns [] and,
-   with one byte flipped, exactly that chunk's id;
+   with one byte flipped, exactly that chunk's id; its span-tail
+   ``sha256_slices`` call equals its twin;
 5. the other engines, each over its own seeded volume of the same
    pattern with the counts set to 0 before and read after, held against
    its own host oracle and against the launches it must make per device
    pass: the split-phase engine (``GearParams(align=64)``,
    ``--align64-gib``; exactly one ``sha256_rows`` and one
-   ``sha256_lanes`` per pass; then ``verify_blob_batch``), the legacy
+   ``sha256_slices`` per pass; then ``verify_blob_batch``), the legacy
    engine (``GearParams(align=1)``, ``--align1-mib``; a numpy
-   per-position gear oracle; one ``sha256_lanes`` per pass) and the
-   fused engine under ``VOLSYNC_PAGEMAJOR=1`` (``--pagemajor-gib``; one
-   ``pagemajor_u32`` per pass; chunks and ids equal to word-major passes
-   over the same bytes, the layouts alternating pm/wm/wm/pm). Each
-   stream also prints its host seconds by ``obs.span``.
+   per-position gear oracle; one ``sha256_slices`` per pass) and the
+   fused engine under ``VOLSYNC_PAGEMAJOR=1`` (``--pagemajor-gib``; the
+   fused launches, no ``pagemajor_u32``; chunks and ids equal to
+   word-major passes over the same bytes, the layouts alternating
+   pm/wm/wm/pm). Each stream also prints its host seconds by
+   ``obs.span``.
 
 The line before the last is the kernels JSON (launches on the stream
 phase that runs each kernel, max difference from the twin, times and
@@ -116,7 +127,10 @@ SHA_ROUNDS_ALU_OPS = 64 * 10
 REPLACES = {
     "transpose_u32": "volsync_tpu/ops/segment.py:248",
     "sha256_pages": "volsync_tpu/ops/sha256.py:367",
+    "sha256_pages_pagemajor": "volsync_tpu/ops/segment.py:282",
     "sha256_lanes": "volsync_tpu/ops/sha256.py:144",
+    "sha256_slices": "volsync_tpu/ops/sha256.py:438",
+    "sha256_slices_tail": "volsync_tpu/ops/segment.py:126",
     "fastcdc_walk": "volsync_tpu/ops/segment.py:205",
     "sha256_rows": "volsync_tpu/ops/sha256.py:411",
     "pagemajor_u32": "volsync_tpu/ops/segment.py:282",
@@ -126,7 +140,10 @@ REPLACES = {
 SOURCES = {
     "transpose_u32": "volsync_tpu_torch/csrc/transpose.cu",
     "sha256_pages": "volsync_tpu_torch/csrc/sha256.cu",
+    "sha256_pages_pagemajor": "volsync_tpu_torch/csrc/sha256.cu",
     "sha256_lanes": "volsync_tpu_torch/csrc/sha256.cu",
+    "sha256_slices": "volsync_tpu_torch/csrc/sha256.cu",
+    "sha256_slices_tail": "volsync_tpu_torch/csrc/sha256.cu",
     "fastcdc_walk": "volsync_tpu_torch/csrc/fastcdc.cu",
     "sha256_rows": "volsync_tpu_torch/csrc/sha256.cu",
     "pagemajor_u32": "volsync_tpu_torch/csrc/transpose.cu",
@@ -136,11 +153,12 @@ SOURCES = {
 #: K1 block sizes of the K5 sweep (the library launches 64).
 SWEEP_THREADS = (32, 64, 128, 256)
 #: Kernel launches per device pass of each engine's stream.
-FUSED_PER_PASS = {"sha256_pages": 1, "fastcdc_walk": 1, "sha256_lanes": 1,
+FUSED_PER_PASS = {"sha256_pages": 1, "fastcdc_walk": 1, "sha256_slices": 1,
                   "merkle_roots": 1}
-SPLIT_PER_PASS = {"sha256_rows": 1, "sha256_lanes": 1}
-LEGACY_PER_PASS = {"sha256_lanes": 1}
-PAGEMAJOR_PER_PASS = {**FUSED_PER_PASS, "pagemajor_u32": 1}
+SPLIT_PER_PASS = {"sha256_rows": 1, "sha256_slices": 1}
+LEGACY_PER_PASS = {"sha256_slices": 1}
+#: K1 stores the page-major table itself: no pagemajor_u32 launch.
+PAGEMAJOR_PER_PASS = dict(FUSED_PER_PASS)
 
 
 #: Device of every phase; the card unless a rehearsal sets "cpu".
@@ -305,20 +323,27 @@ def patched(module, wrappers: dict):
             setattr(module, n, fn)
 
 
-#: The kernel wrappers ``capture_calls`` records, attribute -> kernel,
-#: in ops/segment.py and ops/sha256.py.
+#: The kernel wrappers ``capture_calls`` records, attribute -> kernel
+#: entry, in ops/segment.py, ops/sha256.py and engine/chunker.py (which
+#: calls ``sha256_chunks_device`` by its own name).
+#: "sha256_slices_tail" is the table-writing form of sha256_slices.
 SEG_WRAPPERS = {"transpose_u32": "transpose_u32",
                 "sha256_pages": "sha256_pages",
                 "fastcdc_walk": "fastcdc_walk",
                 "pagemajor_u32": "pagemajor_u32",
+                "tail_leaves_into": "sha256_slices_tail",
                 "_root_digests_loop": "merkle_roots"}
-SHA_WRAPPERS = {"sha256_blocks": "sha256_lanes", "sha256_rows": "sha256_rows"}
+SHA_WRAPPERS = {"sha256_blocks": "sha256_lanes", "sha256_rows": "sha256_rows",
+                "sha256_chunks_device": "sha256_slices"}
+CHUNKER_WRAPPERS = {"sha256_chunks_device": "sha256_slices"}
 
 
 def capture_calls(seg, sha, run) -> list:
     """Run ``run()`` with every kernel wrapper of the segment pipeline
     recording (clones of) its inputs; returns [(kernel, args, kwargs)]."""
     import torch
+
+    from volsync_tpu_torch.engine import chunker
 
     calls = []
 
@@ -333,7 +358,9 @@ def capture_calls(seg, sha, run) -> list:
         return make
 
     with patched(seg, {a: recorder(k) for a, k in SEG_WRAPPERS.items()}), \
-            patched(sha, {a: recorder(k) for a, k in SHA_WRAPPERS.items()}):
+            patched(sha, {a: recorder(k) for a, k in SHA_WRAPPERS.items()}), \
+            patched(chunker, {a: recorder(k)
+                              for a, k in CHUNKER_WRAPPERS.items()}):
         run()
     return calls
 
@@ -356,16 +383,16 @@ def pagemajor_env(on: bool = True):
 
 
 #: Device stages of ``chunk_hash_segments``, each the segment-module
-#: functions it is timed over; "walk.kernel", "pages.K1" and
-#: "roots.merkle" are the kernels inside "walk", "pages" and "roots".
+#: functions it is timed over; "walk.kernel", "pages.K1", "roots.tail"
+#: and "roots.merkle" are the kernels inside "walk", "pages" and "roots".
 STAGES = {
     "gear": ("gear_at_aligned", "_compact_candidates"),
     "walk": ("_select_boundaries_device",),
     "walk.kernel": ("fastcdc_walk",),
     "pages": ("_page_digests_flat",),
     "pages.K1": ("sha256_pages",),
-    "roots": ("sha256_chunks_device", "_apply_tail_overrides",
-              "_root_digests_loop"),
+    "roots": ("tail_leaves_into", "_root_digests_loop"),
+    "roots.tail": ("tail_leaves_into",),
     "roots.merkle": ("_root_digests_loop",),
 }
 
@@ -429,11 +456,12 @@ def sass_block_counts(sass: str, kernel: str, loads: int,
 
 
 def sass_blocks() -> dict:
-    """``sass_block_counts`` of K1 and K2 (4 16-byte cp.async a block:
-    a thread copies 64 bytes of its block's messages per message block),
-    of merkle_roots' chain (64 shared K+W reads a block) and of
-    ``sha256_lanes`` (4 16-byte loads a block) in the built libraries;
-    empty when the toolkit has no cuobjdump."""
+    """``sass_block_counts`` of K1's two instances (word-major and
+    page-major) and K2 (4 16-byte cp.async a block: a thread copies 64
+    bytes of its block's messages per message block), of
+    ``sha256_slices``' three forms (5 a block: 80-byte windows), of merkle_roots' chain (64 shared K+W reads a
+    block) and of ``sha256_lanes`` (4 16-byte loads a block) in the built
+    libraries; empty when the toolkit has no cuobjdump."""
     from volsync_tpu_torch.ops import _build
 
     tool = Path(_build._nvcc()).with_name("cuobjdump")
@@ -447,8 +475,15 @@ def sass_blocks() -> dict:
                               check=True).stdout
 
     sha = dump("sha256.cu")
-    return {"K1": sass_block_counts(sha, "sha256_pages_kernel", 4),
+    return {"K1": sass_block_counts(sha, "sha256_pages_kernelILb0E", 4),
+            "K1 page-major": sass_block_counts(sha,
+                                               "sha256_pages_kernelILb1E", 4),
             "K2": sass_block_counts(sha, "sha256_rows_kernel", 4),
+            **{name: sass_block_counts(sha, f"sha256_slices_kernelI{lanes}",
+                                       5)
+               for name, lanes in (("sha256_slices", "10SliceLanes"),
+                                   ("sha256_slices_tail", "10ChunkTails"),
+                                   ("sha256_slices_spans", "9SpanTails"))},
             "merkle_roots": sass_block_counts(dump("merkle.cu"),
                                               "merkle_roots_kernel", 64,
                                               "LDS"),
@@ -479,6 +514,8 @@ def kernel_fns(seg, sha) -> tuple:
               "sha256_pages": sha.sha256_pages,
               "fastcdc_walk": seg.fastcdc_walk,
               "sha256_lanes": sha.sha256_blocks,
+              "sha256_slices": sha.sha256_chunks_device,
+              "sha256_slices_tail": seg.tail_leaves_into,
               "sha256_rows": sha.sha256_rows,
               "pagemajor_u32": seg.pagemajor_u32,
               "merkle_roots": seg._root_digests_loop}
@@ -486,6 +523,8 @@ def kernel_fns(seg, sha) -> tuple:
              "sha256_pages": sha._sha256_pages_plain,
              "fastcdc_walk": seg._fastcdc_walk_twin,
              "sha256_lanes": sha._sha256_lanes_plain,
+             "sha256_slices": sha._sha256_chunks_plain,
+             "sha256_slices_tail": seg._tail_leaves_plain,
              "sha256_rows": lambda data, rows0, leaf_len=4096:
                  sha._sha256_rows(sha.pack_words(data), rows0, leaf_len),
              "pagemajor_u32": seg._pagemajor_plain,
@@ -496,9 +535,11 @@ def kernel_fns(seg, sha) -> tuple:
 def against_twin(torch, fns, name, args, kwargs) -> tuple:
     """Kernel ``name`` and its twin on the same inputs; raises unless
     they are equal -> (kernel output, twin output, max abs err, twin
-    seconds)."""
+    seconds). The kernel gets clones of the tensors (the table form
+    writes into its table)."""
     kernel, plain = fns
-    out_k = kernel[name](*args, **kwargs)
+    out_k = kernel[name](*[a.clone() if hasattr(a, "clone") else a
+                           for a in args], **kwargs)
     sync(torch)
     t0 = time.perf_counter()
     out_p = plain[name](*args, **kwargs)
@@ -531,7 +572,7 @@ def sha_bound(data_blocks: int, pad_blocks: int, nbytes: int) -> tuple:
             "operations" if t_ops > t_bytes else "bytes")
 
 
-FUSED_CALLS = ["sha256_pages", "fastcdc_walk", "sha256_lanes",
+FUSED_CALLS = ["sha256_pages", "fastcdc_walk", "sha256_slices_tail",
                "merkle_roots"]
 
 # One SM sub-partition (scheduler) issues one instruction a cycle, and a
@@ -563,16 +604,21 @@ def page_table(host: np.ndarray, npp: int) -> np.ndarray:
     return np.frombuffer(raw, ">u4").reshape(npp, 8).T.astype(np.uint32)
 
 
-def warp_floor_ms(lanes: int, threads: int) -> float:
-    """Per-warp floor of K1 or K2 (a thread a 4 KiB message,
-    ``threads`` a block): the blocks spread over the 132 SMs, an SM's
-    warps over its 4 schedulers, and each scheduler's warps issue their
-    64 data blocks and one pad block of ALU instructions (65 x 1,024 +
-    640 for a message) at 16 lanes a cycle, one after another."""
+#: ALU work of one thread's 4 KiB message: 64 data blocks and a pad block.
+LEAF_ALU_OPS = 64 * SHA_BLOCK_ALU_OPS + SHA_PAD_BLOCK_ALU_OPS
+
+
+def warp_floor_ms(lanes: int, threads: int,
+                  lane_ops: int = LEAF_ALU_OPS) -> float:
+    """Per-warp floor of a SHA kernel that gives each thread one message
+    (``threads`` a block), from the function's work: the blocks spread
+    over the 132 SMs, an SM's warps over its 4 schedulers, and each
+    scheduler's warps issue their longest lane's ALU work (``lane_ops``;
+    K1 and K2: a 4 KiB message, 65 x 1,024 + 640) at 16 lanes a cycle,
+    one after another. With one lane it is that lane's serial chain."""
     blocks_per_sm = -(-(-(-lanes // threads)) // 132)
     per_sched = -(-blocks_per_sm * (threads // 32) // 4)
-    cycles = per_sched * (64 * SHA_BLOCK_ALU_OPS + SHA_PAD_BLOCK_ALU_OPS) * 2
-    return cycles / CLOCK_HZ * 1e3
+    return per_sched * lane_ops * 2 / CLOCK_HZ * 1e3
 
 
 #: Entries of the probe's two chases: 256 KiB of cycle in L2 (its loads
@@ -658,7 +704,7 @@ def new_stats() -> defaultdict:
                                 "lib": []})
 
 
-def kernel_phase(torch, stream, p, seg_bytes: int, p64,
+def kernel_phase(torch, stream, p, seg_bytes: int, p64, p1,
                  lat_ns: dict) -> dict:
     from volsync_tpu_torch.ops import segment as seg
     from volsync_tpu_torch.ops import sha256 as sha
@@ -726,22 +772,16 @@ def kernel_phase(torch, stream, p, seg_bytes: int, p64,
             st["bound"].append(bound)
             log(f"K1: per-warp floor "
                 f"{warp_floor_ms(npp, sha.PAGES_THREADS):.4f} ms")
-        elif name == "sha256_lanes":
-            blocks, nblocks = args
-            nb = int(nblocks.clamp(min=0).sum())
-            bound, st["bound_by"] = sha_bound(
-                nb, 0, nb * 64 + blocks.shape[0] * 36)
-            st["bound"].append(bound)
-            st["longest"] = int(nblocks.clamp(min=0, max=blocks.shape[1])
-                                .max())
-            log(f"sha256_lanes (tail): {blocks.shape[0]} lanes, {nb} "
-                f"blocks, longest lane {st['longest']}")
         elif name == "merkle_roots":
             root_checks(torch, seg, st, args, kwargs)
+        elif name == "sha256_slices_tail":
+            tail_checks(torch, stats, args, kwargs)
         else:  # fastcdc_walk: a serial chain of decisions
             b = walk_bound(torch, args, out_k, lat_ns)
             st["bound"].append(b["bound_ms"])
             st["bound_by"] = b["bound_by"]
+            st["bound_kind"] = "chain" if b["chain_ms"] > b["bytes_ms"] \
+                else "work"
             st["longest"] = b["longest"]
             log(f"fastcdc_walk: {out_k[2].shape[0]} lanes, longest lane "
                 f"{b['longest']} chunks; bytes bound {b['bytes_ms']:.6f} "
@@ -753,8 +793,9 @@ def kernel_phase(torch, stream, p, seg_bytes: int, p64,
             f"(eager {st['eager_ms'][-1]:.4f}), twin {plain_s*1e3:.1f} ms")
 
     sweep_k1(torch, stats, *k1)
-    pagemajor_check(torch, fns, stats, data, valid, kw, packed[0])
+    pagemajor_check(torch, fns, stats, data, valid, kw, packed[0], k1)
     split_segment_check(torch, fns, stats, host, p64)
+    legacy_segment_check(torch, fns, stats, host, p1)
     return stats
 
 
@@ -779,6 +820,166 @@ def root_checks(torch, seg, st, args, kwargs) -> None:
     log(f"merkle_roots: {C} lanes, {int(live.sum())} live, {total} blocks, "
         f"longest lane {st['longest']} blocks; one 1,025-block lane "
         f"{one_ms:.4f} ms = {st['one_lane_block_ms'] * 1e3:.4f} us a block")
+
+
+def slice_work(torch, lengths, n_max: int) -> dict:
+    """Work of sha256_slices lanes of these lengths: message blocks
+    (each holding message bytes), padding-only blocks, message bytes,
+    the longest lane's blocks (the FIPS count, at most ``n_max``) and
+    the most ALU work of one lane (1,024 a message block, 640 a
+    padding-only block, as ``sha_bound`` counts them)."""
+    n = lengths.to(torch.int64)
+    nb = ((n + 72) // 64).clamp(0, n_max)
+    data = torch.minimum((n.clamp(min=0) + 63) // 64, nb)
+    ops = data * SHA_BLOCK_ALU_OPS + (nb - data) * SHA_PAD_BLOCK_ALU_OPS
+    return {"data_blocks": int(data.sum()), "pad_blocks": int((nb - data)
+                                                              .sum()),
+            "bytes": int(n.clamp(min=0).sum()),
+            "longest": int(nb.max()) if n.numel() else 0,
+            "lane_ops": int(ops.max()) if n.numel() else 0}
+
+
+def lanes_bound(lanes: int, threads: int, lane_ops: int, work: tuple) -> dict:
+    """Bound of a launch that gives each thread one SHA message, from the
+    function's work alone: the larger of ``work`` (``sha_bound``: the
+    whole card's ALU rate or HBM) and the per-warp floor of its longest
+    lane (``warp_floor_ms`` with that lane's ``lane_ops``; for one lane,
+    its blocks one after another)."""
+    ops_ms, by = work
+    floor = warp_floor_ms(lanes, threads, lane_ops)
+    if ops_ms >= floor:
+        return {"bound_ms": ops_ms, "bound_by": by, "bound_kind": "work",
+                "floor_ms": floor}
+    return {"bound_ms": floor, "bound_by": "operations",
+            "bound_kind": "per-warp floor", "floor_ms": floor}
+
+
+def set_bound(st, b: dict) -> None:
+    st["bound"].append(b["bound_ms"])
+    st["bound_by"], st["bound_kind"] = b["bound_by"], b["bound_kind"]
+
+
+def tail_bound(torch, args, kwargs) -> dict:
+    """Work and bound of one launch of the chunk-table tail form."""
+    from volsync_tpu_torch.ops import segment as seg
+    from volsync_tpu_torch.ops import sha256 as sha
+
+    flat, npp, data, starts, lens, count = args
+    S = count.shape[0]
+    _, tl, _, has = seg._tail_lanes(starts, lens, count,
+                                    lane_pages=kwargs["lane_pages"],
+                                    L=data.shape[0])
+    w = slice_work(torch, tl[has], sha.slice_blocks(seg.LEAF_SIZE))
+    nbytes = w["bytes"] + S * 12 + int(has.sum()) * 32
+    return {**w, "lanes": S, "max_tail": int(tl.max()),
+            **lanes_bound(S, sha.SLICES_THREADS, w["lane_ops"], sha_bound(
+                w["data_blocks"], w["pad_blocks"], nbytes))}
+
+
+def tail_checks(torch, stats, args, kwargs) -> None:
+    """The fused segment's tail launch (the table form's entry, timed by
+    ``kernel_phase``; a non-eof segment's lane may end on the page grid
+    and have no tail) with its bound, and the longest tail a pass can
+    have: its last chunk cut one byte short of its page (4,095 bytes,
+    65 blocks), held against the twin and timed."""
+    from volsync_tpu_torch.ops import segment as seg
+    from volsync_tpu_torch.ops import sha256 as sha
+
+    st = stats["sha256_slices_tail"]
+    b = tail_bound(torch, args, kwargs)
+    set_bound(st, b)
+    st["longest"] = b["longest"]
+    flat, npp, data, starts, lens, count = args
+    longer = lens.clone()
+    last = (count.to(torch.int64) - 1).clamp(min=0)
+    longer[torch.arange(count.shape[0], device=lens.device), last] -= 1
+    args2 = [flat.clone(), npp, data, starts, longer, count]
+    against_twin(torch, kernel_fns(seg, sha), "sha256_slices_tail", args2,
+                 kwargs)
+    b2 = tail_bound(torch, args2, kwargs)
+    ms = time_ms(torch, lambda: seg.tail_leaves_into(*args2, **kwargs), 20)
+    eager = time_ms(torch, lambda: seg.tail_leaves_into(*args2, **kwargs),
+                    20, graph=False)
+    st["shapes"] = {
+        label: {"lanes": x["lanes"], "blocks": x["data_blocks"]
+                + x["pad_blocks"], "ms": t, "eager_ms": e,
+                "bound_ms": x["bound_ms"], "bound_kind": x["bound_kind"]}
+        for label, x, t, e in (
+            ("fused_tail", b, st["ms"][-1], st["eager_ms"][-1]),
+            (f"tail_{b2['max_tail']}", b2, ms, eager))}
+    for label, x in st["shapes"].items():
+        log(f"sha256_slices {label}: {x['lanes']} lane(s), {x['blocks']} "
+            f"blocks; kernel {x['ms']:.4f} ms (eager {x['eager_ms']:.4f}), "
+            f"bound {x['bound_ms']:.4f} ms ({x['bound_kind']})")
+
+
+def slices_shape(torch, stats, label: str, args, kwargs, plain_s: float,
+                 main: bool) -> None:
+    """sha256_slices at one engine's shape: kernel time, its work and
+    bound; the legacy shape (``main``) is its entry, and there
+    ``sha256_lanes`` is held and timed on the same lanes' padded
+    blocks."""
+    from volsync_tpu_torch.ops import sha256 as sha
+
+    data, starts, lengths = args
+    max_len = kwargs["max_len"]
+    st = stats["sha256_slices"]
+
+    def run():
+        return sha.sha256_chunks_device(data, starts, lengths,
+                                        max_len=max_len)
+
+    ms = time_ms(torch, run, 20)
+    eager = time_ms(torch, run, 20, graph=False)
+    B = starts.shape[0]
+    w = slice_work(torch, lengths, sha.slice_blocks(max_len))
+    b = lanes_bound(B, sha.SLICES_THREADS, w["lane_ops"], sha_bound(
+        w["data_blocks"], w["pad_blocks"], w["bytes"] + B * 40))
+    st.setdefault("shapes", {})[label] = {
+        "lanes": B, "blocks": w["data_blocks"] + w["pad_blocks"], "ms": ms,
+        "eager_ms": eager, "bound_ms": b["bound_ms"],
+        "bound_kind": b["bound_kind"]}
+    if main:
+        st["ms"].append(ms)
+        st["eager_ms"].append(eager)
+        st["plain_ms"].append(plain_s * 1e3)
+        set_bound(st, b)
+        st["longest"] = w["longest"]
+        lanes_entry(torch, stats,
+                    *sha._chunk_lane_blocks(data, starts, lengths, max_len))
+    log(f"sha256_slices ({label}): {B} lanes, {w['data_blocks']} message "
+        f"+ {w['pad_blocks']} padding blocks, longest {w['longest']}; "
+        f"kernel {ms:.4f} ms (eager {eager:.4f}), bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_kind']}; per-warp floor "
+        f"{b['floor_ms']:.4f} ms)")
+
+
+def lanes_entry(torch, stats, blocks, nb) -> None:
+    """``sha256_lanes`` (on no path since sha256_slices) on the padded
+    blocks that the reference builds for the legacy shape's lanes: equal
+    to its twin, timed, bounded like ``sha256_slices``."""
+    from volsync_tpu_torch.ops import sha256 as sha
+
+    fns = ({"sha256_lanes": sha.sha256_blocks},
+           {"sha256_lanes": sha._sha256_lanes_plain})
+    _, _, err, plain_s = against_twin(torch, fns, "sha256_lanes",
+                                      [blocks, nb], {})
+    st = stats["sha256_lanes"]
+    st["err"] = max(st["err"], err)
+    st["ms"].append(time_ms(torch, lambda: sha.sha256_blocks(blocks, nb), 20))
+    st["eager_ms"].append(time_ms(torch, lambda: sha.sha256_blocks(
+        blocks, nb), 20, graph=False))
+    st["plain_ms"].append(plain_s * 1e3)
+    nbc = nb.clamp(min=0, max=blocks.shape[1])
+    n, st["longest"] = int(nbc.sum()), int(nbc.max())
+    B = blocks.shape[0]
+    b = lanes_bound(B, sha.LANES_THREADS, st["longest"] * SHA_BLOCK_ALU_OPS,
+                    sha_bound(n, 0, n * 64 + B * 36))
+    set_bound(st, b)
+    log(f"sha256_lanes ({B} lanes, {n} blocks, the legacy shape's padded "
+        f"messages): equals twin; {st['ms'][-1]:.4f} ms (eager "
+        f"{st['eager_ms'][-1]:.4f}), bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_kind']})")
 
 
 def sweep_k1(torch, stats, data, npp, want) -> None:
@@ -807,10 +1008,14 @@ def sweep_k1(torch, stats, data, npp, want) -> None:
         + "; every launch equals hashlib on every page")
 
 
-def pagemajor_check(torch, fns, stats, data, valid, kw, packed_wm) -> None:
-    """K4: the fused segment under ``VOLSYNC_PAGEMAJOR=1`` launches
-    ``pagemajor_u32`` once, which equals its twin, and packs the same
-    words as the word-major pass."""
+def pagemajor_check(torch, fns, stats, data, valid, kw, packed_wm,
+                    k1) -> None:
+    """The fused segment under ``VOLSYNC_PAGEMAJOR=1`` makes the fused
+    launches and no ``pagemajor_u32`` (K1 stores page-major itself) and
+    packs the same words as the word-major pass. Its K1 launch equals its
+    twin and hashlib's table transposed, timed beside the word-major
+    instance in turns (wm, pm, wm, pm). K4, off every path, equals its
+    twin on the word-major table and is timed on it."""
     from volsync_tpu_torch.ops import segment as seg
     from volsync_tpu_torch.ops import sha256 as sha
 
@@ -819,14 +1024,38 @@ def pagemajor_check(torch, fns, stats, data, valid, kw, packed_wm) -> None:
         calls = capture_calls(seg, sha, lambda: packed.append(
             seg.chunk_hash_segment(data, valid, **kw)))
     sync(torch)
-    expect_calls("page-major segment", calls,
-                 FUSED_CALLS + ["pagemajor_u32"])
+    expect_calls("page-major segment", calls, FUSED_CALLS)
     if not torch.equal(packed[0], packed_wm):
         raise AssertionError("the page-major packed result differs from "
                              "the word-major one")
-    name, args, kwargs = next(c for c in calls if c[0] == "pagemajor_u32")
-    _, _, err, plain_s = against_twin(torch, fns, name, args, kwargs)
-    x = args[0]
+    name, args, kwargs = next(c for c in calls if c[0] == "sha256_pages")
+    if kwargs != {"pagemajor": True}:
+        raise AssertionError(f"the page-major K1 call took {kwargs}")
+    out_k, _, err, plain_s = against_twin(torch, fns, name, args, kwargs)
+    pages, npp, want = k1
+    if not np.array_equal(out_k.cpu().numpy().view(np.uint32),
+                          want.T.reshape(-1)):
+        raise AssertionError("page-major K1 differs from hashlib")
+    st = stats["sha256_pages_pagemajor"]
+    st["err"] = max(st["err"], err)
+    turns = {False: [], True: []}
+    for pm in (False, True, False, True):
+        turns[pm].append(time_ms(torch, lambda: sha.sha256_pages(
+            pages, npp, pagemajor=pm), 20))
+    st["ms"].append(float(np.mean(turns[True])))
+    st["eager_ms"].append(time_ms(torch, lambda: sha.sha256_pages(
+        pages, npp, pagemajor=True), 20, graph=False))
+    st["plain_ms"].append(plain_s * 1e3)
+    st["bound"] = list(stats["sha256_pages"]["bound"])
+    st["bound_by"] = stats["sha256_pages"]["bound_by"]
+    log(f"K1 page-major ({npp} pages): equals twin and hashlib, packed "
+        f"result equals word-major; ms in turns wm/pm/wm/pm "
+        f"{turns[False][0]:.4f}/{turns[True][0]:.4f}/{turns[False][1]:.4f}/"
+        f"{turns[True][1]:.4f}")
+
+    x = sha.sha256_pages(pages, npp).view(8, npp)
+    name = "pagemajor_u32"
+    _, _, err, plain_s = against_twin(torch, fns, name, [x], {})
     st = stats[name]
     st["err"] = max(st["err"], err)
     st["ms"].append(time_ms(torch, lambda: fns[0][name](x), 50))
@@ -836,17 +1065,17 @@ def pagemajor_check(torch, fns, stats, data, valid, kw, packed_wm) -> None:
     st["bound"].append(x.shape[1] * 64 / HBM_BYTES_PER_S * 1e3)
     st["bound_by"] = "bytes"
     st["lib"].append(time_ms(torch, lambda: x.t().contiguous(), 50))
-    log(f"K4 pagemajor_u32 ({x.shape[1]} pages): equals twin, packed "
-        f"result equals word-major; kernel {st['ms'][-1]:.4f} ms (eager "
-        f"{st['eager_ms'][-1]:.4f}), x.t().contiguous() "
-        f"{st['lib'][-1]:.4f} ms")
+    log(f"K4 pagemajor_u32 ({x.shape[1]} pages, timed alone): equals twin; "
+        f"kernel {st['ms'][-1]:.4f} ms (eager {st['eager_ms'][-1]:.4f}), "
+        f"x.t().contiguous() {st['lib'][-1]:.4f} ms")
 
 
 def split_segment_check(torch, fns, stats, host, p64) -> None:
     """K2: a stream segment (40 MiB read plus a carried tail, a 48 MiB
     buffer, non-eof) through the split-phase engine launches exactly one
-    ``sha256_rows`` and one ``sha256_lanes``; both equal their twins,
-    every K2 lane equals hashlib, every id equals ``blob_id``."""
+    ``sha256_rows`` and one ``sha256_slices``; both equal their twins,
+    every K2 lane equals hashlib, every id equals ``blob_id``; the tail
+    lanes' sha256_slices is timed at this shape (``slices_shape``)."""
     from volsync_tpu_torch.engine import DeviceChunkHasher
     from volsync_tpu_torch.engine.chunker import _leaf_plan
     from volsync_tpu_torch.ops import segment as seg
@@ -860,7 +1089,7 @@ def split_segment_check(torch, fns, stats, host, p64) -> None:
         hasher.begin(host, eof=False, valid_len=valid)))
     sync(torch)
     expect_calls("split-phase segment", calls,
-                 ["sha256_rows", "sha256_lanes"])
+                 ["sha256_rows", "sha256_slices"])
     chunks = pending[0].finish()
     for s, n, bid in chunks:
         if bid != blobid.blob_id(host[s: s + n]):
@@ -870,9 +1099,10 @@ def split_segment_check(torch, fns, stats, host, p64) -> None:
     for name, args, kwargs in calls:
         out_k, _, err, plain_s = against_twin(torch, fns, name, args,
                                               kwargs)
-        if name == "sha256_lanes":
-            log(f"split-phase tail sha256_lanes ({args[0].shape[0]} "
-                f"lanes): equals twin")
+        if name == "sha256_slices":
+            stats[name]["err"] = max(stats[name]["err"], err)
+            slices_shape(torch, stats, "split", args, kwargs,
+                         plain_s, main=False)
             continue
         dig = out_k.cpu().numpy().view(np.uint32).astype(">u4")
         for b, r in enumerate(args[1].cpu().tolist()):
@@ -896,6 +1126,46 @@ def split_segment_check(torch, fns, stats, host, p64) -> None:
             f"{bound:.4f} ms ({st['bound_by']}), per-warp floor "
             f"{warp_floor_ms(lanes, sha.ROWS_THREADS):.4f} ms "
             f"({sha.ROWS_THREADS} threads a block)")
+
+
+def legacy_segment_check(torch, fns, stats, host, p1) -> None:
+    """sha256_slices at the legacy shape: a stream segment (40 MiB read,
+    non-eof) through ``DeviceChunkHasher(align=1).begin`` launches
+    exactly one ``sha256_slices``, a lane per 4 KiB leaf at any offset,
+    padded to a power of two; it equals its twin and hashlib on every
+    lane, every id equals ``blob_id``; timed with its bound
+    (``slices_shape``), which is the kernel's entry."""
+    from volsync_tpu_torch.engine import DeviceChunkHasher
+    from volsync_tpu_torch.ops import segment as seg
+    from volsync_tpu_torch.ops import sha256 as sha
+    from volsync_tpu_torch.repo import blobid
+
+    valid = min(40 << 20, host.shape[0]) - 777  # one pass of the stream
+    hasher = DeviceChunkHasher(p1, device=DEVICE)
+    pending = []
+    calls = capture_calls(seg, sha, lambda: pending.append(
+        hasher.begin(host, eof=False, valid_len=valid)))
+    sync(torch)
+    expect_calls("legacy segment", calls, ["sha256_slices"])
+    chunks = pending[0].finish()
+    for s, n, bid in chunks:
+        if bid != blobid.blob_id(host[s: s + n]):
+            raise AssertionError(f"legacy id of ({s}, {n}) differs from "
+                                 f"blob_id")
+    name, args, kwargs = calls[0]
+    out_k, _, err, plain_s = against_twin(torch, fns, name, args, kwargs)
+    stats[name]["err"] = max(stats[name]["err"], err)
+    dig = out_k.cpu().numpy().view(np.uint32).astype(">u4")
+    starts, lengths = (a.cpu().tolist() for a in args[1:])
+    for b, (s, n) in enumerate(zip(starts, lengths)):
+        if dig[b].tobytes() != hashlib.sha256(host[s: s + n]).digest():
+            raise AssertionError(f"sha256_slices lane {b} ({s}, {n}) != "
+                                 f"hashlib")
+    log(f"sha256_slices (legacy): {len(starts)} lanes, "
+        f"{sum(n > 0 for n in lengths)} leaves of {len(chunks)} chunks, "
+        f"equal the twin and hashlib; twin {plain_s * 1e3:.1f} ms")
+    slices_shape(torch, stats, "legacy", args, kwargs, plain_s,
+                 main=True)
 
 
 def stream_once(torch, stream, params, hasher) -> tuple:
@@ -939,7 +1209,7 @@ def drive(torch, stream, params, per_pass: dict, label: str) -> dict:
     device pass (0 when absent)."""
     from volsync_tpu_torch.engine import DeviceChunkHasher
     from volsync_tpu_torch.obs import span_totals
-    from volsync_tpu_torch.ops._build import KERNELS
+    from volsync_tpu_torch.ops._build import KERNELS, launch_counts
 
     hasher = DeviceChunkHasher(params, device=DEVICE)
     passes = count_passes(hasher)
@@ -947,7 +1217,7 @@ def drive(torch, stream, params, per_pass: dict, label: str) -> dict:
     for k in KERNELS:
         k.launches = 0
     results, views, secs = stream_once(torch, stream, params, hasher)
-    launches = {k.name: k.launches for k in KERNELS}
+    launches = launch_counts()
     spans = {k: round(s - before.get(k, (0, 0.0))[1], 4)
              for k, (n, s) in span_totals().items()
              if n != before.get(k, (0, 0.0))[0]}
@@ -1127,10 +1397,28 @@ def pagemajor_stream_phase(torch, stream, params) -> dict:
 
 
 def verify_phase(views) -> None:
+    """``verify_blob_batch`` on the stream's first chunks: all pass and
+    one flipped byte is caught. The span form of sha256_slices that its
+    ``hash_spans`` pass launches is held against its twin on the
+    recorded inputs."""
+    import torch
+
     from volsync_tpu_torch.engine import verify_blob_batch
+    from volsync_tpu_torch.ops import segment as seg
+    from volsync_tpu_torch.ops import sha256 as sha
 
     pairs = [(bid, bytes(mv)) for bid, mv in views]
-    bad = verify_blob_batch(pairs, device=DEVICE)
+    out = []
+    calls = capture_calls(seg, sha, lambda: out.append(
+        verify_blob_batch(pairs, device=DEVICE)))
+    # The span form: lanes without a chunk count (5 positional arguments).
+    spans = [c for c in calls
+             if c[0] == "sha256_slices_tail" and len(c[1]) == 5]
+    if not spans:
+        raise AssertionError("verify_blob_batch made no span-tail call")
+    for name, args, kwargs in spans:
+        against_twin(torch, kernel_fns(seg, sha), name, args, kwargs)
+    bad = out[0]
     if bad != []:
         raise AssertionError(f"verify_blob_batch flagged {len(bad)} good "
                              f"chunks")
@@ -1142,7 +1430,9 @@ def verify_phase(views) -> None:
     if bad != [pairs[k][0]]:
         raise AssertionError(f"verify_blob_batch returned {bad}, expected "
                              f"the flipped chunk's id")
-    log(f"verify: {len(pairs)} chunks pass; one flipped byte is caught")
+    log(f"verify: {len(pairs)} chunks pass; one flipped byte is caught; "
+        f"the span tails' sha256_slices call ({spans[0][1][3].shape[0]} "
+        f"spans) equals its twin")
 
 
 def main() -> int:
@@ -1175,8 +1465,7 @@ def main() -> int:
                                        "spill")):
                 log(f"  {src}: {line.strip()}")
     sass = sass_blocks()
-    floors = {k: chain_block_floor_ms(sass.get(k))
-              for k in ("merkle_roots", "sha256_lanes")}
+    floors = {"merkle_roots": chain_block_floor_ms(sass.get("merkle_roots"))}
     for name, counts in sass.items():
         floor = floors.get(name)
         log(f"{name} one message block as compiled (cuobjdump -sass, "
@@ -1207,9 +1496,10 @@ def main() -> int:
 
     # The align=64 deployment: DEFAULT_CHUNKER's sizes with align 64.
     params64 = GearParams(align=64)
+    params1 = GearParams(align=1)
     stream = volume(int(args.stream_gib * GIB), "fused stream")
     stats = kernel_phase(torch, stream, DEFAULT_PARAMS, SEGMENT_P, params64,
-                         lat)
+                         params1, lat)
     for name, floor in floors.items():
         st = stats[name]
         bound = (f"{st['longest'] * floor:.4f} ms" if floor
@@ -1221,6 +1511,9 @@ def main() -> int:
     verify_phase(res.pop("views"))
     per_seg = {k: v / res["segments"] for k, v in res["launches"].items()}
     log(f"launches per segment pass: {json.dumps(per_seg)} ({card})")
+    log(f"stream roots {res['stages'].get('roots', 0):.3f} ms, roots.tail "
+        f"{res['stages'].get('roots.tail', 0):.3f} ms over {res['segments']} "
+        f"passes ({card})")
     if floors["merkle_roots"]:
         log(f"stream roots.merkle {res['stages'].get('roots.merkle', 0):.3f} "
             f"ms over {res['segments']} passes against a summed chain bound "
@@ -1231,8 +1524,7 @@ def main() -> int:
     split = split_stream_phase(
         torch, volume(int(args.align64_gib * GIB), "align=64"), params64)
     legacy = legacy_stream_phase(
-        torch, volume(int(args.align1_mib * (1 << 20)), "align=1"),
-        GearParams(align=1))
+        torch, volume(int(args.align1_mib * (1 << 20)), "align=1"), params1)
     pm = pagemajor_stream_phase(
         torch, volume(int(args.pagemajor_gib * GIB), "page-major"),
         DEFAULT_PARAMS)
@@ -1244,9 +1536,13 @@ def main() -> int:
     launches = {**res["launches"],
                 "sha256_rows": split["launches"]["sha256_rows"],
                 "pagemajor_u32": pm["launches"]["pagemajor_u32"],
-                "sha256_pages_sweep": res["launches"]["sha256_pages"]}
+                "sha256_pages_sweep": res["launches"]["sha256_pages"],
+                "sha256_pages_pagemajor": pm["launches"]["sha256_pages"],
+                "sha256_slices": legacy["launches"]["sha256_slices"],
+                "sha256_slices_tail": res["launches"]["sha256_slices"]}
     kernels = []
-    for name in ("transpose_u32", "sha256_pages", "sha256_lanes",
+    for name in ("transpose_u32", "sha256_pages", "sha256_pages_pagemajor",
+                 "sha256_lanes", "sha256_slices", "sha256_slices_tail",
                  "fastcdc_walk", "sha256_rows", "pagemajor_u32",
                  "sha256_pages_sweep", "merkle_roots"):
         st = stats[name]
@@ -1262,8 +1558,9 @@ def main() -> int:
             "bound_by": st["bound_by"],
             "library_ms": float(np.mean(st["lib"])) if st["lib"] else None,
         }
-        if "threads_ms" in st:
-            entry["threads_ms"] = st["threads_ms"]
+        for extra in ("bound_kind", "threads_ms", "shapes"):
+            if extra in st:
+                entry[extra] = st[extra]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -55,8 +55,12 @@ def test_stream_and_verify_phases_on_cpu(monkeypatch):
 
 def _wrappers() -> dict:
     """The objects behind every attribute ``capture_calls`` patches."""
+    from volsync_tpu_torch.engine import chunker
+
     return {**{("seg", a): getattr(seg, a) for a in chip_smoke.SEG_WRAPPERS},
-            **{("sha", a): getattr(sha, a) for a in chip_smoke.SHA_WRAPPERS}}
+            **{("sha", a): getattr(sha, a) for a in chip_smoke.SHA_WRAPPERS},
+            **{("chunker", a): getattr(chunker, a)
+               for a in chip_smoke.CHUNKER_WRAPPERS}}
 
 
 def _assert_restored(before: dict) -> None:
@@ -78,7 +82,8 @@ def test_capture_calls_records_every_kernel_wrapper(rng):
         align=p.align, eof=True, cand_cap=cc, chunk_cap=kc))
     assert sorted(n for n, _, _ in calls) == sorted(chip_smoke.FUSED_CALLS)
     assert sorted(chip_smoke.FUSED_CALLS) == sorted(
-        ["sha256_pages", "fastcdc_walk", "sha256_lanes", "merkle_roots"])
+        ["sha256_pages", "fastcdc_walk", "sha256_slices_tail",
+         "merkle_roots"])
     assert sorted({**chip_smoke.SEG_WRAPPERS,
                    **chip_smoke.SHA_WRAPPERS}.values()) == sorted(
         chip_smoke.kernel_fns(seg, sha)[0])  # every kernel is recorded
@@ -207,7 +212,7 @@ def test_capture_calls_records_the_split_phase_leaf_dispatch(rng,
     before = _wrappers()
     calls = chip_smoke.capture_calls(seg, sha, lambda: hasher.begin(
         host, eof=False, valid_len=120_000))
-    chip_smoke.expect_calls("split", calls, ["sha256_rows", "sha256_lanes"])
+    chip_smoke.expect_calls("split", calls, ["sha256_rows", "sha256_slices"])
     with pytest.raises(AssertionError):
         chip_smoke.expect_calls("split", calls, ["sha256_rows"])
     _assert_restored(before)
@@ -269,8 +274,9 @@ def test_walk_bound_on_a_captured_walk(rng):
 
 def test_split_segment_check_on_cpu(monkeypatch):
     """K2's check rehearsed at a tiny size with the twins (kernel timing
-    stubbed out): one sha256_rows and one sha256_lanes, each equal to its
-    twin, every K2 lane equal to hashlib, every id to blob_id."""
+    stubbed out): one sha256_rows and one sha256_slices, each equal to
+    its twin, every K2 lane equal to hashlib, every id to blob_id; the
+    tail lanes' shape recorded with its bound."""
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     monkeypatch.setattr(chip_smoke, "time_ms",
                         lambda torch, fn, reps, graph=True: 0.0)
@@ -282,3 +288,116 @@ def test_split_segment_check_on_cpu(monkeypatch):
     st = stats["sha256_rows"]
     assert st["err"] == 0 and st["bound_by"] == "operations"
     assert len(st["bound"]) == 1 and st["bound"][0] > 0
+    split = stats["sha256_slices"]["shapes"]["split"]
+    assert split["lanes"] >= 8 and split["blocks"] > 0
+    assert stats["sha256_slices"]["ms"] == []  # the legacy shape's entry
+    assert split["bound_ms"] > 0 and split["bound_kind"] in (
+        "work", "per-warp floor")
+    assert stats["sha256_lanes"]["ms"] == []  # timed at the legacy shape
+
+
+def _no_timing(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "time_ms",
+                        lambda torch, fn, reps, graph=True: 0.0)
+
+
+def test_legacy_segment_check_on_cpu(monkeypatch):
+    """sha256_slices at the legacy shape rehearsed at a tiny size: one
+    launch a segment, equal to its twin and hashlib on every lane,
+    whose work and bound make the kernel's entry; sha256_lanes held
+    against its twin on the same lanes' padded messages."""
+    _no_timing(monkeypatch)
+    host = np.random.RandomState(8).randint(0, 256, size=(96 * 1024,)
+                                            ).astype(np.uint8)
+    stats = chip_smoke.new_stats()
+    p1 = GearParams(min_size=4096, avg_size=16384, max_size=32768, align=1)
+    chip_smoke.legacy_segment_check(torch, chip_smoke.kernel_fns(seg, sha),
+                                    stats, host, p1)
+    st = stats["sha256_slices"]
+    assert st["err"] == 0 and len(st["bound"]) == 1
+    legacy = st["shapes"]["legacy"]
+    assert legacy["lanes"] == 128 and legacy["blocks"] > 128
+    # 128 lanes are 2 blocks: one warp a scheduler, so the longest
+    # lane's floor (a 4 KiB leaf) is K1's per-warp floor.
+    assert st["bound"][0] == pytest.approx(
+        chip_smoke.warp_floor_ms(16384, 64))
+    assert (st["bound_by"], st["bound_kind"]) == ("operations",
+                                                  "per-warp floor")
+    lanes = stats["sha256_lanes"]
+    assert lanes["err"] == 0 and len(lanes["ms"]) == len(lanes["bound"]) == 1
+    assert lanes["longest"] == 65
+
+
+def test_slice_work_counts_blocks():
+    w = chip_smoke.slice_work(torch, torch.tensor([0, 4096, 4000, 55, 56,
+                                                   5000]), 65)
+    # 0: a padding block; 4096: 64 + 1; 4000: 63; 55: 1; 56: 1 + 1;
+    # 5000 (past max_len): 65 blocks of message
+    assert (w["data_blocks"], w["pad_blocks"]) == (64 + 63 + 1 + 1 + 65,
+                                                   1 + 1 + 1)
+    assert w["bytes"] == 4096 + 4000 + 55 + 56 + 5000
+    assert w["longest"] == 65
+    assert w["lane_ops"] == 65 * 1024  # the lane past max_len
+
+
+@pytest.mark.parametrize("lanes,lane_ops,kind", [
+    (16384, 64 * 1024 + 640, "per-warp floor"),  # the legacy shape
+    (1, 64 * 1024 + 640, "per-warp floor"),  # one 4,095-byte tail
+    (1, 0, "work")])  # a lane with no tail
+def test_lanes_bound_takes_the_function_work(lanes, lane_ops, kind):
+    """A launch's bound is the larger of the whole card's work and the
+    longest lane's per-warp floor, both from the function's ALU work (not
+    from a kernel's compiled loop): 0.0668 ms for a 4 KiB leaf."""
+    work = chip_smoke.sha_bound(100, 1, 10_000)
+    b = chip_smoke.lanes_bound(lanes, 64, lane_ops, work)
+    assert b["bound_kind"] == kind
+    floor = lane_ops * 2 / chip_smoke.CLOCK_HZ * 1e3
+    assert b["floor_ms"] == pytest.approx(floor)
+    assert b["bound_ms"] == pytest.approx(max(floor, work[0]))
+    if lane_ops:
+        assert 0.0667 < b["bound_ms"] < 0.0669
+
+
+def test_tail_and_pagemajor_checks_on_cpu(monkeypatch, rng):
+    """The fused tail's check (its work and bound, and a 4,095-byte tail
+    equal to the twin with its own bound) and the page-major check (no
+    pagemajor_u32 on the path, K1's
+    page-major table equal to hashlib's transposed, K4 on the word-major
+    table) rehearsed on a small segment with the twins."""
+    _no_timing(monkeypatch)
+    P = 64 * 1024
+    host = rng.randint(0, 256, size=(P,)).astype(np.uint8)
+    data = torch.from_numpy(host)
+    cc, kc = seg.segment_caps(P, PARAMS)
+    p = PARAMS
+    kw = dict(min_size=p.min_size, avg_size=p.avg_size, max_size=p.max_size,
+              seed=p.seed, mask_s=p.mask_s, mask_l=p.mask_l, align=p.align,
+              eof=True, cand_cap=cc, chunk_cap=kc)
+    valid = P - 5 * 4096 - 777
+    packed = []
+    calls = chip_smoke.capture_calls(seg, sha, lambda: packed.append(
+        seg.chunk_hash_segment(data, valid, **kw)))
+    fns = chip_smoke.kernel_fns(seg, sha)
+    stats = chip_smoke.new_stats()
+    name, args, kwargs = next(c for c in calls
+                              if c[0] == "sha256_slices_tail")
+    out_k, _, err, _ = chip_smoke.against_twin(torch, fns, name, args, kwargs)
+    stats[name]["ms"].append(0.0)
+    stats[name]["eager_ms"].append(0.0)
+    chip_smoke.tail_checks(torch, stats, args, kwargs)
+    st = stats[name]
+    assert err == 0 and 0 < st["longest"] <= 65
+    assert st["shapes"]["fused_tail"]["lanes"] == 1
+    assert len(st["shapes"]) == 2  # and the tail one byte longer or shorter
+    assert len(st["bound"]) == 1 and st["bound_kind"] == "per-warp floor"
+    assert st["bound"][0] == pytest.approx(
+        st["shapes"]["fused_tail"]["bound_ms"])
+
+    npp = P // 4096
+    stats["sha256_pages"]["bound"].append(1.0)
+    k1 = (data, npp, chip_smoke.page_table(host, npp))
+    chip_smoke.pagemajor_check(torch, fns, stats, data, valid, kw,
+                               packed[0], k1)
+    assert stats["sha256_pages_pagemajor"]["err"] == 0
+    assert stats["pagemajor_u32"]["bound_by"] == "bytes"

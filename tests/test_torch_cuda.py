@@ -247,10 +247,12 @@ def test_pagemajor_segment_on_card_equals_word_major(cuda, rng,
     word = seg.chunk_hash_segment(dev, 400_000, **kw)
     pages = seg.page_digests(dev)
     monkeypatch.setenv("VOLSYNC_PAGEMAJOR", "1")
-    launched = seg.PAGEMAJOR_U32.launches
+    launched = seg.PAGEMAJOR_U32.launches, sha.SHA256_PAGES.launches
     assert torch.equal(seg.chunk_hash_segment(dev, 400_000, **kw), word)
     np.testing.assert_array_equal(seg.page_digests(dev), pages)
-    assert seg.PAGEMAJOR_U32.launches == launched + 2
+    # K1 stores page-major itself: two K1 launches and no K4.
+    assert (seg.PAGEMAJOR_U32.launches, sha.SHA256_PAGES.launches) == (
+        launched[0], launched[1] + 2)
 
 
 def _walk_inputs(rng, S, n_rows, cap, density):
@@ -335,3 +337,199 @@ def test_walk_stage_on_card_is_one_kernel_launch(cuda, rng, monkeypatch):
         max_size=PARAMS.max_size, chunk_cap=16, align=4096, n_rows=64)[2]
     assert seg.FASTCDC_WALK.launches == launched + 1
     assert int(count.min()) > 0
+
+
+EDGE_LENGTHS = [0, 1, 55, 56, 63, 64, 119, 120, 4095, 4096]
+
+
+def _slice_case(rng, L):
+    """Slices at offsets 0..15 of every edge length, one ending on the
+    buffer's last byte, one running past it, one wholly past it and one
+    longer than max_len (starts, lengths: int32 numpy)."""
+    starts = [off * 2049 for off in range(16) for _ in EDGE_LENGTHS]
+    lengths = EDGE_LENGTHS * 16
+    starts += [L - 100, L - 10, L + 5, 7]
+    lengths += [100, 4096, 50, 4150]
+    return np.array(starts, np.int32), np.array(lengths, np.int32)
+
+
+def test_sha256_slices_kernel_equals_twin_and_hashlib(cuda, rng):
+    """sha256_chunks_device on the card (one sha256_slices launch) ==
+    its twin at offsets 0..15 and the padding edge lengths, at the
+    buffer's end and past it, for int32 and int64 lanes; == hashlib on
+    every slice inside the buffer."""
+    import hashlib
+
+    host = np.frombuffer(rng.bytes(40_000), np.uint8).copy()
+    L = host.shape[0]
+    starts, lengths = _slice_case(rng, L)
+    data = torch.from_numpy(host).to(cuda)
+    s = torch.from_numpy(starts).to(cuda)
+    n = torch.from_numpy(lengths).to(cuda)
+    launched = sha.SHA256_SLICES.launches
+    got = sha.sha256_chunks_device(data, s, n, max_len=4096)
+    assert sha.SHA256_SLICES.launches == launched + 1
+    want = sha._sha256_chunks_plain(data, s, n, max_len=4096)
+    assert torch.equal(got, want)
+    assert torch.equal(sha.sha256_chunks_device(
+        data, s.to(torch.int64), n.to(torch.int64), max_len=4096), got)
+    dig = got.cpu().numpy().view(np.uint32).astype(">u4")
+    for i, (a, k) in enumerate(zip(starts, lengths)):
+        if a + k <= L and k <= 4096:
+            assert dig[i].tobytes() == hashlib.sha256(host[a:a + k]).digest()
+
+
+def test_sha256_slices_every_end_in_a_block(cuda, rng):
+    """Every message length of 1 to 130 bytes at every offset 0..15: the
+    message ends at each byte of its last block, which the kernel builds
+    from the ring's words with masks; == hashlib and the twin."""
+    import hashlib
+
+    host = np.frombuffer(rng.bytes(16 * 4096), np.uint8).copy()
+    starts = np.array([off * 4096 + off for off in range(16)
+                       for _ in range(1, 131)], np.int32)
+    lengths = np.array(list(range(1, 131)) * 16, np.int32)
+    data = torch.from_numpy(host).to(cuda)
+    s = torch.from_numpy(starts).to(cuda)
+    n = torch.from_numpy(lengths).to(cuda)
+    got = sha.sha256_chunks_device(data, s, n, max_len=4096)
+    assert torch.equal(got, sha._sha256_chunks_plain(data, s, n,
+                                                     max_len=4096))
+    dig = got.cpu().numpy().view(np.uint32).astype(">u4")
+    for i, (a, k) in enumerate(zip(starts, lengths)):
+        assert dig[i].tobytes() == hashlib.sha256(host[a:a + k]).digest()
+
+
+def test_sha256_slices_at_the_legacy_shape(cuda, rng):
+    """16,384 lanes as the legacy engine sends a 32 MiB segment: 8,225
+    leaves of its chunks at any offset, the rest empty padding lanes,
+    == the twin and hashlib."""
+    import hashlib
+
+    host = np.frombuffer(rng.bytes(32 << 20), np.uint8).copy()
+    starts = np.zeros(16384, np.int32)
+    lengths = np.zeros(16384, np.int32)
+    k, pos = 0, 0
+    while k < 8225:
+        n = int(rng.randint(1, 12 * 4096))  # a chunk, cut into leaves
+        for off in range(0, n, 4096):
+            if k == 8225 or pos + off >= host.shape[0]:
+                break
+            starts[k] = pos + off
+            lengths[k] = min(4096, n - off, host.shape[0] - pos - off)
+            k += 1
+        pos += n
+    data = torch.from_numpy(host).to(cuda)
+    s = torch.from_numpy(starts).to(cuda)
+    n = torch.from_numpy(lengths).to(cuda)
+    got = sha.sha256_chunks_device(data, s, n, max_len=4096)
+    assert torch.equal(got, sha._sha256_chunks_plain(data, s, n,
+                                                     max_len=4096))
+    dig = got.cpu().numpy().view(np.uint32).astype(">u4")
+    for i in range(0, 16384, 7):
+        a, m = starts[i], lengths[i]
+        assert dig[i].tobytes() == hashlib.sha256(host[a:a + m]).digest()
+
+
+def test_sha256_slices_raises_on_what_the_kernel_does_not_take(cuda):
+    d = torch.zeros(8192 + 16, dtype=torch.uint8, device=cuda)
+    s = torch.zeros(4, dtype=torch.int32, device=cuda)
+    for data, starts, lengths in ((d[1:4097], s, s),  # not 16-byte aligned
+                                  (d[:0], s, s),  # empty buffer
+                                  (d, s, s[:3]),  # lanes disagree
+                                  (d, s.view(2, 2), s.view(2, 2)),
+                                  (d, s.cpu(), s),
+                                  (d.to(torch.int32), s, s)):
+        with pytest.raises(ValueError):
+            sha.sha256_chunks_device(data, starts, lengths, max_len=4096)
+    with pytest.raises(ValueError):
+        sha.sha256_chunks_device(d, s, s, max_len=1 << 28)
+
+
+def _tail_case(rng, form):
+    """A seeded table and lanes of one table form: the fused chunk
+    tables (3 lanes of 8 pages: a partial tail, no chunk, a tail on the
+    page grid) or spans (a padding lane and tails of 1 to 4095 bytes)."""
+    S, F, cap = 3, 8, 8
+    data = np.frombuffer(rng.bytes(S * F * 4096), np.uint8).copy()
+    table = rng.randint(-2**31, 2**31 - 1, size=(8 * S * F,)).astype(
+        np.int32)
+    if form == "chunks":
+        starts = np.zeros((S, cap), np.int32)
+        lens = np.zeros((S, cap), np.int32)
+        starts[0, :3], lens[0, :3] = [0, 4096, 12288], [4096, 8192, 7000]
+        starts[2, :2], lens[2, :2] = [0, 8192], [8192, 4096]
+        lanes = (starts, lens, np.array([3, 0, 2], np.int32))
+        kw = dict(lane_pages=F)
+    else:
+        lanes = (np.array([0, 8192, 20480, 0, 45056, 69632], np.int64),
+                 np.array([1, 4096, 9000, -1, 4095, 20000], np.int64))
+        kw = {}
+    return data, table, lanes, kw
+
+
+@pytest.mark.parametrize("form", ["chunks", "spans"])
+@pytest.mark.parametrize("pagemajor", [False, True], ids=["wm", "pm"])
+def test_tail_leaves_into_equals_twin(cuda, rng, form, pagemajor):
+    """sha256_slices' table forms write each lane's tail digest into the
+    table exactly where the twin's _apply_tail_overrides puts it, and
+    nothing else; one launch a call."""
+    data, table, lanes, kw = _tail_case(rng, form)
+    npp = table.shape[0] // 8
+    d = torch.from_numpy(data).to(cuda)
+    t = torch.from_numpy(table).to(cuda)
+    ln = [torch.from_numpy(x).to(cuda) for x in lanes]
+    want = seg._tail_leaves_plain(t, npp, d, *ln, pagemajor=pagemajor, **kw)
+    entry = sha.SHA256_TAIL_CHUNKS if form == "chunks" \
+        else sha.SHA256_TAIL_SPANS
+    launched = entry.launches
+    got = seg.tail_leaves_into(t.clone(), npp, d, *ln, pagemajor=pagemajor,
+                               **kw)
+    assert entry.launches == launched + 1
+    assert torch.equal(got, want)
+    assert int((want != t).sum()) > 0
+
+
+@pytest.mark.parametrize("threads", [32, 64, 128, 256])
+def test_sha256_pages_pagemajor_equals_twin(cuda, rng, threads):
+    """K1's page-major store == its twin (the word-major table
+    transposed) on a ragged grid, with zero pages past the buffer."""
+    F, npp = 200, 333
+    data = _pages(rng, F, cuda)
+    got = sha.sha256_pages(data, npp, threads=threads, pagemajor=True)
+    assert torch.equal(got, sha._sha256_pages_plain(data, npp, True))
+    assert torch.equal(got, seg._pagemajor_plain(
+        sha.sha256_pages(data, npp, threads=threads).view(8, npp)))
+
+
+@pytest.mark.parametrize("align,pagemajor,want", [
+    (4096, False, {"sha256_pages": 1, "fastcdc_walk": 1,
+                   "sha256_slices": 1, "merkle_roots": 1}),
+    (4096, True, {"sha256_pages": 1, "fastcdc_walk": 1,
+                  "sha256_slices": 1, "merkle_roots": 1}),
+    (64, False, {"sha256_rows": 1, "sha256_slices": 1}),
+    (1, False, {"sha256_slices": 1})], ids=["fused", "pagemajor", "align64",
+                                            "align1"])
+def test_launches_of_one_device_pass(cuda, rng, monkeypatch, align,
+                                     pagemajor, want):
+    """One device pass of each engine launches exactly these kernels
+    once and no other (no sha256_lanes, transpose_u32 or
+    pagemajor_u32)."""
+    from volsync_tpu_torch.engine import DeviceChunkHasher
+    from volsync_tpu_torch.ops._build import KERNELS, launch_counts
+
+    if pagemajor:
+        monkeypatch.setenv("VOLSYNC_PAGEMAJOR", "1")
+    else:
+        monkeypatch.delenv("VOLSYNC_PAGEMAJOR", raising=False)
+    p = GearParams(min_size=4096, avg_size=32768, max_size=65536,
+                   align=align)
+    buf = rng.bytes(300_000) + bytes(70_000) + rng.bytes(33_333)
+    hasher = DeviceChunkHasher(p, device=cuda)
+    hasher.process(buf)  # builds and loads every library it launches
+    for k in KERNELS:
+        k.launches = 0
+    chunks = hasher.process(buf)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in launch_counts().items() if n} == want
+    assert chunks == DeviceChunkHasher(p, device="cpu").process(buf)

@@ -409,3 +409,85 @@ def test_root_digests_plain_long_chain_matches_reference(rng):
     ref, got = _roots_both(case[0], npp, *case[1:], False)
     np.testing.assert_array_equal(got, ref)
     assert tseg._root_blocks_bound(8 << 20) == 1025
+
+
+def _ref_tail_table(flat, npp, data, ts, tl, page, has, pagemajor):
+    """The reference's tail override: its sha256_chunks_device on the
+    tail slices, then its _apply_tail_overrides, numpy in and out."""
+    import volsync_tpu.ops.sha256 as jsha
+
+    dig = jsha.sha256_chunks_device(jnp.asarray(data), jnp.asarray(ts),
+                                    jnp.asarray(tl), max_len=4096)
+    return np.asarray(jseg._apply_tail_overrides(
+        jnp.asarray(flat), npp, jnp.asarray(page), dig, jnp.asarray(has),
+        pagemajor=pagemajor))
+
+
+@pytest.mark.parametrize("pagemajor", [False, True], ids=["wm", "pm"])
+def test_tail_leaves_twin_chunk_tables_match_reference(rng, pagemajor):
+    """The fused tail's twin (``tail_leaves_into`` on the CPU) on three
+    lanes' chunk tables (a partial tail, no chunk, a tail on the page
+    grid) == the reference's sha256_chunks_device + _apply_tail_overrides
+    with the tails derived as its chunk_hash_segments derives them."""
+    S, F, cap = 3, 4, 6
+    data = rng.randint(0, 256, size=(S * F * 4096,), dtype=np.uint8)
+    flat = rng.randint(0, 2**32, size=(8 * S * F,), dtype=np.int64).astype(
+        np.uint32)
+    starts = np.zeros((S, cap), np.int32)
+    lens = np.zeros((S, cap), np.int32)
+    starts[0, :2], lens[0, :2] = [0, 4096], [4096, 6000]
+    starts[2, :2], lens[2, :2] = [0, 4096], [4096, 8192]
+    count = np.array([2, 0, 2], np.int32)
+    got = tseg.tail_leaves_into(
+        torch.from_numpy(flat.view(np.int32)), S * F, torch.from_numpy(data),
+        torch.from_numpy(starts), torch.from_numpy(lens),
+        torch.from_numpy(count), lane_pages=F, pagemajor=pagemajor)
+    last = np.maximum(count - 1, 0)
+    end = np.where(count > 0, starts[np.arange(S), last]
+                   + lens[np.arange(S), last], 0)
+    has = (count > 0) & (end % 4096 != 0)
+    local = np.maximum(end - 1, 0) // 4096
+    page = (np.arange(S) * F + local).astype(np.int32)
+    tl = np.where(has, end - local * 4096, 0).astype(np.int32)
+    ts = np.clip(page * 4096, 0, data.shape[0] - 1).astype(np.int32)
+    ref = _ref_tail_table(flat, S * F, data, ts, tl, page, has, pagemajor)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), ref)
+    assert (ref != flat).sum() == 8  # one lane has a partial tail
+
+
+@pytest.mark.parametrize("pagemajor", [False, True], ids=["wm", "pm"])
+def test_tail_leaves_twin_spans_match_reference(rng, pagemajor):
+    """The span tails' twin on page-aligned spans (tails of 1 to 4,095
+    bytes, a whole-page span, a padding lane) == the reference's
+    override as its span_roots_device derives it."""
+    P = 16 * 4096
+    data = rng.randint(0, 256, size=(P,), dtype=np.uint8)
+    flat = rng.randint(0, 2**32, size=(8 * 16,), dtype=np.int64).astype(
+        np.uint32)
+    starts = np.array([0, 8192, 20480, 0, 45056], np.int64)
+    lens = np.array([1, 4096, 9000, -1, 4095], np.int64)
+    got = tseg.tail_leaves_into(
+        torch.from_numpy(flat.view(np.int32)), 16, torch.from_numpy(data),
+        torch.from_numpy(starts), torch.from_numpy(lens),
+        pagemajor=pagemajor)
+    lens_c = np.maximum(lens, 0)
+    end = starts + lens_c
+    has = (lens > 0) & (lens_c % 4096 != 0)
+    page = (np.maximum(end - 1, 0) // 4096).astype(np.int32)
+    tl = np.where(has, end - page * 4096, 0).astype(np.int32)
+    ts = np.clip(page * 4096, 0, P - 1).astype(np.int32)
+    ref = _ref_tail_table(flat, 16, data, ts, tl, page, has, pagemajor)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), ref)
+    assert (ref != flat).sum() == 24
+
+
+def test_page_digests_flat_pagemajor_matches_reference(rng):
+    """One K1 pass with the page-major store (its CPU twin) == the
+    reference's page-major table, K1 then its _pallas_pagemajor (CPU
+    path), word for word."""
+    F = 6
+    data = rng.randint(0, 256, size=(F * 4096,), dtype=np.uint8)
+    ref = np.asarray(jseg._page_digests_flat(jnp.asarray(data), F,
+                                             pagemajor=True))
+    got = tseg._page_digests_flat(torch.from_numpy(data), F, True)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), ref)

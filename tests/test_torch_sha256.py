@@ -185,3 +185,46 @@ def test_sha256_pages_twin_matches_reference_on_raw_bytes(rng, F, npp):
     zero = hashlib.sha256(bytes(4096)).digest()
     for p in range(F, npp):
         assert got.reshape(8, npp)[:, p].astype(">u4").tobytes() == zero
+
+
+SLICE_LENGTHS = [0, 1, 55, 56, 63, 64, 119, 120, 4095, 4096]
+
+
+@pytest.mark.parametrize("length", SLICE_LENGTHS)
+def test_sha256_chunks_plain_matches_reference(rng, length):
+    """sha256_slices' twin == the JAX sha256_chunks_device at start
+    offsets 0..15 (mod 16) for one padding edge length, beside a slice
+    ending on the buffer's last byte and one running past it (the
+    reference repeats the last byte); == hashlib inside the buffer."""
+    L = 9000
+    data = rng.randint(0, 256, size=(L,), dtype=np.uint8)
+    starts = np.array([off * 33 for off in range(16)] + [L - 100, L - 7],
+                      np.int32)
+    lengths = np.array([length] * 16 + [100, 4096], np.int32)
+    ref = np.asarray(jsha.sha256_chunks_device(
+        jnp.asarray(data), jnp.asarray(starts), jnp.asarray(lengths),
+        max_len=4096))
+    got = _u32(tsha._sha256_chunks_plain(
+        torch.from_numpy(data), torch.from_numpy(starts),
+        torch.from_numpy(lengths), max_len=4096))
+    np.testing.assert_array_equal(got, ref)
+    for i in range(17):
+        s, n = starts[i], lengths[i]
+        assert got[i].astype(">u4").tobytes() == \
+            hashlib.sha256(data[s:s + n]).digest()
+    assert torch.equal(
+        tsha.sha256_chunks_device(torch.from_numpy(data),
+                                  torch.from_numpy(starts),
+                                  torch.from_numpy(lengths), max_len=4096),
+        torch.from_numpy(got.view(np.int32)))
+
+
+def test_sha256_pages_pagemajor_twin_is_the_transposed_table(rng):
+    """K1's page-major form on the CPU is its word-major table
+    transposed (word j of page p at p*8 + j), zero pages included."""
+    data = torch.from_numpy(rng.randint(0, 256, size=(3 * 4096,),
+                                        dtype=np.uint8))
+    word = tsha.sha256_pages(data, 5)
+    page = tsha.sha256_pages(data, 5, pagemajor=True)
+    assert torch.equal(page, word.view(8, 5).t().reshape(-1))
+    assert torch.equal(page, tsha._sha256_pages_plain(data, 5, True))

@@ -12,12 +12,13 @@ one of three engines, picked by the repository's ``align``:
 - 64 <= align < 4096, split phase (ref :195-208): aligned candidates on
   the card, the host FastCDC walk, then one leaf dispatch
   (``sha256_leaves_device``: K2 ``sha256_rows`` for full leaves,
-  ``sha256_lanes`` for the short tails) left in flight while the stream
+  ``sha256_slices`` for the short tails) left in flight while the stream
   moves on; ``_leaf_plan``, ``_dispatch_leaves``, ``_assemble_roots``
   and ``PendingSegment.split_phase`` port ref :287-419;
 - align == 1, legacy (ref :209-213): per-byte gear candidates, the host
-  walk, and every leaf a lane of ``sha256_chunks_device``
-  (``device_span_roots``, ref :422-454), the route unaligned
+  walk, and every leaf a lane of ``sha256_chunks_device``, one
+  ``sha256_slices`` launch (``device_span_roots``, ref :422-454), the
+  route unaligned
   ``hash_spans`` also takes (ref :527).
 
 Not in this slice (see ROADMAP.md): the shared segment micro-batcher,
@@ -183,7 +184,8 @@ def device_leaf_digests(dev: torch.Tensor, leaf_starts: list[int],
                         leaf_lengths: list[int]) -> list[bytes]:
     """SHA-256 digests of arbitrary <= 4 KiB slices of a resident
     buffer, every slice one ``sha256_chunks_device`` lane (lanes padded
-    to a pow2 >= 128); one fetch of 32 bytes per lane."""
+    to a pow2 >= 128 with empty slices; on the card one
+    ``sha256_slices`` launch); one fetch of 32 bytes per lane."""
     lanes = _pow2ceil(len(leaf_starts), 128)
     starts = np.zeros((lanes,), np.int32)
     lengths = np.zeros((lanes,), np.int32)
@@ -199,9 +201,9 @@ def device_leaf_digests(dev: torch.Tensor, leaf_starts: list[int],
 def _leaf_plan(chunks: list[tuple[int, int]]):
     """Host-side leaf assignment for a chunk list with 64-byte-aligned
     cuts: which leaves are full (K2, by 64-byte row) and which are short
-    tails (the gather path), plus the bookkeeping that reassembles each
-    chunk's leaf sequence -> (full_rows, short_starts, short_lengths,
-    slot, spans)."""
+    tails (``sha256_chunks_device``), plus the bookkeeping that
+    reassembles each chunk's leaf sequence -> (full_rows, short_starts,
+    short_lengths, slot, spans)."""
     full_rows: list[int] = []
     short_starts: list[int] = []
     short_lengths: list[int] = []

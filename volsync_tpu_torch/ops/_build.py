@@ -13,7 +13,9 @@ A ``Kernel`` is one exported launcher. ``launch()`` passes device
 pointers and the current CUDA stream as ``c_void_p``, raises if the
 launcher returns a nonzero ``cudaGetLastError()``, and only then adds
 one to ``launches``, the count that shows a run went through the
-kernel. Every Kernel registers itself in ``KERNELS``.
+kernel. Every Kernel registers itself in ``KERNELS``; a kernel with
+several entry points has a Kernel for each under one name, and
+``launch_counts()`` sums them by name.
 """
 
 from __future__ import annotations
@@ -39,6 +41,14 @@ _libs: dict = {}  # source file name -> ctypes.CDLL
 
 #: Every kernel wrapper of the port, in definition order.
 KERNELS: list = []
+
+
+def launch_counts() -> dict:
+    """Launches of every kernel by name, summed over its entry points."""
+    counts: dict = {}
+    for k in KERNELS:
+        counts[k.name] = counts.get(k.name, 0) + k.launches
+    return counts
 
 
 def _nvcc() -> str:

@@ -9,8 +9,10 @@ stage on the device and returns ONE small packed result, fetched once:
    one warp a lane deciding each chunk from the candidate lists;
 3. SHA-256 of every 4 KiB page: K1 ``sha256_pages``
    (``csrc/sha256.cu``) over the raw segment bytes;
-4. the one partial tail leaf (``sha256_chunks_device``, one
-   ``sha256_lanes`` launch);
+4. the one partial tail leaf of each lane: ``tail_leaves_into``, one
+   ``sha256_slices`` launch (``csrc/sha256.cu``) that reads the chunk
+   table, hashes the leaf from the segment bytes and writes its digest
+   into the page-digest table;
 5. the Merkle roots: the ``merkle_roots`` kernel (``csrc/merkle.cu``),
    one warp per chunk, builds the "VMRK1" || le64(len) || leaf digests
    message blocks from the page-digest table itself and chains them.
@@ -30,13 +32,15 @@ roots[chunk_cap*8]; bit-identical to the reference's. The host retries
 with doubled capacities iff real data overflowed them.
 
 The page-digest table is word-major (word j of page p at j*npp + p) by
-default; under ``VOLSYNC_PAGEMAJOR=1`` K1's output passes through the
-K4 ``pagemajor_u32`` kernel (``csrc/transpose.cu``, replaces the
-reference's ``_pallas_pagemajor``, segment.py:267-292) into page-major
-order (p*8 + j). ``chunk_hash_segments``, ``page_digests`` and
-``span_roots_device`` read the gate once per call and pass it down, and
-``_word_index_fn`` is the one index formula every producer, tail
-override, root gather and host decode uses. The packed results do not
+default; under ``VOLSYNC_PAGEMAJOR=1`` K1 stores it page-major (p*8 +
+j) itself, the work of the reference's ``_pallas_pagemajor``
+(segment.py:267-292). The K4 ``pagemajor_u32`` kernel
+(``csrc/transpose.cu``) that relaid K1's word-major output stays, tested
+and timed, off every path. ``chunk_hash_segments``, ``page_digests``
+and ``span_roots_device`` read the gate once per call and pass it down,
+and ``_word_index_fn`` is the one index formula every producer, tail
+override, root gather and host decode uses (``sha256_slices`` and
+``merkle_roots`` carry its two forms in CUDA). The packed results do not
 depend on the layout.
 
 Every kernel wrapper here and in ``ops/sha256.py`` runs the kernel on a
@@ -61,11 +65,14 @@ from volsync_tpu_torch.ops.gearcdc import (
 from volsync_tpu_torch.ops.gearcdc import _pow2ceil_int as _pow2ceil
 from volsync_tpu_torch.ops.sha256 import (
     _M,
+    SHA256_TAIL_CHUNKS,
+    SHA256_TAIL_SPANS,
     _i32,
+    _sha256_chunks_plain,
     _sha256_lanes_plain,
     _u32,
-    sha256_chunks_device,
     sha256_pages,
+    slice_blocks,
 )
 
 LEAF_SIZE = 4096  # == repo.blobid.LEAF_SIZE
@@ -136,6 +143,102 @@ def _apply_tail_overrides(flat: torch.Tensor, n_pages_pad: int,
     ext = torch.cat([flat, flat.new_zeros(1)])
     ext.scatter_(0, idx.reshape(-1), tail_digs.reshape(-1))
     return ext[:-1]
+
+
+def _tail_lanes(starts: torch.Tensor, lens: torch.Tensor, count, *,
+                lane_pages: int, L: int):
+    """Each lane's partial tail leaf, as the reference derives it ->
+    (slice starts, lengths (0 without a tail), pages, has_tail), [B]
+    int64. With ``count`` ([S] chunk counts; starts/lens the [S, cap]
+    chunk tables of ``chunk_hash_segments``): the last chunk's end, on
+    lane s's pages ``s * lane_pages ...``. Without: page-aligned spans
+    (starts/lens [N]; lens <= 0 marks a padding lane)."""
+    dev = starts.device
+    if count is not None:
+        starts64, lens64 = starts.to(torch.int64), lens.to(torch.int64)
+        count64 = count.to(torch.int64)
+        last = (count64 - 1).clamp(min=0)[:, None]
+        end = torch.where(count64 > 0, (starts64.gather(1, last)
+                                        + lens64.gather(1, last))[:, 0], 0)
+        has_tail = (count64 > 0) & (end % LEAF_SIZE != 0)
+        base = torch.arange(starts.shape[0], dtype=torch.int64,
+                            device=dev) * lane_pages
+    else:
+        lens64 = lens.to(torch.int64)
+        lens_c = lens64.clamp(min=0)
+        end = starts.to(torch.int64) + lens_c
+        has_tail = (lens64 > 0) & (lens_c % LEAF_SIZE != 0)
+        base = 0
+    local = (end - 1).clamp(min=0) // LEAF_SIZE
+    page = base + local
+    tail_len = end - local * LEAF_SIZE
+    return ((page * LEAF_SIZE).clamp(0, L - 1),
+            torch.where(has_tail, tail_len, 0), page, has_tail)
+
+
+def _tail_leaves_plain(flat: torch.Tensor, n_pages_pad: int,
+                       data: torch.Tensor, starts: torch.Tensor,
+                       lens: torch.Tensor, count=None, *, lane_pages: int = 0,
+                       pagemajor: bool) -> torch.Tensor:
+    """Twin of ``sha256_slices``' table forms: ``_tail_lanes``, the
+    slices through ``_sha256_chunks_plain``, then
+    ``_apply_tail_overrides`` -> a new table."""
+    ts, tl, page, has_tail = _tail_lanes(starts, lens, count,
+                                         lane_pages=lane_pages,
+                                         L=data.shape[0])
+    dig = _sha256_chunks_plain(data, ts, tl, max_len=LEAF_SIZE)
+    return _apply_tail_overrides(flat, n_pages_pad, page, dig, has_tail,
+                                 pagemajor)
+
+
+def tail_leaves_into(flat: torch.Tensor, n_pages_pad: int,
+                     data: torch.Tensor, starts: torch.Tensor,
+                     lens: torch.Tensor, count=None, *, lane_pages: int = 0,
+                     pagemajor: bool) -> torch.Tensor:
+    """Replace each lane's partial tail-leaf page in the page-digest
+    table ``flat`` ([8 * n_pages_pad] int32, ``_word_index_fn`` layout)
+    with the digest of the leaf's bytes in ``data`` ([L] uint8) -> the
+    table. Lanes as ``_tail_lanes`` takes them: the fused segment's
+    chunk tables (int32 [S, cap] starts and lens, [S] count, and
+    ``lane_pages`` pages a lane) or page-aligned spans (int64 [N] starts
+    and lens). CUDA: one ``sha256_slices`` launch (its chunk-table or
+    span entry point) that derives each lane's tail, hashes it from the
+    raw bytes and writes its 8 words into ``flat`` in place (no gather,
+    padding or scatter ops); ``data`` must start on a 16-byte boundary.
+    CPU: its twin ``_tail_leaves_plain``, which returns a new table."""
+    if flat.device.type == "cpu":
+        return _tail_leaves_plain(flat, n_pages_pad, data, starts, lens,
+                                  count, lane_pages=lane_pages,
+                                  pagemajor=pagemajor)
+    name = "sha256_slices"
+    check_cuda(name, flat, torch.int32, 1)
+    check_cuda(name, data, torch.uint8, 1)
+    if count is None:
+        check_cuda(name, starts, torch.int64, 1)
+        check_cuda(name, lens, torch.int64, 1)
+        ok = lens.shape == starts.shape
+    else:
+        check_cuda(name, starts, torch.int32, 2)
+        check_cuda(name, lens, torch.int32, 2)
+        check_cuda(name, count, torch.int32, 1)
+        ok = lens.shape == starts.shape and count.shape[0] == starts.shape[0]
+    L = data.shape[0]
+    if not ok or flat.shape[0] != 8 * n_pages_pad or L == 0 \
+            or data.data_ptr() % 16:
+        raise ValueError("sha256_slices: need an [8 * npp] table, a "
+                         "16-byte aligned non-empty buffer and lane "
+                         "tensors of one shape")
+    table = (flat.data_ptr(), n_pages_pad, int(pagemajor), starts.shape[0],
+             slice_blocks(LEAF_SIZE))
+    if count is None:
+        SHA256_TAIL_SPANS.launch(flat.device, data.data_ptr(), L,
+                                 starts.data_ptr(), lens.data_ptr(), *table)
+    else:
+        SHA256_TAIL_CHUNKS.launch(flat.device, data.data_ptr(), L,
+                                  starts.data_ptr(), lens.data_ptr(),
+                                  count.data_ptr(), starts.shape[-1],
+                                  lane_pages, *table)
+    return flat
 
 
 # ---------------------------------------------------------------------------
@@ -278,7 +381,7 @@ def _select_boundaries_device(pos_s, ns, pos_l, nl, valid_len, eof, *,
 
 
 # ---------------------------------------------------------------------------
-# Page-digest stage: K1 page hashing of the raw bytes (K4 for page-major)
+# Page-digest stage: K1 page hashing of the raw bytes, either layout
 # ---------------------------------------------------------------------------
 
 def _transpose_plain(x: torch.Tensor) -> torch.Tensor:
@@ -299,13 +402,14 @@ def transpose_u32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _pagemajor_plain(x: torch.Tensor) -> torch.Tensor:
-    """Twin of K4."""
+    """Twin of K4 (K1's page-major store computes the same relayout)."""
     return x.t().contiguous().view(-1)
 
 
 def pagemajor_u32(x: torch.Tensor) -> torch.Tensor:
     """Word-major digest table [8, npp] -> page-major [npp * 8] (word j
-    of page p at p*8 + j). CUDA: the K4 kernel; CPU: its twin."""
+    of page p at p*8 + j). CUDA: the K4 kernel; CPU: its twin. No path
+    launches it: K1 stores page-major itself."""
     if x.device.type == "cpu":
         return _pagemajor_plain(x)
     check_cuda("pagemajor_u32", x, torch.int32, 2)
@@ -321,13 +425,11 @@ def _page_digests_flat(data: torch.Tensor, n_pages_pad: int,
                        pagemajor: bool = False) -> torch.Tensor:
     """SHA-256 of every 4 KiB page of ``data`` ([P] uint8, P % 4096 ==
     0) -> [8 * n_pages_pad] int32, word-major (word j of page p at
-    j * n_pages_pad + p), or page-major (p*8 + j) through K4 when
-    ``pagemajor``. Pad pages hash zeros and are never read. K1 reads the
-    raw bytes: no staged copy of the segment."""
-    flat = sha256_pages(data, n_pages_pad)
-    if pagemajor:
-        return pagemajor_u32(flat.view(8, n_pages_pad))
-    return flat
+    j * n_pages_pad + p), or page-major (p*8 + j) when ``pagemajor``:
+    one K1 launch either way, which reads the raw bytes (no staged copy
+    of the segment) and stores the layout asked for. Pad pages hash
+    zeros and are never read."""
+    return sha256_pages(data, n_pages_pad, pagemajor=pagemajor)
 
 
 # ---------------------------------------------------------------------------
@@ -476,24 +578,14 @@ def chunk_hash_segments(data: torch.Tensor, valid_len, eof, *,
         max_size=max_size, chunk_cap=chunk_cap, align=align, n_rows=R)
 
     digests = _page_digests_flat(flat, npp, pagemajor)
+    # The ONE possibly-partial leaf per lane, the final chunk's tail,
+    # replaces its page's digest.
+    digests = tail_leaves_into(digests, npp, flat, starts, lens, count,
+                               lane_pages=F, pagemajor=pagemajor)
 
     starts64, lens64 = starts.to(torch.int64), lens.to(torch.int64)
     count64 = count.to(torch.int64)
     live = torch.arange(chunk_cap, **i64)[None, :] < count64[:, None]
-    last = (count64 - 1).clamp(min=0)[:, None]
-    end = torch.where(count64 > 0,
-                      (starts64.gather(1, last)
-                       + lens64.gather(1, last))[:, 0], 0)
-    # The ONE possibly-partial leaf per lane: the final chunk's tail.
-    has_tail = (count64 > 0) & (end % LEAF_SIZE != 0)
-    tail_page_local = (end - 1).clamp(min=0) // LEAF_SIZE
-    tail_page = torch.arange(S, **i64) * F + tail_page_local
-    tail_len = end - tail_page_local * LEAF_SIZE
-    tail_dig = sha256_chunks_device(
-        flat, (tail_page * LEAF_SIZE).clamp(0, S * P - 1),
-        torch.where(has_tail, tail_len, 0), max_len=LEAF_SIZE)
-    digests = _apply_tail_overrides(digests, npp, tail_page, tail_dig,
-                                    has_tail, pagemajor)
     nleaves = torch.where(live, (lens64 + (LEAF_SIZE - 1)) // LEAF_SIZE,
                           0)
     page0 = starts64 // LEAF_SIZE + (torch.arange(S, **i64) * F)[:, None]
@@ -560,15 +652,8 @@ def span_roots_device(data: torch.Tensor, starts: torch.Tensor,
         max_len = int(lens_c.max()) if lens_c.numel() else 0
 
     flat = _page_digests_flat(data, npp, pagemajor)
-    end = starts + lens_c
-    has_tail = live & (lens_c % LEAF_SIZE != 0)
-    tail_page = (end - 1).clamp(min=0) // LEAF_SIZE
-    tail_len = end - tail_page * LEAF_SIZE
-    tail_dig = sha256_chunks_device(
-        data, (tail_page * LEAF_SIZE).clamp(0, P - 1),
-        torch.where(has_tail, tail_len, 0), max_len=LEAF_SIZE)
-    flat = _apply_tail_overrides(flat, npp, tail_page, tail_dig, has_tail,
-                                 pagemajor)
+    flat = tail_leaves_into(flat, npp, data, starts, lens,
+                            pagemajor=pagemajor)
     nleaves = torch.where(
         live, ((lens_c + LEAF_SIZE - 1) // LEAF_SIZE).clamp(min=1), 0)
     return _root_digests_loop(flat, npp, starts // LEAF_SIZE, nleaves,

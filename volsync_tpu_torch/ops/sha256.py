@@ -1,28 +1,34 @@
-"""Batched SHA-256 on the card: message lanes, 4 KiB pages and 4 KiB
-leaves at 64-byte-aligned offsets.
+"""Batched SHA-256 on the card: message lanes, 4 KiB pages, 4 KiB
+leaves at 64-byte-aligned offsets and slices at any byte offset.
 
-Ports ``volsync_tpu/ops/sha256.py``. Three kernels written for Hopper
+Ports ``volsync_tpu/ops/sha256.py``. Four kernels written for Hopper
 (``csrc/sha256.cu``) carry the device work:
 
 - ``sha256_blocks`` launches ``sha256_lanes`` (replaces the XLA scan
   ``sha256_blocks``, sha256.py:144-169): lane b runs ``nblocks[b]``
-  compressions over pre-padded big-endian blocks;
+  compressions over pre-padded big-endian blocks (``sha256_many``; no
+  engine launches it);
 - ``sha256_pages`` launches K1 (replaces the Pallas
   ``_sha256_leaf_kernel``, sha256.py:367-395): SHA-256 of every page of
   a buffer, read as raw bytes through a shared-memory ``cp.async``
-  ring, word-major output. Its ``threads``
-  argument is the launch configuration that ``chip_smoke.py`` sweeps in
-  place of the lane-tile sweep of ``scripts/tune_sha.py`` (K5);
+  ring, word-major output, or page-major (``pagemajor=True``, the work
+  of K4 folded into K1's store). Its ``threads`` argument is the launch
+  configuration that ``chip_smoke.py`` sweeps in place of the lane-tile
+  sweep of ``scripts/tune_sha.py`` (K5);
 - ``sha256_rows`` launches K2 (replaces ``_sha256_rows_pallas``,
   sha256.py:398-422): SHA-256 of full leaves read from the raw segment
   bytes at ``64*rows0[b]`` through K1's ``cp.async`` ring;
   ``sha256_leaves_device`` (ref :260-286) pairs it with
   ``sha256_chunks_device`` for the short tail leaves, the split-phase
-  engine's one leaf dispatch.
+  engine's one leaf dispatch;
+- ``sha256_chunks_device`` launches ``sha256_slices`` (replaces the
+  gather, padding and scan of ref :438-492): slices at any byte offset
+  hashed from the raw bytes, the FIPS padding built in the kernel.
+  ``ops/segment.py tail_leaves_into`` launches its table-writing form.
 
 On a CPU tensor each runs its plain PyTorch twin (``_sha256_lanes_plain``,
-``_sha256_pages_plain``, ``_sha256_rows`` over ``pack_words``); on a
-CUDA tensor the kernel, always.
+``_sha256_pages_plain``, ``_sha256_rows`` over ``pack_words``,
+``_sha256_chunks_plain``); on a CUDA tensor the kernel, always.
 
 Word convention: 32-bit message and digest words travel as int32
 tensors holding the u32 bit pattern (``_i32``/``_u32`` convert). The
@@ -79,7 +85,7 @@ _K_INT = [int(k) for k in _K]
 
 SHA256_PAGES = Kernel("sha256_pages", "sha256.cu", "vt_sha256_pages",
                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int])
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int])
 SHA256_LANES = Kernel("sha256_lanes", "sha256.cu", "vt_sha256_lanes",
                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int])
@@ -87,11 +93,29 @@ SHA256_ROWS = Kernel("sha256_rows", "sha256.cu", "vt_sha256_rows",
                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_int])
+# sha256_slices' three entry points, one per kind of lanes; their launches
+# count under the one kernel name.
+SHA256_SLICES = Kernel("sha256_slices", "sha256.cu", "vt_sha256_slices",
+                       [ctypes.c_void_p, ctypes.c_longlong]
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2)
+SHA256_TAIL_CHUNKS = Kernel("sha256_slices", "sha256.cu",
+                            "vt_sha256_tail_chunks",
+                            [ctypes.c_void_p, ctypes.c_longlong]
+                            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                            + [ctypes.c_void_p] + [ctypes.c_int] * 4)
+SHA256_TAIL_SPANS = Kernel("sha256_slices", "sha256.cu",
+                           "vt_sha256_tail_spans",
+                           [ctypes.c_void_p, ctypes.c_longlong]
+                           + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4)
 
 #: K1's threads per block as the library launches it.
 PAGES_THREADS = 64
 #: K2's threads per block (its ring is K1's; 64 x 80 bytes a stage).
 ROWS_THREADS = 64
+#: sha256_slices' threads per block (fixed in csrc/sha256.cu).
+SLICES_THREADS = 64
+#: sha256_lanes' threads per block (fixed in csrc/sha256.cu).
+LANES_THREADS = 32
 
 
 def _u32(x: torch.Tensor) -> torch.Tensor:
@@ -178,9 +202,11 @@ def sha256_blocks(blocks: torch.Tensor, nblocks: torch.Tensor
     return out
 
 
-def _sha256_pages_plain(data: torch.Tensor, npp: int) -> torch.Tensor:
+def _sha256_pages_plain(data: torch.Tensor, npp: int,
+                        pagemajor: bool = False) -> torch.Tensor:
     """Twin of K1: [P] uint8 (P % 4096 == 0) -> [8 * npp] int32
-    word-major digests of its pages, zero pages past P / 4096."""
+    digests of its pages, zero pages past P / 4096; word-major, or
+    page-major (the word-major table transposed) when ``pagemajor``."""
     F = data.shape[0] // 4096
     x = torch.zeros((npp, 1024), dtype=torch.int64, device=data.device)
     x[:F] = _u32(pack_words_rows(data.view(F, 4096)))  # big-endian words
@@ -191,19 +217,24 @@ def _sha256_pages_plain(data: torch.Tensor, npp: int) -> torch.Tensor:
     zero = torch.zeros((npp,), dtype=torch.int64, device=data.device)
     pad = [zero + 0x80000000] + [zero] * 14 + [zero + 4096 * 8]
     state = _compress(state, pad)
-    return _i32(torch.stack(state, dim=0)).reshape(-1)
+    table = _i32(torch.stack(state, dim=0))  # [8, npp]
+    if pagemajor:
+        table = table.t().contiguous()
+    return table.reshape(-1)
 
 
 def sha256_pages(data: torch.Tensor, npp: int, *,
-                 threads: int = PAGES_THREADS) -> torch.Tensor:
+                 threads: int = PAGES_THREADS,
+                 pagemajor: bool = False) -> torch.Tensor:
     """SHA-256 of every 4 KiB page of a resident buffer.
 
     data: [P] uint8, P % 4096 == 0 (16-byte aligned on the card);
     ``npp`` >= P / 4096 pages are hashed, those past the buffer as zero
     pages. Returns [8 * npp] int32 digests, word j of page p at
-    ``j*npp + p`` (the TPU kernel's word-major layout). ``threads`` per
-    block (a multiple of 32, at most 256) is K1's launch configuration;
-    it does not change the result. CUDA: K1, which reads the raw bytes;
+    ``j*npp + p`` (the TPU kernel's word-major layout), or at ``p*8 + j``
+    when ``pagemajor``. ``threads`` per block (a multiple of 32, at most
+    256) is K1's launch configuration; it does not change the result.
+    CUDA: K1, which reads the raw bytes and stores either layout itself;
     CPU: its plain twin."""
     P = data.shape[0]
     if data.dim() != 1 or P % 4096 or npp < P // 4096:
@@ -211,7 +242,7 @@ def sha256_pages(data: torch.Tensor, npp: int, *,
                          f"and npp >= P/4096, got {tuple(data.shape)}, "
                          f"npp {npp}")
     if data.device.type == "cpu":
-        return _sha256_pages_plain(data, npp)
+        return _sha256_pages_plain(data, npp, pagemajor)
     check_cuda("sha256_pages", data, torch.uint8, 1)
     if data.data_ptr() % 16:
         raise ValueError("sha256_pages: the buffer must be 16-byte aligned")
@@ -220,7 +251,7 @@ def sha256_pages(data: torch.Tensor, npp: int, *,
                          f"multiple of 32 in [32, 256]")
     out = torch.empty((8 * npp,), dtype=torch.int32, device=data.device)
     SHA256_PAGES.launch(data.device, data.data_ptr(), out.data_ptr(),
-                        P // 4096, npp, threads)
+                        P // 4096, npp, threads, int(pagemajor))
     return out
 
 
@@ -357,16 +388,11 @@ def sha256_leaves_device(data: torch.Tensor, rows0: torch.Tensor,
     return torch.cat([full, tail], dim=0)
 
 
-def sha256_chunks_device(data: torch.Tensor, starts: torch.Tensor,
-                         lengths: torch.Tensor, *,
-                         max_len: int) -> torch.Tensor:
-    """Hash variable-length chunks of a device-resident byte buffer.
-
-    data: [L] uint8; starts/lengths: [B] chunk offsets and lengths
-    (<= max_len < 2**28) -> [B, 8] int32 digests, bit-exact vs hashlib.
-    The FIPS padding (0x80 terminator, big-endian bit length) is built
-    on the device with gathers and index masks, with no host sync; the
-    compressions run in ``sha256_blocks``."""
+def _chunk_lane_blocks(data: torch.Tensor, starts: torch.Tensor,
+                       lengths: torch.Tensor, max_len: int):
+    """The reference's padded messages of slices of ``data``: ([B, N,
+    16] int32 big-endian blocks, [B] int32 block counts), built with a
+    byte gather (indices clamped into the buffer) and index masks."""
     if max_len >= (1 << 28):
         raise ValueError("bit length is packed in 32-bit lanes")
     dev = data.device
@@ -390,5 +416,56 @@ def sha256_chunks_device(data: torch.Tensor, starts: torch.Tensor,
     q = msg.view(B, N, 16, 4)
     words = (q[..., 0] << 24) | (q[..., 1] << 16) | (q[..., 2] << 8) \
         | q[..., 3]
-    return sha256_blocks(_i32(words).contiguous(),
-                         nb.to(torch.int32).contiguous())
+    return _i32(words).contiguous(), nb.to(torch.int32).contiguous()
+
+
+def _sha256_chunks_plain(data: torch.Tensor, starts: torch.Tensor,
+                         lengths: torch.Tensor, *,
+                         max_len: int) -> torch.Tensor:
+    """Twin of ``sha256_slices``: the padded messages of
+    ``_chunk_lane_blocks`` through ``_sha256_lanes_plain``."""
+    return _sha256_lanes_plain(*_chunk_lane_blocks(data, starts, lengths,
+                                                   max_len))
+
+
+def slice_blocks(max_len: int) -> int:
+    """Message blocks of the longest slice of at most ``max_len`` bytes
+    (65 at 4096)."""
+    return (max_len + 9 + 63) // 64
+
+
+def sha256_chunks_device(data: torch.Tensor, starts: torch.Tensor,
+                         lengths: torch.Tensor, *,
+                         max_len: int) -> torch.Tensor:
+    """Hash variable-length chunks of a device-resident byte buffer.
+
+    data: [L] uint8; starts/lengths: [B] chunk offsets and lengths
+    (<= max_len < 2**28) -> [B, 8] int32 digests, bit-exact vs hashlib,
+    with no host sync. As in the reference, each byte index is clamped
+    into [0, L - 1] (a slice running past the buffer repeats its last
+    byte) and a lane runs at most ``slice_blocks(max_len)`` blocks.
+    CUDA: one ``sha256_slices`` launch, which reads the raw bytes with
+    16-byte copies and builds the FIPS padding in registers (int32
+    starts and lengths, as the reference casts them); the buffer must
+    start on a 16-byte boundary (a whole allocation does; a view at an
+    offset raises ValueError). CPU: its twin ``_sha256_chunks_plain``,
+    which takes any buffer."""
+    if max_len >= (1 << 28):
+        raise ValueError("bit length is packed in 32-bit lanes")
+    if data.device.type == "cpu":
+        return _sha256_chunks_plain(data, starts, lengths, max_len=max_len)
+    check_cuda("sha256_slices", data, torch.uint8, 1)
+    starts = starts.to(torch.int32).contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    check_cuda("sha256_slices", starts, torch.int32, 1)
+    check_cuda("sha256_slices", lengths, torch.int32, 1)
+    B = starts.shape[0]
+    L = data.shape[0]
+    if lengths.shape[0] != B or L == 0 or data.data_ptr() % 16:
+        raise ValueError("sha256_slices: need a 16-byte aligned, non-empty "
+                         "buffer and [B] starts and lengths")
+    out = torch.empty((B, 8), dtype=torch.int32, device=data.device)
+    SHA256_SLICES.launch(data.device, data.data_ptr(), L, starts.data_ptr(),
+                         lengths.data_ptr(), out.data_ptr(), B,
+                         slice_blocks(max_len))
+    return out
