@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--stream-gib G] [--align64-gib G]
                           [--align1-mib M] [--pagemajor-gib G]
+                          [--backup-gib G] [--backup64-mib M]
 
 Run from the repository root on a machine with a CUDA card and nvcc. It
 imports nothing of JAX or of the JAX package, and every phase raises on
@@ -69,11 +70,31 @@ a mismatch:
    fused launches, no ``pagemajor_u32``; chunks and ids equal to
    word-major passes over the same bytes, the layouts alternating
    pm/wm/wm/pm). Each stream also prints its host seconds by
-   ``obs.span``.
+   ``obs.span``;
+6. backup: the restic mover's product path. A seeded tree of about
+   ``--backup-gib`` GiB on local disk (under ``build/``, removed after)
+   from the stream's block pattern: a file of half the volume, one
+   ending in a 12,345-byte odd tail and its hard link, a sparse file
+   with a 32 MiB hole, an empty file and 300 files below min_size.
+   ``TreeBackup`` into an encrypted ``FsObjectStore`` repository at the
+   repository default chunker (align 4096), a second backup (nothing
+   new, the same root tree), ``check(read_data=True)``, a pipelined
+   ``restore_snapshot`` and a serial ``TreeRestore`` with device verify
+   (each byte-identical: SHA-256, mode and mtime of every path, hard
+   links, the hole), and one flipped byte in a pack (IntegrityError
+   before the affected file is written); then the same for an
+   unencrypted align-64 repository over ``--backup64-mib`` MiB (K2 in
+   the product path; the device verify, not the MAC, catches its
+   flipped byte). Every run sets the launch counts to 0 before and
+   reads them after: the fused or split-phase kernels once a backup
+   pass, none on the second backup, and K1, ``sha256_slices`` and
+   ``merkle_roots`` once a verify pass. Logs backup and restore GiB/s
+   and each run's host seconds by span.
 
 The line before the last is the kernels JSON (launches on the stream
 phase that runs each kernel, max difference from the twin, times and
-bounds); the last line is ``{"ok": true, "device": {...}}``. Exits
+bounds; ``product_launches``: each kernel's launches in the backup
+phase's runs); the last line is ``{"ok": true, "device": {...}}``. Exits
 nonzero, with no result, when CUDA is unavailable or any phase fails.
 """
 
@@ -86,8 +107,11 @@ import hashlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -366,20 +390,26 @@ def capture_calls(seg, sha, run) -> list:
 
 
 @contextlib.contextmanager
-def pagemajor_env(on: bool = True):
-    """Within the block, ``VOLSYNC_PAGEMAJOR`` is set (or unset)."""
-    saved = os.environ.get("VOLSYNC_PAGEMAJOR")
-    if on:
-        os.environ["VOLSYNC_PAGEMAJOR"] = "1"
+def env_set(name: str, value):
+    """Within the block, ``name`` is ``value`` in the environment (unset
+    for None); the previous state comes back on exit."""
+    saved = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
     else:
-        os.environ.pop("VOLSYNC_PAGEMAJOR", None)
+        os.environ[name] = value
     try:
         yield
     finally:
         if saved is None:
-            os.environ.pop("VOLSYNC_PAGEMAJOR", None)
+            os.environ.pop(name, None)
         else:
-            os.environ["VOLSYNC_PAGEMAJOR"] = saved
+            os.environ[name] = saved
+
+
+def pagemajor_env(on: bool = True):
+    """Within the block, ``VOLSYNC_PAGEMAJOR`` is set (or unset)."""
+    return env_set("VOLSYNC_PAGEMAJOR", "1" if on else None)
 
 
 #: Device stages of ``chunk_hash_segments``, each the segment-module
@@ -1189,17 +1219,27 @@ def stream_once(torch, stream, params, hasher) -> tuple:
     return results, views, time.perf_counter() - t0
 
 
-def count_passes(hasher) -> list:
-    """Wrap ``hasher.begin_device``; ``n[0]`` counts its device passes."""
-    n = [0]
-    inner = hasher.begin_device
+class PassCounter:
+    """Counts calls of a wrapped function from any thread (``n``)."""
 
-    def counted(*args, **kwargs):
-        n[0] += 1
-        return inner(*args, **kwargs)
+    def __init__(self):
+        self.n = 0
+        self._lock = threading.Lock()
 
-    hasher.begin_device = counted
-    return n
+    def wrap(self, fn):
+        def counted(*args, **kwargs):
+            with self._lock:
+                self.n += 1
+            return fn(*args, **kwargs)
+        return counted
+
+
+def count_passes(hasher) -> PassCounter:
+    """Wrap ``hasher.begin_device``; the counter's ``n`` is its device
+    passes."""
+    passes = PassCounter()
+    hasher.begin_device = passes.wrap(hasher.begin_device)
+    return passes
 
 
 def drive(torch, stream, params, per_pass: dict, label: str) -> dict:
@@ -1225,19 +1265,19 @@ def drive(torch, stream, params, per_pass: dict, label: str) -> dict:
     if off != stream.total:
         raise AssertionError(f"{label} covered {off} of {stream.total} "
                              f"bytes")
-    want = {k: per_pass.get(k, 0) * passes[0] for k in launches}
+    want = {k: per_pass.get(k, 0) * passes.n for k in launches}
     if DEVICE == "cuda" and launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected "
-                             f"{want} over {passes[0]} device passes")
+                             f"{want} over {passes.n} device passes")
     gibs = stream.total / GIB / secs
-    per_pass = {k: v / max(passes[0], 1) for k, v in launches.items() if v}
+    per_pass = {k: v / max(passes.n, 1) for k, v in launches.items() if v}
     log(f"{label}: {stream.total} bytes, {len(results)} chunks in "
-        f"{secs:.3f} s = {gibs:.4f} GiB/s over {passes[0]} device passes; "
+        f"{secs:.3f} s = {gibs:.4f} GiB/s over {passes.n} device passes; "
         f"launches {json.dumps(launches)}, per pass {json.dumps(per_pass)}")
     log(f"{label}: host seconds by span (summed; engine.read runs on the "
         f"readahead thread): {json.dumps(spans)}")
     return {"results": results, "views": views, "gibs": gibs,
-            "launches": launches, "passes": passes[0], "spans": spans}
+            "launches": launches, "passes": passes.n, "spans": spans}
 
 
 def dense_candidates(x: np.ndarray, params, skip: int) -> tuple:
@@ -1435,6 +1475,313 @@ def verify_phase(views) -> None:
         f"spans) equals its twin")
 
 
+#: Kernel launches per ``hash_spans`` pass of ``verify_blob_batch`` (the
+#: repository check and both restores): K1, the span form of
+#: sha256_slices, merkle_roots.
+VERIFY_PER_PASS = {"sha256_pages": 1, "sha256_slices": 1, "merkle_roots": 1}
+#: Files below min_size in the backup tree, and its odd tail.
+SMALL_FILES = 300
+ODD_TAIL = 12345
+
+
+def write_stream(path: Path, stream, n: int) -> None:
+    """Write the stream's next ``n`` bytes to ``path``."""
+    buf = bytearray(8 << 20)
+    view = memoryview(buf)
+    with open(path, "wb") as f:
+        while n > 0:
+            got = stream.readinto(view[: min(len(buf), n)])
+            if got == 0:
+                raise AssertionError(f"stream ended {n} bytes early")
+            f.write(view[:got])
+            n -= got
+
+
+def make_backup_tree(torch, root: Path, total: int, seed: int,
+                     min_size: int, hole: int) -> dict:
+    """A seeded volume of about ``total`` bytes on local disk, made from
+    ``SeededStream``'s block pattern (half of its blocks repeat earlier
+    ones, one is all zero): ``big.bin`` (at least half the volume),
+    ``odd.bin`` (the rest, ending in a 12,345-byte odd tail), a hard link
+    to it two directories down, ``sparse.bin`` (data, a ``hole``-byte
+    hole, data), an empty file and 300 files below ``min_size`` in 16
+    directories. -> {"bytes": bytes of its distinct regular files (the
+    hole counted, the link not), "hole": hole}."""
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True)
+    small_max = min(min_size, 64 << 10)
+    sizes = rng.integers(1, small_max, size=SMALL_FILES)
+    sparse_data = max(8192, min(2 << 20, total // 16) // 8192 * 8192)
+    big = total // 2 + 4096
+    odd = max(total - big - sparse_data - int(sizes.sum()), 0)
+    odd = odd // (1 << 20) * (1 << 20) + ODD_TAIL
+    stream = SeededStream(torch, seed, big + odd)
+    write_stream(root / "big.bin", stream, big)
+    write_stream(root / "odd.bin", stream, odd)
+    with open(root / "sparse.bin", "wb") as f:
+        f.write(rng.bytes(sparse_data // 2))
+        f.seek(sparse_data // 2 + hole)
+        f.write(rng.bytes(sparse_data // 2))
+    (root / "empty").write_bytes(b"")
+    (root / "nested" / "deeper").mkdir(parents=True)
+    os.link(root / "odd.bin", root / "nested" / "deeper" / "link.bin")
+    for i, n in enumerate(sizes):
+        d = root / "small" / f"{i % 16:02d}"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / f"f{i:04d}.bin").write_bytes(rng.bytes(int(n)))
+        if i % 7 == 0:
+            os.chmod(d / f"f{i:04d}.bin", 0o600)
+    os.chmod(root / "odd.bin", 0o640)
+    os.utime(root / "nested", ns=(1_600_000_000 * 10**9,) * 2)
+    return {"bytes": big + odd + sparse_data + hole + int(sizes.sum()),
+            "hole": hole}
+
+
+def tree_state(root: Path) -> dict:
+    """rel -> (kind, mode, mtime_ns, size, sha256 hex, inode, blocks)."""
+    out = {}
+    for p in sorted(root.rglob("*")):
+        st = p.lstat()
+        digest = None
+        if p.is_file():
+            h = hashlib.sha256()
+            with open(p, "rb") as f:
+                while piece := f.read(8 << 20):
+                    h.update(piece)
+            digest = h.hexdigest()
+        out[str(p.relative_to(root))] = (
+            "file" if p.is_file() else "dir", st.st_mode, st.st_mtime_ns,
+            st.st_size if p.is_file() else 0, digest, st.st_ino,
+            st.st_blocks)
+    return out
+
+
+def check_restored(label: str, src: dict, dst_root: Path, hole: int,
+                   only_complete: bool = False) -> None:
+    """``dst_root`` holds ``src``'s tree byte-identical: the same paths,
+    and for each its kind, mode, mtime, size and SHA-256, the same
+    hard-link groups, and ``sparse.bin`` allocated no more than the
+    source (where the filesystem keeps the source's hole, the restore's
+    is a hole too). With
+    ``only_complete`` (a failed restore) ``dst_root`` may hold fewer
+    files, each complete."""
+    dst = tree_state(dst_root)
+    if only_complete:
+        src = {k: v for k, v in src.items() if k in dst}
+    if set(dst) != set(src):
+        missing = sorted(set(src) ^ set(dst))[:5]
+        raise AssertionError(f"{label}: paths differ, e.g. {missing}")
+    for rel, a in src.items():
+        b = dst[rel]
+        if a[:5] != b[:5] and not (only_complete and a[0] == "dir"):
+            raise AssertionError(f"{label}: {rel} differs: {a[:5]} "
+                                 f"restored as {b[:5]}")
+
+    def groups(state):
+        by_ino = defaultdict(set)
+        for rel, v in state.items():
+            if v[0] == "file":
+                by_ino[v[5]].add(rel)
+        return sorted(sorted(g) for g in by_ino.values())
+
+    if groups(src) != groups(dst):
+        raise AssertionError(f"{label}: hard-link groups differ")
+    if "sparse.bin" in dst and dst["sparse.bin"][6] > \
+            src["sparse.bin"][6]:
+        raise AssertionError(
+            f"{label}: sparse.bin allocates {dst['sparse.bin'][6] * 512} "
+            f"bytes, the source {src['sparse.bin'][6] * 512} (its "
+            f"{hole}-byte hole filled)")
+
+
+def product_run(torch, label: str, run, per_pass: dict,
+                passes: PassCounter) -> dict:
+    """``run()`` with every launch count set to 0 just before and read
+    just after, and ``hash_spans`` (the verify pass) counted. On the card
+    every kernel must have launched ``per_pass[name]`` times per counted
+    pass (0 when absent), and a ``per_pass`` with kernels needs at least
+    one pass."""
+    from volsync_tpu_torch.engine import chunker
+    from volsync_tpu_torch.obs import span_totals
+    from volsync_tpu_torch.ops._build import KERNELS, launch_counts
+
+    verify = PassCounter()
+    before = span_totals()
+    for k in KERNELS:
+        k.launches = 0
+    sync(torch)
+    t0 = time.perf_counter()
+    with patched(chunker, {"hash_spans": verify.wrap}):
+        out = run()
+    sync(torch)
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    n = passes.n if passes is not None else verify.n
+    want = {k: per_pass.get(k, 0) * n for k in launches}
+    if DEVICE == "cuda" and (launches != want or (per_pass and n == 0)):
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{want} over {n} passes")
+    spans = {k: round(s - before.get(k, (0, 0.0))[1], 4)
+             for k, (c, s) in span_totals().items()
+             if c != before.get(k, (0, 0.0))[0]}
+    log(f"{label}: {secs:.3f} s, {n} device passes, launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}; host "
+        f"seconds by span (summed over threads): {json.dumps(spans)}")
+    return {"out": out, "secs": secs, "launches": launches, "passes": n,
+            "spans": spans}
+
+
+def repo_round_trip(torch, label: str, base: Path, total: int, seed: int,
+                    chunker: dict, password, hole: int, card: str) -> dict:
+    """Back up a seeded tree into a new ``FsObjectStore`` repository on the
+    card, back it up again (nothing new, the same root tree), check it
+    with ``read_data=True``, restore it pipelined and serially (both
+    byte-identical to the source), then flip one byte in the pack of
+    ``big.bin``'s first blob and restore again: IntegrityError, with
+    ``big.bin`` not written and every file that was written complete."""
+    from volsync_tpu_torch.engine.backup import TreeBackup
+    from volsync_tpu_torch.engine.restore import TreeRestore, \
+        restore_snapshot
+    from volsync_tpu_torch.objstore.store import FsObjectStore
+    from volsync_tpu_torch.repo import crypto
+    from volsync_tpu_torch.repo.repository import Repository
+
+    src = base / f"{label}-src"
+    t0 = time.perf_counter()
+    made = make_backup_tree(torch, src, total, seed, chunker["min_size"],
+                            hole)
+    state = tree_state(src)
+    sparse = state["sparse.bin"]
+    log(f"{label}: tree of {made['bytes']} bytes in {len(state)} entries "
+        f"made in {time.perf_counter() - t0:.1f} s; sparse.bin allocates "
+        f"{sparse[6] * 512} of {sparse[3]} bytes (a {hole}-byte hole"
+        + ("" if sparse[6] * 512 <= sparse[3] - hole // 2
+           else "; this filesystem allocated it") + ")")
+    store = FsObjectStore(base / f"{label}-repo")
+    repo = Repository.init(store, password, chunker=chunker, device=DEVICE)
+    per_pass = FUSED_PER_PASS if chunker["align"] == 4096 else SPLIT_PER_PASS
+    res = {}
+
+    def backup_run():
+        backup = TreeBackup(repo)
+        return backup, count_passes(backup.hasher)
+
+    backup, passes = backup_run()
+    r = product_run(torch, f"{label} backup ({backup.workers} workers)",
+                    lambda: backup.run(src), per_pass, passes)
+    snap, stats = r["out"]
+    res["backup"] = r
+    res["backup_gibs"] = stats.bytes_scanned / GIB / r["secs"]
+    log(f"{label} backup: {stats.bytes_scanned} bytes scanned at "
+        f"{res['backup_gibs']:.4f} GiB/s, {stats.blobs_new} new blobs "
+        f"({stats.bytes_new} bytes, {stats.bytes_stored} stored), "
+        f"{stats.blobs_dedup} deduplicated ({card})")
+    if stats.bytes_scanned != made["bytes"]:
+        raise AssertionError(f"{label}: scanned {stats.bytes_scanned} of "
+                             f"{made['bytes']} bytes")
+    tree_id = dict(repo.list_snapshots())[snap]["tree"]
+    data_ids = {b for b in repo.blob_ids() if repo._entry(b).type == "data"}
+
+    again, passes = backup_run()
+    r = product_run(torch, f"{label} second backup", lambda: again.run(src),
+                    {}, passes)
+    snap2, stats2 = r["out"]
+    data_ids2 = {b for b in repo.blob_ids() if repo._entry(b).type == "data"}
+    if (stats2.blobs_new, data_ids2) != (0, data_ids) or \
+            dict(repo.list_snapshots())[snap2]["tree"] != tree_id:
+        raise AssertionError(f"{label}: the second backup stored "
+                             f"{stats2.blobs_new} blobs or changed the tree")
+
+    reader = Repository.open(store, password, device=DEVICE)
+    r = product_run(torch, f"{label} check(read_data=True)",
+                    lambda: reader.check(read_data=True), VERIFY_PER_PASS,
+                    None)
+    if r["out"] != []:
+        raise AssertionError(f"{label}: check found {r['out'][:3]}")
+    res["check"] = r
+
+    dst = base / f"{label}-pipelined"
+    r = product_run(torch, f"{label} pipelined restore",
+                    lambda: restore_snapshot(
+                        Repository.open(store, password, device=DEVICE),
+                        dst), VERIFY_PER_PASS, None)
+    check_restored(f"{label} pipelined restore", state, dst, hole)
+    res["restore"] = r
+    res["restore_gibs"] = made["bytes"] / GIB / r["secs"]
+    shutil.rmtree(dst)
+
+    dst = base / f"{label}-serial"
+    serial_repo = Repository.open(store, password, device=DEVICE)
+    manifest = dict(serial_repo.list_snapshots())[snap]
+    with env_set("VOLSYNC_DEVICE_VERIFY", "1"):
+        r = product_run(torch, f"{label} serial restore (device verify)",
+                        lambda: TreeRestore(serial_repo, pipeline=False).run(
+                            snap, manifest, dst), VERIFY_PER_PASS, None)
+    check_restored(f"{label} serial restore", state, dst, hole)
+    res["serial"] = r
+    res["serial_gibs"] = made["bytes"] / GIB / r["secs"]
+    shutil.rmtree(dst)
+    log(f"{label}: restore {res['restore_gibs']:.4f} GiB/s pipelined, "
+        f"{res['serial_gibs']:.4f} GiB/s serial, both byte-identical "
+        f"({card})")
+
+    bad_repo = Repository.open(store, password, device=DEVICE)
+    tree = json.loads(bad_repo.read_blob(tree_id))
+    # big.bin's first blob stored uncompressed (a flag byte and the
+    # cipher's overhead around the plaintext): without a password its
+    # flipped byte reaches the device verify, not the decompressor
+    ie = next(e for e in map(bad_repo._entry, next(
+        e for e in tree["entries"] if e["name"] == "big.bin")["content"])
+        if e.length == e.raw_length + 1 + bad_repo.box.overhead)
+    pack = store.root / f"data/{ie.pack[:2]}/{ie.pack}"
+    with open(pack, "r+b") as f:
+        f.seek(ie.offset + ie.length // 2)
+        byte = f.read(1)
+        f.seek(ie.offset + ie.length // 2)
+        f.write(bytes([byte[0] ^ 0x20]))
+    dst = base / f"{label}-corrupt"
+    try:
+        restore_snapshot(bad_repo, dst)
+    except crypto.IntegrityError as e:
+        caught = str(e)
+    else:
+        raise AssertionError(f"{label}: the corrupt pack restored")
+    if (dst / "big.bin").exists():
+        raise AssertionError(f"{label}: big.bin was written from a "
+                             f"corrupt pack")
+    check_restored(f"{label} failed restore", state, dst, hole,
+                   only_complete=True)
+    shutil.rmtree(dst, ignore_errors=True)
+    log(f"{label}: one flipped byte in pack {ie.pack[:12]} raised "
+        f"IntegrityError ({caught[:60]}) before big.bin was written")
+    return res
+
+
+def backup_phase(torch, base: Path, backup_bytes: int, backup64_bytes: int,
+                 seed: int, card: str, chunker: dict | None = None,
+                 hole: int = 32 << 20) -> dict:
+    """The restic mover's product path on the port: ``repo_round_trip`` of
+    an encrypted repository at the repository default chunker (align
+    4096: the fused engine) over ``backup_bytes``, and of an unencrypted
+    align-64 repository (the split-phase engine with K2; its corrupt
+    pack is caught by the device verify, not the cipher's MAC) over
+    ``backup64_bytes``. -> launches by kernel of each run."""
+    from volsync_tpu_torch.repo import compress, crypto
+    from volsync_tpu_torch.repo.repository import DEFAULT_CHUNKER
+
+    cipher = "AES-256-CTR" if crypto.HAVE_AES else "the SHAKE-256 keystream"
+    log(f"backup phase: cipher {cipher}, compression "
+        f"{'zstd' if compress.HAVE_ZSTD else 'zlib'} (what this host has "
+        f"installed)")
+    chunker = dict(chunker or DEFAULT_CHUNKER)
+    fused = repo_round_trip(torch, "backup", base, backup_bytes, seed,
+                            chunker, "smoke-password", hole, card)
+    split = repo_round_trip(torch, "backup64", base, backup64_bytes,
+                            seed + 1, {**chunker, "align": 64}, None,
+                            hole, card)
+    return {"fused": fused, "split": split}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1445,6 +1792,10 @@ def main() -> int:
     ap.add_argument("--align64-gib", type=float, default=2.0)
     ap.add_argument("--align1-mib", type=float, default=256.0)
     ap.add_argument("--pagemajor-gib", type=float, default=1.0)
+    # The backup phase's volumes (the mover's 10 GiB PVC is cut to keep
+    # the whole script within half its time limit; PERF.md section 4).
+    ap.add_argument("--backup-gib", type=float, default=2.0)
+    ap.add_argument("--backup64-mib", type=float, default=256.0)
     args = ap.parse_args()
 
     import torch
@@ -1532,6 +1883,26 @@ def main() -> int:
         f"{split['gibs']:.4f}, align=1 {legacy['gibs']:.4f}, page-major "
         f"{pm['gibs']:.4f} ({card})")
 
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    base = Path(tempfile.mkdtemp(prefix="chip_smoke_backup.", dir=build))
+    t1 = time.perf_counter()
+    try:
+        product = backup_phase(torch, base, int(args.backup_gib * GIB),
+                               int(args.backup64_mib * (1 << 20)),
+                               args.seed, card)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    log(f"backup phase: {time.perf_counter() - t1:.1f} s in all; backup {product['fused']['backup_gibs']:.4f} GiB/s, "
+        f"pipelined restore {product['fused']['restore_gibs']:.4f} GiB/s, "
+        f"serial restore {product['fused']['serial_gibs']:.4f} GiB/s "
+        f"(encrypted, align 4096); align 64: backup "
+        f"{product['split']['backup_gibs']:.4f}, restore "
+        f"{product['split']['restore_gibs']:.4f} GiB/s ({card})")
+    runs = {f"{engine}.{run}": product[engine][run]["launches"]
+            for engine in ("fused", "split")
+            for run in ("backup", "check", "restore", "serial")}
+
     # Launches: from the stream phase of the path that runs each kernel.
     launches = {**res["launches"],
                 "sha256_rows": split["launches"]["sha256_rows"],
@@ -1561,7 +1932,10 @@ def main() -> int:
         for extra in ("bound_kind", "threads_ms", "shapes"):
             if extra in st:
                 entry[extra] = st[extra]
+        if name in runs["fused.backup"]:
+            entry["product_launches"] = {r: c[name] for r, c in runs.items()}
         kernels.append(entry)
+    log(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the build on")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

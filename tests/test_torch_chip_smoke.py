@@ -401,3 +401,54 @@ def test_tail_and_pagemajor_checks_on_cpu(monkeypatch, rng):
                                packed[0], k1)
     assert stats["sha256_pages_pagemajor"]["err"] == 0
     assert stats["pagemajor_u32"]["bound_by"] == "bytes"
+
+
+def test_backup_tree_builder_layout(monkeypatch, tmp_path):
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "BLOCK", 64 * 1024)
+    made = chip_smoke.make_backup_tree(torch, tmp_path / "t", 1 << 20, 2,
+                                       min_size=4096, hole=256 * 1024)
+    state = chip_smoke.tree_state(tmp_path / "t")
+    files = {k: v for k, v in state.items() if v[0] == "file"}
+    assert len(files) == chip_smoke.SMALL_FILES + 5
+    assert sum(v[3] for k, v in files.items() if k != "nested/deeper/link.bin") \
+        == made["bytes"]
+    assert files["big.bin"][3] >= made["bytes"] // 2 - 300 * 4096
+    assert files["odd.bin"][3] % (1 << 20) == chip_smoke.ODD_TAIL
+    assert files["odd.bin"][5] == files["nested/deeper/link.bin"][5]
+    assert files["empty"][3] == 0
+    assert files["sparse.bin"][6] * 512 < files["sparse.bin"][3] - 128 * 1024
+    assert all(v[3] < 4096 for k, v in files.items() if k.startswith("small"))
+    # a copy without the hole's allocation check fails the comparison
+    chip_smoke.check_restored("self", state, tmp_path / "t", made["hole"])
+    (tmp_path / "t" / "small" / "00" / "f0000.bin").write_bytes(b"x")
+    with pytest.raises(AssertionError, match="differs"):
+        chip_smoke.check_restored("edited", state, tmp_path / "t",
+                                  made["hole"])
+
+
+def test_backup_phase_on_cpu(monkeypatch, tmp_path):
+    """The whole backup phase at a tiny size: backup, second backup,
+    check, pipelined and serial restore, the corrupt pack, for the
+    encrypted fused repository and the unencrypted align-64 one."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "BLOCK", 64 * 1024)
+    monkeypatch.setattr(chip_smoke, "SMALL_FILES", 3)
+    # one thread: the CPU twins slow down several-fold under concurrent
+    # threads (the card runs the default four workers)
+    monkeypatch.setenv("VOLSYNC_BACKUP_WORKERS", "1")
+    monkeypatch.setenv("VOLSYNC_RESTORE_WORKERS", "1")
+    chunker = {"min_size": 4096, "avg_size": 32768, "max_size": 65536,
+               "seed": 0x5EED_CDC1, "align": 4096}
+    res = chip_smoke.backup_phase(torch, tmp_path, 300_000, 200_000, 5,
+                                  "cpu", chunker=chunker, hole=128 * 1024)
+    for engine in ("fused", "split"):
+        r = res[engine]
+        assert r["backup"]["passes"] >= 3
+        assert r["check"]["passes"] >= 1 and r["restore"]["passes"] >= 1
+        assert r["backup_gibs"] > 0 and r["restore_gibs"] > 0
+        assert "repo.seal" in r["backup"]["spans"]
+        assert {"repo.read", "repo.verify"} <= set(r["check"]["spans"])
+        for run in ("restore", "serial"):
+            assert {"restore.verify", "restore.write"} <= \
+                set(r[run]["spans"])

@@ -533,3 +533,132 @@ def test_launches_of_one_device_pass(cuda, rng, monkeypatch, align,
     torch.cuda.synchronize()
     assert {k: n for k, n in launch_counts().items() if n} == want
     assert chunks == DeviceChunkHasher(p, device="cpu").process(buf)
+
+
+def _small_tree(root, rng):
+    """A file with an odd tail, its hard link, a sparse file with a hole,
+    an empty file, a file below min_size, nested directories."""
+    import os
+
+    root.mkdir()
+    (root / "tail.bin").write_bytes(rng.bytes(5 * 32768 + 12_345))
+    (root / "empty").write_bytes(b"")
+    with open(root / "sparse.bin", "wb") as f:
+        f.write(rng.bytes(5_000))
+        f.seek(145_000)
+        f.write(rng.bytes(3_000))
+    (root / "sub" / "deeper").mkdir(parents=True)
+    os.link(root / "tail.bin", root / "sub" / "hard.bin")
+    (root / "sub" / "small.txt").write_bytes(b"hello card\n" * 40)
+    for k in range(3):
+        (root / "sub" / "deeper" / f"mid{k}.bin").write_bytes(
+            rng.bytes(40_000 + 9_999 * k))
+    return root
+
+
+def _chunker(align):
+    return {"min_size": 4096, "avg_size": 32768, "max_size": 65536,
+            "seed": 0x5EED_CDC1, "align": align}
+
+
+@pytest.mark.parametrize("align", [4096, 64, 1])
+def test_stream_and_tree_backup_on_card_equal_cpu(cuda, rng, tmp_path,
+                                                  align):
+    """The seams on the card: ``stream_chunk_batches`` gives the CPU's
+    batches, and ``TreeBackup`` with four workers on the card gives the
+    snapshot of one worker on the CPU (the CPU side is what the JAX
+    package is held against in tests/test_torch_seams.py)."""
+    from volsync_tpu_torch.engine import stream_chunk_batches
+    from volsync_tpu_torch.engine.backup import TreeBackup
+    from volsync_tpu_torch.objstore.store import MemObjectStore
+    from volsync_tpu_torch.repo.repository import Repository
+
+    p = GearParams(**{k: v for k, v in _chunker(align).items()})
+    data = rng.bytes(200_000) + bytes(70_000) + rng.bytes(33_333)
+
+    def batches(device):
+        pos = [0]
+
+        def read(n):
+            piece = data[pos[0]: pos[0] + min(n, 61_441)]
+            pos[0] += len(piece)
+            return piece
+        return [[(bytes(c), d) for c, d in b] for b in stream_chunk_batches(
+            read, p, segment_size=128 * 1024, device=device)]
+
+    assert batches(cuda) == batches("cpu")
+    src = _small_tree(tmp_path / "src", rng)
+    got = []
+    for device, workers in ((cuda, 4), ("cpu", 1)):
+        repo = Repository.init(MemObjectStore(), chunker=_chunker(align),
+                               device=device)
+        snap, _ = TreeBackup(repo, workers=workers).run(src)
+        got.append((dict(repo.list_snapshots())[snap]["tree"],
+                    repo.blob_ids()))
+    assert got[0] == got[1]
+
+
+def test_backup_check_restore_round_trip_on_card(cuda, rng, tmp_path):
+    """Backup, ``check(read_data=True)``, pipelined and serial restore on
+    the card, with the verify kernels launched; a flipped byte in an
+    unencrypted pack is caught by the device verify before any write."""
+    import json
+    import os
+
+    from volsync_tpu_torch.engine.backup import TreeBackup
+    from volsync_tpu_torch.engine.restore import TreeRestore, \
+        restore_snapshot
+    from volsync_tpu_torch.objstore.store import FsObjectStore
+    from volsync_tpu_torch.ops._build import KERNELS, launch_counts
+    from volsync_tpu_torch.repo import crypto
+    from volsync_tpu_torch.repo.repository import Repository
+
+    src = _small_tree(tmp_path / "src", rng)
+    store = FsObjectStore(tmp_path / "repo")
+    repo = Repository.init(store, chunker=_chunker(4096), device=cuda)
+    snap, stats = TreeBackup(repo).run(src)
+    assert stats.files == 8
+    for k in KERNELS:
+        k.launches = 0
+    assert Repository.open(store, device=cuda).check(read_data=True) == []
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["sha256_pages"] >= 1 and counts["merkle_roots"] >= 1
+    assert counts["fastcdc_walk"] == 0
+    restore_snapshot(Repository.open(store, device=cuda), tmp_path / "p")
+    os.environ["VOLSYNC_DEVICE_VERIFY"] = "1"
+    try:
+        r = Repository.open(store, device=cuda)
+        TreeRestore(r, pipeline=False).run(
+            snap, dict(r.list_snapshots())[snap], tmp_path / "s")
+    finally:
+        del os.environ["VOLSYNC_DEVICE_VERIFY"]
+    for dst in (tmp_path / "p", tmp_path / "s"):
+        for f in src.rglob("*"):
+            g = dst / f.relative_to(src)
+            assert f.lstat().st_mode == g.lstat().st_mode
+            assert f.lstat().st_mtime_ns == g.lstat().st_mtime_ns
+            if f.is_file():
+                assert f.read_bytes() == g.read_bytes()
+        assert os.path.samefile(dst / "tail.bin", dst / "sub" / "hard.bin")
+    # the files by their first blob; flip a byte of one stored raw (no
+    # password, incompressible), which only the device verify can catch
+    firsts, stack = {}, [(dict(repo.list_snapshots())[snap]["tree"], "")]
+    while stack:
+        tid, prefix = stack.pop()
+        for e in json.loads(repo.read_blob(tid))["entries"]:
+            if e["type"] == "dir":
+                stack.append((e["subtree"], f"{prefix}{e['name']}/"))
+            elif e["type"] == "file" and e["content"]:
+                firsts[e["content"][0]] = prefix + e["name"]
+    bid, rel = next((b, r) for b, r in sorted(firsts.items())
+                    if repo._entry(b).length == repo._entry(b).raw_length + 1)
+    ie = repo._entry(bid)
+    pack = tmp_path / "repo" / f"data/{ie.pack[:2]}/{ie.pack}"
+    body = bytearray(pack.read_bytes())
+    body[ie.offset + 100] ^= 1
+    pack.write_bytes(bytes(body))
+    with pytest.raises(crypto.IntegrityError, match="content hash"):
+        restore_snapshot(Repository.open(store, device=cuda),
+                         tmp_path / "bad")
+    assert not (tmp_path / "bad" / rel).exists()

@@ -15,7 +15,11 @@ import torch
 
 import volsync_tpu_torch
 from volsync_tpu_torch.engine import chunker as tch
+from volsync_tpu_torch.engine.backup import TreeBackup
+from volsync_tpu_torch.engine.restore import TreeRestore, restore_snapshot
+from volsync_tpu_torch.objstore.store import MemObjectStore
 from volsync_tpu_torch.ops import gearcdc, segment, sha256
+from volsync_tpu_torch.repo.repository import Repository
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "volsync_tpu_torch"
@@ -46,7 +50,7 @@ def test_no_file_imports_jax_or_the_reference():
                 continue
             found += [(path.name, n) for n in names if _forbidden(n)]
     assert found == []
-    assert len(_port_files()) >= 12
+    assert len(_port_files()) >= 27
 
 
 def test_importing_the_port_loads_no_jax_module():
@@ -101,3 +105,35 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
             call()
     assert volsync_tpu_torch.resolve_device("cpu") == torch.device("cpu")
     assert tch.DeviceChunkHasher(p, device="cpu").device.type == "cpu"
+
+
+def test_product_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """Repository.init/open, TreeBackup, TreeRestore and restore_snapshot
+    run on CUDA unless told otherwise: with no CUDA they raise, and
+    init writes nothing first. A backup or restore without ``device=``
+    takes its repository's device, so one opened on CUDA raises here
+    too rather than moving to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    store = MemObjectStore()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Repository.init(store)
+    assert list(store.list()) == []
+    repo = Repository.init(store, device="cpu")
+    calls = [
+        lambda: Repository.open(store),
+        lambda: Repository(store, repo.box, repo.config),
+        lambda: TreeBackup(repo, device="cuda"),
+        lambda: TreeRestore(repo, device="cuda"),
+        lambda: restore_snapshot(repo, tmp_path / "d", device="cuda"),
+    ]
+    repo_on_cuda = Repository.open(store, device="cpu")
+    repo_on_cuda.device = torch.device("cuda")  # as if opened on a card
+    calls += [lambda: TreeBackup(repo_on_cuda),
+              lambda: TreeRestore(repo_on_cuda),
+              lambda: restore_snapshot(repo_on_cuda, tmp_path / "d")]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert not (tmp_path / "d").exists()
+    assert Repository.open(store, device="cpu").device.type == "cpu"
+    assert TreeBackup(repo).device.type == "cpu"

@@ -1,9 +1,7 @@
-"""Device data-plane engine of the port (ports ``volsync_tpu/engine/``).
-
-This package carries the streaming chunk+hash pipeline only (the fused,
-split-phase and legacy engines); backup and restore are later slices
-(ROADMAP.md).
-"""
+"""Engine of the port (ports ``volsync_tpu/engine/``): the streaming
+chunk+hash pipeline (the fused, split-phase and legacy engines), tree
+backup (``backup.py``) and snapshot restore (``restore.py`` and the
+pack-aware pipeline of ``restorepipe.py``)."""
 
 from volsync_tpu_torch.engine.chunker import (
     DeviceChunkHasher,

@@ -21,9 +21,10 @@ one of three engines, picked by the repository's ``align``:
   route unaligned
   ``hash_spans`` also takes (ref :527).
 
-Not in this slice (see ROADMAP.md): the shared segment micro-batcher,
-the benchmark hooks ``leaf_device_fn`` / ``cand_device_fn``, and the
-native ``volio`` readahead reader (plain ``open()`` here).
+Not ported yet (see ROADMAP.md): the shared segment micro-batcher and
+the hasher's ``use_shared_batcher`` attribute that goes with it, the
+benchmark hooks ``leaf_device_fn`` / ``cand_device_fn``, and the native
+``volio`` readahead reader (plain ``open()`` here).
 """
 
 from __future__ import annotations
@@ -113,6 +114,18 @@ class DeviceChunkHasher:
     aligns fetch the candidates, walk on the host, and hash leaves on
     the card (split phase for align >= 64, legacy below; see the module
     docstring)."""
+
+    #: Safe to drive from concurrent threads (ref chunker.py:96-98): no
+    #: per-call mutable state, launches go to the calling thread's
+    #: current stream, the kernel libraries load under one lock and the
+    #: launch counts add under another. ``TreeBackup`` hashes that many
+    #: files at once only when this is set.
+    thread_safe = True
+
+    #: ``begin()`` takes ``valid_len`` (ref chunker.py:103-107): a
+    #: stream hands it a view already padded to the device bucket with
+    #: a zeroed pad lane, so no ``np.pad`` copy happens per segment.
+    accepts_prepadded = True
 
     def __init__(self, params: GearParams, device=None):
         self.params = params

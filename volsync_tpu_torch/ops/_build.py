@@ -12,7 +12,8 @@ output.
 A ``Kernel`` is one exported launcher. ``launch()`` passes device
 pointers and the current CUDA stream as ``c_void_p``, raises if the
 launcher returns a nonzero ``cudaGetLastError()``, and only then adds
-one to ``launches``, the count that shows a run went through the
+one to ``launches`` (under a lock: backup and restore launch from
+several threads), the count that shows a run went through the
 kernel. Every Kernel registers itself in ``KERNELS``; a kernel with
 several entry points has a Kernel for each under one name, and
 ``launch_counts()`` sums them by name.
@@ -37,6 +38,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()  # launch counts of concurrent callers
 _libs: dict = {}  # source file name -> ctypes.CDLL
 
 #: Every kernel wrapper of the port, in definition order.
@@ -156,7 +158,8 @@ class Kernel:
             msg = load(self.source).vt_error_string(rc).decode()
             raise RuntimeError(f"{self.name}: CUDA launch failed ({rc}): "
                                f"{msg}")
-        self.launches += 1
+        with _count_lock:
+            self.launches += 1
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,

@@ -1,2 +1,4 @@
-"""Repository-format helpers of the port (ports ``volsync_tpu/repo/``;
-this slice carries only ``blobid``)."""
+"""Repository layer of the port (ports ``volsync_tpu/repo/``): blob ids,
+the content-addressed repository with its packs, sharded compact index,
+cipher and compression, and the restore pack cache. ``scrub.py``,
+``erasure.py`` and ``repack.py`` are not ported yet (ROADMAP.md)."""
