@@ -72,8 +72,9 @@ a mismatch:
    pm/wm/wm/pm). Each stream also prints its host seconds by
    ``obs.span``;
 6. backup: the restic mover's product path. A seeded tree of about
-   ``--backup-gib`` GiB on local disk (under ``build/``, removed after)
-   from the stream's block pattern: a file of half the volume, one
+   ``--backup-gib`` GiB on local disk (in the process's temporary
+   directory where its filesystem keeps holes and has room, else under
+   ``build/``; removed after) from the stream's block pattern: a file of half the volume, one
    ending in a 12,345-byte odd tail and its hard link, a sparse file
    with a 32 MiB hole, an empty file and 300 files below min_size.
    ``TreeBackup`` into an encrypted ``FsObjectStore`` repository at the
@@ -88,8 +89,13 @@ a mismatch:
    flipped byte). Every run sets the launch counts to 0 before and
    reads them after: the fused or split-phase kernels once a backup
    pass, none on the second backup, and K1, ``sha256_slices`` and
-   ``merkle_roots`` once a verify pass. Logs backup and restore GiB/s
-   and each run's host seconds by span.
+   ``merkle_roots`` once a verify pass. Logs backup and restore GiB/s,
+   each run's host seconds by span and the seconds the card was busy
+   (a ``torch.profiler`` trace of its kernels, copies and memsets).
+   Every restore must leave the hole unwritten (its writes into
+   ``sparse.bin`` are recorded); where the filesystem keeps holes, the
+   restored file must keep it as one too, and the log says whether it
+   did.
 
 The line before the last is the kernels JSON (launches on the stream
 phase that runs each kernel, max difference from the twin, times and
@@ -1482,6 +1488,10 @@ VERIFY_PER_PASS = {"sha256_pages": 1, "sha256_slices": 1, "merkle_roots": 1}
 #: Files below min_size in the backup tree, and its odd tail.
 SMALL_FILES = 300
 ODD_TAIL = 12345
+# The restore writes zero pages aligned to each blob's start as holes:
+# at align 64 the blobs at the hole's two ends may leave a page of it
+# written on each side.
+HOLE_SLACK = 4 * 4096
 
 
 def write_stream(path: Path, stream, n: int) -> None:
@@ -1506,7 +1516,7 @@ def make_backup_tree(torch, root: Path, total: int, seed: int,
     to it two directories down, ``sparse.bin`` (data, a ``hole``-byte
     hole, data), an empty file and 300 files below ``min_size`` in 16
     directories. -> {"bytes": bytes of its distinct regular files (the
-    hole counted, the link not), "hole": hole}."""
+    hole counted, the link not), "hole": hole, "hole_at": its offset}."""
     rng = np.random.default_rng(seed)
     root.mkdir(parents=True)
     small_max = min(min_size, 64 << 10)
@@ -1534,25 +1544,69 @@ def make_backup_tree(torch, root: Path, total: int, seed: int,
     os.chmod(root / "odd.bin", 0o640)
     os.utime(root / "nested", ns=(1_600_000_000 * 10**9,) * 2)
     return {"bytes": big + odd + sparse_data + hole + int(sizes.sum()),
-            "hole": hole}
+            "hole": hole, "hole_at": sparse_data // 2}
+
+
+def hole_bytes(fd: int, size: int) -> int:
+    """Bytes of an open file's holes, as ``SEEK_HOLE``/``SEEK_DATA`` see
+    them (0 where the filesystem reports none)."""
+    total = off = 0
+    while off < size:
+        start = os.lseek(fd, off, os.SEEK_HOLE)
+        if start >= size:
+            break
+        try:
+            off = os.lseek(fd, start, os.SEEK_DATA)
+        except OSError:  # ENXIO: a hole to the end
+            off = size
+        total += off - start
+    return total
+
+
+def keeps_holes(d: Path) -> bool:
+    """Whether ``d``'s filesystem keeps a 1 MiB gap written past as a
+    hole (``SEEK_HOLE`` finds it)."""
+    fd, name = tempfile.mkstemp(prefix="hole_probe.", dir=d)
+    try:
+        os.write(fd, b"\1" * 4096)
+        os.lseek(fd, 1 << 20, os.SEEK_CUR)
+        os.write(fd, b"\1" * 4096)
+        os.fsync(fd)
+        return hole_bytes(fd, os.fstat(fd).st_size) > 0
+    finally:
+        os.close(fd)
+        os.unlink(name)
+
+
+def backup_base(build: Path, need: int) -> Path:
+    """The directory the backup phase works in: the first of this
+    process's temporary directory and the checkout's ``build/`` that has
+    ``need`` bytes free and keeps holes, else ``build/``."""
+    for d in (Path(tempfile.gettempdir()), build):
+        if shutil.disk_usage(d).free >= need and keeps_holes(d):
+            return d
+    return build
 
 
 def tree_state(root: Path) -> dict:
-    """rel -> (kind, mode, mtime_ns, size, sha256 hex, inode, blocks)."""
+    """rel -> (kind, mode, mtime_ns, size, sha256 hex, inode, blocks,
+    hole bytes)."""
     out = {}
     for p in sorted(root.rglob("*")):
         st = p.lstat()
         digest = None
+        holes = 0
         if p.is_file():
             h = hashlib.sha256()
             with open(p, "rb") as f:
                 while piece := f.read(8 << 20):
                     h.update(piece)
+                holes = hole_bytes(f.fileno(), st.st_size)
             digest = h.hexdigest()
         out[str(p.relative_to(root))] = (
             "file" if p.is_file() else "dir", st.st_mode, st.st_mtime_ns,
             st.st_size if p.is_file() else 0, digest, st.st_ino,
-            st.st_blocks)
+            st.st_blocks, holes)
     return out
 
 
@@ -1560,11 +1614,10 @@ def check_restored(label: str, src: dict, dst_root: Path, hole: int,
                    only_complete: bool = False) -> None:
     """``dst_root`` holds ``src``'s tree byte-identical: the same paths,
     and for each its kind, mode, mtime, size and SHA-256, the same
-    hard-link groups, and ``sparse.bin`` allocated no more than the
-    source (where the filesystem keeps the source's hole, the restore's
-    is a hole too). With
-    ``only_complete`` (a failed restore) ``dst_root`` may hold fewer
-    files, each complete."""
+    hard-link groups, and, where the source's ``sparse.bin`` keeps its
+    ``hole``, a restored ``sparse.bin`` whose holes are as large within
+    ``HOLE_SLACK``. With ``only_complete`` (a failed restore)
+    ``dst_root`` may hold fewer files, each complete."""
     dst = tree_state(dst_root)
     if only_complete:
         src = {k: v for k, v in src.items() if k in dst}
@@ -1586,12 +1639,95 @@ def check_restored(label: str, src: dict, dst_root: Path, hole: int,
 
     if groups(src) != groups(dst):
         raise AssertionError(f"{label}: hard-link groups differ")
-    if "sparse.bin" in dst and dst["sparse.bin"][6] > \
-            src["sparse.bin"][6]:
+    if "sparse.bin" in dst and src["sparse.bin"][7] >= hole and \
+            dst["sparse.bin"][7] < src["sparse.bin"][7] - HOLE_SLACK:
         raise AssertionError(
-            f"{label}: sparse.bin allocates {dst['sparse.bin'][6] * 512} "
-            f"bytes, the source {src['sparse.bin'][6] * 512} (its "
+            f"{label}: sparse.bin restored with {dst['sparse.bin'][7]} "
+            f"bytes of holes, the source has {src['sparse.bin'][7]} (its "
             f"{hole}-byte hole filled)")
+
+
+@contextlib.contextmanager
+def device_trace(torch):
+    """Trace the card while the body runs (``torch.profiler``, CUDA
+    activity only). Fills the yielded dict with ``busy_s``, the seconds
+    in which a kernel, copy or memset ran on the card (the union of
+    their intervals, any stream), ``events``, their count, and
+    ``by_kind``, their summed seconds by kernels, Memcpy and Memset; all
+    None off the card or when the trace holds no device event."""
+    out = {"busy_s": None, "events": None, "by_kind": None}
+    if DEVICE != "cuda":
+        yield out
+        return
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield out
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() != DeviceType.CPU]
+    if not events:
+        return
+    spans = sorted((e.start_ns(), e.end_ns()) for e in events)
+    busy, end = 0, spans[0][0]
+    for a, b in spans:
+        busy += max(b, end) - max(a, end)
+        end = max(end, b)
+    kinds = defaultdict(int)
+    for e in events:
+        kinds[e.name().split()[0] if e.name().startswith(("Memcpy", "Memset"))
+              else "kernels"] += e.duration_ns()
+    out.update(busy_s=busy / 1e9, events=len(spans),
+               by_kind={k: round(v / 1e9, 4) for k, v in kinds.items()})
+
+
+class WriteRecorder:
+    """A file object that appends the byte range of each write to
+    ``ranges``."""
+
+    def __init__(self, f, ranges: list):
+        self.f, self.ranges = f, ranges
+
+    def write(self, data) -> int:
+        start = self.f.tell()
+        n = self.f.write(data)
+        self.ranges.append((start, start + n))
+        return n
+
+    def __getattr__(self, name):
+        return getattr(self.f, name)
+
+
+@contextlib.contextmanager
+def sparse_writes():
+    """Within the block, the restores' writer records the byte ranges it
+    writes into any ``sparse.bin``; yields the list of them."""
+    from volsync_tpu_torch.engine import restore
+
+    ranges = []
+
+    def make(fn):
+        def wrapper(f, data):
+            if Path(f.name).name == "sparse.bin":
+                f = WriteRecorder(f, ranges)
+            return fn(f, data)
+        return wrapper
+
+    with patched(restore, {"_write_sparse": make}):
+        yield ranges
+
+
+def check_hole_unwritten(label: str, written: list, made: dict) -> None:
+    """The restore wrote ``sparse.bin``'s data and left its hole
+    unwritten (within ``HOLE_SLACK``), whatever the filesystem then
+    allocates."""
+    a = made["hole_at"]
+    b = a + made["hole"]
+    inside = sum(max(0, min(e, b) - max(s, a)) for s, e in written)
+    if not written or inside > HOLE_SLACK:
+        raise AssertionError(f"{label}: {sum(e - s for s, e in written)} "
+                             f"bytes written to sparse.bin, {inside} of "
+                             f"them inside its {made['hole']}-byte hole")
 
 
 def product_run(torch, label: str, run, per_pass: dict,
@@ -1609,12 +1745,13 @@ def product_run(torch, label: str, run, per_pass: dict,
     before = span_totals()
     for k in KERNELS:
         k.launches = 0
-    sync(torch)
-    t0 = time.perf_counter()
-    with patched(chunker, {"hash_spans": verify.wrap}):
-        out = run()
-    sync(torch)
-    secs = time.perf_counter() - t0
+    with device_trace(torch) as trace:
+        sync(torch)
+        t0 = time.perf_counter()
+        with patched(chunker, {"hash_spans": verify.wrap}):
+            out = run()
+        sync(torch)
+        secs = time.perf_counter() - t0
     launches = launch_counts()
     n = passes.n if passes is not None else verify.n
     want = {k: per_pass.get(k, 0) * n for k in launches}
@@ -1624,19 +1761,27 @@ def product_run(torch, label: str, run, per_pass: dict,
     spans = {k: round(s - before.get(k, (0, 0.0))[1], 4)
              for k, (c, s) in span_totals().items()
              if c != before.get(k, (0, 0.0))[0]}
+    busy = trace["busy_s"]
     log(f"{label}: {secs:.3f} s, {n} device passes, launches "
-        f"{json.dumps({k: v for k, v in launches.items() if v})}; host "
-        f"seconds by span (summed over threads): {json.dumps(spans)}")
+        f"{json.dumps({k: v for k, v in launches.items() if v})}; card busy "
+        + (f"{busy:.4f} s ({100 * busy / secs:.2f}% of the wall; "
+           f"{trace['events']} device events traced, seconds by kind "
+           f"{json.dumps(trace['by_kind'])})" if busy is not None
+           else "not measured")
+        + f"; host seconds by span (summed over threads): "
+          f"{json.dumps(spans)}")
     return {"out": out, "secs": secs, "launches": launches, "passes": n,
-            "spans": spans}
+            "spans": spans, "busy_s": busy}
 
 
 def repo_round_trip(torch, label: str, base: Path, total: int, seed: int,
-                    chunker: dict, password, hole: int, card: str) -> dict:
+                    chunker: dict, password, hole: int, card: str,
+                    holes: bool) -> dict:
     """Back up a seeded tree into a new ``FsObjectStore`` repository on the
     card, back it up again (nothing new, the same root tree), check it
     with ``read_data=True``, restore it pipelined and serially (both
-    byte-identical to the source), then flip one byte in the pack of
+    byte-identical to the source; ``holes``: ``base`` keeps holes, so
+    the source's must be there), then flip one byte in the pack of
     ``big.bin``'s first blob and restore again: IntegrityError, with
     ``big.bin`` not written and every file that was written complete."""
     from volsync_tpu_torch.engine.backup import TreeBackup
@@ -1652,15 +1797,20 @@ def repo_round_trip(torch, label: str, base: Path, total: int, seed: int,
                             hole)
     state = tree_state(src)
     sparse = state["sparse.bin"]
+    res = {"hole_kept": sparse[7] >= hole}
     log(f"{label}: tree of {made['bytes']} bytes in {len(state)} entries "
-        f"made in {time.perf_counter() - t0:.1f} s; sparse.bin allocates "
-        f"{sparse[6] * 512} of {sparse[3]} bytes (a {hole}-byte hole"
-        + ("" if sparse[6] * 512 <= sparse[3] - hole // 2
-           else "; this filesystem allocated it") + ")")
+        f"in {base} made in {time.perf_counter() - t0:.1f} s; sparse.bin "
+        f"has {sparse[7]} bytes of holes of {sparse[3]} (a {hole}-byte "
+        "hole; restores must leave it unwritten"
+        + (" and keep it a hole)" if res["hole_kept"] else
+           "; this filesystem allocates holes, so their allocation is not "
+           "checked)"))
+    if holes and not res["hole_kept"]:
+        raise AssertionError(f"{label}: {base} keeps holes, but sparse.bin "
+                             f"has {sparse[7]} bytes of them")
     store = FsObjectStore(base / f"{label}-repo")
     repo = Repository.init(store, password, chunker=chunker, device=DEVICE)
     per_pass = FUSED_PER_PASS if chunker["align"] == 4096 else SPLIT_PER_PASS
-    res = {}
 
     def backup_run():
         backup = TreeBackup(repo)
@@ -1701,11 +1851,13 @@ def repo_round_trip(torch, label: str, base: Path, total: int, seed: int,
     res["check"] = r
 
     dst = base / f"{label}-pipelined"
-    r = product_run(torch, f"{label} pipelined restore",
-                    lambda: restore_snapshot(
-                        Repository.open(store, password, device=DEVICE),
-                        dst), VERIFY_PER_PASS, None)
+    with sparse_writes() as written:
+        r = product_run(torch, f"{label} pipelined restore",
+                        lambda: restore_snapshot(
+                            Repository.open(store, password, device=DEVICE),
+                            dst), VERIFY_PER_PASS, None)
     check_restored(f"{label} pipelined restore", state, dst, hole)
+    check_hole_unwritten(f"{label} pipelined restore", written, made)
     res["restore"] = r
     res["restore_gibs"] = made["bytes"] / GIB / r["secs"]
     shutil.rmtree(dst)
@@ -1713,11 +1865,12 @@ def repo_round_trip(torch, label: str, base: Path, total: int, seed: int,
     dst = base / f"{label}-serial"
     serial_repo = Repository.open(store, password, device=DEVICE)
     manifest = dict(serial_repo.list_snapshots())[snap]
-    with env_set("VOLSYNC_DEVICE_VERIFY", "1"):
+    with env_set("VOLSYNC_DEVICE_VERIFY", "1"), sparse_writes() as written:
         r = product_run(torch, f"{label} serial restore (device verify)",
                         lambda: TreeRestore(serial_repo, pipeline=False).run(
                             snap, manifest, dst), VERIFY_PER_PASS, None)
     check_restored(f"{label} serial restore", state, dst, hole)
+    check_hole_unwritten(f"{label} serial restore", written, made)
     res["serial"] = r
     res["serial_gibs"] = made["bytes"] / GIB / r["secs"]
     shutil.rmtree(dst)
@@ -1774,11 +1927,12 @@ def backup_phase(torch, base: Path, backup_bytes: int, backup64_bytes: int,
         f"{'zstd' if compress.HAVE_ZSTD else 'zlib'} (what this host has "
         f"installed)")
     chunker = dict(chunker or DEFAULT_CHUNKER)
+    holes = keeps_holes(base)
     fused = repo_round_trip(torch, "backup", base, backup_bytes, seed,
-                            chunker, "smoke-password", hole, card)
+                            chunker, "smoke-password", hole, card, holes)
     split = repo_round_trip(torch, "backup64", base, backup64_bytes,
                             seed + 1, {**chunker, "align": 64}, None,
-                            hole, card)
+                            hole, card, holes)
     return {"fused": fused, "split": split}
 
 
@@ -1792,9 +1946,10 @@ def main() -> int:
     ap.add_argument("--align64-gib", type=float, default=2.0)
     ap.add_argument("--align1-mib", type=float, default=256.0)
     ap.add_argument("--pagemajor-gib", type=float, default=1.0)
-    # The backup phase's volumes (the mover's 10 GiB PVC is cut to keep
-    # the whole script within half its time limit; PERF.md section 4).
-    ap.add_argument("--backup-gib", type=float, default=2.0)
+    # The backup phase's volumes: the mover's 10 GiB PVC (BASELINE.json
+    # configs[1]); the align-64 tree is cut, since it differs from it
+    # only by the engine.
+    ap.add_argument("--backup-gib", type=float, default=10.0)
     ap.add_argument("--backup64-mib", type=float, default=256.0)
     args = ap.parse_args()
 
@@ -1885,20 +2040,32 @@ def main() -> int:
 
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
-    base = Path(tempfile.mkdtemp(prefix="chip_smoke_backup.", dir=build))
+    backup_bytes = int(args.backup_gib * GIB)
+    backup64_bytes = int(args.backup64_mib * (1 << 20))
+    # each tree, its repository and one restore at a time
+    base = Path(tempfile.mkdtemp(prefix="chip_smoke_backup.", dir=backup_base(
+        build, 3 * (backup_bytes + backup64_bytes))))
     t1 = time.perf_counter()
     try:
-        product = backup_phase(torch, base, int(args.backup_gib * GIB),
-                               int(args.backup64_mib * (1 << 20)),
+        product = backup_phase(torch, base, backup_bytes, backup64_bytes,
                                args.seed, card)
     finally:
         shutil.rmtree(base, ignore_errors=True)
-    log(f"backup phase: {time.perf_counter() - t1:.1f} s in all; backup {product['fused']['backup_gibs']:.4f} GiB/s, "
-        f"pipelined restore {product['fused']['restore_gibs']:.4f} GiB/s, "
-        f"serial restore {product['fused']['serial_gibs']:.4f} GiB/s "
+    fused = product["fused"]
+    busy = fused["backup"]["busy_s"]
+    log(f"backup phase: {time.perf_counter() - t1:.1f} s in all; backup "
+        f"{fused['backup_gibs']:.4f} GiB/s (card busy "
+        + (f"{100 * busy / fused['backup']['secs']:.2f}%" if busy is not None
+           else "not measured")
+        + f"), pipelined restore {fused['restore_gibs']:.4f} GiB/s, "
+        f"serial restore {fused['serial_gibs']:.4f} GiB/s "
         f"(encrypted, align 4096); align 64: backup "
         f"{product['split']['backup_gibs']:.4f}, restore "
-        f"{product['split']['restore_gibs']:.4f} GiB/s ({card})")
+        f"{product['split']['restore_gibs']:.4f} GiB/s; every restore left "
+        f"the hole unwritten, and its allocation was "
+        + ("checked" if fused["hole_kept"] and product["split"]["hole_kept"]
+           else "NOT checked (no filesystem here keeps holes)")
+        + f" ({card})")
     runs = {f"{engine}.{run}": product[engine][run]["launches"]
             for engine in ("fused", "split")
             for run in ("backup", "check", "restore", "serial")}

@@ -4,6 +4,7 @@ page-major stream phases and kernel-input capture run at a tiny size
 with the kernels' plain twins, and the script itself refuses to report
 without CUDA or without the package beside it."""
 
+import os
 import shutil
 import subprocess
 import sys
@@ -419,12 +420,40 @@ def test_backup_tree_builder_layout(monkeypatch, tmp_path):
     assert files["empty"][3] == 0
     assert files["sparse.bin"][6] * 512 < files["sparse.bin"][3] - 128 * 1024
     assert all(v[3] < 4096 for k, v in files.items() if k.startswith("small"))
-    # a copy without the hole's allocation check fails the comparison
     chip_smoke.check_restored("self", state, tmp_path / "t", made["hole"])
     (tmp_path / "t" / "small" / "00" / "f0000.bin").write_bytes(b"x")
     with pytest.raises(AssertionError, match="differs"):
         chip_smoke.check_restored("edited", state, tmp_path / "t",
                                   made["hole"])
+
+
+def test_check_restored_refuses_a_filled_hole(monkeypatch, tmp_path):
+    """Where the filesystem keeps holes, a restore that writes the same
+    bytes densely fails the hole check; the base chooser takes such a
+    directory; and writes into the hole fail on any filesystem."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "BLOCK", 64 * 1024)
+    assert chip_smoke.keeps_holes(tmp_path)
+    assert chip_smoke.backup_base(tmp_path, 1 << 20) in (
+        tmp_path, Path(chip_smoke.tempfile.gettempdir()))
+    made = chip_smoke.make_backup_tree(torch, tmp_path / "t", 1 << 20, 2,
+                                       min_size=4096, hole=256 * 1024)
+    state = chip_smoke.tree_state(tmp_path / "t")
+    assert state["sparse.bin"][7] >= made["hole"]
+    sparse = tmp_path / "t" / "sparse.bin"
+    st = sparse.stat()
+    sparse.write_bytes(sparse.read_bytes())
+    os.utime(sparse, ns=(st.st_atime_ns, st.st_mtime_ns))
+    with pytest.raises(AssertionError, match="hole filled"):
+        chip_smoke.check_restored("dense", state, tmp_path / "t",
+                                  made["hole"])
+    # the writes a restore makes are held to the hole on any filesystem
+    a, n = made["hole_at"], made["hole"]
+    data = [(0, a), (a + n, a + n + 4096)]
+    chip_smoke.check_hole_unwritten("sparse", data, made)
+    for written in ([], data + [(a + 4096, a + 4096 + 5 * 4096)]):
+        with pytest.raises(AssertionError, match="inside its"):
+            chip_smoke.check_hole_unwritten("dense", written, made)
 
 
 def test_backup_phase_on_cpu(monkeypatch, tmp_path):
@@ -447,6 +476,7 @@ def test_backup_phase_on_cpu(monkeypatch, tmp_path):
         assert r["backup"]["passes"] >= 3
         assert r["check"]["passes"] >= 1 and r["restore"]["passes"] >= 1
         assert r["backup_gibs"] > 0 and r["restore_gibs"] > 0
+        assert r["hole_kept"]
         assert "repo.seal" in r["backup"]["spans"]
         assert {"repo.read", "repo.verify"} <= set(r["check"]["spans"])
         for run in ("restore", "serial"):

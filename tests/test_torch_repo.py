@@ -305,13 +305,31 @@ def _small_repo(tmp_path, monkeypatch, copies: int):
     return src, store
 
 
+class _PackFetchCounter:
+    """Pass-through store that counts whole-object ``data/`` GETs."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.pack_fetches = 0
+        self._lock = threading.Lock()
+
+    def get(self, key):
+        if key.startswith("data/"):
+            with self._lock:
+                self.pack_fetches += 1
+        return self.inner.get(key)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
 def test_restore_group_fetches_each_pack_once(tmp_path, monkeypatch):
     from volsync_tpu_torch.engine.restorepipe import RestoreGroup
 
     src, store = _small_repo(tmp_path, monkeypatch, 1)
     npacks = len(list(store.list("data/")))
     assert npacks > 1
-    counted = tstore.LatencyStore(store)
+    counted = _PackFetchCounter(store)
     group = RestoreGroup()
     dests = [tmp_path / f"dst{i}" for i in range(2)]
     for d in dests:
@@ -512,7 +530,6 @@ KNOBS = {  # function -> (variable, a set value)
     "retry_deadline": ("VOLSYNC_RETRY_DEADLINE_S", "3"),
     "breaker_threshold": ("VOLSYNC_BREAKER_THRESHOLD", "2"),
     "breaker_reset_seconds": ("VOLSYNC_BREAKER_RESET_S", "4"),
-    "store_resilience_enabled": ("VOLSYNC_STORE_RESILIENCE", "no"),
     "fault_seed": ("VOLSYNC_FAULT_SEED", "11"),
     "backup_workers": ("VOLSYNC_BACKUP_WORKERS", "6"),
     "plan_full_blob_cap": ("VOLSYNC_PLAN_FULL_CAP", "100"),

@@ -200,12 +200,6 @@ def breaker_reset_seconds() -> float:
     return env_float("VOLSYNC_BREAKER_RESET_S", 30.0, minimum=0.1)
 
 
-def store_resilience_enabled() -> bool:
-    """VOLSYNC_STORE_RESILIENCE=0 opts open_store() out of the retry and
-    breaker wrap for network backends."""
-    return env_bool("VOLSYNC_STORE_RESILIENCE", True)
-
-
 def fault_seed() -> Optional[int]:
     """VOLSYNC_FAULT_SEED: the seed of the reference's fault-injection
     store; None = disarmed. The port's open_store refuses a set seed

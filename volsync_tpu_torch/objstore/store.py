@@ -1,9 +1,9 @@
 """Key/value object stores: filesystem-backed and in-memory.
 
 Ports ``volsync_tpu/objstore/store.py``: the store protocol, the
-filesystem and in-memory stores, ``LatencyStore``, ``open_store`` and
-``unwrap``. The network backends (``objstore/s3.py``, ``azure.py``,
-``swift.py``, and ``b2:``/``gs:`` through the S3 client) and the
+filesystem and in-memory stores, ``open_store`` and ``unwrap``. The
+network backends (``objstore/s3.py``, ``azure.py``, ``swift.py``, and
+``b2:``/``gs:`` through the S3 client) and the
 fault-injection wrapper (``objstore/faultstore.py``) are not ported:
 ``open_store`` raises for their URL schemes and for a set
 ``VOLSYNC_FAULT_SEED`` instead of serving them from a local store.
@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import os
 import threading
-import time
 
 from pathlib import Path
 from typing import Iterator, Optional, Protocol, Sequence, Union
@@ -250,99 +249,6 @@ class MemObjectStore:
         return len(self.get(key))
 
 
-class LatencyStore:
-    """Wrap any ObjectStore with synthetic per-op latency (seconds) —
-    the fake-cloud backend for pipeline benchmarks and backpressure
-    tests (a MemObjectStore put is ~1 µs; a real store put is tens of
-    ms, which is the regime the async upload stage exists for). Also
-    counts ops and tracks high-water marks of concurrent puts/gets so
-    tests can assert the upload window is honored and the restore
-    drills can account store GETs (``pack_gets`` isolates data-pack
-    fetches — the number the single-flight cache bounds). Zero-latency
-    instances double as pure op counters."""
-
-    def __init__(self, inner: ObjectStore, *, put_latency: float = 0.0,
-                 get_latency: float = 0.0):
-        self.inner = inner
-        self.put_latency = put_latency
-        self.get_latency = get_latency
-        self.puts = 0
-        self.max_concurrent_puts = 0
-        self._active_puts = 0
-        self.gets = 0            # get + get_range arrivals
-        self.pack_gets = 0       # ... with a data/ key (any read)
-        self.pack_fetches = 0    # whole-object data/ GETs only — the
-        #                          count the single-flight cache bounds
-        #                          (ranged tree-blob reads excluded)
-        self.max_concurrent_gets = 0
-        self._active_gets = 0
-        self._lock = lockcheck.make_lock("objstore.latency")
-
-    def _enter_get(self, key: str, whole: bool = False) -> None:
-        with self._lock:
-            self.gets += 1
-            if key.startswith("data/"):
-                self.pack_gets += 1
-                if whole:
-                    self.pack_fetches += 1
-            self._active_gets += 1
-            self.max_concurrent_gets = max(self.max_concurrent_gets,
-                                           self._active_gets)
-
-    def _exit_get(self) -> None:
-        with self._lock:
-            self._active_gets -= 1
-
-    def put(self, key: str, data: PutBody) -> None:
-        with self._lock:
-            self.puts += 1
-            self._active_puts += 1
-            self.max_concurrent_puts = max(self.max_concurrent_puts,
-                                           self._active_puts)
-        try:
-            if self.put_latency:
-                time.sleep(self.put_latency)
-            self.inner.put(key, data)
-        finally:
-            with self._lock:
-                self._active_puts -= 1
-
-    def put_if_absent(self, key: str, data: PutBody) -> bool:
-        if self.put_latency:
-            time.sleep(self.put_latency)
-        return self.inner.put_if_absent(key, data)
-
-    def get(self, key: str) -> bytes:
-        self._enter_get(key, whole=True)
-        try:
-            if self.get_latency:
-                time.sleep(self.get_latency)
-            return self.inner.get(key)
-        finally:
-            self._exit_get()
-
-    def get_range(self, key: str, offset: int, length: int) -> bytes:
-        self._enter_get(key)
-        try:
-            if self.get_latency:
-                time.sleep(self.get_latency)
-            return self.inner.get_range(key, offset, length)
-        finally:
-            self._exit_get()
-
-    def exists(self, key: str) -> bool:
-        return self.inner.exists(key)
-
-    def delete(self, key: str) -> None:
-        self.inner.delete(key)
-
-    def list(self, prefix: str = "") -> Iterator[str]:
-        return self.inner.list(prefix)
-
-    def size(self, key: str) -> int:
-        return self.inner.size(key)
-
-
 #: URL schemes of the network backends and the reference module each
 #: needs; the port refuses them until those modules are ported.
 _UNPORTED_SCHEMES = {
@@ -385,7 +291,7 @@ def open_store(url: str, env: Optional[dict] = None) -> ObjectStore:
 
 
 def unwrap(store: ObjectStore) -> ObjectStore:
-    """Peel wrappers (``ResilientStore``, ``LatencyStore``) off a store —
+    """Peel wrappers (``ResilientStore``) off a store —
     diagnostics and tests that need the concrete backend (wrappers all
     expose the wrapped store as ``.inner``)."""
     while hasattr(store, "inner"):
