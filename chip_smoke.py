@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed N] [--stream-gib G] [--align64-gib G]
                           [--align1-mib M] [--pagemajor-gib G]
                           [--backup-gib G] [--backup64-mib M]
+                          [--ec-gib G]
 
 Run from the repository root on a machine with a CUDA card and nvcc. It
 imports nothing of JAX or of the JAX package, and every phase raises on
@@ -95,13 +96,32 @@ a mismatch:
    Every restore must leave the hole unwritten (its writes into
    ``sparse.bin`` are recorded); where the filesystem keeps holes, the
    restored file must keep it as one too, and the log says whether it
-   did.
+   did;
+7. durability: ``gf_matmul`` (the Reed-Solomon field product, plain
+   torch ops) at a 16 MiB pack's shape, held exactly against the NumPy
+   oracle and timed (CUDA-graph replay and eager) beside its CPU twin
+   and its bytes bound; then ``durability_phase`` over a seeded tree of
+   ``--ec-gib`` GiB in an encrypted repository under
+   ``VOLSYNC_EC_SCHEME=4+2``: shards only at no more than 1.52x the
+   pack bytes; 2 of 6 shards of every pack lost, ``check(read_data=
+   True)`` clean and pipelined and serial restores byte-identical, each
+   pack decoded once by check and the pipelined restore (one of tree
+   blobs at most twice); a whole scrub backfills the lost shards; a
+   flipped shard byte heals, then a whole scrub is clean; a second backup with a quarter of the bytes new,
+   ``forget`` and ``RepackService`` until it converges, a clean check
+   and a byte-identical restore of the kept snapshot; 3 of 6 shards of
+   one pack lost: the scrub quarantines it as unhealable and a restore
+   raises before writing the files that need it. Each run counts the
+   launches (the fused kernels once a backup pass, the verify kernels
+   once a verify batch), ``gf_matmul``'s calls and the packs decoded,
+   and traces the card.
 
 The line before the last is the kernels JSON (launches on the stream
 phase that runs each kernel, max difference from the twin, times and
-bounds; ``product_launches``: each kernel's launches in the backup
-phase's runs); the last line is ``{"ok": true, "device": {...}}``. Exits
-nonzero, with no result, when CUDA is unavailable or any phase fails.
+bounds; ``product_launches``: each kernel's launches in the backup and
+durability phases' runs); the last line is ``{"ok": true, "device":
+{...}}``. Exits nonzero, with no result, when CUDA is unavailable or
+any phase fails.
 """
 
 from __future__ import annotations
@@ -1731,12 +1751,12 @@ def check_hole_unwritten(label: str, written: list, made: dict) -> None:
 
 
 def product_run(torch, label: str, run, per_pass: dict,
-                passes: PassCounter) -> dict:
+                passes: PassCounter, min_passes: int = 1) -> dict:
     """``run()`` with every launch count set to 0 just before and read
     just after, and ``hash_spans`` (the verify pass) counted. On the card
     every kernel must have launched ``per_pass[name]`` times per counted
     pass (0 when absent), and a ``per_pass`` with kernels needs at least
-    one pass."""
+    ``min_passes`` passes."""
     from volsync_tpu_torch.engine import chunker
     from volsync_tpu_torch.obs import span_totals
     from volsync_tpu_torch.ops._build import KERNELS, launch_counts
@@ -1755,7 +1775,8 @@ def product_run(torch, label: str, run, per_pass: dict,
     launches = launch_counts()
     n = passes.n if passes is not None else verify.n
     want = {k: per_pass.get(k, 0) * n for k in launches}
-    if DEVICE == "cuda" and (launches != want or (per_pass and n == 0)):
+    if DEVICE == "cuda" and (launches != want
+                             or (per_pass and n < min_passes)):
         raise AssertionError(f"{label}: launches {launches}, expected "
                              f"{want} over {n} passes")
     spans = {k: round(s - before.get(k, (0, 0.0))[1], 4)
@@ -1936,6 +1957,395 @@ def backup_phase(torch, base: Path, backup_bytes: int, backup64_bytes: int,
     return {"fused": fused, "split": split}
 
 
+#: The durability phase's Reed-Solomon scheme (VOLSYNC_EC_SCHEME) and
+#: the storage bound its stored shard bytes are held to.
+EC_SCHEME = (4, 2)
+EC_STORED_MAX = 1.52
+#: Repack's retire grace in the smoke: long enough to keep the two
+#: phases of a retire apart, short enough to converge in seconds.
+REPACK_GRACE_S = 1.0
+EC_PASSWORD = "smoke-password"
+
+
+class _DecodeLog(PassCounter):
+    """A ``PassCounter`` that also keeps the argument it was called
+    with: the pack ids ``Repository._ec_reconstruct_once`` decoded."""
+
+    def __init__(self):
+        super().__init__()
+        self.packs = []
+
+    def wrap(self, fn):
+        def counted(repo, pack_id):
+            with self._lock:
+                self.n += 1
+                self.packs.append(pack_id)
+            return fn(repo, pack_id)
+        return counted
+
+
+def ec_run(torch, label: str, run, per_pass: dict,
+           passes: PassCounter | None, min_passes: int = 1) -> dict:
+    """``product_run`` that also counts ``gf_matmul``'s calls (set to 0
+    just before, read just after) and the packs decoded."""
+    from volsync_tpu_torch.ops import rs
+    from volsync_tpu_torch.repo.repository import Repository
+
+    decodes = _DecodeLog()
+    rs.CALLS.n = 0
+    with patched(Repository, {"_ec_reconstruct_once": decodes.wrap}):
+        r = product_run(torch, label, run, per_pass, passes, min_passes)
+    r["gf_calls"] = rs.CALLS.n
+    r["decoded"] = decodes.packs
+    log(f"{label}: gf_matmul called {r['gf_calls']} times, "
+        f"{len(decodes.packs)} pack decodes "
+        f"({len(set(decodes.packs))} packs)")
+    return r
+
+
+def ec_stripes(store) -> dict:
+    """pack id -> its shard keys; raises unless every pack is exactly
+    ``ec/<pack>/0 .. k+m-1``."""
+    k, m = EC_SCHEME
+    out = defaultdict(list)
+    for key in store.list("ec/"):
+        out[key.split("/")[1]].append(key)
+    for pack, keys in out.items():
+        if sorted(keys) != sorted(f"ec/{pack}/{i}" for i in range(k + m)):
+            raise AssertionError(f"pack {pack} has shards {sorted(keys)}")
+    return {p: sorted(ks, key=lambda s: int(s.rsplit("/", 1)[1]))
+            for p, ks in out.items()}
+
+
+def files_needing(repo, tree_id: str, pack: str, prefix: str = "") -> list:
+    """Paths of the snapshot tree ``tree_id`` with a blob in ``pack``."""
+    out = []
+    for e in json.loads(repo.read_blob(tree_id))["entries"]:
+        rel = prefix + e["name"]
+        if e.get("type") == "dir":
+            out += files_needing(repo, e["subtree"], pack, rel + "/")
+        elif any(repo._entry(b).pack == pack for b in e.get("content") or []):
+            out.append(rel)
+    return out
+
+
+def gf_matmul_entry(torch, seed: int, card: str, pages: int = 1024) -> dict:
+    """``gf_matmul`` at the pack shape: a 16 MiB pack at 4+2 is a
+    [4, 1024, 4096] grid to [2, 1024, 4096] of parity. Held against
+    ``rs_encode_np`` (exact), timed by CUDA-graph replay and eagerly,
+    beside its CPU twin (the same ops on the host) and its bound: the
+    bytes it must move, (k + r) x P x 4096, over HBM's rate."""
+    from volsync_tpu_torch.ops import rs
+
+    k, m = EC_SCHEME
+    host = np.random.default_rng(seed).integers(
+        0, 256, size=(k, pages, 4096), dtype=np.uint8)
+    rows = rs.rs_generator_matrix(k, m)
+    grid = torch.from_numpy(host).to(DEVICE)
+    got = rs.gf_matmul(rows, grid)
+    sync(torch)
+    want = torch.from_numpy(rs.rs_encode_np(host.reshape(k, -1), m)
+                            .reshape(m, pages, 4096))
+    err = max_abs_err(torch, got.cpu(), want)
+    ms = time_ms(torch, lambda: rs.gf_matmul(rows, grid), 20)
+    eager_ms = time_ms(torch, lambda: rs.gf_matmul(rows, grid), 20,
+                       graph=False)
+    cpu_grid = torch.from_numpy(host)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        rs.gf_matmul(rows, cpu_grid)
+    plain_ms = (time.perf_counter() - t0) / 3 * 1e3
+    bound_ms = (k + m) * pages * 4096 / HBM_BYTES_PER_S * 1e3
+    entry = {"name": "gf_matmul", "route": "torch ops",
+             "source": "volsync_tpu_torch/ops/rs.py",
+             "replaces": "volsync_tpu/ops/rs.py:169",
+             "shape": [k, pages, 4096], "rows": m, "max_abs_err": err,
+             "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+    log(f"gf_matmul at [{k}, {pages}, 4096] -> [{m}, {pages}, 4096]: "
+        f"{ms:.4f} ms by CUDA-graph replay, {eager_ms:.4f} ms eager, CPU "
+        f"twin {plain_ms:.1f} ms, bytes bound {bound_ms:.4f} ms "
+        f"({ms / bound_ms:.1f}x it), max abs err {err} against "
+        f"rs_encode_np ({card})")
+    if err:
+        raise AssertionError(f"gf_matmul differs from rs_encode_np by {err}")
+    return entry
+
+
+def durability_phase(torch, base: Path, total: int, seed: int, card: str,
+                     chunker: dict | None = None,
+                     hole: int = 32 << 20) -> dict:
+    """The erasure-coded repository end to end on the card, under
+    ``VOLSYNC_EC_SCHEME=4+2``: back up a seeded tree of ``total`` bytes
+    (shards only, stored bytes within 1.52x); lose 2 of 6 shards of every
+    pack (a seeded choice) and check with ``read_data=True``, restore
+    pipelined and serially (byte-identical, each pack decoded once by
+    check and by the pipelined restore, a pack of tree blobs at most
+    twice: the snapshot walk and the plan read trees apart); a whole
+    scrub backfills the lost shards; a flipped byte in one shard heals
+    by backfill, then a whole scrub is clean; a second backup with a quarter of the bytes
+    changed, ``forget`` of the first snapshot and ``RepackService``
+    until it converges, then a clean check and a byte-identical restore
+    of the kept snapshot; last, 3 shards of one pack lost: the scrub
+    quarantines it as unhealable and a restore raises before writing
+    the files that need it. -> each run's result by name."""
+    from volsync_tpu_torch.engine.backup import TreeBackup
+    from volsync_tpu_torch.engine.restore import TreeRestore, \
+        restore_snapshot
+    from volsync_tpu_torch.objstore.store import FsObjectStore, NoSuchKey
+    from volsync_tpu_torch.repo import erasure
+    from volsync_tpu_torch.repo.repack import RepackService
+    from volsync_tpu_torch.repo.repository import DEFAULT_CHUNKER, Repository
+    from volsync_tpu_torch.repo.scrub import ScrubService
+
+    k, m = EC_SCHEME
+    chunker = dict(chunker or DEFAULT_CHUNKER)
+    src = base / "ec-src"
+    made = make_backup_tree(torch, src, total, seed, chunker["min_size"],
+                            hole)
+    state = tree_state(src)
+    store = FsObjectStore(base / "ec-repo")
+
+    def opened():
+        return Repository.open(store, EC_PASSWORD, device=DEVICE)
+
+    def scrub(label, **kw):
+        svc = ScrubService(store, password=EC_PASSWORD, device=DEVICE, **kw)
+        r = ec_run(torch, label, svc.run_once, VERIFY_PER_PASS, None)
+        r["gibs"] = svc.bytes_scrubbed / GIB / r["secs"]
+        r["report"] = svc.last_report
+        proven = r["report"]["clean"] + r["report"]["healed"]
+        if DEVICE == "cuda" and r["passes"] != proven:
+            raise AssertionError(f"{label}: {r['passes']} verify batches "
+                                 f"for {proven} packs proven")
+        log(f"{label}: {r['out']}, {svc.last_report}, "
+            f"{r['gibs']:.4f} GiB/s scrubbed ({card})")
+        return r
+
+    res = {}
+    with env_set("VOLSYNC_EC_SCHEME", f"{k}+{m}"):
+        repo = Repository.init(store, EC_PASSWORD, chunker=chunker,
+                               device=DEVICE)
+        backup = TreeBackup(repo)
+        r = ec_run(torch, f"ec backup ({backup.workers} workers)",
+                   lambda: backup.run(src), FUSED_PER_PASS,
+                   count_passes(backup.hasher))
+        snap, stats = r["out"]
+        r["gibs"] = stats.bytes_scanned / GIB / r["secs"]
+        res["backup"] = r
+        if stats.bytes_scanned != made["bytes"]:
+            raise AssertionError(f"ec: scanned {stats.bytes_scanned} of "
+                                 f"{made['bytes']} bytes")
+        others = [key for key in store.list("")
+                  if key.startswith(("data/", "mirror/"))]
+        if others:
+            raise AssertionError(f"ec: the backup wrote {others[:3]}")
+        stripes = ec_stripes(store)
+        logical = sum(erasure.parse_shard(store.get_range(
+            keys[0], 0, erasure.HEADER_LEN))[3] for keys in stripes.values())
+        stored = sum(store.size(key) for keys in stripes.values()
+                     for key in keys)
+        res["overhead"] = stored / logical
+        log(f"ec backup: {stats.bytes_scanned} bytes at {r['gibs']:.4f} "
+            f"GiB/s into {len(stripes)} packs of {k}+{m} shards, "
+            f"{stored} bytes stored for {logical} bytes of packs "
+            f"({res['overhead']:.4f}x) ({card})")
+        if res["overhead"] > EC_STORED_MAX:
+            raise AssertionError(f"ec: stored {res['overhead']:.4f}x")
+        if r["gf_calls"] != len(stripes):
+            raise AssertionError(f"ec: {r['gf_calls']} gf_matmul calls for "
+                                 f"{len(stripes)} packs")
+
+        rng = np.random.default_rng(seed)
+        for pack in sorted(stripes):
+            for i in rng.choice(k + m, size=m, replace=False):
+                store.delete(stripes[pack][i])
+
+        # packs that hold tree blobs: check's walk of the snapshots and a
+        # restore's plan read them apart from the blob pass, which may
+        # decode them again once the memo moved on
+        meta = opened()
+        tree_packs = {meta._entry(b).pack for b in meta.blob_ids()
+                      if meta._entry(b).type == "tree"}
+
+        def decoded_once(label, r, again=frozenset()):
+            """Every pack decoded once, those in ``again`` at most
+            twice."""
+            seen = defaultdict(int)
+            for p in r["decoded"]:
+                seen[p] += 1
+            if set(seen) != set(stripes) or any(
+                    n > (2 if p in again else 1) for p, n in seen.items()):
+                raise AssertionError(
+                    f"{label}: decoded {len(r['decoded'])} times "
+                    f"({len(seen)} packs) for {len(stripes)} packs")
+
+        r = ec_run(torch, "ec check(read_data=True), 2 of 6 shards lost",
+                   lambda: opened().check(read_data=True), VERIFY_PER_PASS,
+                   None)
+        if r["out"] != []:
+            raise AssertionError(f"ec check found {r['out'][:3]}")
+        decoded_once("ec check", r, tree_packs)
+        res["check"] = r
+
+        dst = base / "ec-pipelined"
+        with sparse_writes() as written:
+            r = ec_run(torch, "ec pipelined restore, 2 of 6 shards lost",
+                       lambda: restore_snapshot(opened(), dst),
+                       VERIFY_PER_PASS, None)
+        check_restored("ec pipelined restore", state, dst, hole)
+        check_hole_unwritten("ec pipelined restore", written, made)
+        decoded_once("ec pipelined restore", r, tree_packs)
+        r["gibs"] = made["bytes"] / GIB / r["secs"]
+        res["restore"] = r
+        shutil.rmtree(dst)
+
+        dst = base / "ec-serial"
+        serial_repo = opened()
+        manifest = dict(serial_repo.list_snapshots())[snap]
+        with env_set("VOLSYNC_DEVICE_VERIFY", "1"), \
+                sparse_writes() as written:
+            r = ec_run(torch, "ec serial restore (device verify)",
+                       lambda: TreeRestore(serial_repo, pipeline=False).run(
+                           snap, manifest, dst), VERIFY_PER_PASS, None)
+        check_restored("ec serial restore", state, dst, hole)
+        check_hole_unwritten("ec serial restore", written, made)
+        if set(r["decoded"]) != set(stripes):
+            raise AssertionError("ec serial restore: packs decoded "
+                                 f"{len(set(r['decoded']))} of "
+                                 f"{len(stripes)}")
+        r["gibs"] = made["bytes"] / GIB / r["secs"]
+        res["serial"] = r
+        shutil.rmtree(dst)
+        log(f"ec restores: pipelined {res['restore']['gibs']:.4f} GiB/s, "
+            f"serial {r['gibs']:.4f} GiB/s, both byte-identical with 2 of "
+            f"6 shards of every pack lost ({card})")
+
+        r = scrub("ec scrub (whole, backfills the lost shards)")
+        if r["out"] != "healed" or r["report"]["healed"] != len(stripes):
+            raise AssertionError(f"ec scrub: {r['out']} {r['report']}")
+        ec_stripes(store)  # every pack whole again
+        res["scrub"] = r
+
+        victim = sorted(stripes)[0]
+        shard = store.root / stripes[victim][1]
+        good = shard.read_bytes()
+        with open(shard, "r+b") as f:
+            f.seek(erasure.HEADER_LEN + len(good) // 3)
+            byte = f.read(1)
+            f.seek(erasure.HEADER_LEN + len(good) // 3)
+            f.write(bytes([byte[0] ^ 0x10]))
+        r = scrub("ec scrub (one pack, a flipped byte in shard 1)",
+                  packs_per_cycle=1)
+        if r["out"] != "healed" or shard.read_bytes() != good:
+            raise AssertionError(f"ec scrub did not heal shard 1 of "
+                                 f"{victim}: {r['out']}")
+        r = scrub("ec scrub (whole, after the heal)")
+        if r["out"] != "clean":
+            raise AssertionError(f"ec scrub after the heal: {r['out']}")
+        res["scrub_clean"] = r
+
+        # a quarter of the volume new: the head of big.bin rewritten
+        quarter = made["bytes"] // 4 // 4096 * 4096
+        new = np.random.default_rng(seed + 1)
+        with open(src / "big.bin", "r+b") as f:
+            for off in range(0, quarter, 8 << 20):
+                f.write(new.bytes(min(8 << 20, quarter - off)))
+        state2 = tree_state(src)
+        again = TreeBackup(opened())
+        r = ec_run(torch, "ec second backup (a quarter of the bytes new)",
+                   lambda: again.run(src), FUSED_PER_PASS,
+                   count_passes(again.hasher))
+        snap2 = r["out"][0]
+        res["backup2"] = r
+        forgotten = opened().forget(last=1)
+        if forgotten != [snap]:
+            raise AssertionError(f"ec forget removed {forgotten}")
+
+        repacker = RepackService(store, password=EC_PASSWORD, device=DEVICE,
+                                 scheme=EC_SCHEME, dead_ratio=0.05,
+                                 grace_seconds=REPACK_GRACE_S)
+        cycles = []
+        for _ in range(8):
+            # one verify batch a stripe written; a sweep or a clean
+            # cycle writes none
+            r = ec_run(torch, f"ec repack cycle {len(cycles) + 1}",
+                       repacker.run_once, VERIFY_PER_PASS, None,
+                       min_passes=0)
+            r["report"] = dict(repacker.last_report or {})
+            if DEVICE == "cuda" and r["passes"] != r["report"].get(
+                    "packs_rewritten", 0):
+                raise AssertionError(f"ec repack: {r['passes']} verify "
+                                     f"batches for {r['report']}")
+            cycles.append(r)
+            log(f"ec repack cycle {len(cycles)}: {r['out']}, "
+                f"{r['report']}")
+            if r["out"] == "error":
+                raise AssertionError("ec repack cycle failed")
+            if r["out"] == "clean" and not list(
+                    store.list("pending-delete/")):
+                break
+            time.sleep(REPACK_GRACE_S)
+        else:
+            raise AssertionError(f"ec repack never converged: "
+                                 f"{repacker.outcomes}")
+        secs = sum(c["secs"] for c in cycles)
+        rewritten = sum(c["report"].get("stripes_bytes", 0) for c in cycles)
+        res["repack"] = {"cycles": cycles, "secs": secs,
+                         "gibs": rewritten / GIB / secs,
+                         "outcomes": dict(repacker.outcomes)}
+        log(f"ec repack: converged in {len(cycles)} cycles, {secs:.3f} s "
+            f"of cycles (grace sleeps excluded), {rewritten} bytes of "
+            f"stripes written, {res['repack']['gibs']:.4f} GiB/s "
+            f"({card})")
+        r = ec_run(torch, "ec check(read_data=True) after the repack",
+                   lambda: opened().check(read_data=True), VERIFY_PER_PASS,
+                   None)
+        if r["out"] != []:
+            raise AssertionError(f"ec check after repack: {r['out'][:3]}")
+        res["check2"] = r
+        stripes = ec_stripes(store)
+        dst = base / "ec-kept"
+        r = ec_run(torch, "ec restore of the kept snapshot",
+                   lambda: restore_snapshot(opened(), dst), VERIFY_PER_PASS,
+                   None)
+        check_restored("ec restore after repack", state2, dst, hole)
+        shutil.rmtree(dst)
+        res["restore2"] = r
+
+        reader = opened()
+        tree_id = dict(reader.list_snapshots())[snap2]["tree"]
+        at = next(i for i, p in enumerate(sorted(stripes))
+                  if i and files_needing(reader, tree_id, p))
+        lost = sorted(stripes)[at]
+        need = files_needing(reader, tree_id, lost)
+        for key in stripes[lost][:m + 1]:
+            store.delete(key)
+        r = scrub("ec scrub (3 of 6 shards of one pack lost)",
+                  packs_per_cycle=at + 1)
+        if r["out"] != "unhealable" or not store.exists(
+                f"quarantine/{lost}"):
+            raise AssertionError(f"ec scrub below k: {r['out']}")
+        dst = base / "ec-lost"
+        try:
+            restore_snapshot(opened(), dst)
+        except NoSuchKey as e:
+            caught = str(e)
+        else:
+            raise AssertionError("ec: a pack below k restored")
+        written = [rel for rel in need if (dst / rel).exists()]
+        if written:
+            raise AssertionError(f"ec: {written[:3]} written without "
+                                 f"pack {lost}")
+        check_restored("ec failed restore", state2, dst, hole,
+                       only_complete=True)
+        shutil.rmtree(dst, ignore_errors=True)
+        log(f"ec: pack {lost[:12]} below k quarantined as unhealable; the "
+            f"restore raised ({caught[:60]}) before writing {len(need)} "
+            f"file(s) that need it")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1951,6 +2361,9 @@ def main() -> int:
     # only by the engine.
     ap.add_argument("--backup-gib", type=float, default=10.0)
     ap.add_argument("--backup64-mib", type=float, default=256.0)
+    # The erasure-coded round trip's volume: cut from the 10 GiB PVC to
+    # keep the whole script inside its time limit (PERF.md, section 4).
+    ap.add_argument("--ec-gib", type=float, default=2.0)
     args = ap.parse_args()
 
     import torch
@@ -2069,6 +2482,38 @@ def main() -> int:
     runs = {f"{engine}.{run}": product[engine][run]["launches"]
             for engine in ("fused", "split")
             for run in ("backup", "check", "restore", "serial")}
+
+    gf = gf_matmul_entry(torch, args.seed, card)
+    ec_bytes = int(args.ec_gib * GIB)
+    base = Path(tempfile.mkdtemp(prefix="chip_smoke_ec.", dir=backup_base(
+        build, 4 * ec_bytes)))
+    t1 = time.perf_counter()
+    try:
+        ec = durability_phase(torch, base, ec_bytes, args.seed + 2, card)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    busy = {k: ec[k]["busy_s"] / ec[k]["secs"]
+            for k in ("backup", "check", "restore", "scrub")
+            if ec[k]["busy_s"] is not None}
+    gf["calls"] = {k: ec[k]["gf_calls"] for k in
+                   ("backup", "check", "restore", "serial", "scrub",
+                    "backup2")}
+    gf["calls"]["repack"] = sum(c["gf_calls"] for c in
+                                ec["repack"]["cycles"])
+    log(f"durability phase: {time.perf_counter() - t1:.1f} s in all; ec "
+        f"backup {ec['backup']['gibs']:.4f} GiB/s at "
+        f"{ec['overhead']:.4f}x stored, pipelined restore "
+        f"{ec['restore']['gibs']:.4f}, serial restore "
+        f"{ec['serial']['gibs']:.4f}, whole scrub "
+        f"{ec['scrub']['gibs']:.4f}, repack {ec['repack']['gibs']:.4f} "
+        f"GiB/s; card busy share "
+        f"{json.dumps({k: round(v, 4) for k, v in busy.items()})}; "
+        f"gf_matmul {json.dumps(gf)} ({card})")
+    for run in ("backup", "check", "restore", "serial", "scrub",
+                "scrub_clean", "backup2", "check2", "restore2"):
+        runs[f"ec.{run}"] = ec[run]["launches"]
+    for i, c in enumerate(ec["repack"]["cycles"]):
+        runs[f"ec.repack{i + 1}"] = c["launches"]
 
     # Launches: from the stream phase of the path that runs each kernel.
     launches = {**res["launches"],

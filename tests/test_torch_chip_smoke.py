@@ -482,3 +482,38 @@ def test_backup_phase_on_cpu(monkeypatch, tmp_path):
         for run in ("restore", "serial"):
             assert {"restore.verify", "restore.write"} <= \
                 set(r[run]["spans"])
+
+
+def test_durability_phase_on_cpu(monkeypatch, tmp_path):
+    """The durability phase at a tiny size (64 KiB packs, one worker):
+    the erasure-coded backup, check and restores through lost shards,
+    the scrubs, the repack and the unhealable pack; and gf_matmul's
+    entry at a two-page grid."""
+    from volsync_tpu_torch.repo.repository import Repository
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "BLOCK", 64 * 1024)
+    monkeypatch.setattr(chip_smoke, "SMALL_FILES", 3)
+    monkeypatch.setattr(chip_smoke, "REPACK_GRACE_S", 0.2)
+    monkeypatch.setattr(Repository, "PACK_TARGET", 64 * 1024)
+    monkeypatch.setenv("VOLSYNC_BACKUP_WORKERS", "1")
+    monkeypatch.setenv("VOLSYNC_RESTORE_WORKERS", "1")
+    chunker = {"min_size": 4096, "avg_size": 32768, "max_size": 65536,
+               "seed": 0x5EED_CDC1, "align": 4096}
+    res = chip_smoke.durability_phase(torch, tmp_path, 300_000, 5, "cpu",
+                                      chunker=chunker, hole=128 * 1024)
+    packs = res["scrub"]["report"]["packs"]
+    assert packs >= 2 and res["scrub"]["report"]["healed"] == packs
+    assert res["overhead"] <= chip_smoke.EC_STORED_MAX
+    assert res["backup"]["gf_calls"] == packs  # one encode a pack
+    assert res["check"]["gf_calls"] == len(res["check"]["decoded"]) == packs
+    assert res["scrub"]["passes"] == packs  # one verify batch a pack
+    assert res["backup2"]["passes"] >= 1
+    assert res["repack"]["outcomes"]["ok"] >= 1
+    assert "ec.encode" in res["backup"]["spans"]
+    assert {"ec.reconstruct", "scrub.verify"} <= set(res["scrub"]["spans"])
+    assert sum(c["report"]["packs_rewritten"]
+               for c in res["repack"]["cycles"]) >= 1
+    entry = chip_smoke.gf_matmul_entry(torch, 0, "cpu", pages=2)
+    assert entry["max_abs_err"] == 0 and entry["bound_by"] == "bytes"
+    assert entry["bound_ms"] == pytest.approx(6 * 2 * 4096 / 3.35e12 * 1e3)

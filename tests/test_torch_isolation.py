@@ -1,7 +1,8 @@
 """The port stands alone: no file of volsync_tpu_torch/ or chip_smoke.py
 imports JAX or the JAX package (AST scan and a fresh-interpreter
 ``sys.modules`` diff), and with no CUDA and no ``device`` argument the
-entry points raise instead of moving to the CPU."""
+entry points (the durability path's among them) raise instead of moving
+to the CPU."""
 
 import ast
 import json
@@ -18,8 +19,11 @@ from volsync_tpu_torch.engine import chunker as tch
 from volsync_tpu_torch.engine.backup import TreeBackup
 from volsync_tpu_torch.engine.restore import TreeRestore, restore_snapshot
 from volsync_tpu_torch.objstore.store import MemObjectStore
-from volsync_tpu_torch.ops import gearcdc, segment, sha256
+from volsync_tpu_torch.ops import gearcdc, rs, segment, sha256
+from volsync_tpu_torch.repo import erasure
+from volsync_tpu_torch.repo.repack import RepackService
 from volsync_tpu_torch.repo.repository import Repository
+from volsync_tpu_torch.repo.scrub import ScrubService
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "volsync_tpu_torch"
@@ -50,7 +54,11 @@ def test_no_file_imports_jax_or_the_reference():
                 continue
             found += [(path.name, n) for n in names if _forbidden(n)]
     assert found == []
-    assert len(_port_files()) >= 27
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert {"volsync_tpu_torch/ops/rs.py", "volsync_tpu_torch/repo/erasure.py",
+            "volsync_tpu_torch/repo/scrub.py", "volsync_tpu_torch/repo/repack.py",
+            "volsync_tpu_torch/objstore/faultstore.py"} <= names
+    assert len(_port_files()) >= 32
 
 
 def test_importing_the_port_loads_no_jax_module():
@@ -137,3 +145,44 @@ def test_product_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     assert not (tmp_path / "d").exists()
     assert Repository.open(store, device="cpu").device.type == "cpu"
     assert TreeBackup(repo).device.type == "cpu"
+
+
+class _CudaGrid:
+    """Stands for a uint8 page grid on a card, which cannot be made
+    where CUDA is absent."""
+
+    device = torch.device("cuda")
+    dtype = torch.uint8
+    shape = (4, 1, 4096)
+
+    def dim(self):
+        return 3
+
+
+def test_durability_entry_points_raise_without_cuda(monkeypatch):
+    """The scrub, the repacker, the shard codec and the GF(2^8) product
+    run on CUDA unless told otherwise: with no CUDA they raise, and a
+    scrub or repack given ``device="cpu"`` opens its repository there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    store = MemObjectStore()
+    Repository.init(store, device="cpu")
+    calls = [
+        lambda: ScrubService(store),
+        lambda: RepackService(store),
+        lambda: ScrubService(store, device="cuda"),
+        lambda: rs.gf_matmul(rs.rs_generator_matrix(4, 2), _CudaGrid()),
+        lambda: rs.rs_encode_device(_CudaGrid(), 2),
+        lambda: rs.rs_reconstruct_device({0: b"a", 1: b"b"}, 2, 1, 1),
+        lambda: erasure.encode_pack_shards([b"body"], 4, 2),
+        lambda: erasure.reconstruct_pack({}),
+        lambda: erasure.reconstruct_verified({}, "00" * 32),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    scrub = ScrubService(store, device="cpu")
+    assert scrub.run_once() == "clean"
+    assert scrub._repo.device.type == "cpu"
+    repack = RepackService(store, device="cpu")
+    assert repack.run_once() == "clean"
+    assert repack._repo.device.type == "cpu"

@@ -5,11 +5,14 @@ compact and sharded indexes answer the same lookups; a repository
 written by either package opens, lists, loads its index, reads every
 blob equal and passes ``check(read_data=True)`` under the other (the
 port's on ``device="cpu"``). A restore group fetches each pack once, and
-a corrupt primary heals from its mirror copy. The refusals raise: the erasure-coding
-flag, the network stores and ``VOLSYNC_FAULT_SEED``. The stand-ins
-(trace context, metrics, lock factory) behave as the reference's.
+a corrupt primary heals from its mirror copy. Under ``VOLSYNC_EC_SCHEME``
+a flush writes only ``ec/`` shards and a shard-only pack reconstructs;
+``VOLSYNC_FAULT_SEED`` wraps the local stores in the fault store; the
+network stores raise. The stand-ins (trace context, metrics, lock
+factory) behave as the reference's.
 """
 
+import hashlib
 import json
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -32,11 +35,13 @@ from volsync_tpu_torch.analysis import lockcheck as tlock
 from volsync_tpu_torch.engine.backup import TreeBackup
 from volsync_tpu_torch.engine.restore import restore_snapshot
 from volsync_tpu_torch.metrics import GLOBAL as TMETRICS
+from volsync_tpu_torch.objstore import faultstore as tfault
 from volsync_tpu_torch.objstore import store as tstore
 from volsync_tpu_torch.repo import blobid
 from volsync_tpu_torch.repo import compactindex as tci
 from volsync_tpu_torch.repo import compress as tcomp
 from volsync_tpu_torch.repo import crypto as tcrypto
+from volsync_tpu_torch.repo import erasure as terasure
 from volsync_tpu_torch.repo import repository as trepo
 from volsync_tpu_torch.repo import shardedindex as tsi
 
@@ -369,37 +374,49 @@ def test_read_repair_heals_a_corrupt_primary_from_its_mirror(
     assert not (tmp_path / "bad" / "a.bin").exists()
 
 
-# -- refusals -----------------------------------------------------------------
+# -- erasure-coded layout, fault store and refusals ---------------------------
 
-def test_erasure_coding_flag_raises(rng, monkeypatch):
+@pytest.mark.parametrize("pipeline", ["1", "0"])
+def test_ec_flush_writes_only_shards(rng, monkeypatch, pipeline):
+    """Under VOLSYNC_EC_SCHEME a flush seals each pack as its k+m shards
+    and nothing else, pipelined and serial, and the blob reads back."""
     monkeypatch.setenv("VOLSYNC_EC_SCHEME", "4+2")
+    monkeypatch.setenv("VOLSYNC_TPU_PIPELINE", pipeline)
     repo = trepo.Repository.init(tstore.MemObjectStore(), device="cpu")
     assert repo.ec_scheme == (4, 2)
     data = rng.bytes(5000)
-    repo.add_blob(trepo.BLOB_DATA, blobid.blob_id(data), data)
-    with pytest.raises(trepo.UploadError,
-                       match="erasure.py and ops/rs.py") as err:
-        repo.flush()
-    assert isinstance(err.value.__cause__, trepo.ErasureCodingUnported)
-    assert not any(k.startswith(("data/", "ec/"))
-                   for k in repo.store.list())
-    monkeypatch.setenv("VOLSYNC_TPU_PIPELINE", "0")
-    serial = trepo.Repository.init(tstore.MemObjectStore(), device="cpu")
-    serial.add_blob(trepo.BLOB_DATA, blobid.blob_id(data), data)
-    with pytest.raises(trepo.ErasureCodingUnported):
-        serial.flush()
+    bid = blobid.blob_id(data)
+    repo.add_blob(trepo.BLOB_DATA, bid, data)
+    repo.flush()
+    keys = list(repo.store.list())
+    assert not any(k.startswith(("data/", "mirror/")) for k in keys)
+    shards = sorted(k for k in keys if k.startswith("ec/"))
+    pack = repo._entry(bid).pack
+    assert shards == [trepo.ec_shard_key(pack, i) for i in range(6)]
+    assert trepo.Repository.open(repo.store, device="cpu").read_blob(bid) \
+        == data
 
 
-def test_shard_only_pack_raises_and_missing_pack_is_no_such_key():
+def test_shard_only_pack_reconstructs_and_missing_pack_is_no_such_key(rng):
     repo = trepo.Repository.init(tstore.MemObjectStore(), device="cpu")
     with pytest.raises(tstore.NoSuchKey):
         repo.ec_reconstruct("ab" * 32)
     assert repo._ec_present("ab" * 32) is False
-    repo.store.put(trepo.ec_shard_key("cd" * 32, 0), b"shard")
-    with pytest.raises(trepo.ErasureCodingUnported):
-        repo.ec_reconstruct("cd" * 32)
-    with pytest.raises(trepo.ErasureCodingUnported):
-        repo._ec_present("cd" * 32)
+    body = rng.bytes(9000)
+    pack = hashlib.sha256(body).hexdigest()
+    shards = terasure.encode_pack_shards([body], 4, 2, device="cpu")
+    for idx in (0, 2, 3, 5):  # any k of the six
+        repo.ec_publish_shard(pack, idx, shards[idx])
+    assert repo._ec_present(pack) is True
+    assert sorted(repo.ec_shard_blobs(pack)) == [0, 2, 3, 5]
+    assert repo.ec_reconstruct(pack) == body
+    repo.store.delete(trepo.ec_shard_key(pack, 0))
+    assert repo._ec_present(pack) is False
+    assert repo.ec_reconstruct(pack) == body  # the memo holds it
+    assert trepo.Repository.open(repo.store, device="cpu")._ec_present(
+        pack) is False
+    with pytest.raises(tstore.NoSuchKey, match="fewer than k"):
+        trepo.Repository.open(repo.store, device="cpu").ec_reconstruct(pack)
 
 
 @pytest.mark.parametrize("url", [
@@ -411,11 +428,24 @@ def test_network_stores_raise(url):
         tstore.open_store(url, env={})
 
 
-def test_fault_seed_raises(monkeypatch, tmp_path):
+def test_fault_seed_wraps_local_stores(monkeypatch, tmp_path):
     monkeypatch.setenv("VOLSYNC_FAULT_SEED", "7")
-    for url in ("mem:", f"file://{tmp_path}", str(tmp_path)):
-        with pytest.raises(tstore.UnportedStoreError, match="faultstore"):
-            tstore.open_store(url)
+    monkeypatch.setenv("VOLSYNC_FAULT_SPEC", "latency:p=1,ms=0")
+    for url, inner in (("mem:", tstore.MemObjectStore),
+                       (f"file://{tmp_path}", tstore.FsObjectStore),
+                       (str(tmp_path), tstore.FsObjectStore)):
+        store = tstore.open_store(url)
+        assert isinstance(store, tfault.FaultStore)
+        assert store.schedule.seed == 7
+        assert [s.kind for s in store.schedule.specs] == ["latency"]
+        assert isinstance(tstore.unwrap(store), inner)
+        assert tstore.unwrap(tres.ResilientStore(store)) is store.inner
+    monkeypatch.delenv("VOLSYNC_FAULT_SPEC")
+    assert tstore.open_store("mem:").schedule.specs == \
+        tfault.default_specs()
+    monkeypatch.setenv("VOLSYNC_FAULT_SEED", "seven")
+    with pytest.raises(ValueError, match="not an integer"):
+        tstore.open_store("mem:")
 
 
 def test_local_stores_open(tmp_path):
@@ -519,7 +549,7 @@ KNOBS = {  # function -> (variable, a set value)
     "upload_window": ("VOLSYNC_TPU_UPLOAD_WINDOW", "9"),
     "upload_retries": ("VOLSYNC_TPU_UPLOAD_RETRIES", "0"),
     "pack_copies": ("VOLSYNC_PACK_COPIES", "5"),
-    "ec_scheme": ("VOLSYNC_EC_SCHEME", "6+3"),
+    "ec_scheme": ("VOLSYNC_EC_SCHEME", "4+2"),
     "index_shards": ("VOLSYNC_INDEX_SHARDS", "5"),
     "index_prefilter": ("VOLSYNC_INDEX_PREFILTER", "off"),
     "lock_stale_seconds": ("VOLSYNC_LOCK_STALE_S", "12.5"),
@@ -530,7 +560,13 @@ KNOBS = {  # function -> (variable, a set value)
     "retry_deadline": ("VOLSYNC_RETRY_DEADLINE_S", "3"),
     "breaker_threshold": ("VOLSYNC_BREAKER_THRESHOLD", "2"),
     "breaker_reset_seconds": ("VOLSYNC_BREAKER_RESET_S", "4"),
-    "fault_seed": ("VOLSYNC_FAULT_SEED", "11"),
+    "fault_seed": ("VOLSYNC_FAULT_SEED", "7"),
+    "fault_spec": ("VOLSYNC_FAULT_SPEC", "transient:p=0.5"),
+    "scrub_interval_seconds": ("VOLSYNC_SCRUB_INTERVAL_S", "2.5"),
+    "scrub_packs_per_cycle": ("VOLSYNC_SCRUB_PACKS", "3"),
+    "repack_dead_ratio": ("VOLSYNC_REPACK_DEAD_RATIO", "0.5"),
+    "repack_interval_seconds": ("VOLSYNC_REPACK_INTERVAL_S", "7"),
+    "repack_packs_per_cycle": ("VOLSYNC_REPACK_PACKS", "2"),
     "backup_workers": ("VOLSYNC_BACKUP_WORKERS", "6"),
     "plan_full_blob_cap": ("VOLSYNC_PLAN_FULL_CAP", "100"),
     "restore_workers": ("VOLSYNC_RESTORE_WORKERS", "2"),

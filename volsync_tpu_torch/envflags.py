@@ -2,9 +2,10 @@
 
 Ports the part of ``volsync_tpu/envflags.py`` that the port's modules
 use: the stream engine's (``pipeline_enabled``, ``readahead_segments``),
-the repository's write pipeline, index, locking and retry knobs, and
-the backup and restore workers', plus the page-major digest-table gate
-of ``volsync_tpu/ops/segment.py`` (``pagemajor``). Names, defaults and
+the repository's write pipeline, index, locking and retry knobs, the
+backup and restore workers', the scrub's and the repacker's cadence,
+the fault-injection store's seed and spec, plus the page-major
+digest-table gate of ``volsync_tpu/ops/segment.py`` (``pagemajor``). Names, defaults and
 the falsy-token set are the reference's, so one environment configures
 both packages alike. The reference's ``VOLSYNC_NO_PALLAS`` has no
 counterpart: on a CUDA tensor the port always runs its kernels.
@@ -113,8 +114,8 @@ def pack_copies() -> int:
 
 def ec_scheme() -> Optional[tuple]:
     """VOLSYNC_EC_SCHEME: ``k+m`` (e.g. ``4+2``) -> (k, m); None when
-    unset, malformed or out of range. The port's repository refuses a
-    set scheme until the erasure-coding modules are ported."""
+    unset, malformed or out of range. A set scheme seals every new pack
+    as its k+m Reed-Solomon shards (repo/erasure.py)."""
     raw = env_str("VOLSYNC_EC_SCHEME")
     if raw is None:
         return None
@@ -201,9 +202,10 @@ def breaker_reset_seconds() -> float:
 
 
 def fault_seed() -> Optional[int]:
-    """VOLSYNC_FAULT_SEED: the seed of the reference's fault-injection
-    store; None = disarmed. The port's open_store refuses a set seed
-    (the fault store is not ported)."""
+    """VOLSYNC_FAULT_SEED arms the deterministic fault-injection store
+    wrapper (objstore/faultstore.py) for stores opened via open_store();
+    None = disarmed. A seed that is not an integer raises: a typo must
+    not disarm a chaos run silently."""
     raw = env_str("VOLSYNC_FAULT_SEED")
     if raw is None:
         return None
@@ -213,6 +215,13 @@ def fault_seed() -> Optional[int]:
         raise ValueError(
             f"VOLSYNC_FAULT_SEED={raw!r} is not an integer; fix or "
             "unset it") from None
+
+
+def fault_spec() -> Optional[str]:
+    """VOLSYNC_FAULT_SPEC: fault-schedule spec string (see
+    objstore/faultstore.py parse_spec); None with a seed set means the
+    default transient-heavy profile."""
+    return env_str("VOLSYNC_FAULT_SPEC")
 
 
 # -- backup and restore (engine/backup.py, engine/restore*.py) -----------
@@ -265,3 +274,38 @@ def scrub_read_repair_enabled() -> bool:
     verify catches a corrupt blob heals from the pack's mirror copy
     before raising (default on)."""
     return env_bool("VOLSYNC_SCRUB_READ_REPAIR", True)
+
+
+# -- durability services (repo/scrub.py, repo/repack.py) -----------------
+
+def scrub_interval_seconds() -> float:
+    """VOLSYNC_SCRUB_INTERVAL_S: pause between continuous-scrub cycles
+    (repo/scrub.py)."""
+    return env_float("VOLSYNC_SCRUB_INTERVAL_S", 60.0, minimum=0.1)
+
+
+def scrub_packs_per_cycle() -> int:
+    """VOLSYNC_SCRUB_PACKS: packs verified per scrub cycle, walked
+    round-robin; 0 (the default) scrubs the whole repository each
+    cycle."""
+    return env_int("VOLSYNC_SCRUB_PACKS", 0, minimum=0)
+
+
+def repack_dead_ratio() -> float:
+    """VOLSYNC_REPACK_DEAD_RATIO: fraction of a pack's entries that must
+    be dead before RepackService rewrites its live blobs into a fresh
+    erasure-coded stripe. Clamped to [0.05, 1.0]."""
+    v = env_float("VOLSYNC_REPACK_DEAD_RATIO", 0.3, minimum=0.05)
+    return min(v, 1.0)
+
+
+def repack_interval_seconds() -> float:
+    """VOLSYNC_REPACK_INTERVAL_S: pause between continuous-repack cycles
+    (repo/repack.py)."""
+    return env_float("VOLSYNC_REPACK_INTERVAL_S", 60.0, minimum=0.1)
+
+
+def repack_packs_per_cycle() -> int:
+    """VOLSYNC_REPACK_PACKS: packs rewritten per repack cycle; 0 (the
+    default) repacks every eligible pack each cycle."""
+    return env_int("VOLSYNC_REPACK_PACKS", 0, minimum=0)

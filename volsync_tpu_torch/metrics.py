@@ -1,9 +1,9 @@
 """In-memory stand-in for the reference's Prometheus metrics.
 
 Ports the part of ``volsync_tpu/metrics.py`` that the port's repository,
-index, resilience, pack-cache and restore modules touch: the families
-of ``GLOBAL`` with the reference's names and label sets, each an
-in-memory counter or gauge with the ``labels(...).inc/set/observe``
+index, resilience, pack-cache, restore, scrub and repack modules touch:
+the families of ``GLOBAL`` with the reference's names and label sets,
+each an in-memory counter or gauge with the ``labels(...).inc/set/observe``
 shape. The reference builds them on ``prometheus_client``, which the
 port does not depend on; nothing here is exported over HTTP. A
 family's ``values()`` reads its series, keyed by label values.
@@ -98,6 +98,9 @@ _FAMILIES = {
     "restore_cache_evictions": ("volsync_restore_cache_evictions_total", ()),
     "restore_bytes": ("volsync_restore_bytes_total", ()),
     "scrub_packs": ("volsync_scrub_packs_total", ("outcome",)),
+    "scrub_bytes": ("volsync_scrub_bytes_total", ()),
+    "repack_cycles": ("volsync_repack_cycles_total", ("outcome",)),
+    "repack_packs": ("volsync_repack_packs_total", ()),
 }
 
 

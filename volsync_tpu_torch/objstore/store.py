@@ -3,10 +3,11 @@
 Ports ``volsync_tpu/objstore/store.py``: the store protocol, the
 filesystem and in-memory stores, ``open_store`` and ``unwrap``. The
 network backends (``objstore/s3.py``, ``azure.py``, ``swift.py``, and
-``b2:``/``gs:`` through the S3 client) and the
-fault-injection wrapper (``objstore/faultstore.py``) are not ported:
-``open_store`` raises for their URL schemes and for a set
-``VOLSYNC_FAULT_SEED`` instead of serving them from a local store.
+``b2:``/``gs:`` through the S3 client) are not ported: ``open_store``
+raises for their URL schemes instead of serving them from a local
+store. A set ``VOLSYNC_FAULT_SEED`` wraps the local stores in the
+fault-injection store (``objstore/faultstore.py``), as in the
+reference.
 
 Keys are slash-separated paths (``data/ab/abcdef...``). Writes are
 atomic (temp file + rename) so a crashed backup never leaves a torn
@@ -33,7 +34,6 @@ import threading
 from pathlib import Path
 from typing import Iterator, Optional, Protocol, Sequence, Union
 
-from volsync_tpu_torch import envflags
 from volsync_tpu_torch.analysis import lockcheck
 from volsync_tpu_torch.obs import record_copy
 
@@ -267,31 +267,29 @@ class UnportedStoreError(NotImplementedError):
 
 def open_store(url: str, env: Optional[dict] = None) -> ObjectStore:
     """Open a store by repository URL: ``file:///path``, ``mem:`` or a
-    bare path (the reference's local forms, unwrapped as there).
+    bare path (the reference's local forms, wrapped as there: a set
+    VOLSYNC_FAULT_SEED puts them inside a ``FaultStore``).
 
     Network URLs (``s3:``, ``azure:``, ``b2:``, ``gs:``, ``swift:``)
     raise ``UnportedStoreError`` naming the reference module still to
-    port, and so does a set ``VOLSYNC_FAULT_SEED`` (the reference would
-    wrap the store in ``objstore/faultstore.py``). ``env`` is the
-    credential map of the network forms; the local ones ignore it."""
+    port. ``env`` is the credential map of the network forms; the local
+    ones ignore it."""
+    from volsync_tpu_torch.objstore.faultstore import maybe_wrap
+
     for scheme, module in _UNPORTED_SCHEMES.items():
         if url.startswith(scheme):
             raise UnportedStoreError(
                 f"{scheme} repositories need {module}, which "
                 "volsync_tpu_torch does not port yet")
-    if envflags.fault_seed() is not None:
-        raise UnportedStoreError(
-            "VOLSYNC_FAULT_SEED arms volsync_tpu/objstore/faultstore.py, "
-            "which volsync_tpu_torch does not port yet; unset it")
     if url.startswith("mem:"):
-        return MemObjectStore()
+        return maybe_wrap(MemObjectStore())
     if url.startswith("file://"):
-        return FsObjectStore(url[len("file://"):])
-    return FsObjectStore(url)
+        return maybe_wrap(FsObjectStore(url[len("file://"):]))
+    return maybe_wrap(FsObjectStore(url))
 
 
 def unwrap(store: ObjectStore) -> ObjectStore:
-    """Peel wrappers (``ResilientStore``) off a store —
+    """Peel wrappers (``ResilientStore``, ``FaultStore``) off a store —
     diagnostics and tests that need the concrete backend (wrappers all
     expose the wrapped store as ``.inner``)."""
     while hasattr(store, "inner"):

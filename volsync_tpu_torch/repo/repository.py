@@ -3,17 +3,23 @@
 Ports ``volsync_tpu/repo/repository.py`` whole, in the same repository
 format: a repository written by either package opens, lists, reads and
 checks under the other (with the same cipher; see ``repo/crypto.py``).
-Two things differ:
+Three things differ:
 
 - **The device.** ``Repository.init``/``open`` (and the constructor)
   take ``device=``, resolved by ``volsync_tpu_torch.resolve_device``:
   CUDA by default, raising where CUDA is absent. ``check(read_data=True)``
   re-hashes blobs with the port's ``verify_blob_batch`` on that device,
-  and ``TreeBackup``/``TreeRestore`` default to it.
-- **Erasure coding.** ``repo/erasure.py`` and ``ops/rs.py`` are not
-  ported. Under ``VOLSYNC_EC_SCHEME`` sealing a pack raises
-  ``ErasureCodingUnported``, as does reading a pack that has only
-  ``ec/`` shards; nothing falls back to the classic layout.
+  ``TreeBackup``/``TreeRestore`` default to it, and under
+  ``VOLSYNC_EC_SCHEME`` the Reed-Solomon field math of sealing and
+  reconstructing a pack (``repo/erasure.py``) runs there too.
+- **Reading erasure-coded packs.** ``check(read_data=True)`` reads
+  blobs in (pack, offset) order, and ``ec_reconstruct`` lets one
+  thread decode a pack while the others that want it wait: the
+  reference reads in index order and decodes in every thread that
+  misses its four-body memo, so a repository of many shard-only packs
+  decoded each pack about once a blob.
+- **Spans.** ``check(read_data=True)`` also times its reads
+  (``repo.read``) and its batches' verify (``repo.verify``).
 
 Clean-room design with the same capability envelope as the engine the
 reference wraps (SURVEY.md §2.2 #25: CDC chunking, per-blob SHA-256 ids,
@@ -159,18 +165,6 @@ class RepoLockedError(RepoError):
 class UploadError(RepoError):
     """A pack upload failed after retries; the pack was NOT registered,
     so no index entry references it."""
-
-
-class ErasureCodingUnported(RepoError, NotImplementedError):
-    """An erasure-coded (``ec/``) pack was to be written or read; the
-    port has no ``repo/erasure.py`` or ``ops/rs.py`` yet."""
-
-
-def _erasure_unported(what: str) -> ErasureCodingUnported:
-    return ErasureCodingUnported(
-        f"{what} needs volsync_tpu/repo/erasure.py and ops/rs.py, which "
-        "volsync_tpu_torch does not port yet (unset VOLSYNC_EC_SCHEME "
-        "for the classic pack layout)")
 
 
 class StaleWriterError(RepoError):
@@ -394,6 +388,15 @@ class Repository:
         #: storage (repo/erasure.py). None keeps the classic layout;
         #: pre-existing primary/mirror packs are read as before.
         self.ec_scheme = envflags.ec_scheme()
+        # Tiny verified-reconstruct memo: one heal or restore burst
+        # touches the same shard-only pack repeatedly (existence probe
+        # plus every blob read); the memo bounds that to one k-shard
+        # fetch + decode. Entries are content-addressed (pack id fixes
+        # the bytes), so they can never go stale.
+        self._ec_memo: dict[str, bytes] = {}
+        self._ec_memo_lock = lockcheck.make_lock("repo.ec_memo")
+        #: pack id -> lock of the one decode in flight (ec_reconstruct)
+        self._ec_flights: dict[str, threading.Lock] = {}
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -1226,8 +1229,43 @@ class Repository:
         re-checked before any shard lands, so a taken-over zombie
         writer cannot publish a stripe. Each shard put carries exactly
         one retry layer (the constructor's no-stacking rule)."""
-        raise _erasure_unported(
-            f"sealing pack {pack_id} as {self.ec_scheme} shards")
+        from volsync_tpu_torch.repo import erasure
+
+        k, m = self.ec_scheme
+        shards = erasure.encode_pack_shards(parts, k, m,
+                                             device=self.device)
+        self._guard_publish("ec shard publish")
+        if self._store_retries:
+            for idx, shard in enumerate(shards):
+                self.store.put(ec_shard_key(pack_id, idx), shard)
+        else:
+            for idx, shard in enumerate(shards):
+                self._upload_policy.call(
+                    self.store.put, ec_shard_key(pack_id, idx), shard)
+
+    def ec_publish_shard(self, pack_id: str, idx: int,
+                         shard: bytes) -> None:
+        """Publish ONE shard of an existing stripe (the scrub's shard
+        backfill and RepackService route their ec/ writes through here
+        so every shard publish shares the same fence check)."""
+        self._guard_publish("ec shard publish")
+        self.store.put(ec_shard_key(pack_id, idx), shard)
+
+    def ec_shard_blobs(self, pack_id: str) -> dict:
+        """Every present shard blob of one pack, keyed by shard index.
+        Unlistable indices and shards deleted mid-scan are skipped —
+        reconstruct_verified cross-checks whatever survives."""
+        blobs: dict[int, bytes] = {}
+        for key in list(self.store.list(ec_pack_prefix(pack_id))):
+            try:
+                idx = int(key.rsplit("/", 1)[1])
+            except ValueError:
+                continue
+            try:
+                blobs[idx] = self.store.get(key)
+            except NoSuchKey:
+                continue
+        return blobs
 
     def ec_reconstruct(self, pack_id: str) -> bytes:
         """Reconstruct AND prove one pack body from any k healthy
@@ -1236,26 +1274,61 @@ class Repository:
         shards). Pure read — the heal arms own the one overwriting
         PUT. Raises NoSuchKey when no surviving k-subset proves out,
         so callers treat an unreconstructable pack exactly like a
-        missing object (quarantine-first semantics).
+        missing object (quarantine-first semantics)."""
+        with self._ec_memo_lock:
+            body = self._ec_memo.get(pack_id)
+            if body is not None:
+                return body
+            flight = self._ec_flights.setdefault(pack_id, threading.Lock())
+        # The port's single flight: readers of one pack (check's pool,
+        # the serial restore's workers) wait for one decode and take it
+        # from the memo.
+        with flight:
+            with self._ec_memo_lock:
+                body = self._ec_memo.get(pack_id)
+            try:
+                return body if body is not None else \
+                    self._ec_reconstruct_once(pack_id)
+            finally:
+                with self._ec_memo_lock:
+                    self._ec_flights.pop(pack_id, None)
 
-        In the port a pack with no shards at all raises NoSuchKey as in
-        the reference; one that has shards raises
-        ErasureCodingUnported."""
-        if not any(True for _ in self.store.list(ec_pack_prefix(pack_id))):
+    def _ec_reconstruct_once(self, pack_id: str) -> bytes:
+        from volsync_tpu_torch.repo import erasure
+
+        blobs = self.ec_shard_blobs(pack_id)
+        body = (erasure.reconstruct_verified(blobs, pack_id,
+                                             device=self.device)
+                if blobs else None)
+        if body is None:
             raise NoSuchKey(
                 f"pack {pack_id}: fewer than k provable shards")
-        raise _erasure_unported(f"reconstructing pack {pack_id}")
+        record_trigger("ec_reconstruct", pack=pack_id,
+                       shards=str(len(blobs)))
+        with self._ec_memo_lock:
+            self._ec_memo[pack_id] = body
+            while len(self._ec_memo) > 4:
+                self._ec_memo.pop(next(iter(self._ec_memo)))
+        return body
 
     def _ec_present(self, pack_id: str) -> bool:
         """At least k healthy-LOOKING shards of this pack exist (header
         probe only — check(read_data=True) and the scrub prove the
         payloads). The existence answer check()/repair() use for packs
-        that have no data/ primary. In the port a pack with shards
-        raises ErasureCodingUnported (their headers cannot be parsed)."""
+        that have no data/ primary."""
+        from volsync_tpu_torch.repo import erasure
+
         keys = list(self.store.list(ec_pack_prefix(pack_id)))
         if not keys:
             return False
-        raise _erasure_unported(f"probing the shards of pack {pack_id}")
+        for key in keys:
+            try:
+                hdr = self.store.get_range(key, 0, erasure.HEADER_LEN)
+                k = erasure.parse_shard(hdr)[0]
+            except (NoSuchKey, erasure.ECError):
+                continue
+            return len(keys) >= k
+        return False
 
     def _pl_reap(self, block: bool):
         """Register completed uploads in FIFO (pack creation) order:
@@ -2228,7 +2301,10 @@ class Repository:
                 problems.append(f"blob {blob_id}: pack {pack} missing")
                 continue
             if read_data:
-                to_read.append(blob_id)
+                to_read.append((pack, _rest[1], blob_id))
+        # the port reads in pack order: an erasure-coded pack is then
+        # decoded once (ec_reconstruct's memo), not once a blob
+        to_read = [blob_id for *_at, blob_id in sorted(to_read)]
         if device_verify is None:
             device_verify = envflags.device_verify_enabled()
         if to_read and device_verify:
