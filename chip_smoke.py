@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N] [--stream-gib G] [--align64-gib G]
                           [--align1-mib M] [--pagemajor-gib G]
                           [--backup-gib G] [--backup64-mib M]
-                          [--ec-gib G]
+                          [--ec-gib G] [--delta-gib G]
 
 Run from the repository root on a machine with a CUDA card and nvcc. It
 imports nothing of JAX or of the JAX package, and every phase raises on
@@ -45,7 +45,14 @@ a mismatch:
    split-phase tails' shape) and bounded from the function's work (the
    whole card's ALU rate, and the per-warp floor of its longest lane);
    ``sha256_lanes``, which no path launches, held and timed on the
-   padded messages the reference builds for the same lanes;
+   padded messages the reference builds for the same lanes; then
+   ``md5_slices`` (``csrc/md5.cu``) in both forms against its twin and
+   hashlib, timed and bounded (the compiled block's ALU instructions
+   over the card's ALU rate, and the longest lane's per-warp floor):
+   the windows form at the signature's shape (16,384 contiguous 32 KiB
+   blocks) and at a verify shape (8,192 4 KiB windows at odd offsets,
+   one running past the buffer's end, one before its start), the lanes
+   form on 16,384 messages of 0..200 bytes;
 3. stream: sets every launch count to 0, streams a seeded ``--stream-gib``
    GiB + 12,345-byte volume (half of its 64 MiB blocks repeat earlier
    ones; one block is all zero) through ``stream_chunk_batches`` with
@@ -114,12 +121,35 @@ a mismatch:
    raises before writing the files that need it. Each run counts the
    launches (the fused kernels once a backup pass, the verify kernels
    once a verify batch), ``gf_matmul``'s calls and the packs decoded,
-   and traces the card.
+   and traces the card;
+8. delta: the rsync mover's data plane (BASELINE.json configs[0], a
+   1 GiB PVC replicated by rsync; ``--delta-gib``). Seeded destination
+   and source trees on disk: a file of half the volume with 16 scattered
+   1 KiB overwrites, a 37-byte insertion a third of the way in and a
+   12,345-byte append; 64 files of 4 MiB and 240 of 1 MiB, in turns
+   unchanged, with a byte inserted, with a 4 KiB block rewritten and
+   unrelated; 300 files below one block; an emptied file and one with
+   no basis. With the launch counts set to 0 and the card traced: the
+   files read in walk order, the destination's signatures on the card
+   (block length ``pick_block_len(max(src, dst))``),
+   ``delta_scan_batch`` over 32 files a call (``VOLSYNC_DELTA_BATCH``),
+   ``apply_delta`` each file. Then every weak sum against rsync's
+   formula and every strong sum against hashlib, every rebuilt file
+   against its source, the batched ops against ``compute_delta`` on the
+   card and, for 8 of the 1 MiB files, against the port on the CPU,
+   the literal bytes of each kind of edit, and exactly one
+   ``md5_slices`` launch a signature with a full block and one a scan
+   group with candidates, nothing else. Logs signature, scan and apply
+   GiB/s, the literal share, the stage times, the peak device memory,
+   the card's busy share, and the rolling + membership torch ops timed
+   again at the largest group's shape and a 4 KiB group's beside their
+   bytes bound.
 
 The line before the last is the kernels JSON (launches on the stream
-phase that runs each kernel, max difference from the twin, times and
-bounds; ``product_launches``: each kernel's launches in the backup and
-durability phases' runs); the last line is ``{"ok": true, "device":
+phase that runs each kernel, ``md5_slices``' on the delta phase, max
+difference from the twin, times and bounds; ``product_launches``: each
+kernel's launches in the backup, durability and delta phases' runs);
+the last line is ``{"ok": true, "device":
 {...}}``. Exits nonzero, with no result, when CUDA is unavailable or
 any phase fails.
 """
@@ -186,6 +216,8 @@ REPLACES = {
     "pagemajor_u32": "volsync_tpu/ops/segment.py:282",
     "sha256_pages_sweep": "scripts/tune_sha.py:72",
     "merkle_roots": "volsync_tpu/ops/segment.py:367",
+    "md5_slices": "volsync_tpu/ops/md5.py:168",
+    "md5_slices_lanes": "volsync_tpu/ops/md5.py:113",
 }
 SOURCES = {
     "transpose_u32": "volsync_tpu_torch/csrc/transpose.cu",
@@ -199,6 +231,8 @@ SOURCES = {
     "pagemajor_u32": "volsync_tpu_torch/csrc/transpose.cu",
     "sha256_pages_sweep": "volsync_tpu_torch/csrc/sha256.cu",
     "merkle_roots": "volsync_tpu_torch/csrc/merkle.cu",
+    "md5_slices": "volsync_tpu_torch/csrc/md5.cu",
+    "md5_slices_lanes": "volsync_tpu_torch/csrc/md5.cu",
 }
 #: K1 block sizes of the K5 sweep (the library launches 64).
 SWEEP_THREADS = (32, 64, 128, 256)
@@ -516,8 +550,9 @@ def sass_blocks() -> dict:
     page-major) and K2 (4 16-byte cp.async a block: a thread copies 64
     bytes of its block's messages per message block), of
     ``sha256_slices``' three forms (5 a block: 80-byte windows), of merkle_roots' chain (64 shared K+W reads a
-    block) and of ``sha256_lanes`` (4 16-byte loads a block) in the built
-    libraries; empty when the toolkit has no cuobjdump."""
+    block), of ``sha256_lanes`` (4 16-byte loads a block) and of
+    ``md5_slices``' two forms (5 a block, as ``sha256_slices``) in the
+    built libraries; empty when the toolkit has no cuobjdump."""
     from volsync_tpu_torch.ops import _build
 
     tool = Path(_build._nvcc()).with_name("cuobjdump")
@@ -544,7 +579,11 @@ def sass_blocks() -> dict:
                                               "merkle_roots_kernel", 64,
                                               "LDS"),
             "sha256_lanes": sass_block_counts(sha, "sha256_lanes_kernel", 4,
-                                              "LDG")}
+                                              "LDG"),
+            **{name: sass_block_counts(dump("md5.cu"),
+                                       f"md5_slices_kernelI{lanes}", 5)
+               for name, lanes in (("md5_slices", "7Windows"),
+                                   ("md5_slices_lanes", "11PaddedLanes"))}}
 
 
 def as_list(x):
@@ -2346,6 +2385,487 @@ def durability_phase(torch, base: Path, total: int, seed: int, card: str,
     return res
 
 
+# -- MD5 (md5_slices) in the kernels phase ----------------------------------
+
+#: ALU instructions of one MD5 compression as the source writes it, the
+#: fallback where no cuobjdump gives the compiled block's count: a round
+#: is one LOP3 (every round function is a logic function of three
+#: words), one SHF (the rotation) and three adds; 4 adds fold the state.
+#: The compiler folds some adds and rotations into IMAD and LEA, so the
+#: compiled block has fewer (chip_smoke logs both).
+MD5_BLOCK_ALU_OPS = 64 * 5 + 4
+#: The signature's shape (a 512 MiB file at pick_block_len's 32 KiB) and
+#: the 4 KiB groups' verify shape (a few thousand candidate windows).
+MD5_SIG_WINDOWS, MD5_SIG_LEN = 16384, 32 << 10
+MD5_VERIFY_WINDOWS, MD5_VERIFY_LEN = 8192, 4096
+
+
+def md5_block_ops(sass: dict) -> tuple:
+    """(ALU instructions of one compressed block, their source): the
+    LOP3/SHF/PRMT and IADD3 of the lanes form's compiled block (its loop
+    holds one compression and the ring's copies), else the source's
+    count ``MD5_BLOCK_ALU_OPS``."""
+    counts = sass.get("md5_slices_lanes")
+    if counts:
+        return counts["LOP3/SHF"] + counts["IADD3"], "cuobjdump"
+    return MD5_BLOCK_ALU_OPS, "as written"
+
+
+def md5_bound(lanes: int, blocks: int, longest: int, nbytes: int,
+              block_ops: float) -> dict:
+    """Bound of one md5_slices launch from its work: the larger of the
+    blocks' ALU instructions over the card's ALU rate (or its bytes over
+    HBM's) and the per-warp floor of its longest lane."""
+    from volsync_tpu_torch.ops import md5
+
+    t_ops = blocks * block_ops / INT32_ALU_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    work = (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+    return lanes_bound(lanes, md5.MD5_THREADS, int(longest * block_ops),
+                       work)
+
+
+def md5_entry(torch, stats, name: str, label: str, run, plain, check,
+              b: dict, main: bool) -> None:
+    """One md5_slices shape: the kernel equal to its twin on the same
+    inputs (and ``check`` against hashlib), timed by graph replay and
+    eagerly beside the twin and the bound ``b``."""
+    out_k = run()
+    sync(torch)
+    t0 = time.perf_counter()
+    out_p = plain()
+    sync(torch)
+    plain_s = time.perf_counter() - t0
+    err = max_abs_err(torch, out_k, out_p)
+    if not torch.equal(out_k, out_p):
+        raise AssertionError(f"{name} ({label}) differs from its twin "
+                             f"(max abs err {err})")
+    check(out_k)
+    st = stats[name]
+    st["err"] = max(st["err"], err)
+    ms = time_ms(torch, run, 20)
+    eager = time_ms(torch, run, 20, graph=False)
+    st.setdefault("shapes", {})[label] = {
+        "lanes": b["lanes"], "blocks": b["blocks"], "ms": ms,
+        "eager_ms": eager, "plain_ms": plain_s * 1e3,
+        "bound_ms": b["bound_ms"], "bound_kind": b["bound_kind"]}
+    if main:
+        st["ms"].append(ms)
+        st["eager_ms"].append(eager)
+        st["plain_ms"].append(plain_s * 1e3)
+        set_bound(st, b)
+        st["longest"] = b["longest"]
+    log(f"{name} ({label}): {b['lanes']} lanes, {b['blocks']} blocks, "
+        f"longest {b['longest']}; equals twin (max abs err {err}) and "
+        f"hashlib; kernel {ms:.4f} ms (eager {eager:.4f}), twin "
+        f"{plain_s * 1e3:.1f} ms, bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_kind']}; per-warp floor {b['floor_ms']:.4f} ms)")
+
+
+def md5_kernel_entries(torch, stats, seed: int, sass: dict) -> None:
+    """md5_slices in both forms against its twin (max abs err 0) and
+    hashlib, timed and bounded: the windows form at the signature's
+    shape (contiguous 32 KiB blocks of 512 MiB) and at a verify shape
+    (4 KiB windows at odd offsets, one running past the buffer's end,
+    one at a negative start), and the lanes form on ``md5_pack_host`` of
+    mixed lengths 0..200 bytes."""
+    from volsync_tpu_torch.ops import md5
+
+    ops, src = md5_block_ops(sass)
+    log(f"md5_slices: {ops:.1f} ALU instructions a block ({src}; "
+        f"{MD5_BLOCK_ALU_OPS} as the source writes it)")
+    rng = np.random.default_rng(seed + 9)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 9)
+    n, bl = MD5_SIG_WINDOWS, MD5_SIG_LEN
+    data = torch.randint(0, 256, (n * bl,), dtype=torch.uint8,
+                         device=DEVICE, generator=gen)
+    picks = rng.choice(n, 16, replace=False)
+    host = {int(i): data[i * bl:(i + 1) * bl].cpu().numpy() for i in picks}
+
+    def sig_check(out):
+        dig = md5.state_bytes(out)
+        for i, blk in host.items():
+            if dig[i] != hashlib.md5(blk).digest():
+                raise AssertionError(f"md5_slices block {i} != hashlib")
+
+    nb = (bl + 72) // 64
+    md5_entry(torch, stats, "md5_slices", "signature",
+              lambda: md5.md5_contiguous_blocks_device(data, block_len=bl),
+              lambda: md5._md5_contiguous_plain(data, block_len=bl),
+              sig_check, {**md5_bound(n, n * nb, nb, n * (bl + 16), ops),
+                          "lanes": n, "blocks": n * nb, "longest": nb},
+              main=True)
+    del data
+    n, bl = MD5_VERIFY_WINDOWS, MD5_VERIFY_LEN
+    hbuf = rng.integers(0, 256, 32 << 20, dtype=np.uint8)
+    L = hbuf.shape[0]
+    starts = rng.integers(0, L - bl, n) | 1
+    starts[:3] = [L - 100, L - bl, -5]  # past the end, the last, clamped
+    vdata = torch.from_numpy(hbuf).to(DEVICE)
+    vst = torch.from_numpy(starts.astype(np.int64)).to(DEVICE)
+
+    def verify_check(out):
+        dig = md5.state_bytes(out)
+        for k in range(1, n, 97):
+            a = int(starts[k])
+            if dig[k] != hashlib.md5(hbuf[a:a + bl]).digest():
+                raise AssertionError(f"md5_slices window {k} != hashlib")
+
+    nb = (bl + 72) // 64
+    md5_entry(torch, stats, "md5_slices", "verify",
+              lambda: md5.md5_fixed_blocks_device(vdata, vst, block_len=bl),
+              lambda: md5._md5_windows_plain(vdata, vst, block_len=bl),
+              verify_check, {**md5_bound(n, n * nb, nb, n * (bl + 24), ops),
+                             "lanes": n, "blocks": n * nb, "longest": nb},
+              main=False)
+    chunks = [rng.bytes(int(k)) for k in rng.integers(0, 201, 16384)]
+    blocks, nbl = md5.md5_pack_host(chunks)
+    b = torch.from_numpy(blocks.view(np.int32)).to(DEVICE)
+    nbt = torch.from_numpy(nbl).to(DEVICE)
+    want = [hashlib.md5(c).digest() for c in chunks]
+
+    def lanes_check(out):
+        if md5.state_bytes(out) != want or md5.md5_many(chunks,
+                                                        device=DEVICE) != want:
+            raise AssertionError("md5_slices lanes differ from hashlib")
+
+    total, longest = int(nbl.sum()), int(nbl.max())
+    md5_entry(torch, stats, "md5_slices_lanes", "mixed 0-200 B",
+              lambda: md5.md5_blocks(b, nbt),
+              lambda: md5._md5_lanes_plain(b, nbt), lanes_check,
+              {**md5_bound(len(chunks), total, longest,
+                           blocks.nbytes + len(chunks) * 20, ops),
+               "lanes": len(chunks), "blocks": total, "longest": longest},
+              main=True)
+
+
+# -- delta: the rsync delta engine over a seeded 1 GiB volume ----------------
+
+#: The delta phase's layout at ``--delta-gib`` 1 (BASELINE.json configs[0],
+#: a 1 GiB PVC replicated by rsync): one file of half the volume
+#: (pick_block_len: 32 KiB blocks), 64 files of 4 MiB and 240 of 1 MiB
+#: (4 KiB blocks), 300 files below one block, an empty file and a file
+#: with no basis. ``delta_layout`` scales the file counts and the big
+#: file with the volume.
+DELTA_LAYOUT = {"big": 512 << 20, "n_mid": 64, "mid": 4 << 20,
+                "n_small": 240, "small": 1 << 20, "n_tiny": 300}
+DELTA_BIG_OVERWRITES = 16
+DELTA_INSERT = 37
+DELTA_APPEND = 12345
+#: Files held against the port on the CPU (its twins).
+DELTA_CPU_FILES = 8
+
+
+def delta_layout(gib: float) -> dict:
+    return {**DELTA_LAYOUT, "big": int(DELTA_LAYOUT["big"] * gib) // 4096
+            * 4096, "n_mid": max(4, round(DELTA_LAYOUT["n_mid"] * gib)),
+            "n_small": max(4, round(DELTA_LAYOUT["n_small"] * gib))}
+
+
+def make_delta_trees(root: Path, layout: dict, seed: int) -> dict:
+    """A destination tree ``root/dst`` and a source tree ``root/src`` from
+    ``seed``: the big file with 16 scattered 1 KiB overwrites, a 37-byte
+    insertion a third of the way in and a 12,345-byte append; the 4 MiB
+    and 1 MiB files in turns unchanged, with one byte inserted in the
+    middle, with one 4 KiB block rewritten, unrelated; the files below a
+    block unchanged (the host's short circuit: a copy of the tail block);
+    an emptied file; a file with no basis. -> {rel:
+    (kind, edit bytes, src bytes, dst bytes or None)}."""
+    rng = np.random.default_rng(seed)
+    files = {}
+    big = rng.bytes(layout["big"])
+    src = bytearray(big)
+    at = np.sort(rng.choice(len(big) // 4096 - 2, DELTA_BIG_OVERWRITES,
+                            replace=False)) * 4096 + 1000
+    for a in at:
+        src[a:a + 1024] = rng.bytes(1024)
+    third = len(big) // 3
+    src[third:third] = rng.bytes(DELTA_INSERT)
+    src += rng.bytes(DELTA_APPEND)
+    files["big.bin"] = ("big", DELTA_BIG_OVERWRITES * 1024 + DELTA_INSERT
+                        + DELTA_APPEND, bytes(src), big)
+    kinds = ("unchanged", "insert", "rewrite", "unrelated")
+    for d, count, size in (("mid", layout["n_mid"], layout["mid"]),
+                           ("small", layout["n_small"], layout["small"])):
+        for i in range(count):
+            old = rng.bytes(size)
+            kind = kinds[i % 4]
+            if kind == "unchanged":
+                new, edit = old, 0
+            elif kind == "insert":
+                new, edit = old[:size // 2] + rng.bytes(1) + old[size // 2:], 1
+            elif kind == "rewrite":
+                b = size // 4096 // 2 * 4096
+                new, edit = old[:b] + rng.bytes(4096) + old[b + 4096:], 4096
+            else:
+                new, edit = rng.bytes(size), size
+            files[f"{d}/{d}{i:03d}.bin"] = (kind, edit, new, old)
+    for i in range(layout["n_tiny"]):
+        old = rng.bytes(int(rng.integers(1, 4096)))
+        files[f"tiny/t{i:03d}.bin"] = ("tiny", 0, old, old)
+    files["empty.bin"] = ("empty", 0, b"", rng.bytes(10_000))
+    files["new.bin"] = ("no_basis", 100_000, rng.bytes(100_000), None)
+    for rel, (_, _, new, old) in files.items():
+        for side, data in (("src", new), ("dst", old)):
+            if data is not None:
+                p = root / side / rel
+                p.parent.mkdir(parents=True, exist_ok=True)
+                p.write_bytes(data)
+    return files
+
+
+def host_signature_check(sig, dst: bytes) -> None:
+    """Every weak sum of ``sig`` equals rsync's formula on the host
+    (numpy, uint32 wraparound: only the residues mod 2^16 are kept) and
+    every strong sum hashlib's MD5 of its block."""
+    from volsync_tpu_torch.ops.rolling import weak_checksum_host
+
+    bl, n_full = sig.block_len, len(dst) // sig.block_len
+    x = np.frombuffer(dst, np.uint8)[: n_full * bl].reshape(n_full, bl) \
+        .astype(np.uint32)
+    with np.errstate(over="ignore"):
+        a = x.sum(axis=1, dtype=np.uint32) & 0xFFFF
+        b = (x * np.arange(bl, 0, -1, dtype=np.uint32)).sum(
+            axis=1, dtype=np.uint32) & 0xFFFF
+    weak = list(a | (b << 16))
+    strong = [hashlib.md5(dst[i * bl:(i + 1) * bl]).digest()
+              for i in range(n_full)]
+    if len(dst) % bl:
+        weak.append(weak_checksum_host(dst[n_full * bl:]))
+        strong.append(hashlib.md5(dst[n_full * bl:]).digest())
+    if [int(w) for w in sig.weak] != [int(w) for w in weak] \
+            or sig.strong != strong or sig.size != len(dst):
+        raise AssertionError(f"signature of a {len(dst)}-byte file differs "
+                             f"from the host formulas")
+
+
+@contextlib.contextmanager
+def stage_timers(torch, module, names: dict, totals: dict):
+    """Within the block, each ``module.<fn>`` in ``names`` adds its wall
+    seconds (synchronised before and after) to ``totals[names[fn]]``."""
+    def timer(stage):
+        def make(fn):
+            def wrapper(*args, **kwargs):
+                sync(torch)
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                sync(torch)
+                totals[stage] += time.perf_counter() - t0
+                return out
+            return wrapper
+        return make
+
+    with patched(module, {fn: timer(st) for fn, st in names.items()}):
+        yield
+
+
+def rolling_entry(torch, ds, args, kw) -> dict:
+    """One ``match_offsets_batch`` call (rolling weak sums, per-row
+    membership and compaction: torch ops, no kernel of the port) timed
+    again on its inputs from the delta run, eagerly (its temporaries at
+    the largest group take tens of GB, too many to capture a graph of
+    several runs), beside its bytes bound: the [n, L] rows and the
+    sorted weak sets read once, the candidates written once."""
+    data, sorted_weak = args[0], args[1]
+    ms = time_ms(torch, lambda: ds.match_offsets_batch(*args, **kw), 3,
+                 graph=False)
+    nbytes = (data.numel() + sorted_weak.numel() * 8 + data.shape[0] * 16
+              + kw["max_candidates"] * 8)
+    out = {"rows": data.shape[0], "row_bytes": data.shape[1],
+           "window": kw["window"], "eager_ms": ms,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    log(f"rolling + membership ({out['rows']} x {out['row_bytes']} bytes, "
+        f"window {out['window']}): {ms:.4f} ms eager, bytes bound "
+        f"{out['bound_ms']:.4f} ms")
+    return out
+
+
+#: deltasync's functions bracketed by the delta phase's stage timers.
+DELTA_STAGES = {"_to_device": "upload", "build_signature": "signature",
+                "match_offsets_batch": "rolling + membership",
+                "verify_candidates_batch": "md5 verify",
+                "_select_ops": "select"}
+
+
+def delta_phase(torch, base: Path, layout: dict, seed: int,
+                card: str) -> dict:
+    """The rsync mover's data plane on the port, minus the channel (ref
+    movers/rsync/entry.py:442-500): for each file of the seeded trees in
+    walk order, block_len = pick_block_len(max(src, dst)); the
+    destination's signatures on the card; ``delta_scan_batch``
+    over ``envflags.delta_batch_files()`` files a call; ``apply_delta``
+    each file. The launch counts are set to 0 just before and read just
+    after; then the checks (module docstring)."""
+    from volsync_tpu_torch import envflags
+    from volsync_tpu_torch.engine import deltasync as ds
+    from volsync_tpu_torch.ops import md5
+    from volsync_tpu_torch.ops._build import KERNELS, launch_counts
+
+    t0 = time.perf_counter()
+    made = make_delta_trees(base, layout, seed)
+    rels = sorted(made)
+    log(f"delta: {len(rels)} files, "
+        f"{sum(len(m[2]) for m in made.values())} source and "
+        f"{sum(len(m[3]) for m in made.values() if m[3] is not None)} "
+        f"destination bytes written in {time.perf_counter() - t0:.1f} s")
+    per_call = envflags.delta_batch_files()
+    totals = defaultdict(float)
+    scans = PassCounter()
+    verifies = []
+
+    def count_verify(fn):
+        def wrapper(data, rows, offs, *, block_len):
+            verifies.append(len(rows))
+            return fn(data, rows, offs, block_len=block_len)
+        return wrapper
+
+    matches = {}  # the largest scan call's inputs, and a 4 KiB group's
+
+    def keep_match(fn):
+        def wrapper(*args, **kw):
+            big = matches.get("largest")
+            if big is None or args[0].numel() > big[0][0].numel():
+                matches["largest"] = (args, kw)
+            if kw["window"] == 4096:
+                matches.setdefault("4 KiB group", (args, kw))
+            return fn(*args, **kw)
+        return wrapper
+
+    for k in KERNELS:
+        k.launches = 0
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    srcs, dsts, sigs, ops, rebuilt = {}, {}, {}, {}, {}
+    with device_trace(torch) as trace, \
+            stage_timers(torch, ds, DELTA_STAGES, totals), \
+            patched(ds, {"delta_scan_batch": scans.wrap,
+                         "verify_candidates_batch": count_verify,
+                         "match_offsets_batch": keep_match}):
+        sync(torch)
+        t1 = time.perf_counter()
+        for rel in rels:
+            srcs[rel] = (base / "src" / rel).read_bytes()
+            d = base / "dst" / rel
+            dsts[rel] = d.read_bytes() if d.exists() else None
+        t_read = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        for rel in rels:
+            if dsts[rel] is not None:
+                bl = ds.pick_block_len(max(len(srcs[rel]), len(dsts[rel])))
+                sigs[rel] = ds.build_file_signature(dsts[rel], bl,
+                                                    device=DEVICE)
+        sync(torch)
+        t_sig = time.perf_counter() - t2
+        t3 = time.perf_counter()
+        based = [rel for rel in rels if rel in sigs]
+        for i in range(0, len(based), per_call):
+            part = based[i:i + per_call]
+            for rel, o in zip(part, ds.delta_scan_batch(
+                    [(srcs[r], sigs[r]) for r in part], device=DEVICE)):
+                ops[rel] = o
+        t_scan = time.perf_counter() - t3
+        t4 = time.perf_counter()
+        for rel in rels:
+            if rel not in ops:  # no basis: the whole file as literals
+                ops[rel] = [("data", srcs[rel])] if srcs[rel] else []
+            bl = sigs[rel].block_len if rel in sigs else ds.pick_block_len(
+                len(srcs[rel]))
+            rebuilt[rel] = ds.apply_delta(ops[rel], dsts[rel] or b"", bl)
+        t_apply = time.perf_counter() - t4
+        sync(torch)
+        secs = time.perf_counter() - t1
+    launches = launch_counts()
+    lanes_launches = md5.MD5_LANES.launches
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else None
+
+    # Launches: one md5_slices a signature with a full block, one a scan
+    # group with candidates; nothing else.
+    full = sum(len(dsts[r]) // sigs[r].block_len > 0 for r in sigs)
+    groups = sum(1 for n in verifies if n)
+    want = {k: 0 for k in launches}
+    want["md5_slices"] = full + groups
+    if DEVICE == "cuda" and (launches != want or lanes_launches):
+        raise AssertionError(f"delta: launches {launches} (lanes form "
+                             f"{lanes_launches}), expected {want}")
+    t5 = time.perf_counter()
+    for rel in rels:
+        if rebuilt[rel] != srcs[rel]:
+            raise AssertionError(f"delta: {rel} rebuilt differs from its "
+                                 f"source")
+        if rel in sigs:
+            host_signature_check(sigs[rel], dsts[rel])
+            if ds.compute_delta(srcs[rel], sigs[rel], device=DEVICE) \
+                    != ops[rel]:
+                raise AssertionError(f"delta: {rel}: batched ops differ "
+                                     f"from compute_delta's")
+    lit = {rel: ds.delta_stats(ops[rel], sigs[rel].block_len if rel in sigs
+                               else 4096)["literal_bytes"] for rel in rels}
+    for rel in rels:
+        kind, edit, src, _ = made[rel]
+        bl = sigs[rel].block_len if rel in sigs else 0
+        n_edits = {"big": DELTA_BIG_OVERWRITES + 2}.get(kind, 1)
+        ok = {"unchanged": lit[rel] == 0,
+              "unrelated": lit[rel] == len(src),
+              "tiny": ops[rel] == [("copy", 0, 1)],
+              "no_basis": lit[rel] == len(src),
+              "empty": lit[rel] == 0 and ops[rel] == []}.get(
+            kind, edit <= lit[rel] <= edit + 2 * bl * n_edits)
+        if not ok:
+            raise AssertionError(f"delta: {rel} ({kind}, {edit} edited "
+                                 f"bytes, block {bl}) shipped {lit[rel]} "
+                                 f"literal bytes")
+    cpu = [r for r in rels if made[r][0] != "tiny" and r.startswith(
+        "small/")][:DELTA_CPU_FILES]
+    cpu_items = [(srcs[r], ds.build_file_signature(
+        dsts[r], sigs[r].block_len, device="cpu")) for r in cpu]
+    for r, (_, s) in zip(cpu, cpu_items):
+        if s.to_wire() != sigs[r].to_wire():
+            raise AssertionError(f"delta: {r}: signature differs on the CPU")
+    if ds.delta_scan_batch(cpu_items, device="cpu") != [ops[r] for r in cpu]:
+        raise AssertionError("delta: ops differ from the port's on the CPU")
+    t_check = time.perf_counter() - t5
+    rolling = {label: rolling_entry(torch, ds, args, kw)
+               for label, (args, kw) in matches.items()}
+    matches.clear()
+
+    src_bytes = sum(len(s) for s in srcs.values())
+    dst_bytes = sum(len(d) for d in dsts.values() if d is not None)
+    busy = trace["busy_s"]
+    res = {"files": len(rels), "src_bytes": src_bytes,
+           "dst_bytes": dst_bytes, "secs": secs, "read_s": t_read,
+           "signature_s": t_sig, "scan_s": t_scan, "apply_s": t_apply,
+           "check_s": t_check, "scan_calls": scans.n,
+           "groups": groups, "signatures": full,
+           "sig_gibs": dst_bytes / t_sig / GIB,
+           "scan_gibs": src_bytes / t_scan / GIB,
+           "apply_gibs": src_bytes / t_apply / GIB,
+           "literal_share": sum(lit.values()) / src_bytes,
+           "stages_s": {k: round(v, 4) for k, v in totals.items()},
+           "peak_bytes": peak, "busy_s": busy, "launches": launches,
+           "rolling": rolling}
+    log(f"delta: {len(rels)} files, {src_bytes} source bytes in "
+        f"{secs:.3f} s: reads {t_read:.3f} s, signatures {t_sig:.3f} s "
+        f"({res['sig_gibs']:.4f} GiB/s of {dst_bytes} destination bytes), "
+        f"delta scan {t_scan:.3f} s ({res['scan_gibs']:.4f} GiB/s, "
+        f"{scans.n} calls of {per_call} files, {groups} groups with "
+        f"candidates), apply {t_apply:.3f} s ({res['apply_gibs']:.4f} "
+        f"GiB/s); literal share {res['literal_share']:.6f}; stages "
+        f"(synchronised wall seconds) {json.dumps(res['stages_s'])}; "
+        f"peak device memory "
+        + (f"{peak} bytes" if peak is not None else "not measured")
+        + "; card busy "
+        + (f"{busy:.4f} s ({100 * busy / secs:.2f}% of the wall; "
+           f"{trace['events']} device events, seconds by kind "
+           f"{json.dumps(trace['by_kind'])})" if busy is not None
+           else "not measured")
+        + f"; launches {json.dumps({k: v for k, v in launches.items() if v})}"
+          f" = {full} signatures + {groups} scan groups; checks "
+          f"{t_check:.1f} s ({card})")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2364,6 +2884,9 @@ def main() -> int:
     # The erasure-coded round trip's volume: cut from the 10 GiB PVC to
     # keep the whole script inside its time limit (PERF.md, section 4).
     ap.add_argument("--ec-gib", type=float, default=2.0)
+    # The delta phase's volume: BASELINE.json configs[0], a 1 GiB PVC
+    # replicated by rsync, not cut.
+    ap.add_argument("--delta-gib", type=float, default=1.0)
     args = ap.parse_args()
 
     import torch
@@ -2387,11 +2910,14 @@ def main() -> int:
     floors = {"merkle_roots": chain_block_floor_ms(sass.get("merkle_roots"))}
     for name, counts in sass.items():
         floor = floors.get(name)
+        least = (f"{MD5_BLOCK_ALU_OPS} as the source writes it (128 "
+                 f"LOP3/SHF and 196 adds)" if name.startswith("md5") else
+                 f"least work {SHA_BLOCK_ALU_OPS} LOP3/SHF and 360 adds, "
+                 f"{SHA_ROUNDS_ALU_OPS} LOP3/SHF in the rounds alone")
         log(f"{name} one message block as compiled (cuobjdump -sass, "
             f"instructions by class): "
             + (json.dumps(counts) if counts else "not available")
-            + f"; least work {SHA_BLOCK_ALU_OPS} LOP3/SHF and 360 adds, "
-              f"{SHA_ROUNDS_ALU_OPS} LOP3/SHF in the rounds alone"
+            + f"; {least}"
             + (f"; chain floor {floor * 1e3:.4f} us a block" if floor
                else ""))
     card = card_line()
@@ -2419,6 +2945,7 @@ def main() -> int:
     stream = volume(int(args.stream_gib * GIB), "fused stream")
     stats = kernel_phase(torch, stream, DEFAULT_PARAMS, SEGMENT_P, params64,
                          params1, lat)
+    md5_kernel_entries(torch, stats, args.seed, sass)
     for name, floor in floors.items():
         st = stats[name]
         bound = (f"{st['longest'] * floor:.4f} ms" if floor
@@ -2515,6 +3042,14 @@ def main() -> int:
     for i, c in enumerate(ec["repack"]["cycles"]):
         runs[f"ec.repack{i + 1}"] = c["launches"]
 
+    base = Path(tempfile.mkdtemp(prefix="chip_smoke_delta.", dir=backup_base(
+        build, int(2.2 * args.delta_gib * GIB))))
+    try:
+        delta = delta_phase(torch, base, delta_layout(args.delta_gib),
+                            args.seed + 3, card)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
     # Launches: from the stream phase of the path that runs each kernel.
     launches = {**res["launches"],
                 "sha256_rows": split["launches"]["sha256_rows"],
@@ -2522,12 +3057,16 @@ def main() -> int:
                 "sha256_pages_sweep": res["launches"]["sha256_pages"],
                 "sha256_pages_pagemajor": pm["launches"]["sha256_pages"],
                 "sha256_slices": legacy["launches"]["sha256_slices"],
-                "sha256_slices_tail": res["launches"]["sha256_slices"]}
+                "sha256_slices_tail": res["launches"]["sha256_slices"],
+                "md5_slices": delta["launches"]["md5_slices"],
+                "md5_slices_lanes": 0}
+    runs["delta"] = delta["launches"]
     kernels = []
     for name in ("transpose_u32", "sha256_pages", "sha256_pages_pagemajor",
                  "sha256_lanes", "sha256_slices", "sha256_slices_tail",
                  "fastcdc_walk", "sha256_rows", "pagemajor_u32",
-                 "sha256_pages_sweep", "merkle_roots"):
+                 "sha256_pages_sweep", "merkle_roots", "md5_slices",
+                 "md5_slices_lanes"):
         st = stats[name]
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],

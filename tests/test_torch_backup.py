@@ -10,7 +10,7 @@ Each package restores the other's snapshot byte-identical (bytes,
 modes, mtimes, hard links, holes); the port's serial and pipelined
 restores write the same tree; a corrupt pack is rejected before any
 write; four backup workers give the one-worker snapshot; ``protocol=
-"full"`` matches the reference and ``"auto"`` raises.
+"full"`` and ``"auto"`` match the reference.
 """
 
 import json
@@ -222,17 +222,34 @@ def test_four_workers_give_the_one_worker_snapshot(tmp_path):
     assert got[0] == got[1]
 
 
-def test_full_protocol_matches_reference_and_auto_raises(tmp_path):
+@pytest.mark.parametrize("protocol", ["full", "auto"])
+def test_full_and_auto_protocols_match_reference(tmp_path, monkeypatch,
+                                                 protocol):
+    """``"auto"`` starts both packages' planners cold: books reset, and
+    the dedup-query counters their books diff at 0 for the test."""
+    from volsync_tpu.engine import syncstats as jstats
+    from volsync_tpu.metrics import GLOBAL as JMETRICS
+    from volsync_tpu_torch.engine import syncstats
+    from volsync_tpu_torch.metrics import GLOBAL as METRICS
+
+    monkeypatch.delenv("VOLSYNC_SYNC_PROTO", raising=False)
+    for r in ("hit", "miss"):
+        monkeypatch.setattr(METRICS.index_queries.labels(result=r), "value",
+                            0.0)
+        monkeypatch.setattr(JMETRICS.index_queries.labels(result=r)._value,
+                            "_value", 0.0)
+    syncstats.reset_books()
+    jstats.reset_books()
     src = make_tree(tmp_path / "src", seed=5)
     jrepo = JRepo.init(JMem(), chunker=_chunker(4096))
     trepo = Repository.init(MemObjectStore(), chunker=_chunker(4096),
                             device="cpu")
-    jsnap, _ = JBackup(jrepo, workers=1, protocol="full").run(src)
-    tsnap, _ = TreeBackup(trepo, workers=1, protocol="full").run(src)
+    jsnap, _ = JBackup(jrepo, workers=1, protocol=protocol).run(src)
+    tsnap, _ = TreeBackup(trepo, workers=1, protocol=protocol).run(src)
+    syncstats.reset_books()
+    jstats.reset_books()
     assert _tree(trepo, tsnap) == _tree(jrepo, jsnap)
     assert _index(trepo) == _index(jrepo)
-    with pytest.raises(NotImplementedError, match="protoplan"):
-        TreeBackup(trepo, protocol="auto")
     with pytest.raises(ValueError, match="unknown backup protocol"):
         TreeBackup(trepo, protocol="rsync")
 

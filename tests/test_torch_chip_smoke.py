@@ -517,3 +517,51 @@ def test_durability_phase_on_cpu(monkeypatch, tmp_path):
     entry = chip_smoke.gf_matmul_entry(torch, 0, "cpu", pages=2)
     assert entry["max_abs_err"] == 0 and entry["bound_by"] == "bytes"
     assert entry["bound_ms"] == pytest.approx(6 * 2 * 4096 / 3.35e12 * 1e3)
+
+
+SMALL_DELTA = {"big": 256 * 1024, "n_mid": 4, "mid": 64 * 1024,
+               "n_small": 8, "small": 32 * 1024, "n_tiny": 5}
+
+
+def test_delta_phase_on_cpu(monkeypatch, tmp_path):
+    """The delta phase at a few hundred KiB with the twins: every check
+    passes (signatures against the host formulas, rebuilt files, batch
+    against serial and against the CPU port, the literal bounds of each
+    edit), with one scan call per 32 files and the stages timed."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "DELTA_CPU_FILES", 2)
+    res = chip_smoke.delta_phase(torch, tmp_path, SMALL_DELTA, 5, "cpu")
+    assert res["files"] == 1 + 4 + 8 + 5 + 2
+    assert res["scan_calls"] == 1 and res["groups"] >= 1
+    assert res["signatures"] == 1 + 4 + 8 + 1  # and the emptied file's
+    assert set(res["stages_s"]) == set(chip_smoke.DELTA_STAGES.values())
+    assert 0 < res["literal_share"] < 1
+    assert res["peak_bytes"] is None and res["busy_s"] is None
+
+
+def test_delta_trees_layout(tmp_path):
+    made = chip_smoke.make_delta_trees(tmp_path, SMALL_DELTA, 1)
+    kinds = [m[0] for m in made.values()]
+    assert kinds.count("big") == 1 and kinds.count("tiny") == 5
+    assert {k: kinds.count(k) for k in ("unchanged", "insert", "rewrite",
+                                        "unrelated")} == dict.fromkeys(
+        ("unchanged", "insert", "rewrite", "unrelated"), 3)
+    kind, edit, src, dst = made["big.bin"]
+    assert len(src) == len(dst) + chip_smoke.DELTA_INSERT + \
+        chip_smoke.DELTA_APPEND
+    assert not (tmp_path / "dst" / "new.bin").exists()
+    assert (tmp_path / "src" / "empty.bin").read_bytes() == b""
+    assert chip_smoke.delta_layout(1.0) == chip_smoke.DELTA_LAYOUT
+    assert chip_smoke.delta_layout(0.25)["n_small"] == 60
+
+
+def test_md5_bound_takes_the_larger_of_work_and_floor():
+    # the signature's shape: a scheduler holds one warp, so the longest
+    # lane's 513 blocks floor it above the card's whole ALU rate
+    b = chip_smoke.md5_bound(16384, 16384 * 513, 513, 16384 * 32784,
+                             chip_smoke.MD5_BLOCK_ALU_OPS)
+    assert b["bound_kind"] == "per-warp floor"
+    assert b["bound_ms"] == pytest.approx(
+        513 * chip_smoke.MD5_BLOCK_ALU_OPS * 2 / chip_smoke.CLOCK_HZ * 1e3)
+    assert chip_smoke.md5_block_ops({}) == (chip_smoke.MD5_BLOCK_ALU_OPS,
+                                            "as written")

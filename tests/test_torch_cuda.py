@@ -734,3 +734,106 @@ def test_ec_round_trip_on_card(cuda, rng, tmp_path, monkeypatch):
         time.sleep(0.3)
     assert repack.outcomes.get("ok", 0) >= 1
     assert Repository.open(store, device=cuda).check(read_data=True) == []
+
+
+# -- md5_slices and the delta engine ------------------------------------------
+
+MD5_EDGE_LENGTHS = [0, 1, 55, 56, 63, 64, 119, 120, 1000, 4096]
+
+
+def test_md5_windows_equal_twin_and_hashlib(cuda, rng):
+    """md5_fixed_blocks_device on the card (one md5_slices launch) ==
+    its twin at starts of every residue mod 16 for each edge length, with
+    windows ending on the buffer's last byte, running past it and
+    starting before it (clamped, as in the reference); == hashlib on
+    every window inside the buffer."""
+    import hashlib
+
+    from volsync_tpu_torch.ops import md5
+
+    host = np.frombuffer(rng.bytes(40_000), np.uint8).copy()
+    L = host.shape[0]
+    data = torch.from_numpy(host).to(cuda)
+    for n in MD5_EDGE_LENGTHS:
+        starts = np.array([off * 2048 + off for off in range(16)]
+                          + [L - n, L - n + 5, L + 3, -7], np.int64)
+        s = torch.from_numpy(starts).to(cuda)
+        launched = md5.MD5_WINDOWS.launches
+        got = md5.md5_fixed_blocks_device(data, s, block_len=n)
+        assert md5.MD5_WINDOWS.launches == launched + 1
+        want = md5._md5_windows_plain(data, s, block_len=n)
+        assert torch.equal(got, want), n
+        dig = md5.state_bytes(got)
+        for i, a in enumerate(starts):
+            if 0 <= a and a + n <= L:
+                assert dig[i] == hashlib.md5(host[a:a + n]).digest()
+
+
+def test_md5_contiguous_and_lanes_equal_twin_and_hashlib(cuda, rng):
+    import hashlib
+
+    from volsync_tpu_torch.ops import md5
+
+    host = np.frombuffer(rng.bytes(40 * 4096), np.uint8).copy()
+    data = torch.from_numpy(host).to(cuda)
+    for bl in (1024, 4096, 32768):
+        got = md5.md5_contiguous_blocks_device(data, block_len=bl)
+        assert torch.equal(got, md5._md5_contiguous_plain(data.cpu(),
+                                                          block_len=bl)
+                           .to(cuda))
+        assert md5.state_bytes(got) == [
+            hashlib.md5(host[i * bl:(i + 1) * bl]).digest()
+            for i in range(host.shape[0] // bl)]
+    chunks = [rng.bytes(int(k)) for k in rng.randint(0, 201, size=300)]
+    blocks, nb = md5.md5_pack_host(chunks)
+    nb[:3] = [-1, 0, blocks.shape[1] + 2]
+    b = torch.from_numpy(blocks.view(np.int32)).to(cuda)
+    n = torch.from_numpy(nb).to(cuda)
+    assert torch.equal(md5.md5_blocks(b, n), md5._md5_lanes_plain(b, n))
+    assert md5.md5_many(chunks) == [hashlib.md5(c).digest() for c in chunks]
+
+
+def test_md5_raises_on_what_the_kernel_does_not_take(cuda):
+    from volsync_tpu_torch.ops import md5
+
+    d = torch.zeros(8192 + 16, dtype=torch.uint8, device=cuda)
+    s = torch.zeros(4, dtype=torch.int64, device=cuda)
+    for data, starts in ((d[1:4097], s),  # not 16-byte aligned
+                         (d[:0], s),  # empty buffer
+                         (d[::2], s),  # not contiguous
+                         (d, s.cpu()),
+                         (d, s.view(2, 2)),
+                         (d.to(torch.int32), s)):
+        with pytest.raises(ValueError):
+            md5.md5_fixed_blocks_device(data, starts, block_len=64)
+    blocks = torch.zeros((4, 2, 16), dtype=torch.int32, device=cuda)
+    nb = torch.zeros(4, dtype=torch.int32, device=cuda)
+    for b, n in ((blocks.transpose(0, 1), nb[:2]), (blocks, nb.cpu()),
+                 (blocks.to(torch.int64), nb)):
+        with pytest.raises(ValueError):
+            md5.md5_blocks(b, n)
+
+
+def test_delta_scan_on_card_equals_cpu(cuda, rng):
+    """A small delta batch (an unchanged file, an insertion, an edit, an
+    unrelated file, a short tail) on the card: the signatures' wire
+    forms and the batched and serial ops equal the CPU twins', and the
+    ops rebuild every source."""
+    from volsync_tpu_torch.engine import deltasync as ds
+
+    base = rng.bytes(300_000)
+    pairs = [(base, base), (base, base[:1000] + b"+" + base[1000:]),
+             (base, base[:5000] + rng.bytes(4096) + base[9096:]),
+             (base, rng.bytes(300_000)), (base[:9000], base[:9000] + b"x")]
+    items = {}
+    for dev in ("cuda", "cpu"):
+        items[dev] = [(new, ds.build_file_signature(
+            old, ds.pick_block_len(max(len(old), len(new))), device=dev))
+            for old, new in pairs]
+    for (_, a), (_, b) in zip(items["cuda"], items["cpu"]):
+        assert a.to_wire() == b.to_wire()
+    ops = ds.delta_scan_batch(items["cuda"], device="cuda")
+    assert ops == ds.delta_scan_batch(items["cpu"], device="cpu")
+    for (old, new), (src, sig), o in zip(pairs, items["cuda"], ops):
+        assert o == ds.compute_delta(src, sig, device="cuda")
+        assert ds.apply_delta(o, old, sig.block_len) == new

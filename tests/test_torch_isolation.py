@@ -1,8 +1,8 @@
 """The port stands alone: no file of volsync_tpu_torch/ or chip_smoke.py
 imports JAX or the JAX package (AST scan and a fresh-interpreter
 ``sys.modules`` diff), and with no CUDA and no ``device`` argument the
-entry points (the durability path's among them) raise instead of moving
-to the CPU."""
+entry points (the durability path's and the delta engine's among them)
+raise instead of moving to the CPU."""
 
 import ast
 import json
@@ -16,10 +16,11 @@ import torch
 
 import volsync_tpu_torch
 from volsync_tpu_torch.engine import chunker as tch
+from volsync_tpu_torch.engine import deltasync
 from volsync_tpu_torch.engine.backup import TreeBackup
 from volsync_tpu_torch.engine.restore import TreeRestore, restore_snapshot
 from volsync_tpu_torch.objstore.store import MemObjectStore
-from volsync_tpu_torch.ops import gearcdc, rs, segment, sha256
+from volsync_tpu_torch.ops import gearcdc, md5, rs, segment, sha256
 from volsync_tpu_torch.repo import erasure
 from volsync_tpu_torch.repo.repack import RepackService
 from volsync_tpu_torch.repo.repository import Repository
@@ -57,8 +58,14 @@ def test_no_file_imports_jax_or_the_reference():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert {"volsync_tpu_torch/ops/rs.py", "volsync_tpu_torch/repo/erasure.py",
             "volsync_tpu_torch/repo/scrub.py", "volsync_tpu_torch/repo/repack.py",
-            "volsync_tpu_torch/objstore/faultstore.py"} <= names
-    assert len(_port_files()) >= 32
+            "volsync_tpu_torch/objstore/faultstore.py",
+            "volsync_tpu_torch/ops/rolling.py", "volsync_tpu_torch/ops/md5.py",
+            "volsync_tpu_torch/ops/delta.py",
+            "volsync_tpu_torch/engine/deltasync.py",
+            "volsync_tpu_torch/engine/syncstats.py",
+            "volsync_tpu_torch/engine/protoplan.py",
+            "volsync_tpu_torch/movers/common.py"} <= names
+    assert len(_port_files()) >= 40
 
 
 def test_importing_the_port_loads_no_jax_module():
@@ -186,3 +193,49 @@ def test_durability_entry_points_raise_without_cuda(monkeypatch):
     repack = RepackService(store, device="cpu")
     assert repack.run_once() == "clean"
     assert repack._repo.device.type == "cpu"
+
+
+class _CudaTensor:
+    """Stands for a tensor on a card, which cannot be made where CUDA is
+    absent."""
+
+    device = torch.device("cuda")
+
+    def __init__(self, dtype, shape):
+        self.dtype, self.shape = dtype, shape
+
+    def dim(self):
+        return len(self.shape)
+
+
+def test_delta_entry_points_raise_without_cuda(monkeypatch):
+    """The delta engine's entry points and MD5 run on CUDA unless told
+    otherwise: with no CUDA they raise, and an MD5 call on a CUDA tensor
+    raises rather than running the CPU twin."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = b"x" * 10_000
+    sig = deltasync.build_file_signature(data, 4096, device="cpu")
+
+    def twin(*a, **kw):  # pragma: no cover - failure path
+        raise AssertionError("the CPU twin ran for a CUDA tensor")
+
+    monkeypatch.setattr(md5, "_md5_lanes_plain", twin)
+    monkeypatch.setattr(md5, "_md5_windows_plain", twin)
+    monkeypatch.setattr(md5, "_md5_contiguous_plain", twin)
+    calls = [
+        lambda: deltasync.build_file_signature(data),
+        lambda: deltasync.build_file_signature(data, device="cuda"),
+        lambda: deltasync.compute_delta(data, sig),
+        lambda: deltasync.delta_scan_batch([(data, sig)]),
+        lambda: md5.md5_many([b"x"]),
+        lambda: md5.md5_blocks(_CudaTensor(torch.int32, (2, 1, 16)),
+                               _CudaTensor(torch.int32, (2,))),
+        lambda: md5.md5_fixed_blocks_device(
+            _CudaTensor(torch.uint8, (4096,)),
+            _CudaTensor(torch.int64, (3,)), block_len=64),
+        lambda: md5.md5_contiguous_blocks_device(
+            _CudaTensor(torch.uint8, (4096,)), block_len=1024),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

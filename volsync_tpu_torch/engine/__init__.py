@@ -1,7 +1,9 @@
 """Engine of the port (ports ``volsync_tpu/engine/``): the streaming
 chunk+hash pipeline (the fused, split-phase and legacy engines), tree
-backup (``backup.py``) and snapshot restore (``restore.py`` and the
-pack-aware pipeline of ``restorepipe.py``)."""
+backup (``backup.py``), snapshot restore (``restore.py`` and the
+pack-aware pipeline of ``restorepipe.py``), the rsync delta engine
+(``deltasync.py``) and the sync-protocol planner (``protoplan.py`` over
+``syncstats.py``)."""
 
 from volsync_tpu_torch.engine.chunker import (
     DeviceChunkHasher,
@@ -15,10 +17,16 @@ from volsync_tpu_torch.engine.chunker import (
     stream_chunks,
     verify_blob_batch,
 )
+from volsync_tpu_torch.engine.protoplan import PlanDecision, decide
+from volsync_tpu_torch.engine.syncstats import SyncStatsBook, book_for
 
 __all__ = [
     "DeviceChunkHasher",
     "PendingSegment",
+    "PlanDecision",
+    "SyncStatsBook",
+    "book_for",
+    "decide",
     "device_span_roots",
     "hash_file_streaming",
     "hash_spans",

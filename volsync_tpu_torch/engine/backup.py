@@ -10,10 +10,10 @@ mtime_ns, restic's heuristic) skips re-reading stable data.
 Ports ``volsync_tpu/engine/backup.py``. ``TreeBackup`` takes ``device=``
 (default: its repository's device) and by default hashes with the
 port's ``DeviceChunkHasher`` there; snapshots are bit-identical to the
-reference's for the same tree and chunker parameters. Protocols
-``"cdc"`` and ``"full"`` are ported; ``"auto"`` raises
-``NotImplementedError`` until ``engine/protoplan.py`` (the cost-model
-planner the reference reaches through ``movers/common.py``) is ported.
+reference's for the same tree and chunker parameters, under each of
+the protocols ``"cdc"``, ``"full"`` and ``"auto"`` (the cost-model
+planner of ``engine/protoplan.py``, reached through
+``movers/common.plan_protocol`` as in the reference).
 """
 
 from __future__ import annotations
@@ -108,8 +108,7 @@ class TreeBackup:
         cost-model planner prices full vs cdc per file against the
         "restic" SyncStatsBook — engine/protoplan.py). All three
         produce valid interchangeable snapshots; they differ only in
-        blob granularity, i.e. dedup ratio vs scan cost. The port
-        refuses ``"auto"`` (module docstring).
+        blob granularity, i.e. dedup ratio vs scan cost.
 
         ``workers`` hashes that many FILES concurrently (default 4, env
         VOLSYNC_BACKUP_WORKERS). Files are independent streams, so their
@@ -126,11 +125,6 @@ class TreeBackup:
         """
         if protocol not in ("cdc", "full", "auto"):
             raise ValueError(f"unknown backup protocol {protocol!r}")
-        if protocol == "auto":
-            raise NotImplementedError(
-                'protocol="auto" needs volsync_tpu/engine/protoplan.py, '
-                "which volsync_tpu_torch does not port yet; pass "
-                '"cdc" or "full"')
         self.repo = repo
         self.device = resolve_device(
             repo.device if device is None else device)
@@ -436,10 +430,21 @@ class TreeBackup:
 
     def _wants_full(self, size: int) -> bool:
         """Whole-file blob storage for this file? Pinned ``"full"`` says
-        yes up to the blob cap; ``"cdc"`` never."""
+        yes up to the blob cap; ``"auto"`` asks the planner (which
+        applies the same cap as its ``size_cap`` rule); ``"cdc"`` never.
+        """
         if self.protocol == "cdc":
             return False
-        return size <= envflags.plan_full_blob_cap()
+        cap = envflags.plan_full_blob_cap()
+        if self.protocol == "auto":
+            from volsync_tpu_torch.movers import common
+
+            proto = common.plan_protocol(
+                "restic", size, candidates=("full", "cdc"),
+                full_cap=cap).protocol
+        else:
+            proto = self.protocol
+        return proto == "full" and size <= cap
 
     @staticmethod
     def _open_stream(path: Path):

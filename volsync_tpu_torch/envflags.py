@@ -4,7 +4,8 @@ Ports the part of ``volsync_tpu/envflags.py`` that the port's modules
 use: the stream engine's (``pipeline_enabled``, ``readahead_segments``),
 the repository's write pipeline, index, locking and retry knobs, the
 backup and restore workers', the scrub's and the repacker's cadence,
-the fault-injection store's seed and spec, plus the page-major
+the fault-injection store's seed and spec, the sync-protocol
+planner's and the batched delta scan's, plus the page-major
 digest-table gate of ``volsync_tpu/ops/segment.py`` (``pagemajor``). Names, defaults and
 the falsy-token set are the reference's, so one environment configures
 both packages alike. The reference's ``VOLSYNC_NO_PALLAS`` has no
@@ -231,9 +232,35 @@ def backup_workers() -> int:
     return env_int("VOLSYNC_BACKUP_WORKERS", 4, minimum=1)
 
 
+# -- sync-protocol planner knobs (engine/protoplan.py, syncstats.py) ------
+
+def sync_protocol() -> str:
+    """VOLSYNC_SYNC_PROTO: per-call override of the adaptive protocol
+    planner — ``auto`` (cost model decides), ``full`` (whole-file copy),
+    ``delta`` (rsync-style signature exchange), ``cdc`` (content-defined
+    chunking + dedup). Unknown values degrade to ``auto``."""
+    raw = (env_str("VOLSYNC_SYNC_PROTO") or "auto").strip().lower()
+    return raw if raw in ("auto", "full", "delta", "cdc") else "auto"
+
+
+def plan_ewma_alpha() -> float:
+    """VOLSYNC_PLAN_EWMA: smoothing factor of the SyncStatsBook's
+    exponentially weighted moving averages. Clamped to (0, 1]: 1.0 =
+    last sample only."""
+    v = env_float("VOLSYNC_PLAN_EWMA", 0.3, minimum=0.0)
+    return min(max(v, 0.01), 1.0)
+
+
+def delta_batch_files() -> int:
+    """VOLSYNC_DELTA_BATCH: how many files one batched delta scan
+    (engine/deltasync.delta_scan_batch) takes; 1 = one file a call."""
+    return env_int("VOLSYNC_DELTA_BATCH", 32, minimum=1)
+
+
 def plan_full_blob_cap() -> int:
-    """VOLSYNC_PLAN_FULL_CAP: largest file (bytes) stored as one
-    whole-file blob under ``protocol="full"``; larger files chunk."""
+    """VOLSYNC_PLAN_FULL_CAP: largest file (bytes) the planner may store
+    as one whole-file blob (``protocol="full"``, or ``"auto"``'s
+    FULL_COPY); larger files always chunk."""
     return env_int("VOLSYNC_PLAN_FULL_CAP", 8 * 1024 * 1024, minimum=4096)
 
 

@@ -1,12 +1,13 @@
 """In-memory stand-in for the reference's Prometheus metrics.
 
 Ports the part of ``volsync_tpu/metrics.py`` that the port's repository,
-index, resilience, pack-cache, restore, scrub and repack modules touch:
-the families of ``GLOBAL`` with the reference's names and label sets,
-each an in-memory counter or gauge with the ``labels(...).inc/set/observe``
-shape. The reference builds them on ``prometheus_client``, which the
-port does not depend on; nothing here is exported over HTTP. A
-family's ``values()`` reads its series, keyed by label values.
+index, resilience, pack-cache, restore, scrub and repack modules and
+the protocol planner touch: the families of ``GLOBAL`` with the
+reference's names and label sets, each an in-memory counter or gauge
+with the ``labels(...).inc/set/observe`` shape. The reference builds
+them on ``prometheus_client``, which the port does not depend on;
+nothing here is exported over HTTP. A family's ``values()`` reads its
+series, keyed by label values.
 """
 
 from __future__ import annotations
@@ -101,6 +102,8 @@ _FAMILIES = {
     "scrub_bytes": ("volsync_scrub_bytes_total", ()),
     "repack_cycles": ("volsync_repack_cycles_total", ("outcome",)),
     "repack_packs": ("volsync_repack_packs_total", ()),
+    "svc_protocol_selected": ("volsync_svc_protocol_selected_total",
+                              ("protocol", "reason")),
 }
 
 
