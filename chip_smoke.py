@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N] [--stream-gib G] [--align64-gib G]
                           [--align1-mib M] [--pagemajor-gib G]
                           [--backup-gib G] [--backup64-mib M]
-                          [--ec-gib G] [--delta-gib G]
+                          [--ec-gib G] [--delta-gib G] [--restic-mib M]
 
 Run from the repository root on a machine with a CUDA card and nvcc. It
 imports nothing of JAX or of the JAX package, and every phase raises on
@@ -52,7 +52,11 @@ a mismatch:
    the windows form at the signature's shape (16,384 contiguous 32 KiB
    blocks) and at a verify shape (8,192 4 KiB windows at odd offsets,
    one running past the buffer's end, one before its start), the lanes
-   form on 16,384 messages of 0..200 bytes;
+   form on 16,384 messages of 0..200 bytes, each bounded also by the
+   chain of its longest lane (64 dependent rounds a block at one
+   round's latency, measured by a one-thread MD5 chain in
+   ``csrc/probe.cu``), and one launch on a single 32 KiB window timed
+   beside that chain;
 3. stream: sets every launch count to 0, streams a seeded ``--stream-gib``
    GiB + 12,345-byte volume (half of its 64 MiB blocks repeat earlier
    ones; one block is all zero) through ``stream_chunk_batches`` with
@@ -143,12 +147,39 @@ a mismatch:
    GiB/s, the literal share, the stage times, the peak device memory,
    the card's busy share, and the rolling + membership torch ops timed
    again at the largest group's shape and a 4 KiB group's beside their
-   bytes bound.
+   bytes bound;
+9. mover: the rsync mover's entry points over the delta phase's trees
+   (BASELINE.json configs[0], before they are removed): with the launch
+   counts set to 0 and the card traced, ``serve_destination`` on the
+   destination tree in a thread on 127.0.0.1 and
+   ``rsync_source_entrypoint`` with a ``JobContext`` (ADDRESS, PORT,
+   FAST_RETRY) push one sync iteration over the sealed,
+   device-authenticated channel; both rc 0, the destination equal to
+   the source (bytes, paths, modes, mtimes), each delta-planned file's
+   literal bytes within its edit's bounds (whole files all literal),
+   and exactly one ``md5_slices`` launch for each delta-planned file
+   with a full block at the destination and one a scan group with
+   candidates. Logs the push wall and GiB/s, the sealed frames' bytes
+   by direction, the literal share, the planner's full/delta split, the
+   card's busy share and the host seconds in the frames' zlib (or zstd)
+   and seal. Then a device the listener does not know and a wrong
+   pinned ID are refused at the handshake, and a cold push of 64 MiB
+   into an empty directory ships all literal with no kernel launched;
+10. restic entry: ``restic_entrypoint`` over a seeded ``--restic-mib``
+   MiB tree in an encrypted ``FsObjectStore`` repository with
+   ``VOLSYNC_TRACE_DIR`` set: a backup, edits, a second backup with
+   FORGET_LAST=1 and PRUNE=1, a restore into an empty directory; rc 0
+   each, exact launches each run (the fused kernels a backup pass, the
+   verify kernels a verify pass), one snapshot left, the restore
+   byte-identical with the hole unwritten, and one trace a backup,
+   whose device events give its busy share.
 
 The line before the last is the kernels JSON (launches on the stream
 phase that runs each kernel, ``md5_slices``' on the delta phase, max
 difference from the twin, times and bounds; ``product_launches``: each
-kernel's launches in the backup, durability and delta phases' runs);
+kernel's launches in the backup, durability, delta, mover and restic
+entry phases' runs, a form's entry those of its kernel, named by
+``product_launches_of``);
 the last line is ``{"ok": true, "device":
 {...}}``. Exits nonzero, with no result, when CUDA is unavailable or
 any phase fails.
@@ -234,6 +265,12 @@ SOURCES = {
     "md5_slices": "volsync_tpu_torch/csrc/md5.cu",
     "md5_slices_lanes": "volsync_tpu_torch/csrc/md5.cu",
 }
+#: The kernel whose launch count a form's entry of the kernels line
+#: shares (each kernel counts its launches under one name).
+KERNEL_OF = {"sha256_pages_pagemajor": "sha256_pages",
+             "sha256_pages_sweep": "sha256_pages",
+             "sha256_slices_tail": "sha256_slices",
+             "md5_slices_lanes": "md5_slices"}
 #: K1 block sizes of the K5 sweep (the library launches 64).
 SWEEP_THREADS = (32, 64, 128, 256)
 #: Kernel launches per device pass of each engine's stream.
@@ -760,6 +797,40 @@ def probe_latency_ns(torch, seed: int = 0) -> dict:
         res[f"{name}_ns"] = ns / PROBE_STEPS
         res[f"{name}_cycles"] = cycles / PROBE_STEPS
     return res
+
+
+#: Blocks of the MD5 chain probe: 64 x 4,096 dependent rounds.
+PROBE_MD5_BLOCKS = 4096
+
+
+def md5_round_cycles(torch, seed: int = 0) -> dict:
+    """One MD5 round's dependent latency: one thread compresses
+    ``PROBE_MD5_BLOCKS`` blocks in a row on its own state
+    (``csrc/probe.cu`` probe_md5_chain, no port of a TPU kernel), timed
+    in the kernel by clock64 (SM cycles) and %globaltimer (ns); the
+    least of 3 -> {"cycles", "ns"} a round."""
+    import ctypes
+
+    from volsync_tpu_torch.ops import _build
+
+    fn = _build.load("probe.cu").vt_probe_md5_chain
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    words = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 2**31, 16, dtype=np.int32)).to(DEVICE)
+    out = torch.zeros((3,), dtype=torch.int64, device=DEVICE)
+    runs = []
+    for _ in range(3):
+        rc = fn(words.data_ptr(), PROBE_MD5_BLOCKS, out.data_ptr(),
+                torch.cuda.current_device(),
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"probe_md5_chain launch failed ({rc})")
+        runs.append(out.tolist()[:2])
+    cycles, ns = min(runs, key=lambda r: r[0])
+    rounds = PROBE_MD5_BLOCKS * 64
+    return {"cycles": cycles / rounds, "ns": ns / rounds}
 
 
 def walk_bound(torch, args, out, lat_ns: dict) -> dict:
@@ -1706,16 +1777,27 @@ def check_restored(label: str, src: dict, dst_root: Path, hole: int,
             f"{hole}-byte hole filled)")
 
 
+def busy_union(spans) -> float:
+    """Length of the union of the (start, end) intervals ``spans``."""
+    spans = sorted(spans)
+    busy, end = 0, spans[0][0] if spans else 0
+    for a, b in spans:
+        busy += max(b, end) - max(a, end)
+        end = max(end, b)
+    return busy
+
+
 @contextlib.contextmanager
-def device_trace(torch):
+def device_trace(torch, on: bool = True):
     """Trace the card while the body runs (``torch.profiler``, CUDA
     activity only). Fills the yielded dict with ``busy_s``, the seconds
     in which a kernel, copy or memset ran on the card (the union of
     their intervals, any stream), ``events``, their count, and
     ``by_kind``, their summed seconds by kernels, Memcpy and Memset; all
-    None off the card or when the trace holds no device event."""
+    None off the card, without ``on`` (a body that traces itself: two
+    profilers cannot nest), or when the trace holds no device event."""
     out = {"busy_s": None, "events": None, "by_kind": None}
-    if DEVICE != "cuda":
+    if DEVICE != "cuda" or not on:
         yield out
         return
     from torch.autograd import DeviceType
@@ -1727,17 +1809,33 @@ def device_trace(torch):
               if e.device_type() != DeviceType.CPU]
     if not events:
         return
-    spans = sorted((e.start_ns(), e.end_ns()) for e in events)
-    busy, end = 0, spans[0][0]
-    for a, b in spans:
-        busy += max(b, end) - max(a, end)
-        end = max(end, b)
+    busy = busy_union((e.start_ns(), e.end_ns()) for e in events)
     kinds = defaultdict(int)
     for e in events:
         kinds[e.name().split()[0] if e.name().startswith(("Memcpy", "Memset"))
               else "kernels"] += e.duration_ns()
-    out.update(busy_s=busy / 1e9, events=len(spans),
+    out.update(busy_s=busy / 1e9, events=len(events),
                by_kind={k: round(v / 1e9, 4) for k, v in kinds.items()})
+
+
+def chrome_trace_busy(path: Path) -> dict:
+    """``device_trace``'s numbers from a Chrome trace that
+    ``torch.profiler`` wrote (``obs.device_trace``): the kernels, copies
+    and memsets on the card (categories kernel, gpu_memcpy, gpu_memset;
+    microseconds). ``busy_s`` None when it holds no device event."""
+    names = {"kernel": "kernels", "gpu_memcpy": "Memcpy",
+             "gpu_memset": "Memset"}
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") in names and "dur" in e]
+    if not events:
+        return {"busy_s": None, "events": 0, "by_kind": None}
+    kinds = defaultdict(float)
+    for e in events:
+        kinds[names[e["cat"]]] += e["dur"] / 1e6
+    return {"busy_s": busy_union((e["ts"], e["ts"] + e["dur"])
+                                 for e in events) / 1e6,
+            "events": len(events),
+            "by_kind": {k: round(v, 4) for k, v in kinds.items()}}
 
 
 class WriteRecorder:
@@ -1790,12 +1888,16 @@ def check_hole_unwritten(label: str, written: list, made: dict) -> None:
 
 
 def product_run(torch, label: str, run, per_pass: dict,
-                passes: PassCounter, min_passes: int = 1) -> dict:
+                passes: PassCounter, min_passes: int = 1, *,
+                verify_per_pass: dict | None = None,
+                trace: bool = True) -> dict:
     """``run()`` with every launch count set to 0 just before and read
     just after, and ``hash_spans`` (the verify pass) counted. On the card
     every kernel must have launched ``per_pass[name]`` times per counted
-    pass (0 when absent), and a ``per_pass`` with kernels needs at least
-    ``min_passes`` passes."""
+    pass (0 when absent), plus ``verify_per_pass[name]`` times a verify
+    pass where given, and a ``per_pass`` with kernels needs at least
+    ``min_passes`` passes. ``trace`` False: the run traces the card
+    itself (``obs.device_trace``), so this one does not."""
     from volsync_tpu_torch.engine import chunker
     from volsync_tpu_torch.obs import span_totals
     from volsync_tpu_torch.ops._build import KERNELS, launch_counts
@@ -1804,7 +1906,7 @@ def product_run(torch, label: str, run, per_pass: dict,
     before = span_totals()
     for k in KERNELS:
         k.launches = 0
-    with device_trace(torch) as trace:
+    with device_trace(torch, trace) as traced:
         sync(torch)
         t0 = time.perf_counter()
         with patched(chunker, {"hash_spans": verify.wrap}):
@@ -1813,7 +1915,9 @@ def product_run(torch, label: str, run, per_pass: dict,
         secs = time.perf_counter() - t0
     launches = launch_counts()
     n = passes.n if passes is not None else verify.n
-    want = {k: per_pass.get(k, 0) * n for k in launches}
+    want = {k: per_pass.get(k, 0) * n
+            + (verify_per_pass or {}).get(k, 0) * verify.n
+            for k in launches}
     if DEVICE == "cuda" and (launches != want
                              or (per_pass and n < min_passes)):
         raise AssertionError(f"{label}: launches {launches}, expected "
@@ -1821,17 +1925,20 @@ def product_run(torch, label: str, run, per_pass: dict,
     spans = {k: round(s - before.get(k, (0, 0.0))[1], 4)
              for k, (c, s) in span_totals().items()
              if c != before.get(k, (0, 0.0))[0]}
-    busy = trace["busy_s"]
-    log(f"{label}: {secs:.3f} s, {n} device passes, launches "
+    busy = traced["busy_s"]
+    log(f"{label}: {secs:.3f} s, {n} device passes"
+        + (f" and {verify.n} verify passes" if verify_per_pass else "")
+        + f", launches "
         f"{json.dumps({k: v for k, v in launches.items() if v})}; card busy "
         + (f"{busy:.4f} s ({100 * busy / secs:.2f}% of the wall; "
-           f"{trace['events']} device events traced, seconds by kind "
-           f"{json.dumps(trace['by_kind'])})" if busy is not None
-           else "not measured")
+           f"{traced['events']} device events traced, seconds by kind "
+           f"{json.dumps(traced['by_kind'])})" if busy is not None
+           else "not measured" + ("" if trace else " here (traced by the "
+                                  "run itself)"))
         + f"; host seconds by span (summed over threads): "
           f"{json.dumps(spans)}")
     return {"out": out, "secs": secs, "launches": launches, "passes": n,
-            "spans": spans, "busy_s": busy}
+            "verify_passes": verify.n, "spans": spans, "busy_s": busy}
 
 
 def repo_round_trip(torch, label: str, base: Path, total: int, seed: int,
@@ -2412,18 +2519,28 @@ def md5_block_ops(sass: dict) -> tuple:
 
 
 def md5_bound(lanes: int, blocks: int, longest: int, nbytes: int,
-              block_ops: float) -> dict:
-    """Bound of one md5_slices launch from its work: the larger of the
+              block_ops: float, round_cycles: float | None = None) -> dict:
+    """Bound of one md5_slices launch from its work: the largest of the
     blocks' ALU instructions over the card's ALU rate (or its bytes over
-    HBM's) and the per-warp floor of its longest lane."""
+    HBM's), the per-warp floor of its longest lane, and, given
+    ``round_cycles`` (one round's dependent latency, ``md5_round_cycles``),
+    the chain of its longest lane: 64 dependent rounds a block, one
+    after another, at the card's clock (``chain_ms``; None without
+    ``round_cycles``)."""
     from volsync_tpu_torch.ops import md5
 
     t_ops = blocks * block_ops / INT32_ALU_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S
     work = (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops > t_bytes else "bytes")
-    return lanes_bound(lanes, md5.MD5_THREADS, int(longest * block_ops),
-                       work)
+    b = lanes_bound(lanes, md5.MD5_THREADS, int(longest * block_ops), work)
+    b["chain_ms"] = None
+    if round_cycles:
+        b["chain_ms"] = longest * 64 * round_cycles / CLOCK_HZ * 1e3
+        if b["chain_ms"] > b["bound_ms"]:
+            b.update(bound_ms=b["chain_ms"], bound_by="operations",
+                     bound_kind="chain")
+    return b
 
 
 def md5_entry(torch, stats, name: str, label: str, run, plain, check,
@@ -2449,7 +2566,8 @@ def md5_entry(torch, stats, name: str, label: str, run, plain, check,
     st.setdefault("shapes", {})[label] = {
         "lanes": b["lanes"], "blocks": b["blocks"], "ms": ms,
         "eager_ms": eager, "plain_ms": plain_s * 1e3,
-        "bound_ms": b["bound_ms"], "bound_kind": b["bound_kind"]}
+        "bound_ms": b["bound_ms"], "bound_kind": b["bound_kind"],
+        "chain_ms": b["chain_ms"]}
     if main:
         st["ms"].append(ms)
         st["eager_ms"].append(eager)
@@ -2460,16 +2578,21 @@ def md5_entry(torch, stats, name: str, label: str, run, plain, check,
         f"longest {b['longest']}; equals twin (max abs err {err}) and "
         f"hashlib; kernel {ms:.4f} ms (eager {eager:.4f}), twin "
         f"{plain_s * 1e3:.1f} ms, bound {b['bound_ms']:.4f} ms "
-        f"({b['bound_kind']}; per-warp floor {b['floor_ms']:.4f} ms)")
+        f"({b['bound_kind']}; per-warp floor {b['floor_ms']:.4f} ms, "
+        f"chain " + (f"{b['chain_ms']:.4f} ms)" if b["chain_ms"]
+                     else "not measured)"))
 
 
-def md5_kernel_entries(torch, stats, seed: int, sass: dict) -> None:
+def md5_kernel_entries(torch, stats, seed: int, sass: dict,
+                       round_cycles: float | None = None) -> None:
     """md5_slices in both forms against its twin (max abs err 0) and
-    hashlib, timed and bounded: the windows form at the signature's
-    shape (contiguous 32 KiB blocks of 512 MiB) and at a verify shape
-    (4 KiB windows at odd offsets, one running past the buffer's end,
-    one at a negative start), and the lanes form on ``md5_pack_host`` of
-    mixed lengths 0..200 bytes."""
+    hashlib, timed and bounded (with ``round_cycles``, also by the chain
+    of the longest lane): the windows form at the signature's shape
+    (contiguous 32 KiB blocks of 512 MiB) and at a verify shape (4 KiB
+    windows at odd offsets, one running past the buffer's end, one at a
+    negative start), and the lanes form on ``md5_pack_host`` of mixed
+    lengths 0..200 bytes. The chain bound's cross-check: one launch of
+    a single 32 KiB window (one thread's chain), timed."""
     from volsync_tpu_torch.ops import md5
 
     ops, src = md5_block_ops(sass)
@@ -2494,10 +2617,22 @@ def md5_kernel_entries(torch, stats, seed: int, sass: dict) -> None:
     md5_entry(torch, stats, "md5_slices", "signature",
               lambda: md5.md5_contiguous_blocks_device(data, block_len=bl),
               lambda: md5._md5_contiguous_plain(data, block_len=bl),
-              sig_check, {**md5_bound(n, n * nb, nb, n * (bl + 16), ops),
+              sig_check, {**md5_bound(n, n * nb, nb, n * (bl + 16), ops,
+                                      round_cycles),
                           "lanes": n, "blocks": n * nb, "longest": nb},
               main=True)
-    del data
+    one = data[:bl]
+    if md5.state_bytes(md5.md5_contiguous_blocks_device(one, block_len=bl)) \
+            != [hashlib.md5(one.cpu().numpy().tobytes()).digest()]:
+        raise AssertionError("md5_slices on one window != hashlib")
+    one_ms = time_ms(torch, lambda: md5.md5_contiguous_blocks_device(
+        one, block_len=bl), 20)
+    chain = md5_bound(1, nb, nb, bl + 16, ops, round_cycles)["chain_ms"]
+    stats["md5_slices"]["one_window_ms"] = one_ms
+    log(f"md5_slices on one {bl}-byte window ({nb} blocks, one thread's "
+        f"chain): {one_ms:.4f} ms by graph replay; chain bound "
+        + (f"{chain:.4f} ms" if chain else "not measured"))
+    del data, one
     n, bl = MD5_VERIFY_WINDOWS, MD5_VERIFY_LEN
     hbuf = rng.integers(0, 256, 32 << 20, dtype=np.uint8)
     L = hbuf.shape[0]
@@ -2517,7 +2652,8 @@ def md5_kernel_entries(torch, stats, seed: int, sass: dict) -> None:
     md5_entry(torch, stats, "md5_slices", "verify",
               lambda: md5.md5_fixed_blocks_device(vdata, vst, block_len=bl),
               lambda: md5._md5_windows_plain(vdata, vst, block_len=bl),
-              verify_check, {**md5_bound(n, n * nb, nb, n * (bl + 24), ops),
+              verify_check, {**md5_bound(n, n * nb, nb, n * (bl + 24), ops,
+                                         round_cycles),
                              "lanes": n, "blocks": n * nb, "longest": nb},
               main=False)
     chunks = [rng.bytes(int(k)) for k in rng.integers(0, 201, 16384)]
@@ -2536,7 +2672,8 @@ def md5_kernel_entries(torch, stats, seed: int, sass: dict) -> None:
               lambda: md5.md5_blocks(b, nbt),
               lambda: md5._md5_lanes_plain(b, nbt), lanes_check,
               {**md5_bound(len(chunks), total, longest,
-                           blocks.nbytes + len(chunks) * 20, ops),
+                           blocks.nbytes + len(chunks) * 20, ops,
+                           round_cycles),
                "lanes": len(chunks), "blocks": total, "longest": longest},
               main=True)
 
@@ -2682,6 +2819,32 @@ def rolling_entry(torch, ds, args, kw) -> dict:
     return out
 
 
+def literal_within(kind: str, edit: int, n_src: int, lit: int, ops,
+                   block_len: int) -> bool:
+    """Whether a file of ``make_delta_trees``' ``kind`` (``edit`` bytes
+    edited) shipped the literal bytes its edit allows: none unchanged,
+    all of an unrelated file or one with no basis, a copy of the tail
+    block below a block, nothing for the emptied file, else at least
+    the edit and at most two blocks more an edit."""
+    n_edits = DELTA_BIG_OVERWRITES + 2 if kind == "big" else 1
+    return {"unchanged": lit == 0, "unrelated": lit == n_src,
+            "tiny": ops == [("copy", 0, 1)], "no_basis": lit == n_src,
+            "empty": lit == 0 and ops == []}.get(
+        kind, edit <= lit <= edit + 2 * block_len * n_edits)
+
+
+def rows_of(verifies: list):
+    """A ``patched`` wrapper of ``verify_candidates_batch`` that appends
+    each call's candidate count to ``verifies`` (a scan group with
+    candidates launches one ``md5_slices``)."""
+    def make(fn):
+        def wrapper(data, rows, offs, *, block_len):
+            verifies.append(len(rows))
+            return fn(data, rows, offs, block_len=block_len)
+        return wrapper
+    return make
+
+
 #: deltasync's functions bracketed by the delta phase's stage timers.
 DELTA_STAGES = {"_to_device": "upload", "build_signature": "signature",
                 "match_offsets_batch": "rolling + membership",
@@ -2715,12 +2878,6 @@ def delta_phase(torch, base: Path, layout: dict, seed: int,
     scans = PassCounter()
     verifies = []
 
-    def count_verify(fn):
-        def wrapper(data, rows, offs, *, block_len):
-            verifies.append(len(rows))
-            return fn(data, rows, offs, block_len=block_len)
-        return wrapper
-
     matches = {}  # the largest scan call's inputs, and a 4 KiB group's
 
     def keep_match(fn):
@@ -2741,7 +2898,7 @@ def delta_phase(torch, base: Path, layout: dict, seed: int,
     with device_trace(torch) as trace, \
             stage_timers(torch, ds, DELTA_STAGES, totals), \
             patched(ds, {"delta_scan_batch": scans.wrap,
-                         "verify_candidates_batch": count_verify,
+                         "verify_candidates_batch": rows_of(verifies),
                          "match_offsets_batch": keep_match}):
         sync(torch)
         t1 = time.perf_counter()
@@ -2805,14 +2962,7 @@ def delta_phase(torch, base: Path, layout: dict, seed: int,
     for rel in rels:
         kind, edit, src, _ = made[rel]
         bl = sigs[rel].block_len if rel in sigs else 0
-        n_edits = {"big": DELTA_BIG_OVERWRITES + 2}.get(kind, 1)
-        ok = {"unchanged": lit[rel] == 0,
-              "unrelated": lit[rel] == len(src),
-              "tiny": ops[rel] == [("copy", 0, 1)],
-              "no_basis": lit[rel] == len(src),
-              "empty": lit[rel] == 0 and ops[rel] == []}.get(
-            kind, edit <= lit[rel] <= edit + 2 * bl * n_edits)
-        if not ok:
+        if not literal_within(kind, edit, len(src), lit[rel], ops[rel], bl):
             raise AssertionError(f"delta: {rel} ({kind}, {edit} edited "
                                  f"bytes, block {bl}) shipped {lit[rel]} "
                                  f"literal bytes")
@@ -2844,7 +2994,7 @@ def delta_phase(torch, base: Path, layout: dict, seed: int,
            "literal_share": sum(lit.values()) / src_bytes,
            "stages_s": {k: round(v, 4) for k, v in totals.items()},
            "peak_bytes": peak, "busy_s": busy, "launches": launches,
-           "rolling": rolling}
+           "rolling": rolling, "made": made}
     log(f"delta: {len(rels)} files, {src_bytes} source bytes in "
         f"{secs:.3f} s: reads {t_read:.3f} s, signatures {t_sig:.3f} s "
         f"({res['sig_gibs']:.4f} GiB/s of {dst_bytes} destination bytes), "
@@ -2863,6 +3013,414 @@ def delta_phase(torch, base: Path, layout: dict, seed: int,
         + f"; launches {json.dumps({k: v for k, v in launches.items() if v})}"
           f" = {full} signatures + {groups} scan groups; checks "
           f"{t_check:.1f} s ({card})")
+    return res
+
+
+# -- mover: the rsync mover's entry points over the delta phase's trees -----
+
+#: Thread that runs the mover phase's destination listener.
+DEST_THREAD = "rsync-destination"
+#: Bytes of the cold push's subset of the source tree.
+COLD_BYTES = 64 << 20
+
+
+@contextlib.contextmanager
+def wire_meter():
+    """Within the block, the sealed channel's frames (each sealed
+    payload and its 4-byte length, by the thread that sent it: the
+    listener's ``DEST_THREAD`` or the source) and the host seconds spent
+    in the frames' compress, decompress, seal and open, summed over both
+    sides. Yields {"frames", "bytes", "seconds"}."""
+    from volsync_tpu_torch.repo.compress import Compressor, Decompressor
+    from volsync_tpu_torch.repo.crypto import SecretBox
+
+    out = {"frames": defaultdict(int), "bytes": defaultdict(int),
+           "seconds": defaultdict(float)}
+    lock = threading.Lock()
+
+    def timed(name: str):
+        def make(fn):
+            def wrapper(*args, **kwargs):
+                t0 = time.perf_counter()
+                res = fn(*args, **kwargs)
+                dt = time.perf_counter() - t0
+                with lock:
+                    out["seconds"][name] += dt
+                    if name == "seal":
+                        side = ("destination" if threading.current_thread()
+                                .name == DEST_THREAD else "source")
+                        out["frames"][side] += 1
+                        out["bytes"][side] += len(res) + 4
+                return res
+            return wrapper
+        return make
+
+    with patched(SecretBox, {"seal": timed("seal"), "open": timed("open")}), \
+            patched(Compressor, {"compress": timed("compress")}), \
+            patched(Decompressor, {"decompress": timed("decompress")}):
+        yield out
+
+
+def mover_push(torch, label: str, src: Path, dst: Path, keys: dict,
+               refused: bool = False) -> dict:
+    """One sync iteration through the rsync mover's entry points:
+    ``serve_destination`` on ``dst`` (127.0.0.1, in the thread
+    ``DEST_THREAD``) and ``rsync_source_entrypoint`` on ``src`` with a
+    ``JobContext`` (ADDRESS, PORT from ``on_port``, FAST_RETRY). With
+    ``refused``, first two handshakes the listener must refuse: a device
+    it does not know, and the source pinning a wrong destination ID.
+    The launch counts are set to 0 just before the push and read just
+    after; the push is traced (``device_trace``) and metered
+    (``wire_meter``), and records the planner's decisions (file, size,
+    block length, protocol, reason) and, at the destination, each
+    applied file's literal bytes and, where it has no literal, its ops.
+    Both sides must end with rc 0."""
+    from volsync_tpu_torch.cluster.runner import JobContext
+    from volsync_tpu_torch.engine import deltasync as ds
+    from volsync_tpu_torch.movers import common
+    from volsync_tpu_torch.movers import devicetransport as dt
+    from volsync_tpu_torch.movers.rsync import channel, entry
+    from volsync_tpu_torch.ops._build import KERNELS, launch_counts
+
+    bound, got = threading.Event(), {}
+
+    def on_port(port):
+        got["port"] = port
+        bound.set()
+
+    def serve():
+        got["rc"] = entry.serve_destination(
+            dst, keys["dst"], dt.device_id_from_private(keys["src"]),
+            bind="127.0.0.1", on_port=on_port, device=DEVICE)
+
+    rels, decisions, applied, verifies = [], [], {}, []
+
+    def record_jobs(fn):
+        def wrapper(ch, jobs, stats, device):
+            rels.extend(rel for _, rel, _ in jobs)
+            return fn(ch, jobs, stats, device)
+        return wrapper
+
+    def record_plan(fn):
+        def wrapper(mover, size, **kw):
+            d = fn(mover, size, **kw)
+            decisions.append((size, kw["block_len"], d.protocol, d.reason))
+            return d
+        return wrapper
+
+    def record_applies(fn):
+        def wrapper(root, *, device=None):
+            verbs = fn(root, device=device)
+            apply = verbs["apply"]
+
+            def recorded(msg):
+                lit = sum(len(op[1]) for op in msg["ops"] if op[0] == "data")
+                applied[msg["path"]] = (lit, None if lit else [
+                    tuple(op) for op in msg["ops"]], msg["block_len"])
+                return apply(msg)
+            verbs["apply"] = recorded
+            return verbs
+        return wrapper
+
+    with patched(entry, {"_dest_verbs": record_applies,
+                         "_push_files_batch": record_jobs}), \
+            patched(common, {"plan_protocol": record_plan}), \
+            patched(ds, {"verify_candidates_batch": rows_of(verifies)}):
+        t = threading.Thread(target=serve, name=DEST_THREAD, daemon=True)
+        t.start()
+        if not bound.wait(60):
+            raise AssertionError(f"{label}: the listener never bound")
+        dst_id = dt.device_id_from_private(keys["dst"])
+        if refused:
+            for priv, pinned, why in (
+                    (keys["stranger"], dst_id, "an unknown device"),
+                    (keys["src"], "00" * 32, "a wrong pinned ID")):
+                try:
+                    dt.connect_device("127.0.0.1", got["port"], priv,
+                                      pinned, timeout=10.0)
+                except channel.ChannelError as e:
+                    log(f"{label}: the handshake of {why} was refused "
+                        f"({e})")
+                else:
+                    raise AssertionError(f"{label}: the handshake of {why} "
+                                         f"was accepted")
+        ctx = JobContext(
+            name="rsync-src", namespace="chip-smoke",
+            env={"ADDRESS": "127.0.0.1", "PORT": str(got["port"]),
+                 "FAST_RETRY": "1"},
+            mounts={"data": src},
+            secrets={"keys": {"source": keys["src"],
+                              "destination-id": dst_id.encode()}},
+            stop_event=threading.Event(), device=DEVICE)
+        for k in KERNELS:
+            k.launches = 0
+        with device_trace(torch) as traced, wire_meter() as wire:
+            sync(torch)
+            t0 = time.perf_counter()
+            rc = entry.rsync_source_entrypoint(ctx)
+            t.join(600)
+            sync(torch)
+            secs = time.perf_counter() - t0
+        launches = launch_counts()
+    if rc != 0 or got.get("rc") != 0:
+        raise AssertionError(f"{label}: source rc {rc}, destination rc "
+                             f"{got.get('rc')}")
+    if len(rels) != len(decisions):
+        raise AssertionError(f"{label}: {len(decisions)} planner decisions "
+                             f"for {len(rels)} files")
+    return {"secs": secs, "launches": launches, "busy_s": traced["busy_s"],
+            "trace": traced, "wire": wire, "applied": applied,
+            "plans": dict(zip(rels, decisions)),
+            "groups": sum(1 for n in verifies if n)}
+
+
+def check_synced(label: str, src: Path, dst: Path, want: dict) -> None:
+    """``dst`` holds exactly ``want``'s files ({rel: bytes}) and the same
+    directories as ``src``, each path with ``src``'s mode and mtime, the
+    root's too."""
+    paths = {str(p.relative_to(dst)) for p in dst.rglob("*")}
+    files = {p for p in paths if (dst / p).is_file()}
+    if files != set(want) or paths != {str(p.relative_to(src))
+                                       for p in src.rglob("*")}:
+        raise AssertionError(f"{label}: paths differ, e.g. "
+                             f"{sorted(files ^ set(want))[:5]}")
+    for rel, data in want.items():
+        if (dst / rel).read_bytes() != data:
+            raise AssertionError(f"{label}: {rel} differs from its source")
+    for rel in sorted(paths) + ["."]:
+        a, b = (src / rel).lstat(), (dst / rel).lstat()
+        if (a.st_mode, a.st_mtime_ns) != (b.st_mode, b.st_mtime_ns):
+            raise AssertionError(f"{label}: {rel} has mode/mtime "
+                                 f"{(b.st_mode, b.st_mtime_ns)}, its source "
+                                 f"{(a.st_mode, a.st_mtime_ns)}")
+
+
+def mover_phase(torch, base: Path, made: dict, seed: int, card: str) -> dict:
+    """The rsync mover's entry points on the port over the delta phase's
+    seeded trees (BASELINE.json configs[0]; ``base/src`` pushed into
+    ``base/dst``, written once, by ``make_delta_trees``): one sync
+    iteration by ``mover_push``, then the checks: the destination equal
+    to the source (bytes, paths, modes, mtimes), every file that the
+    planner sent by delta within its edit's literal bounds and every one
+    it sent whole all literal, and ``md5_slices`` launched exactly once
+    for each delta-planned file with a full block at the destination
+    plus once a scan group with candidates, no other kernel. Then two
+    refused handshakes and a cold push of a ``COLD_BYTES`` subset (hard
+    links of the 4 MiB files) into an empty directory: all literal, no
+    kernel launched. Logs the push wall and GiB/s, the bytes on the wire
+    and the literal share, the planner's split, the card's busy share
+    and the host seconds in the frames' zlib and seal."""
+    from volsync_tpu_torch.repo import compress, crypto
+
+    rng = np.random.default_rng(seed)
+    keys = {"src": rng.bytes(64), "dst": rng.bytes(64),
+            "stranger": rng.bytes(64)}
+    want = {rel: m[2] for rel, m in made.items()}
+    src_bytes = sum(len(d) for d in want.values())
+    log(f"mover: frames {'zstd' if compress.HAVE_ZSTD else 'zlib'} and "
+        f"{'AES-256-CTR' if crypto.HAVE_AES else 'SHAKE-256'} + "
+        f"HMAC-SHA256 (what this host has installed)")
+    r = mover_push(torch, "mover", base / "src", base / "dst", keys)
+    check_synced("mover", base / "src", base / "dst", want)
+    sig_files, bad = 0, []
+    split = defaultdict(lambda: [0, 0])
+    reasons = defaultdict(int)
+    for rel, (size, bl, proto, reason) in r["plans"].items():
+        kind, edit, src, dst = made[rel]
+        split[proto][0] += 1
+        split[proto][1] += size
+        reasons[f"{proto}/{reason}"] += 1
+        lit, ops, sent_bl = r["applied"][rel]
+        if proto == "delta" and dst is not None:
+            sig_files += len(dst) // bl > 0
+            ok = literal_within(kind, edit, len(src), lit, ops, sent_bl)
+        else:
+            ok = lit == len(src)
+        if not ok:
+            bad.append((rel, kind, proto, lit))
+    if bad:
+        raise AssertionError(f"mover: literal bytes out of bounds: "
+                             f"{bad[:5]}")
+    want_launches = {k: 0 for k in r["launches"]}
+    want_launches["md5_slices"] = sig_files + r["groups"]
+    if DEVICE == "cuda" and r["launches"] != want_launches:
+        raise AssertionError(f"mover: launches {r['launches']}, expected "
+                             f"{want_launches} ({sig_files} signatures + "
+                             f"{r['groups']} scan groups)")
+    lit = sum(a[0] for a in r["applied"].values())
+    wire, busy = r["wire"], r["busy_s"]
+    on_wire = sum(wire["bytes"].values())
+    codec = {k: round(v, 4) for k, v in wire["seconds"].items()}
+    res = {"files": len(made), "src_bytes": src_bytes, "secs": r["secs"],
+           "gibs": src_bytes / GIB / r["secs"], "literal_bytes": lit,
+           "literal_share": lit / src_bytes, "wire_bytes": dict(wire["bytes"]),
+           "frames": dict(wire["frames"]), "codec_s": codec,
+           "split": {k: tuple(v) for k, v in split.items()},
+           "reasons": dict(reasons), "busy_s": busy,
+           "launches": r["launches"], "signatures": sig_files,
+           "groups": r["groups"]}
+    log(f"mover: {len(made)} files, {src_bytes} source bytes pushed in "
+        f"{r['secs']:.3f} s ({res['gibs']:.4f} GiB/s) through "
+        f"rsync_source_entrypoint -> serve_destination; {on_wire} bytes on "
+        f"the wire ({json.dumps(res['wire_bytes'])} in "
+        f"{json.dumps(res['frames'])} sealed frames), literal "
+        f"{lit} bytes (share {res['literal_share']:.6f}); planner "
+        f"(files, bytes) {json.dumps(res['split'])}, reasons "
+        f"{json.dumps(res['reasons'])}; host seconds in the frames "
+        f"{json.dumps(codec)} ({100 * sum(codec.values()) / r['secs']:.2f}%"
+        f" of the wall, both sides); card busy "
+        + (f"{busy:.4f} s ({100 * busy / r['secs']:.2f}% of the wall; "
+           f"seconds by kind {json.dumps(r['trace']['by_kind'])})"
+           if busy is not None else "not measured")
+        + f"; launches {json.dumps({k: v for k, v in r['launches'].items() if v})}"
+          f" = {sig_files} signatures + {r['groups']} scan groups ({card})")
+
+    cold_src, cold_dst = base / "cold-src", base / "cold-dst"
+    subset, total = {}, 0
+    for rel in sorted(made):
+        n = len(made[rel][2])
+        if rel.startswith("mid/") and total + n <= COLD_BYTES:
+            (cold_src / rel).parent.mkdir(parents=True, exist_ok=True)
+            os.link(base / "src" / rel, cold_src / rel)
+            subset[rel] = made[rel][2]
+            total += n
+    cold_dst.mkdir()
+    c = mover_push(torch, "mover cold push", cold_src, cold_dst, keys,
+                   refused=True)
+    check_synced("mover cold push", cold_src, cold_dst, subset)
+    c_lit = sum(a[0] for a in c["applied"].values())
+    if c_lit != total or (DEVICE == "cuda" and any(c["launches"].values())):
+        raise AssertionError(f"mover cold push: {c_lit} literal bytes of "
+                             f"{total}, launches {c['launches']}")
+    c_codec = {k: round(v, 4) for k, v in c["wire"]["seconds"].items()}
+    res["cold"] = {"files": len(subset), "bytes": total, "secs": c["secs"],
+                   "gibs": total / GIB / c["secs"],
+                   "wire_bytes": dict(c["wire"]["bytes"]),
+                   "codec_s": c_codec, "launches": c["launches"]}
+    log(f"mover cold push: {len(subset)} files, {total} bytes into an "
+        f"empty directory in {c['secs']:.3f} s "
+        f"({res['cold']['gibs']:.4f} GiB/s), all literal, "
+        f"{sum(c['wire']['bytes'].values())} bytes on the wire, host "
+        f"seconds in the frames {json.dumps(c_codec)}, no kernel launched "
+        f"({card})")
+    return res
+
+
+# -- restic entry: the restic mover's entry point on a seeded tree ----------
+
+#: The restic entry phase's hole (its sparse file's gap).
+RESTIC_HOLE = 4 << 20
+
+
+def restic_entry_phase(torch, base: Path, total: int, seed: int,
+                       card: str) -> dict:
+    """The restic mover's entry point on the port (ref
+    movers/restic/entry.py) over a seeded tree of about ``total`` bytes
+    (``make_backup_tree``) in an encrypted ``FsObjectStore`` repository,
+    with ``VOLSYNC_TRACE_DIR`` set: ``restic_entrypoint`` backs up, the
+    tree is edited (``total`` / 256 bytes overwritten in ``big.bin``, a
+    small file grown, one deleted, a new file of ``total`` / 64 bytes),
+    backs up again with FORGET_LAST=1 and
+    PRUNE=1, and restores into an empty directory. Each run has the
+    launch counts set to 0 before and read after (the fused kernels once
+    a backup pass, the verify kernels once a verify pass), rc 0; one
+    snapshot is left; the restore equals the edited tree (``check_
+    restored``) and leaves the hole unwritten; each backup wrote its
+    trace, from which the card's busy seconds are read."""
+    from volsync_tpu_torch.cluster.runner import JobContext
+    from volsync_tpu_torch.engine import chunker
+    from volsync_tpu_torch.movers.restic import entry
+    from volsync_tpu_torch.objstore.store import FsObjectStore
+    from volsync_tpu_torch.repo.repository import DEFAULT_CHUNKER, Repository
+
+    rng = np.random.default_rng(seed)
+    src = base / "restic-src"
+    t0 = time.perf_counter()
+    made = make_backup_tree(torch, src, total, seed,
+                            DEFAULT_CHUNKER["min_size"], RESTIC_HOLE)
+    log(f"restic entry: tree of {made['bytes']} bytes made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    traces = base / "restic-traces" / "restic-backup"
+    env = {"RESTIC_REPOSITORY": f"file://{base / 'restic-repo'}",
+           "RESTIC_PASSWORD": EC_PASSWORD, "HOSTNAME": "chip-smoke"}
+
+    def run_entry(label, extra, data, backup: bool):
+        """A backup (hasher passes counted; it traces the card itself) or
+        a restore (verify passes; traced here) through the entry."""
+        passes = PassCounter()
+        ctx = JobContext(name="restic", namespace="chip-smoke",
+                         env={**env, **extra}, mounts={"data": data},
+                         secrets={}, stop_event=threading.Event(),
+                         device=DEVICE)
+
+        def run():
+            with patched(chunker.DeviceChunkHasher,
+                         {"begin_device": passes.wrap}):
+                return entry.restic_entrypoint(ctx)
+
+        if backup:
+            r = product_run(torch, label, run, FUSED_PER_PASS, passes,
+                            verify_per_pass=VERIFY_PER_PASS, trace=False)
+        else:
+            r = product_run(torch, label, run, VERIFY_PER_PASS, None)
+        if r["out"] != 0:
+            raise AssertionError(f"{label}: rc {r['out']}")
+        return r
+
+    res = {}
+    with env_set("VOLSYNC_TRACE_DIR", str(traces.parent)):
+        res["backup"] = run_entry("restic entry backup", {}, src, True)
+        res["backup"]["bytes"] = made["bytes"]
+        with open(src / "big.bin", "r+b") as f:
+            f.seek(os.path.getsize(src / "big.bin") // 3)
+            f.write(rng.bytes(total // 256))
+        smalls = sorted((src / "small").rglob("*.bin"))
+        with open(smalls[0], "ab") as f:
+            f.write(rng.bytes(5000))
+        smalls[1].unlink()
+        (src / "new.bin").write_bytes(rng.bytes(total // 64))
+        state = tree_state(src)
+        res["backup2"] = run_entry(
+            "restic entry backup (FORGET_LAST=1, PRUNE=1)",
+            {"FORGET_LAST": "1", "PRUNE": "1"}, src, True)
+        # distinct regular files (a hard link once), as made["bytes"]
+        res["backup2"]["bytes"] = sum({v[5]: v[3] for v in state.values()
+                                       if v[0] == "file"}.values())
+    snaps = Repository.open(FsObjectStore(base / "restic-repo"), EC_PASSWORD,
+                            device=DEVICE).list_snapshots()
+    if len(snaps) != 1:
+        raise AssertionError(f"restic entry: {len(snaps)} snapshots left")
+    files = sorted(traces.glob("*.pt.trace.json")) if traces.is_dir() else []
+    if len(files) != 2:
+        raise AssertionError(f"restic entry: {len(files)} trace files in "
+                             f"{traces}, expected one a backup")
+    for run, path in zip(("backup", "backup2"), files):
+        traced = chrome_trace_busy(path)
+        if DEVICE == "cuda" and traced["busy_s"] is None:
+            raise AssertionError(f"restic entry: {path} holds no device "
+                                 f"event")
+        res[run].update(busy_s=traced["busy_s"], trace=traced,
+                        trace_file=path.name)
+    dst = base / "restic-dst"
+    dst.mkdir()
+    with sparse_writes() as written:
+        res["restore"] = run_entry("restic entry restore",
+                                   {"DIRECTION": "restore"}, dst, False)
+    check_restored("restic entry restore", state, dst, RESTIC_HOLE)
+    check_hole_unwritten("restic entry restore", written, made)
+    res["restore"]["bytes"] = res["backup2"]["bytes"]
+    for run in ("backup", "backup2", "restore"):
+        r = res[run]
+        r["gibs"] = r["bytes"] / GIB / r["secs"]
+    log(f"restic entry: backup {res['backup']['gibs']:.4f} GiB/s, second "
+        f"backup with forget and prune {res['backup2']['gibs']:.4f} GiB/s, "
+        f"restore {res['restore']['gibs']:.4f} GiB/s; card busy "
+        + ", ".join(f"{run} " + (f"{100 * res[run]['busy_s'] / res[run]['secs']:.2f}%"
+                                 if res[run]["busy_s"] is not None
+                                 else "not measured")
+                    for run in ("backup", "backup2", "restore"))
+        + f"; 1 snapshot left, restore byte-identical, traces "
+          f"{[p.name for p in files]} ({card})")
     return res
 
 
@@ -2885,8 +3443,11 @@ def main() -> int:
     # keep the whole script inside its time limit (PERF.md, section 4).
     ap.add_argument("--ec-gib", type=float, default=2.0)
     # The delta phase's volume: BASELINE.json configs[0], a 1 GiB PVC
-    # replicated by rsync, not cut.
+    # replicated by rsync, not cut. The mover phase syncs the same trees.
     ap.add_argument("--delta-gib", type=float, default=1.0)
+    # The restic entry phase's tree: cut from the 10 GiB PVC, which the
+    # backup phase already runs through the same engine.
+    ap.add_argument("--restic-mib", type=float, default=256.0)
     args = ap.parse_args()
 
     import torch
@@ -2945,7 +3506,12 @@ def main() -> int:
     stream = volume(int(args.stream_gib * GIB), "fused stream")
     stats = kernel_phase(torch, stream, DEFAULT_PARAMS, SEGMENT_P, params64,
                          params1, lat)
-    md5_kernel_entries(torch, stats, args.seed, sass)
+    md5_lat = md5_round_cycles(torch, args.seed)
+    log(f"probe (csrc/probe.cu, one-thread MD5 chain of "
+        f"{PROBE_MD5_BLOCKS} blocks): one dependent round "
+        f"{md5_lat['cycles']:.2f} SM cycles ({md5_lat['ns']:.3f} ns) "
+        f"({card})")
+    md5_kernel_entries(torch, stats, args.seed, sass, md5_lat["cycles"])
     for name, floor in floors.items():
         st = stats[name]
         bound = (f"{st['longest'] * floor:.4f} ms" if floor
@@ -3047,8 +3613,23 @@ def main() -> int:
     try:
         delta = delta_phase(torch, base, delta_layout(args.delta_gib),
                             args.seed + 3, card)
+        t1 = time.perf_counter()
+        mover = mover_phase(torch, base, delta.pop("made"), args.seed + 4,
+                            card)
+        log(f"mover phase: {time.perf_counter() - t1:.1f} s in all ({card})")
     finally:
         shutil.rmtree(base, ignore_errors=True)
+    restic_bytes = int(args.restic_mib * (1 << 20))
+    base = Path(tempfile.mkdtemp(prefix="chip_smoke_restic.", dir=backup_base(
+        build, 4 * restic_bytes)))
+    t1 = time.perf_counter()
+    try:
+        restic = restic_entry_phase(torch, base, restic_bytes, args.seed + 5,
+                                    card)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    log(f"restic entry phase: {time.perf_counter() - t1:.1f} s in all "
+        f"({card})")
 
     # Launches: from the stream phase of the path that runs each kernel.
     launches = {**res["launches"],
@@ -3061,6 +3642,10 @@ def main() -> int:
                 "md5_slices": delta["launches"]["md5_slices"],
                 "md5_slices_lanes": 0}
     runs["delta"] = delta["launches"]
+    runs["mover"] = mover["launches"]
+    runs["mover.cold"] = mover["cold"]["launches"]
+    for run in ("backup", "backup2", "restore"):
+        runs[f"restic.{run}"] = restic[run]["launches"]
     kernels = []
     for name in ("transpose_u32", "sha256_pages", "sha256_pages_pagemajor",
                  "sha256_lanes", "sha256_slices", "sha256_slices_tail",
@@ -3080,11 +3665,14 @@ def main() -> int:
             "bound_by": st["bound_by"],
             "library_ms": float(np.mean(st["lib"])) if st["lib"] else None,
         }
-        for extra in ("bound_kind", "threads_ms", "shapes"):
+        for extra in ("bound_kind", "threads_ms", "shapes", "one_window_ms"):
             if extra in st:
                 entry[extra] = st[extra]
-        if name in runs["fused.backup"]:
-            entry["product_launches"] = {r: c[name] for r, c in runs.items()}
+        # a form's launches count under its kernel's name
+        kernel = KERNEL_OF.get(name, name)
+        entry["product_launches"] = {r: c[kernel] for r, c in runs.items()}
+        if kernel != name:
+            entry["product_launches_of"] = kernel
         kernels.append(entry)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the build on")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,6 +4,7 @@ page-major stream phases and kernel-input capture run at a tiny size
 with the kernels' plain twins, and the script itself refuses to report
 without CUDA or without the package beside it."""
 
+import json
 import os
 import shutil
 import subprocess
@@ -565,3 +566,81 @@ def test_md5_bound_takes_the_larger_of_work_and_floor():
         513 * chip_smoke.MD5_BLOCK_ALU_OPS * 2 / chip_smoke.CLOCK_HZ * 1e3)
     assert chip_smoke.md5_block_ops({}) == (chip_smoke.MD5_BLOCK_ALU_OPS,
                                             "as written")
+
+
+def test_md5_bound_takes_the_chain_when_it_is_longest():
+    """Given one round's latency in cycles, the bound is the longest
+    lane's 64 dependent rounds a block at the card's clock where that
+    exceeds the work and the per-warp floor; without it, no chain."""
+    b = chip_smoke.md5_bound(16384, 16384 * 513, 513, 16384 * 32784,
+                             chip_smoke.MD5_BLOCK_ALU_OPS, 16.0)
+    chain = 513 * 64 * 16.0 / chip_smoke.CLOCK_HZ * 1e3
+    assert b["chain_ms"] == pytest.approx(chain)
+    assert (b["bound_ms"], b["bound_by"], b["bound_kind"]) == (
+        pytest.approx(chain), "operations", "chain")
+    small = chip_smoke.md5_bound(16384, 16384 * 513, 513, 16384 * 32784,
+                                 chip_smoke.MD5_BLOCK_ALU_OPS, 1.0)
+    assert small["bound_kind"] == "per-warp floor"
+    assert small["chain_ms"] == pytest.approx(chain / 16)
+    assert chip_smoke.md5_bound(1, 1, 1, 64, 100.0)["chain_ms"] is None
+
+
+def test_chrome_trace_busy_reads_device_events(tmp_path):
+    """The busy seconds of a written trace: the union of its kernels',
+    copies' and memsets' intervals (microseconds), host events ignored;
+    None when it holds no device event."""
+    trace = {"traceEvents": [
+        {"cat": "kernel", "ts": 0, "dur": 10},
+        {"cat": "gpu_memcpy", "ts": 5, "dur": 10},
+        {"cat": "gpu_memset", "ts": 100, "dur": 1},
+        {"cat": "cpu_op", "ts": 0, "dur": 1000}]}
+    p = tmp_path / "t.json"
+    p.write_text(json.dumps(trace))
+    got = chip_smoke.chrome_trace_busy(p)
+    assert got["busy_s"] == pytest.approx(16e-6) and got["events"] == 3
+    assert got["by_kind"] == {"kernels": 0.0, "Memcpy": 0.0, "Memset": 0.0}
+    p.write_text(json.dumps({"traceEvents": trace["traceEvents"][3:]}))
+    assert chip_smoke.chrome_trace_busy(p)["busy_s"] is None
+
+
+def test_mover_phase_on_cpu(monkeypatch, tmp_path):
+    """The mover phase at a few hundred KiB with the twins: the push
+    through the entry points leaves the destination equal to the source,
+    every file within its literal bound, the refused handshakes and the
+    cold push; the wire and the planner are metered."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "COLD_BYTES", 4 * 64 * 1024)
+    made = chip_smoke.make_delta_trees(tmp_path, SMALL_DELTA, 5)
+    res = chip_smoke.mover_phase(torch, tmp_path, made, 7, "cpu")
+    assert res["files"] == len(made) == 20
+    assert res["src_bytes"] == sum(len(m[2]) for m in made.values())
+    assert 0 < res["literal_share"] < 1
+    assert res["signatures"] >= 1 and res["groups"] >= 1
+    assert sum(n for n, _ in res["split"].values()) == 20
+    assert res["wire_bytes"]["source"] > res["literal_bytes"]
+    assert {"seal", "open"} <= set(res["codec_s"])
+    # mid000..mid002 (the insert file one byte longer) fit, mid003 not
+    assert res["cold"]["files"] == 3
+    assert res["cold"]["bytes"] == 3 * 65536 + 1
+    assert res["busy_s"] is None
+
+
+def test_restic_entry_phase_on_cpu(monkeypatch, tmp_path):
+    """The restic entry phase at a few hundred KiB: backup, edits, a
+    second backup with forget and prune, and a byte-identical restore
+    through ``restic_entrypoint``, one snapshot left, one trace a
+    backup."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "BLOCK", 64 * 1024)
+    monkeypatch.setattr(chip_smoke, "SMALL_FILES", 3)
+    monkeypatch.setattr(chip_smoke, "RESTIC_HOLE", 128 * 1024)
+    monkeypatch.setenv("VOLSYNC_BACKUP_WORKERS", "1")
+    monkeypatch.setenv("VOLSYNC_RESTORE_WORKERS", "1")
+    res = chip_smoke.restic_entry_phase(torch, tmp_path, 300_000, 5, "cpu")
+    for run in ("backup", "backup2", "restore"):
+        assert res[run]["gibs"] > 0 and res[run]["busy_s"] is None
+    assert res["restore"]["passes"] >= 1
+    assert res["backup"]["trace_file"] != res["backup2"]["trace_file"]
+    assert "restore.write" in res["restore"]["spans"]
+    assert len(list((tmp_path / "restic-traces" / "restic-backup")
+                    .iterdir())) == 2

@@ -837,3 +837,94 @@ def test_delta_scan_on_card_equals_cpu(cuda, rng):
     for (old, new), (src, sig), o in zip(pairs, items["cuda"], ops):
         assert o == ds.compute_delta(src, sig, device="cuda")
         assert ds.apply_delta(o, old, sig.block_len) == new
+
+
+def _mover_trees(rng, root):
+    """A destination basis and a source with edits: a 600 KB file with
+    an insertion, one rewritten block, one unchanged, a new file."""
+    old = {"a.bin": rng.bytes(600_000), "sub/b.bin": rng.bytes(300_000),
+           "c.bin": rng.bytes(200_000)}
+    new = dict(old)
+    new["a.bin"] = old["a.bin"][:1000] + b"+" + old["a.bin"][1000:]
+    new["sub/b.bin"] = (old["sub/b.bin"][:8192] + rng.bytes(4096)
+                        + old["sub/b.bin"][12288:])
+    new["new.bin"] = rng.bytes(50_000)
+    for side, files in (("dst", old), ("src", new)):
+        for rel, data in files.items():
+            p = root / side / rel
+            p.parent.mkdir(parents=True, exist_ok=True)
+            p.write_bytes(data)
+
+
+def test_rsync_push_on_card_equals_cpu(cuda, rng, tmp_path, monkeypatch):
+    """The rsync mover's push (source and destination verbs) on the card
+    leaves the destination equal to the source, with the same stats as
+    the same push on the CPU port, through one md5_slices launch at
+    least."""
+    from volsync_tpu_torch.engine import syncstats
+    from volsync_tpu_torch.movers.rsync import entry
+    from volsync_tpu_torch.ops._build import launch_counts
+
+    class _Chan:
+        def __init__(self, verbs):
+            self.verbs = verbs
+
+        def send(self, msg):
+            self.reply = self.verbs[msg["verb"]](msg)
+
+        def recv(self):
+            return self.reply
+
+    monkeypatch.setenv("VOLSYNC_SYNC_PROTO", "delta")
+    stats = {}
+    for dev in ("cuda", "cpu"):
+        _mover_trees(np.random.RandomState(5), tmp_path / dev)
+        syncstats.reset_books()
+        before = launch_counts()["md5_slices"]
+        stats[dev] = entry._push_tree(
+            _Chan(entry._dest_verbs(tmp_path / dev / "dst", device=dev)),
+            tmp_path / dev / "src", device=dev)
+        if dev == "cuda":
+            assert launch_counts()["md5_slices"] > before
+        for p in (tmp_path / dev / "src").rglob("*"):
+            if p.is_file():
+                rel = p.relative_to(tmp_path / dev / "src")
+                assert (tmp_path / dev / "dst" / rel).read_bytes() == \
+                    p.read_bytes()
+    assert stats["cuda"] == stats["cpu"]
+    assert 0 < stats["cuda"]["literal_bytes"] < stats["cuda"]["bytes"]
+
+
+def test_restic_entry_on_card(cuda, rng, tmp_path, monkeypatch):
+    """The restic mover's entry point with no device (CUDA): a backup, a
+    second backup with FORGET_LAST=1 and PRUNE=1, and a restore that
+    equals the source; the trace lands under VOLSYNC_TRACE_DIR."""
+    import threading
+
+    from volsync_tpu_torch.cluster.runner import JobContext
+    from volsync_tpu_torch.movers.restic import entry
+
+    monkeypatch.setenv("VOLSYNC_TRACE_DIR", str(tmp_path / "traces"))
+    src = tmp_path / "src"
+    (src / "sub").mkdir(parents=True)
+    (src / "big.bin").write_bytes(rng.bytes(3 << 20))
+    (src / "sub" / "small.txt").write_bytes(b"s" * 5000)
+
+    def run(env, data):
+        return entry.restic_entrypoint(JobContext(
+            name="r", namespace="ns", env={
+                "RESTIC_REPOSITORY": f"file://{tmp_path / 'repo'}",
+                "RESTIC_PASSWORD": "pw", **env},
+            mounts={"data": data}, secrets={},
+            stop_event=threading.Event()))
+
+    assert run({}, src) == 0
+    (src / "sub" / "small.txt").write_bytes(b"t" * 6000)
+    assert run({"FORGET_LAST": "1", "PRUNE": "1"}, src) == 0
+    dst = tmp_path / "dst"
+    dst.mkdir()
+    assert run({"DIRECTION": "restore"}, dst) == 0
+    for p in src.rglob("*"):
+        if p.is_file():
+            assert (dst / p.relative_to(src)).read_bytes() == p.read_bytes()
+    assert len(list((tmp_path / "traces" / "restic-backup").iterdir())) == 2

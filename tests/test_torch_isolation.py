@@ -1,24 +1,29 @@
 """The port stands alone: no file of volsync_tpu_torch/ or chip_smoke.py
 imports JAX or the JAX package (AST scan and a fresh-interpreter
 ``sys.modules`` diff), and with no CUDA and no ``device`` argument the
-entry points (the durability path's and the delta engine's among them)
-raise instead of moving to the CPU."""
+entry points (the durability path's, the delta engine's and the
+movers' among them) raise instead of moving to the CPU."""
 
 import ast
 import json
 import os
+import socket
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import pytest
 import torch
 
 import volsync_tpu_torch
+from volsync_tpu_torch.cluster.runner import JobContext
 from volsync_tpu_torch.engine import chunker as tch
 from volsync_tpu_torch.engine import deltasync
 from volsync_tpu_torch.engine.backup import TreeBackup
 from volsync_tpu_torch.engine.restore import TreeRestore, restore_snapshot
+from volsync_tpu_torch.movers.restic import entry as restic_entry
+from volsync_tpu_torch.movers.rsync import entry as rsync_entry
 from volsync_tpu_torch.objstore.store import MemObjectStore
 from volsync_tpu_torch.ops import gearcdc, md5, rs, segment, sha256
 from volsync_tpu_torch.repo import erasure
@@ -64,8 +69,16 @@ def test_no_file_imports_jax_or_the_reference():
             "volsync_tpu_torch/engine/deltasync.py",
             "volsync_tpu_torch/engine/syncstats.py",
             "volsync_tpu_torch/engine/protoplan.py",
-            "volsync_tpu_torch/movers/common.py"} <= names
-    assert len(_port_files()) >= 40
+            "volsync_tpu_torch/movers/common.py",
+            "volsync_tpu_torch/movers/base.py",
+            "volsync_tpu_torch/cluster/runner.py",
+            "volsync_tpu_torch/movers/devicetransport.py",
+            "volsync_tpu_torch/movers/rsync/channel.py",
+            "volsync_tpu_torch/movers/rsync/entry.py",
+            "volsync_tpu_torch/movers/rsync/standalone.py",
+            "volsync_tpu_torch/movers/restic/entry.py",
+            "volsync_tpu_torch/obs.py"} <= names
+    assert len(_port_files()) >= 53
 
 
 def test_importing_the_port_loads_no_jax_module():
@@ -239,3 +252,57 @@ def test_delta_entry_points_raise_without_cuda(monkeypatch):
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_mover_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The movers' entry points run on CUDA unless given a device: with
+    no CUDA, a ``JobContext`` with no ``device`` and no ``device=`` they
+    raise before they bind, connect, send or write anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    src = tmp_path / "src"
+    src.mkdir()
+    (src / "f").write_bytes(b"x" * 10)
+    sent = []
+
+    class _Chan:
+        def send(self, msg):  # pragma: no cover - failure path
+            sent.append(msg)
+
+        def recv(self):  # pragma: no cover - failure path
+            return {"verb": "ok"}
+
+    listener = socket.create_server(("127.0.0.1", 0))
+    port = listener.getsockname()[1]
+    bound = []
+
+    def ctx(env, secrets):
+        return JobContext(name="j", namespace="ns", env=env,
+                          mounts={"data": src}, secrets=secrets,
+                          stop_event=threading.Event())
+
+    keys = {"source": b"k" * 64, "destination-id": b"00",
+            "destination": b"k" * 64, "source-id": b"00"}
+    repo = tmp_path / "repo"
+    calls = [
+        lambda: rsync_entry.serve_destination(
+            src, b"k" * 64, "00", on_port=bound.append),
+        lambda: rsync_entry._dest_verbs(src),
+        lambda: rsync_entry._push_tree(_Chan(), src),
+        lambda: rsync_entry.rsync_source_entrypoint(ctx(
+            {"ADDRESS": "127.0.0.1", "PORT": str(port)}, {"keys": keys})),
+        lambda: rsync_entry.rsync_destination_entrypoint(ctx(
+            {}, {"keys": keys})),
+        lambda: restic_entry.restic_entrypoint(ctx(
+            {"RESTIC_REPOSITORY": str(repo)}, {})),
+        lambda: restic_entry.restic_entrypoint(ctx(
+            {"RESTIC_REPOSITORY": str(repo), "DIRECTION": "restore"}, {})),
+    ]
+    listener.settimeout(0.2)
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+        with pytest.raises(socket.timeout):
+            listener.accept()  # the source never dialled
+    listener.close()
+    assert sent == [] and bound == [] and not repo.exists()
+    assert [p.name for p in src.iterdir()] == ["f"]

@@ -5,8 +5,9 @@ use: the stream engine's (``pipeline_enabled``, ``readahead_segments``),
 the repository's write pipeline, index, locking and retry knobs, the
 backup and restore workers', the scrub's and the repacker's cadence,
 the fault-injection store's seed and spec, the sync-protocol
-planner's and the batched delta scan's, plus the page-major
-digest-table gate of ``volsync_tpu/ops/segment.py`` (``pagemajor``). Names, defaults and
+planner's and the batched delta scan's, the device trace's directory
+(``trace_dir``), plus the page-major digest-table gate of
+``volsync_tpu/ops/segment.py`` (``pagemajor``). Names, defaults and
 the falsy-token set are the reference's, so one environment configures
 both packages alike. The reference's ``VOLSYNC_NO_PALLAS`` has no
 counterpart: on a CUDA tensor the port always runs its kernels.
@@ -336,3 +337,11 @@ def repack_packs_per_cycle() -> int:
     """VOLSYNC_REPACK_PACKS: packs rewritten per repack cycle; 0 (the
     default) repacks every eligible pack each cycle."""
     return env_int("VOLSYNC_REPACK_PACKS", 0, minimum=0)
+
+
+# -- observability (obs.py) -------------------------------------------------
+
+def trace_dir() -> Optional[str]:
+    """VOLSYNC_TRACE_DIR: where ``obs.device_trace`` writes its
+    ``torch.profiler`` traces; None (the default) disables tracing."""
+    return env_str("VOLSYNC_TRACE_DIR")

@@ -4,8 +4,10 @@ trigger marks and a copy counter.
 Ports the calls the port's modules make into ``volsync_tpu/obs``:
 ``span``, ``carry_context``, ``current_context``, ``use_context``,
 ``trace_context`` and ``record_trigger`` from ``obs/tracing.py``, and
-``record_copy`` from ``obs/copyledger.py``, so call sites read as in the
-reference. There is no Prometheus export and no trace dump: ``span``
+``record_copy`` from ``obs/copyledger.py``, and ``device_trace`` (a
+``torch.profiler`` trace where the reference takes a JAX profiler one),
+so call sites read as in the reference. There is no Prometheus export
+and no flight-recorder dump: ``span``
 sums host wall time per name (``span_totals()``), and per (tenant,
 stage) when the active context names a tenant
 (``stage_seconds_by_tenant()``); ``record_trigger`` keeps the last
@@ -27,10 +29,13 @@ import contextvars
 import dataclasses
 import functools
 import os
+import socket
 import threading
 import time
 from collections import defaultdict, deque
 from typing import Optional
+
+from volsync_tpu_torch import envflags
 
 _lock = threading.Lock()
 _spans: dict = defaultdict(lambda: [0, 0.0])  # name -> [count, seconds]
@@ -181,3 +186,34 @@ def copy_totals() -> dict:
     """``{site: bytes}``."""
     with _lock:
         return dict(_copies)
+
+
+@contextlib.contextmanager
+def device_trace(label: str = "volsync"):
+    """Profiler trace of the wrapped region when VOLSYNC_TRACE_DIR is
+    set; no-op otherwise. Ports ``device_trace`` of
+    ``volsync_tpu/obs/tracing.py`` on ``torch.profiler``: where CUDA is
+    available it records the card's activity (kernels, copies, memsets,
+    from every thread), else the host's torch operators, and writes one
+    Chrome trace (``chrome://tracing``, Perfetto) under
+    ``<VOLSYNC_TRACE_DIR>/<label>/``, also when the region raises."""
+    trace_dir = envflags.trace_dir()
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = os.path.join(trace_dir, label)
+    os.makedirs(out, exist_ok=True)
+    prof = profile(activities=[ProfilerActivity.CUDA
+                               if torch.cuda.is_available()
+                               else ProfilerActivity.CPU])
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            out, f"{socket.gethostname()}.{os.getpid()}."
+                 f"{time.time_ns()}.pt.trace.json"))
