@@ -154,14 +154,17 @@ a mismatch:
    destination tree in a thread on 127.0.0.1 and
    ``rsync_source_entrypoint`` with a ``JobContext`` (ADDRESS, PORT,
    FAST_RETRY) push one sync iteration over the sealed,
-   device-authenticated channel; both rc 0, the destination equal to
+   device-authenticated channel, first with the planner pinned to delta
+   (into hard links of the destination's files), then as a Job runs it,
+   the planner choosing; each with a cold planner book, both rc 0, the
+   destination equal to
    the source (bytes, paths, modes, mtimes), each delta-planned file's
    literal bytes within its edit's bounds (whole files all literal),
    and exactly one ``md5_slices`` launch for each delta-planned file
    with a full block at the destination and one a scan group with
    candidates. Logs the push wall and GiB/s, the sealed frames' bytes
-   by direction, the literal share, the planner's full/delta split, the
-   card's busy share and the host seconds in the frames' zlib (or zstd)
+   by direction, the literal share, the planner's full/delta split and
+   the round-trip and bulk samples its book took, the card's busy share and the host seconds in the frames' zlib (or zstd)
    and seal. Then a device the listener does not know and a wrong
    pinned ID are refused at the handshake, and a cold push of 64 MiB
    into an empty directory ships all literal with no kernel launched;
@@ -171,15 +174,16 @@ a mismatch:
    FORGET_LAST=1 and PRUNE=1, a restore into an empty directory; rc 0
    each, exact launches each run (the fused kernels a backup pass, the
    verify kernels a verify pass), one snapshot left, the restore
-   byte-identical with the hole unwritten, and one trace a backup,
-   whose device events give its busy share.
+   byte-identical with the hole unwritten, one trace a backup and one
+   of the restore (``obs.device_trace``), whose device events, where
+   the profiler kept them, give each run's busy share.
 
 The line before the last is the kernels JSON (launches on the stream
 phase that runs each kernel, ``md5_slices``' on the delta phase, max
 difference from the twin, times and bounds; ``product_launches``: each
 kernel's launches in the backup, durability, delta, mover and restic
-entry phases' runs, a form's entry those of its kernel, named by
-``product_launches_of``);
+entry phases' runs, on the entries named as the kernel is: a form's
+entry has none, since its launches count under its kernel's name);
 the last line is ``{"ok": true, "device":
 {...}}``. Exits nonzero, with no result, when CUDA is unavailable or
 any phase fails.
@@ -265,12 +269,6 @@ SOURCES = {
     "md5_slices": "volsync_tpu_torch/csrc/md5.cu",
     "md5_slices_lanes": "volsync_tpu_torch/csrc/md5.cu",
 }
-#: The kernel whose launch count a form's entry of the kernels line
-#: shares (each kernel counts its launches under one name).
-KERNEL_OF = {"sha256_pages_pagemajor": "sha256_pages",
-             "sha256_pages_sweep": "sha256_pages",
-             "sha256_slices_tail": "sha256_slices",
-             "md5_slices_lanes": "md5_slices"}
 #: K1 block sizes of the K5 sweep (the library launches 64).
 SWEEP_THREADS = (32, 64, 128, 256)
 #: Kernel launches per device pass of each engine's stream.
@@ -3073,10 +3071,14 @@ def mover_push(torch, label: str, src: Path, dst: Path, keys: dict,
     after; the push is traced (``device_trace``) and metered
     (``wire_meter``), and records the planner's decisions (file, size,
     block length, protocol, reason) and, at the destination, each
-    applied file's literal bytes and, where it has no literal, its ops.
-    Both sides must end with rc 0."""
+    applied file's literal bytes and, where it has no literal, its ops,
+    and the samples the planner's book took (``observe_rtt`` seconds,
+    ``observe_link`` bytes and seconds) with the book's latency,
+    bandwidth and change rate at each decision. The book starts cold, as
+    in a new mover Job. Both sides must end with rc 0."""
     from volsync_tpu_torch.cluster.runner import JobContext
     from volsync_tpu_torch.engine import deltasync as ds
+    from volsync_tpu_torch.engine import syncstats
     from volsync_tpu_torch.movers import common
     from volsync_tpu_torch.movers import devicetransport as dt
     from volsync_tpu_torch.movers.rsync import channel, entry
@@ -3094,6 +3096,7 @@ def mover_push(torch, label: str, src: Path, dst: Path, keys: dict,
             bind="127.0.0.1", on_port=on_port, device=DEVICE)
 
     rels, decisions, applied, verifies = [], [], {}, []
+    samples, priced = {"rtt": [], "link": []}, []
 
     def record_jobs(fn):
         def wrapper(ch, jobs, stats, device):
@@ -3105,8 +3108,20 @@ def mover_push(torch, label: str, src: Path, dst: Path, keys: dict,
         def wrapper(mover, size, **kw):
             d = fn(mover, size, **kw)
             decisions.append((size, kw["block_len"], d.protocol, d.reason))
+            b = syncstats.book_for(mover).snapshot()
+            priced.append((d.protocol, b.latency_s, b.bandwidth_bps,
+                           b.change_rate))
             return d
         return wrapper
+
+    def record_sample(kind):
+        def make(fn):
+            def wrapper(book, *args):
+                if all(a > 0 for a in args):  # what the book keeps
+                    samples[kind].append(args)
+                return fn(book, *args)
+            return wrapper
+        return make
 
     def record_applies(fn):
         def wrapper(root, *, device=None):
@@ -3125,7 +3140,11 @@ def mover_push(torch, label: str, src: Path, dst: Path, keys: dict,
     with patched(entry, {"_dest_verbs": record_applies,
                          "_push_files_batch": record_jobs}), \
             patched(common, {"plan_protocol": record_plan}), \
+            patched(syncstats.SyncStatsBook, {
+                "observe_rtt": record_sample("rtt"),
+                "observe_link": record_sample("link")}), \
             patched(ds, {"verify_candidates_batch": rows_of(verifies)}):
+        syncstats.reset_books()
         t = threading.Thread(target=serve, name=DEST_THREAD, daemon=True)
         t.start()
         if not bound.wait(60):
@@ -3170,8 +3189,8 @@ def mover_push(torch, label: str, src: Path, dst: Path, keys: dict,
                              f"for {len(rels)} files")
     return {"secs": secs, "launches": launches, "busy_s": traced["busy_s"],
             "trace": traced, "wire": wire, "applied": applied,
-            "plans": dict(zip(rels, decisions)),
-            "groups": sum(1 for n in verifies if n)}
+            "plans": dict(zip(rels, decisions)), "samples": samples,
+            "priced": priced, "groups": sum(1 for n in verifies if n)}
 
 
 def check_synced(label: str, src: Path, dst: Path, want: dict) -> None:
@@ -3195,33 +3214,40 @@ def check_synced(label: str, src: Path, dst: Path, want: dict) -> None:
                                  f"{(a.st_mode, a.st_mtime_ns)}")
 
 
-def mover_phase(torch, base: Path, made: dict, seed: int, card: str) -> dict:
-    """The rsync mover's entry points on the port over the delta phase's
-    seeded trees (BASELINE.json configs[0]; ``base/src`` pushed into
-    ``base/dst``, written once, by ``make_delta_trees``): one sync
-    iteration by ``mover_push``, then the checks: the destination equal
-    to the source (bytes, paths, modes, mtimes), every file that the
-    planner sent by delta within its edit's literal bounds and every one
-    it sent whole all literal, and ``md5_slices`` launched exactly once
-    for each delta-planned file with a full block at the destination
-    plus once a scan group with candidates, no other kernel. Then two
-    refused handshakes and a cold push of a ``COLD_BYTES`` subset (hard
-    links of the 4 MiB files) into an empty directory: all literal, no
-    kernel launched. Logs the push wall and GiB/s, the bytes on the wire
-    and the literal share, the planner's split, the card's busy share
-    and the host seconds in the frames' zlib and seal."""
-    from volsync_tpu_torch.repo import compress, crypto
+def book_summary(r: dict) -> dict:
+    """The planner book's samples in a push (``mover_push``): round trips
+    (count, median, 90th percentile and largest, ms), bulk transfers
+    (count and median MB/s), and the book's latency (ms), bandwidth
+    (MB/s) and change rate at the decisions that chose each protocol
+    (median)."""
+    rtt = np.array([a[0] for a in r["samples"]["rtt"]]) * 1e3
+    link = np.array([n / t for n, t in r["samples"]["link"]]) / 1e6
+    out = {"rtt_n": len(rtt), "link_n": len(link)}
+    if len(rtt):
+        out.update(rtt_ms_median=float(np.median(rtt)),
+                   rtt_ms_p90=float(np.percentile(rtt, 90)),
+                   rtt_ms_max=float(rtt.max()))
+    if len(link):
+        out["link_mbs_median"] = float(np.median(link))
+    for proto in sorted({p[0] for p in r["priced"]}):
+        at = np.array([p[1:] for p in r["priced"] if p[0] == proto])
+        out[f"{proto}_at_latency_ms"] = float(np.median(at[:, 0]) * 1e3)
+        out[f"{proto}_at_bandwidth_mbs"] = float(np.median(at[:, 1]) / 1e6)
+        out[f"{proto}_at_change_rate"] = float(np.median(at[:, 2]))
+    return out
 
-    rng = np.random.default_rng(seed)
-    keys = {"src": rng.bytes(64), "dst": rng.bytes(64),
-            "stranger": rng.bytes(64)}
-    want = {rel: m[2] for rel, m in made.items()}
-    src_bytes = sum(len(d) for d in want.values())
-    log(f"mover: frames {'zstd' if compress.HAVE_ZSTD else 'zlib'} and "
-        f"{'AES-256-CTR' if crypto.HAVE_AES else 'SHAKE-256'} + "
-        f"HMAC-SHA256 (what this host has installed)")
-    r = mover_push(torch, "mover", base / "src", base / "dst", keys)
-    check_synced("mover", base / "src", base / "dst", want)
+
+def check_push(label: str, r: dict, made: dict, card: str) -> dict:
+    """A push over ``made``'s trees (``mover_push``) held to its plan:
+    every file that the planner sent by delta within its edit's literal
+    bounds and every one it sent whole all literal, and ``md5_slices``
+    launched exactly once for each delta-planned file with a full block
+    at the destination plus once a scan group with candidates, no other
+    kernel. Logs the push wall and GiB/s, the bytes on the wire and the
+    literal share, the planner's split and the book's samples, the
+    card's busy share and the host seconds in the frames' zlib and
+    seal."""
+    src_bytes = sum(len(m[2]) for m in made.values())
     sig_files, bad = 0, []
     split = defaultdict(lambda: [0, 0])
     reasons = defaultdict(int)
@@ -3239,12 +3265,12 @@ def mover_phase(torch, base: Path, made: dict, seed: int, card: str) -> dict:
         if not ok:
             bad.append((rel, kind, proto, lit))
     if bad:
-        raise AssertionError(f"mover: literal bytes out of bounds: "
+        raise AssertionError(f"{label}: literal bytes out of bounds: "
                              f"{bad[:5]}")
     want_launches = {k: 0 for k in r["launches"]}
     want_launches["md5_slices"] = sig_files + r["groups"]
     if DEVICE == "cuda" and r["launches"] != want_launches:
-        raise AssertionError(f"mover: launches {r['launches']}, expected "
+        raise AssertionError(f"{label}: launches {r['launches']}, expected "
                              f"{want_launches} ({sig_files} signatures + "
                              f"{r['groups']} scan groups)")
     lit = sum(a[0] for a in r["applied"].values())
@@ -3256,17 +3282,18 @@ def mover_phase(torch, base: Path, made: dict, seed: int, card: str) -> dict:
            "literal_share": lit / src_bytes, "wire_bytes": dict(wire["bytes"]),
            "frames": dict(wire["frames"]), "codec_s": codec,
            "split": {k: tuple(v) for k, v in split.items()},
-           "reasons": dict(reasons), "busy_s": busy,
+           "reasons": dict(reasons), "book": book_summary(r), "busy_s": busy,
            "launches": r["launches"], "signatures": sig_files,
            "groups": r["groups"]}
-    log(f"mover: {len(made)} files, {src_bytes} source bytes pushed in "
+    log(f"{label}: {len(made)} files, {src_bytes} source bytes pushed in "
         f"{r['secs']:.3f} s ({res['gibs']:.4f} GiB/s) through "
         f"rsync_source_entrypoint -> serve_destination; {on_wire} bytes on "
         f"the wire ({json.dumps(res['wire_bytes'])} in "
         f"{json.dumps(res['frames'])} sealed frames), literal "
         f"{lit} bytes (share {res['literal_share']:.6f}); planner "
         f"(files, bytes) {json.dumps(res['split'])}, reasons "
-        f"{json.dumps(res['reasons'])}; host seconds in the frames "
+        f"{json.dumps(res['reasons'])}; the book's samples "
+        f"{json.dumps(res['book'])}; host seconds in the frames "
         f"{json.dumps(codec)} ({100 * sum(codec.values()) / r['secs']:.2f}%"
         f" of the wall, both sides); card busy "
         + (f"{busy:.4f} s ({100 * busy / r['secs']:.2f}% of the wall; "
@@ -3274,6 +3301,51 @@ def mover_phase(torch, base: Path, made: dict, seed: int, card: str) -> dict:
            if busy is not None else "not measured")
         + f"; launches {json.dumps({k: v for k, v in r['launches'].items() if v})}"
           f" = {sig_files} signatures + {r['groups']} scan groups ({card})")
+    return res
+
+
+def mover_phase(torch, base: Path, made: dict, seed: int, card: str) -> dict:
+    """The rsync mover's entry points on the port over the delta phase's
+    seeded trees (BASELINE.json configs[0]; ``base/src`` pushed into
+    ``base/dst``, written once, by ``make_delta_trees``). First a push
+    with the planner pinned to delta (``VOLSYNC_SYNC_PROTO=delta``) into
+    ``base/dst-delta``, hard links of ``base/dst``'s files (the
+    destination replaces a file with more than one name, so ``base/dst``
+    keeps its bytes), removed after; then one sync iteration as a Job
+    runs it, the planner choosing, into ``base/dst``. Each is held by
+    ``check_synced`` (bytes, paths, modes, mtimes) and ``check_push``
+    (literal bounds and exact ``md5_slices`` launches from its own
+    plan). Then two refused handshakes and a cold push of a
+    ``COLD_BYTES`` subset (hard links of the 4 MiB files) into an empty
+    directory: all literal, no kernel launched."""
+    from volsync_tpu_torch.repo import compress, crypto
+
+    rng = np.random.default_rng(seed)
+    keys = {"src": rng.bytes(64), "dst": rng.bytes(64),
+            "stranger": rng.bytes(64)}
+    want = {rel: m[2] for rel, m in made.items()}
+    log(f"mover: frames {'zstd' if compress.HAVE_ZSTD else 'zlib'} and "
+        f"{'AES-256-CTR' if crypto.HAVE_AES else 'SHAKE-256'} + "
+        f"HMAC-SHA256 (what this host has installed)")
+    pinned = base / "dst-delta"
+    for p in sorted((base / "dst").rglob("*")):
+        q = pinned / p.relative_to(base / "dst")
+        q.parent.mkdir(parents=True, exist_ok=True)
+        if p.is_file():
+            os.link(p, q)
+    with env_set("VOLSYNC_SYNC_PROTO", "delta"):
+        rd = mover_push(torch, "mover (delta pinned)", base / "src", pinned,
+                        keys)
+    check_synced("mover (delta pinned)", base / "src", pinned, want)
+    shutil.rmtree(pinned)
+    if {p[2] for p in rd["plans"].values()} != {"delta"}:
+        raise AssertionError("mover (delta pinned): the planner chose "
+                             "another protocol")
+    delta = check_push("mover (delta pinned)", rd, made, card)
+    r = mover_push(torch, "mover", base / "src", base / "dst", keys)
+    check_synced("mover", base / "src", base / "dst", want)
+    res = check_push("mover", r, made, card)
+    res["delta_pinned"] = delta
 
     cold_src, cold_dst = base / "cold-src", base / "cold-dst"
     subset, total = {}, 0
@@ -3326,7 +3398,10 @@ def restic_entry_phase(torch, base: Path, total: int, seed: int,
     a backup pass, the verify kernels once a verify pass), rc 0; one
     snapshot is left; the restore equals the edited tree (``check_
     restored``) and leaves the hole unwritten; each backup wrote its
-    trace, from which the card's busy seconds are read."""
+    trace, and the restore is traced by the same ``obs.device_trace``
+    (``restic-restore``): the card's busy seconds are read from these
+    three files, where they hold device events."""
+    from volsync_tpu_torch import obs
     from volsync_tpu_torch.cluster.runner import JobContext
     from volsync_tpu_torch.engine import chunker
     from volsync_tpu_torch.movers.restic import entry
@@ -3345,8 +3420,9 @@ def restic_entry_phase(torch, base: Path, total: int, seed: int,
            "RESTIC_PASSWORD": EC_PASSWORD, "HOSTNAME": "chip-smoke"}
 
     def run_entry(label, extra, data, backup: bool):
-        """A backup (hasher passes counted; it traces the card itself) or
-        a restore (verify passes; traced here) through the entry."""
+        """A backup (hasher passes counted; it traces the card itself,
+        ``restic-backup``) or a restore (verify passes; traced here by
+        ``obs.device_trace("restic-restore")``) through the entry."""
         passes = PassCounter()
         ctx = JobContext(name="restic", namespace="chip-smoke",
                          env={**env, **extra}, mounts={"data": data},
@@ -3355,14 +3431,17 @@ def restic_entry_phase(torch, base: Path, total: int, seed: int,
 
         def run():
             with patched(chunker.DeviceChunkHasher,
-                         {"begin_device": passes.wrap}):
+                         {"begin_device": passes.wrap}), \
+                    (contextlib.nullcontext() if backup
+                     else obs.device_trace("restic-restore")):
                 return entry.restic_entrypoint(ctx)
 
         if backup:
             r = product_run(torch, label, run, FUSED_PER_PASS, passes,
                             verify_per_pass=VERIFY_PER_PASS, trace=False)
         else:
-            r = product_run(torch, label, run, VERIFY_PER_PASS, None)
+            r = product_run(torch, label, run, VERIFY_PER_PASS, None,
+                            trace=False)
         if r["out"] != 0:
             raise AssertionError(f"{label}: rc {r['out']}")
         return r
@@ -3386,26 +3465,30 @@ def restic_entry_phase(torch, base: Path, total: int, seed: int,
         # distinct regular files (a hard link once), as made["bytes"]
         res["backup2"]["bytes"] = sum({v[5]: v[3] for v in state.values()
                                        if v[0] == "file"}.values())
-    snaps = Repository.open(FsObjectStore(base / "restic-repo"), EC_PASSWORD,
-                            device=DEVICE).list_snapshots()
-    if len(snaps) != 1:
-        raise AssertionError(f"restic entry: {len(snaps)} snapshots left")
-    files = sorted(traces.glob("*.pt.trace.json")) if traces.is_dir() else []
-    if len(files) != 2:
-        raise AssertionError(f"restic entry: {len(files)} trace files in "
-                             f"{traces}, expected one a backup")
-    for run, path in zip(("backup", "backup2"), files):
+        snaps = Repository.open(FsObjectStore(base / "restic-repo"),
+                                EC_PASSWORD, device=DEVICE).list_snapshots()
+        if len(snaps) != 1:
+            raise AssertionError(f"restic entry: {len(snaps)} snapshots "
+                                 f"left")
+        dst = base / "restic-dst"
+        dst.mkdir()
+        with sparse_writes() as written:
+            res["restore"] = run_entry("restic entry restore",
+                                       {"DIRECTION": "restore"}, dst, False)
+    files = [sorted(d.glob("*.pt.trace.json")) if d.is_dir() else []
+             for d in (traces, traces.parent / "restic-restore")]
+    if [len(f) for f in files] != [2, 1]:
+        raise AssertionError(f"restic entry: trace files {files}, expected "
+                             f"one a backup and one of the restore")
+    files = files[0] + files[1]
+    # A trace may hold no device event: late in a long process the
+    # profiler drops or misplaces the card's events (PERF.md, section 7),
+    # so the busy share is then not measured; the exact launches above
+    # still show that each run went through the kernels.
+    for run, path in zip(("backup", "backup2", "restore"), files):
         traced = chrome_trace_busy(path)
-        if DEVICE == "cuda" and traced["busy_s"] is None:
-            raise AssertionError(f"restic entry: {path} holds no device "
-                                 f"event")
         res[run].update(busy_s=traced["busy_s"], trace=traced,
                         trace_file=path.name)
-    dst = base / "restic-dst"
-    dst.mkdir()
-    with sparse_writes() as written:
-        res["restore"] = run_entry("restic entry restore",
-                                   {"DIRECTION": "restore"}, dst, False)
     check_restored("restic entry restore", state, dst, RESTIC_HOLE)
     check_hole_unwritten("restic entry restore", written, made)
     res["restore"]["bytes"] = res["backup2"]["bytes"]
@@ -3609,7 +3692,7 @@ def main() -> int:
         runs[f"ec.repack{i + 1}"] = c["launches"]
 
     base = Path(tempfile.mkdtemp(prefix="chip_smoke_delta.", dir=backup_base(
-        build, int(2.2 * args.delta_gib * GIB))))
+        build, int(3.3 * args.delta_gib * GIB))))
     try:
         delta = delta_phase(torch, base, delta_layout(args.delta_gib),
                             args.seed + 3, card)
@@ -3642,6 +3725,7 @@ def main() -> int:
                 "md5_slices": delta["launches"]["md5_slices"],
                 "md5_slices_lanes": 0}
     runs["delta"] = delta["launches"]
+    runs["mover.delta"] = mover["delta_pinned"]["launches"]
     runs["mover"] = mover["launches"]
     runs["mover.cold"] = mover["cold"]["launches"]
     for run in ("backup", "backup2", "restore"):
@@ -3668,11 +3752,8 @@ def main() -> int:
         for extra in ("bound_kind", "threads_ms", "shapes", "one_window_ms"):
             if extra in st:
                 entry[extra] = st[extra]
-        # a form's launches count under its kernel's name
-        kernel = KERNEL_OF.get(name, name)
-        entry["product_launches"] = {r: c[kernel] for r, c in runs.items()}
-        if kernel != name:
-            entry["product_launches_of"] = kernel
+        if name in runs["fused.backup"]:
+            entry["product_launches"] = {r: c[name] for r, c in runs.items()}
         kernels.append(entry)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the build on")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -623,6 +623,12 @@ def test_mover_phase_on_cpu(monkeypatch, tmp_path):
     assert res["cold"]["files"] == 3
     assert res["cold"]["bytes"] == 3 * 65536 + 1
     assert res["busy_s"] is None
+    pinned = res["delta_pinned"]
+    assert set(pinned["split"]) == {"delta"}
+    assert pinned["signatures"] >= res["signatures"]
+    for push in (res, pinned):  # one book sample an apply
+        assert push["book"]["rtt_n"] + push["book"]["link_n"] == 20
+    assert not (tmp_path / "dst-delta").exists()
 
 
 def test_restic_entry_phase_on_cpu(monkeypatch, tmp_path):
@@ -644,3 +650,5 @@ def test_restic_entry_phase_on_cpu(monkeypatch, tmp_path):
     assert "restore.write" in res["restore"]["spans"]
     assert len(list((tmp_path / "restic-traces" / "restic-backup")
                     .iterdir())) == 2
+    assert len(list((tmp_path / "restic-traces" / "restic-restore")
+                    .iterdir())) == 1

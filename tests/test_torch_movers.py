@@ -94,15 +94,43 @@ def rng():
     return np.random.default_rng(1234)
 
 
-class _Chan:
-    """Loopback channel: dispatch directly into the dest verb table."""
+#: The simulated link of ``_LinkClock``: latency a frame, bytes a second.
+LINK_RTT_S = 1e-3
+LINK_BPS = 50e6
 
-    def __init__(self, verbs):
+
+class _LinkClock:
+    """The ``time`` module of an entry module, with ``perf_counter`` on a
+    virtual clock that only ``_Chan`` advances: each frame by
+    ``LINK_RTT_S`` plus its literal bytes over ``LINK_BPS``. The
+    planner's link samples, and so its choices, are then the same in
+    every run and in both packages, whatever the machine's load."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self) -> float:
+        return self.now
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+class _Chan:
+    """Loopback channel: dispatch directly into the dest verb table (on
+    ``clock``'s simulated link, where given)."""
+
+    def __init__(self, verbs, clock=None):
         self.verbs = verbs
         self.reply = None
+        self.clock = clock
 
     def send(self, msg):
         self.reply = self.verbs[msg["verb"]](msg)
+        if self.clock is not None:
+            lit = sum(len(op[1]) for op in msg.get("ops", ())
+                      if op[0] == "data")
+            self.clock.now += LINK_RTT_S + lit / LINK_BPS
 
     def recv(self):
         return self.reply
@@ -114,10 +142,10 @@ def _verbs(pkg: str, root: Path):
     return entry._dest_verbs(root, device="cpu")
 
 
-def _push(pkg: str, verbs, root: Path) -> dict:
+def _push(pkg: str, verbs, root: Path, clock=None) -> dict:
     if pkg == "ref":
-        return jentry._push_tree(_Chan(verbs), root)
-    return entry._push_tree(_Chan(verbs), root, device="cpu")
+        return jentry._push_tree(_Chan(verbs, clock), root)
+    return entry._push_tree(_Chan(verbs, clock), root, device="cpu")
 
 
 def _book(pkg: str):
@@ -169,10 +197,10 @@ def _tree_state(root: Path, with_root: bool = True) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _bidirectional(pkg: str, base_dir: Path, seed: int) -> tuple:
+def _bidirectional(pkg: str, base_dir: Path, seed: int, clock) -> tuple:
     """tests/test_delta_batch.py::test_bidirectional_sync_converges_with_delta
-    with its assertions, in ``pkg``; -> (stats of the three pushes,
-    the trees' bytes)."""
+    with its assertions, in ``pkg``, on ``clock``'s link; -> (stats of
+    the three pushes, the trees' bytes)."""
     rng = np.random.default_rng(seed)
     a = base_dir / pkg / "a"
     b = base_dir / pkg / "b"
@@ -184,7 +212,7 @@ def _bidirectional(pkg: str, base_dir: Path, seed: int) -> tuple:
     (a / "logs" / "app.log").write_bytes(rng.bytes(1 << 20))
     all_stats = []
 
-    stats = _push(pkg, _verbs(pkg, b), a)
+    stats = _push(pkg, _verbs(pkg, b), a, clock)
     assert _tree_bytes(b) == _tree_bytes(a)
     assert stats["literal_bytes"] == stats["bytes"]
     all_stats.append(stats)
@@ -195,7 +223,7 @@ def _bidirectional(pkg: str, base_dir: Path, seed: int) -> tuple:
     with open(b / "logs" / "app.log", "ab") as f:
         f.write(rng.bytes(8_000))
 
-    stats = _push(pkg, _verbs(pkg, b), a)
+    stats = _push(pkg, _verbs(pkg, b), a, clock)
     assert _tree_bytes(b) == _tree_bytes(a)
     assert stats["copied_bytes"] > 0, "delta never engaged A->B"
     assert stats["literal_bytes"] < len(payload) // 4
@@ -203,7 +231,7 @@ def _bidirectional(pkg: str, base_dir: Path, seed: int) -> tuple:
 
     with open(b / "logs" / "app.log", "ab") as f:
         f.write(rng.bytes(8_000))
-    stats = _push(pkg, _verbs(pkg, a), b)
+    stats = _push(pkg, _verbs(pkg, a), b, clock)
     assert _tree_bytes(a) == _tree_bytes(b)
     assert stats["copied_bytes"] > 0, "delta never engaged B->A"
     assert stats["literal_bytes"] < stats["bytes"]
@@ -216,17 +244,20 @@ def _bidirectional(pkg: str, base_dir: Path, seed: int) -> tuple:
 @pytest.mark.parametrize("proto", ["auto", "delta"])
 def test_bidirectional_sync_converges_with_delta(tmp_path, monkeypatch,
                                                  proto):
-    """Both packages converge the two trees in both directions; with the
-    protocol pinned to delta their literal and copied bytes are equal
-    push for push (under ``auto`` the planner learns from wall-clock
-    samples, so only the trees are compared)."""
+    """Both packages converge the two trees in both directions, and their
+    literal and copied bytes are equal push for push: pinned to delta,
+    and under ``auto``, where the planner learns from link samples, on
+    a simulated link (``_LinkClock``) so that both packages see the same
+    samples whatever the machine's load."""
     if proto == "delta":
         monkeypatch.setenv("VOLSYNC_SYNC_PROTO", "delta")
-    ref_stats, ref_tree = _bidirectional("ref", tmp_path, 7)
-    port_stats, port_tree = _bidirectional("port", tmp_path, 7)
+    clock = _LinkClock()
+    monkeypatch.setattr(entry, "time", clock)
+    monkeypatch.setattr(jentry, "time", clock)
+    ref_stats, ref_tree = _bidirectional("ref", tmp_path, 7, clock)
+    port_stats, port_tree = _bidirectional("port", tmp_path, 7, clock)
     assert port_tree == ref_tree
-    if proto == "delta":
-        assert port_stats == ref_stats
+    assert port_stats == ref_stats
 
 
 def test_push_batch_respects_env_batch_size(tmp_path, monkeypatch):
@@ -486,6 +517,45 @@ def test_resync_keeps_a_symlinks_target(tmp_path):
     with pytest.raises(channel.ChannelError, match="escapes"):
         entry._safe_join(dst, "sub/../..")
     assert entry._safe_join(dst, "sub/..") == dst.resolve()
+
+
+def test_verbs_do_not_act_through_a_symlink_out_of_root(tmp_path):
+    """A destination symlink to a directory or file outside root: no verb
+    reaches the outside. ``dirmeta`` leaves the link alone, ``link``
+    refuses a ``to`` that is a symlink, ``special`` replaces the link,
+    and the outside directory's mode and mtime and its file's link
+    count stay as they were."""
+    outside = tmp_path / "outside"
+    outside.mkdir()
+    (outside / "f").write_bytes(b"secret")
+    os.chmod(outside, 0o700)
+    os.utime(outside, ns=(10**18, 10**18))
+    before = outside.lstat()
+    dst = tmp_path / "dst"
+    dst.mkdir()
+    os.symlink(outside, dst / "x")
+    os.symlink(outside / "f", dst / "fl")
+    verbs = entry._dest_verbs(dst, device="cpu")
+    assert verbs["dirmeta"]({"dirs": [
+        {"path": "x", "mode": 0o777, "mtime_ns": 0}]}) == {"verb": "ok"}
+    with pytest.raises(channel.ChannelError, match="not a regular file"):
+        verbs["link"]({"path": "h", "to": "fl"})
+    assert not (dst / "h").exists()
+    with pytest.raises(channel.ChannelError, match="escapes"):
+        verbs["dirmeta"]({"dirs": [{"path": "x/f", "mode": 0o777}]})
+    verbs["special"]({"path": "x", "fmt": stat.S_IFIFO, "mode": 0o600})
+    assert stat.S_ISFIFO((dst / "x").lstat().st_mode)
+    after = outside.lstat()
+    assert (after.st_mode, after.st_mtime_ns) == (before.st_mode,
+                                                   before.st_mtime_ns)
+    assert (outside / "f").lstat().st_nlink == 1
+    assert (outside / "f").read_bytes() == b"secret"
+    # a replication root reached through a symlink keeps its own meta
+    os.symlink(dst, tmp_path / "root-link")
+    entry._dest_verbs(tmp_path / "root-link", device="cpu")["dirmeta"](
+        {"dirs": [{"path": "", "mode": 0o750, "mtime_ns": 10**18}]})
+    assert (dst.lstat().st_mode & 0o7777, dst.lstat().st_mtime_ns) == (
+        0o750, 10**18)
 
 
 def test_sig_replies_equal_the_reference(tmp_path):

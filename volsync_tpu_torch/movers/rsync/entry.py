@@ -124,6 +124,11 @@ def _dest_verbs(root: Path, *, device=None):
         already-transferred first-sighting path."""
         path = _safe_join(root, msg["path"])
         source = _safe_join(root, msg["to"])
+        if not stat_mod.S_ISREG(source.lstat().st_mode):
+            # the source names only regular files here; os.link would
+            # follow a symlink at ``to`` to whatever it points at
+            raise channel.ChannelError(
+                f"link source is not a regular file: {msg['to']!r}")
         if path.exists() and not path.is_symlink() \
                 and os.path.samestat(path.lstat(), source.lstat()):
             return {"verb": "ok"}
@@ -159,8 +164,10 @@ def _dest_verbs(root: Path, *, device=None):
         """Directory metadata, bottom-up AFTER all children are written
         (a child write would bump the parent's restored mtime)."""
         for d in msg["dirs"]:
-            path = _safe_join(root, d["path"]) if d["path"] else root
-            if path.is_dir():
+            path = (_safe_join(root, d["path"]) if d["path"]
+                    else root.resolve())
+            # chmod and utime follow a symlink: leave one alone
+            if path.is_dir() and not path.is_symlink():
                 _apply_meta(path, d)
         return {"verb": "ok"}
 
@@ -522,7 +529,10 @@ def _safe_join(root: Path, rel: str) -> Path:
     destination already holds at ``rel`` is the path itself, which the
     verbs replace, not its target. (The reference resolves it too, so a
     second sync of a tree with a symlink replaces the link's target
-    with a link to itself: ROADMAP queue 3.)"""
+    with a link to itself: ROADMAP queue 3.) So no verb may act
+    through such a link: ``apply``, ``mkdir``, ``symlink``, ``link``
+    and ``special`` replace it, ``link`` refuses a ``to`` that is not a
+    regular file, and ``dirmeta`` skips it."""
     joined = root / rel
     if joined.name in ("", ".", ".."):
         p = joined.resolve()
