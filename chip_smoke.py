@@ -543,13 +543,12 @@ def stage_probes(seg, timer: "StageTimer"):
     return patched(seg, {fn: probe(names) for fn, names in stages.items()})
 
 
-def sass_block_counts(sass: str, kernel: str, loads: int,
-                      load_op: str = "LDGSTS") -> dict | None:
-    """Instructions of one message block of ``kernel`` in ``cuobjdump
-    -sass`` text, by class: the body of the kernel's block loop (the
-    shortest backward branch whose span holds at least ``loads``
-    ``load_op`` instructions) divided by the blocks it covers
-    (``loads`` each). None when no such loop is found."""
+def sass_loop(sass: str, kernel: str, loads: int,
+              load_op: str = "LDGSTS") -> tuple | None:
+    """(instructions, ``load_op`` count) of ``kernel``'s block loop in
+    ``cuobjdump -sass`` text: the shortest backward branch whose span
+    holds at least ``loads`` ``load_op`` instructions, each instruction
+    (opcode, operands). None when no such loop is found."""
     fn = re.search(rf"Function : \S*{kernel}\S*\n(.*?)(?=Function : |\Z)",
                    sass, re.S)
     if fn is None:
@@ -562,13 +561,27 @@ def sass_block_counts(sass: str, kernel: str, loads: int,
         tgt = re.match(r"0x([0-9a-f]+)", rest.strip())
         if op.startswith("BRA") and tgt and int(tgt.group(1), 16) < addr:
             lo = int(tgt.group(1), 16)
-            body = [o for a, o, _ in ins if lo <= a <= addr]
-            n_ld = sum(o.split(".")[0] == load_op for o in body)
+            body = [(o, r) for a, o, r in ins if lo <= a <= addr]
+            n_ld = sum(o.split(".")[0] == load_op for o, _ in body)
             if n_ld >= loads:
                 loops.append((len(body), n_ld, body))
     if not loops:
         return None
     _, n_ld, body = min(loops, key=lambda x: x[0])
+    return body, n_ld
+
+
+def sass_block_counts(sass: str, kernel: str, loads: int,
+                      load_op: str = "LDGSTS") -> dict | None:
+    """Instructions of one message block of ``kernel`` in ``cuobjdump
+    -sass`` text, by class: the body of the kernel's block loop
+    (``sass_loop``) divided by the blocks it covers (``loads`` each).
+    None when no such loop is found."""
+    loop = sass_loop(sass, kernel, loads, load_op)
+    if loop is None:
+        return None
+    body, n_ld = loop[0], loop[1]
+    body = [o for o, _ in body]
     classes = {"LOP3/SHF": ("LOP3", "LOP", "SHF", "PRMT"),
                "IADD3": ("IADD3", "IADD"), "IMAD": ("IMAD",),
                load_op: (load_op,)}
@@ -578,6 +591,76 @@ def sass_block_counts(sass: str, kernel: str, loads: int,
         out[next((k for k, v in classes.items() if base in v), "other")] += 1
     nblk = n_ld // loads
     return {k: v / nblk for k, v in out.items()}
+
+
+def _regs(text: str) -> list:
+    """Registers named in SASS operand text (RZ, the zero register,
+    left out): general ``R<n>``, uniform ``UR<n>`` and predicates."""
+    return [r for r in re.findall(r"\b(U?R\d+|U?P\d+)\b", text)]
+
+
+def sass_chain(body: list, rounds: int) -> dict:
+    """The longest chain of dependent instructions through one pass of a
+    loop body (``sass_loop``'s (opcode, operands) list, in program
+    order): an instruction depends on the last earlier instruction of
+    the body that wrote a register it reads; the first operand is the
+    one written where it is a register. -> {"length": instructions on
+    the chain, "per_round": length / ``rounds``, "ops": opcode counts
+    on it}: for a loop of ``rounds`` dependent hash rounds, the
+    instructions from one round's result to the next."""
+    writer: dict = {}  # register -> index of its last writer
+    depth, prev = [], []
+    for i, (op, rest) in enumerate(body):
+        ops = [o.strip() for o in rest.split(",")] if rest.strip() else []
+        dest = ops[0] if ops and re.fullmatch(r"U?[RP]\d+(\.\w+)*",
+                                              ops[0]) else None
+        srcs = _regs(",".join(ops[1:] if dest else ops))
+        best, arg = 0, -1
+        for r in srcs:
+            j = writer.get(r)
+            if j is not None and depth[j] > best:
+                best, arg = depth[j], j
+        depth.append(best + 1)
+        prev.append(arg)
+        if dest:
+            writer[dest.split(".")[0]] = i
+    if not depth:
+        return {"length": 0, "per_round": 0.0, "ops": {}}
+    i = max(range(len(depth)), key=depth.__getitem__)
+    ops: dict = {}
+    while i >= 0:
+        base = body[i][0].split(".")[0]
+        ops[base] = ops.get(base, 0) + 1
+        i = prev[i]
+    length = max(depth)
+    return {"length": length, "per_round": length / rounds, "ops": ops}
+
+
+#: md5_slices' product instances in the SASS (the split's instance,
+#: ``Lb1E``, is not on a product path).
+MD5_SASS = (("md5_slices", "md5_slices_kernelI7WindowsLb0E"),
+            ("md5_slices_lanes", "md5_slices_kernelI11PaddedLanesLb0E"))
+
+
+def md5_sass_chain() -> dict:
+    """``sass_chain`` of each md5_slices product instance's block loop
+    (64 dependent rounds a block), from the built library; empty when
+    the toolkit has no cuobjdump."""
+    from volsync_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return {}
+    text = subprocess.run([str(tool), "-sass",
+                           str(_build.library_path("md5.cu"))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    out = {}
+    for name, kernel in MD5_SASS:
+        loop = sass_loop(text, kernel, 5)
+        if loop is not None:
+            out[name] = sass_chain(loop[0], 64 * (loop[1] // 5))
+    return out
 
 
 def sass_blocks() -> dict:
@@ -615,10 +698,8 @@ def sass_blocks() -> dict:
                                               "LDS"),
             "sha256_lanes": sass_block_counts(sha, "sha256_lanes_kernel", 4,
                                               "LDG"),
-            **{name: sass_block_counts(dump("md5.cu"),
-                                       f"md5_slices_kernelI{lanes}", 5)
-               for name, lanes in (("md5_slices", "7Windows"),
-                                   ("md5_slices_lanes", "11PaddedLanes"))}}
+            **{name: sass_block_counts(dump("md5.cu"), kernel, 5)
+               for name, kernel in MD5_SASS}}
 
 
 def as_list(x):
@@ -2503,6 +2584,8 @@ MD5_BLOCK_ALU_OPS = 64 * 5 + 4
 #: the 4 KiB groups' verify shape (a few thousand candidate windows).
 MD5_SIG_WINDOWS, MD5_SIG_LEN = 16384, 32 << 10
 MD5_VERIFY_WINDOWS, MD5_VERIFY_LEN = 8192, 4096
+#: A 1 MiB file's signature (pick_block_len: 4 KiB blocks).
+MD5_SMALL_WINDOWS, MD5_SMALL_LEN = 256, 4096
 
 
 def md5_block_ops(sass: dict) -> tuple:
@@ -2581,6 +2664,35 @@ def md5_entry(torch, stats, name: str, label: str, run, plain, check,
                      else "not measured)"))
 
 
+def md5_split_line(label: str, sp: dict, round_cycles: float | None) -> str:
+    """One log line of a lane's clock64 split (``time_md5_calls.
+    split_summary``): SM cycles a block in each part, beside the chain
+    of 64 dependent rounds at ``round_cycles`` (the probe's)."""
+    per = sp["per_block"]
+    chain = (f"{64 * round_cycles:.1f}" if round_cycles
+             else "not measured")
+    return (f"md5_slices split ({label}, lane {sp['lane']}, "
+            f"{sp['blocks']} blocks; clock64 SM cycles a block): wait "
+            f"{per['wait']:.1f}, words {per['words']:.1f} (edge path "
+            f"{per['edge']:.1f}), rounds {per['rounds']:.1f}, issue "
+            f"{per['issue']:.1f}, other {per['other']:.1f}; loop "
+            f"{per['loop']:.1f} against a chain of {chain}")
+
+
+def md5_split_entry(torch, stats, label: str, data, starts, bl: int,
+                    lane: int, round_cycles: float | None) -> None:
+    """Log and keep lane ``lane``'s clock64 split at one shape
+    (``time_md5_calls.block_split``: the instrumented instance, not a
+    product launch, so no launch count moves)."""
+    from volsync_tpu_torch.tools.time_md5_calls import block_split
+
+    sp = block_split(torch, data, starts, bl, lane)
+    if sp is None:
+        raise AssertionError("md5.cu has no vt_md5_windows_split")
+    stats["md5_slices"].setdefault("split", {})[label] = sp
+    log(md5_split_line(label, sp, round_cycles))
+
+
 def md5_kernel_entries(torch, stats, seed: int, sass: dict,
                        round_cycles: float | None = None) -> None:
     """md5_slices in both forms against its twin (max abs err 0) and
@@ -2596,6 +2708,12 @@ def md5_kernel_entries(torch, stats, seed: int, sass: dict,
     ops, src = md5_block_ops(sass)
     log(f"md5_slices: {ops:.1f} ALU instructions a block ({src}; "
         f"{MD5_BLOCK_ALU_OPS} as the source writes it)")
+    for name, ch in md5_sass_chain().items():
+        stats[name]["round_chain"] = ch
+        log(f"{name} compiled round chain (cuobjdump -sass, the longest "
+            f"register dependency through one pass of the block loop): "
+            f"{ch['length']} instructions, {ch['per_round']:.2f} a round; "
+            f"on it {json.dumps(ch['ops'])}")
     rng = np.random.default_rng(seed + 9)
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed + 9)
@@ -2619,6 +2737,9 @@ def md5_kernel_entries(torch, stats, seed: int, sass: dict,
                                       round_cycles),
                           "lanes": n, "blocks": n * nb, "longest": nb},
               main=True)
+    grid = torch.arange(n, dtype=torch.int64, device=DEVICE) * bl
+    md5_split_entry(torch, stats, "signature", data, grid, bl,
+                    n // 2, round_cycles)
     one = data[:bl]
     if md5.state_bytes(md5.md5_contiguous_blocks_device(one, block_len=bl)) \
             != [hashlib.md5(one.cpu().numpy().tobytes()).digest()]:
@@ -2630,7 +2751,30 @@ def md5_kernel_entries(torch, stats, seed: int, sass: dict,
     log(f"md5_slices on one {bl}-byte window ({nb} blocks, one thread's "
         f"chain): {one_ms:.4f} ms by graph replay; chain bound "
         + (f"{chain:.4f} ms" if chain else "not measured"))
-    del data, one
+    md5_split_entry(torch, stats, "one window", one, grid[:1], bl, 0,
+                    round_cycles)
+    del data, one, grid
+    # A 1 MiB file's signature: 256 contiguous 4 KiB windows, the delta
+    # cell's most frequent launch.
+    n, bl = MD5_SMALL_WINDOWS, MD5_SMALL_LEN
+    small = torch.randint(0, 256, (n * bl,), dtype=torch.uint8,
+                          device=DEVICE, generator=gen)
+    shost = small.cpu().numpy()
+
+    def small_check(out):
+        if md5.state_bytes(out) != [hashlib.md5(shost[i * bl:(i + 1) * bl])
+                                    .digest() for i in range(n)]:
+            raise AssertionError("md5_slices 1 MiB signature != hashlib")
+
+    nb = (bl + 72) // 64
+    md5_entry(torch, stats, "md5_slices", "1 MiB signature",
+              lambda: md5.md5_contiguous_blocks_device(small, block_len=bl),
+              lambda: md5._md5_contiguous_plain(small, block_len=bl),
+              small_check, {**md5_bound(n, n * nb, nb, n * (bl + 16), ops,
+                                        round_cycles),
+                            "lanes": n, "blocks": n * nb, "longest": nb},
+              main=False)
+    del small
     n, bl = MD5_VERIFY_WINDOWS, MD5_VERIFY_LEN
     hbuf = rng.integers(0, 256, 32 << 20, dtype=np.uint8)
     L = hbuf.shape[0]
@@ -2654,6 +2798,10 @@ def md5_kernel_entries(torch, stats, seed: int, sass: dict,
                                          round_cycles),
                              "lanes": n, "blocks": n * nb, "longest": nb},
               main=False)
+    for lane, label in ((n // 2, "verify"), (0, "verify, past the end"),
+                        (2, "verify, before the start")):
+        md5_split_entry(torch, stats, label, vdata, vst, bl, lane,
+                        round_cycles)
     chunks = [rng.bytes(int(k)) for k in rng.integers(0, 201, 16384)]
     blocks, nbl = md5.md5_pack_host(chunks)
     b = torch.from_numpy(blocks.view(np.int32)).to(DEVICE)
@@ -3749,7 +3897,8 @@ def main() -> int:
             "bound_by": st["bound_by"],
             "library_ms": float(np.mean(st["lib"])) if st["lib"] else None,
         }
-        for extra in ("bound_kind", "threads_ms", "shapes", "one_window_ms"):
+        for extra in ("bound_kind", "threads_ms", "shapes", "one_window_ms",
+                      "split", "round_chain"):
             if extra in st:
                 entry[extra] = st[extra]
         if name in runs["fused.backup"]:

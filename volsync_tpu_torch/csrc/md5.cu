@@ -37,6 +37,10 @@
 // straddles an end takes a per-byte path that reads the clamped bytes
 // from global memory (one or two blocks of a window at an edge).
 //
+// md5_slices_kernel<Lanes, true> is the same loop with clock64 reads
+// around its parts, for one chosen lane (vt_md5_windows_split): never
+// launched on a product path.
+//
 // Bound: the compression chain. A round is one logic function (a LOP3),
 // a three-input add, a rotation (SHF) and an add, each on the previous
 // round's result: 64 dependent rounds a 64-byte block. At the signature's shape (16,384 windows of 32 KiB, 513 blocks
@@ -154,10 +158,26 @@ __device__ __noinline__ uint32_t md5_edge_word(const uint8_t* data,
   return w;
 }
 
-template <class Lanes>
+// The split of one lane's block loop (kSplit instances only): SM cycles
+// summed over its blocks in each part, then the loop's whole span and
+// its block count.
+enum Md5Split {
+  kSplitWait,      // cp.async wait (and any barrier)
+  kSplitWords,     // block classification and word assembly
+  kSplitEdge,      // of which the per-byte edge path
+  kSplitRounds,    // the 64 rounds
+  kSplitIssue,     // copy issue
+  kSplitLoop,      // the whole loop, first block to last
+  kSplitBlocks,    // blocks the lane compressed
+  kSplitN
+};
+
+template <class Lanes, bool kSplit = false>
 __global__ void __launch_bounds__(kMd5Threads)
 md5_slices_kernel(const uint8_t* __restrict__ data, long long L, Lanes lanes,
-                  uint32_t* __restrict__ out, int B) {
+                  uint32_t* __restrict__ out, int B,
+                  long long* __restrict__ split = nullptr, int split_lane = 0) {
+  long long acc[kSplitN] = {};
   constexpr int T = kMd5Threads;
   constexpr int kStage = T * kMd5Pitch;
   __shared__ __align__(16) uint8_t ring[kMd5Ring * kStage];
@@ -215,12 +235,17 @@ md5_slices_kernel(const uint8_t* __restrict__ data, long long L, Lanes lanes,
   const unsigned long long bitlen = static_cast<unsigned long long>(len) * 8;
   uint32_t s[4];
   md5_init(s);
+  long long c0 = 0, c1 = 0;
+  if (kSplit) c0 = clock64();
+  const long long loop0 = c0;
 #pragma unroll 1
   for (int t = 0; t < nb_max; ++t) {
     vt_cp_async_wait<kMd5Ring - 2>();  // this thread's copies of t landed
     __syncthreads();  // everyone's have, and slot (t-1) % kMd5Ring is read
+    if (kSplit) { c1 = clock64(); acc[kSplitWait] += c1 - c0; c0 = c1; }
     if (t + kMd5Ring - 1 < nb_max) issue(t + kMd5Ring - 1);
     vt_cp_async_commit();
+    if (kSplit) { c1 = clock64(); acc[kSplitIssue] += c1 - c0; c0 = c1; }
     if (t >= nb) continue;
     const uint32_t* r32 = reinterpret_cast<const uint32_t*>(
         ring + (t % kMd5Ring) * kStage + threadIdx.x * kMd5Pitch) + (sh >> 2);
@@ -263,9 +288,12 @@ md5_slices_kernel(const uint8_t* __restrict__ data, long long L, Lanes lanes,
         for (int i = 0; i < 16; ++i) w[i] = 0u;
         if (j0 == len) w[0] = 0x80u;
       } else {
+        long long e0 = 0;
+        if (kSplit) e0 = clock64();
 #pragma unroll
         for (int i = 0; i < 16; ++i)
           w[i] = md5_edge_word(data, L, j0 + 4 * i, len, p0 + 4 * i);
+        if (kSplit) acc[kSplitEdge] += clock64() - e0;
       }
       // The last block ends with the 64-bit little-endian bit length; its
       // words 14 and 15 lie past the terminator and are zero already.
@@ -274,7 +302,17 @@ md5_slices_kernel(const uint8_t* __restrict__ data, long long L, Lanes lanes,
         w[15] = static_cast<uint32_t>(bitlen >> 32);
       }
     }
+    if (kSplit) { c1 = clock64(); acc[kSplitWords] += c1 - c0; c0 = c1; }
     md5_compress(s, w);
+    if (kSplit) {
+      c1 = clock64(); acc[kSplitRounds] += c1 - c0; c0 = c1;
+      ++acc[kSplitBlocks];
+    }
+  }
+  if (kSplit && b == split_lane) {
+    acc[kSplitLoop] = clock64() - loop0;
+#pragma unroll
+    for (int k = 0; k < kSplitN; ++k) split[k] = acc[k];
   }
   if (b >= B) return;
 #pragma unroll
@@ -303,6 +341,26 @@ VT_EXPORT int vt_md5_windows(const void* data, long long L,
                              void* stream) {
   return vt_md5_launch(data, L, Windows{starts, len}, out, B, device,
                        stream);
+}
+
+// vt_md5_windows with the clock64 split of lane ``split_lane``'s block
+// loop written to ``split`` (kSplitN int64: the Md5Split parts).
+VT_EXPORT int vt_md5_windows_split(const void* data, long long L,
+                                   const int64_t* starts, long long len,
+                                   uint32_t* out, int B, void* split,
+                                   int split_lane, int device,
+                                   void* stream) {
+  int rc = vt_begin(device);
+  if (rc != 0) return rc;
+  if (split_lane < 0 || split_lane >= B) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  md5_slices_kernel<Windows, true>
+      <<<(B + kMd5Threads - 1) / kMd5Threads, kMd5Threads, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint8_t*>(data), L, Windows{starts, len}, out, B,
+          static_cast<long long*>(split), split_lane);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // [B, 4] states of B pre-padded lanes: ``blocks`` [B, N, 16] words

@@ -57,8 +57,11 @@ serial path at runtime.
 Ports ``volsync_tpu/engine/restorepipe.py``. The verify stage runs the
 port's ``verify_blob_batch`` on the owning ``TreeRestore``'s device.
 The Reed-Solomon arm of the heal reaches ``Repository.ec_reconstruct``,
-which raises in the port for a pack that has ``ec/`` shards (erasure
-coding is not ported) and NoSuchKey for one that has none, as there.
+which decodes a pack that has ``ec/`` shards from any k of its k + m
+shards (``ops/rs.gf_matmul`` on the repository's device) and raises
+NoSuchKey where no k of them prove out (a pack that has none), as there;
+tests/test_torch_ec.py::test_ec_estate_is_stripes_only_and_survives_m_losses
+restores an EC repository with m shards of every pack lost.
 """
 
 from __future__ import annotations
