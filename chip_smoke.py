@@ -55,8 +55,12 @@ a mismatch:
    form on 16,384 messages of 0..200 bytes, each bounded also by the
    chain of its longest lane (64 dependent rounds a block at one
    round's latency, measured by a one-thread MD5 chain in
-   ``csrc/probe.cu``), and one launch on a single 32 KiB window timed
-   beside that chain;
+   ``csrc/probe.cu``), one launch on a single 32 KiB window timed
+   beside that chain, and a 1 MiB file's signature (256 4 KiB windows);
+   the compiled round's dependency chain (``cuobjdump -sass``) and a
+   clock64 split of one lane's block loop at the signature, one-window
+   and verify shapes (``tools/time_md5_calls.block_split``: an
+   instrumented instance of the kernel, off the launch counts);
 3. stream: sets every launch count to 0, streams a seeded ``--stream-gib``
    GiB + 12,345-byte volume (half of its 64 MiB blocks repeat earlier
    ones; one block is all zero) through ``stream_chunk_batches`` with
@@ -544,11 +548,13 @@ def stage_probes(seg, timer: "StageTimer"):
 
 
 def sass_loop(sass: str, kernel: str, loads: int,
-              load_op: str = "LDGSTS") -> tuple | None:
+              load_op: str = "LDGSTS", min_len: int = 0) -> tuple | None:
     """(instructions, ``load_op`` count) of ``kernel``'s block loop in
     ``cuobjdump -sass`` text: the shortest backward branch whose span
-    holds at least ``loads`` ``load_op`` instructions, each instruction
-    (opcode, operands). None when no such loop is found."""
+    holds at least ``loads`` ``load_op`` instructions (and ``min_len``
+    instructions: a kernel whose copy prologue is a loop of its own),
+    each instruction (address, opcode, operands). None when no such
+    loop is found."""
     fn = re.search(rf"Function : \S*{kernel}\S*\n(.*?)(?=Function : |\Z)",
                    sass, re.S)
     if fn is None:
@@ -561,9 +567,9 @@ def sass_loop(sass: str, kernel: str, loads: int,
         tgt = re.match(r"0x([0-9a-f]+)", rest.strip())
         if op.startswith("BRA") and tgt and int(tgt.group(1), 16) < addr:
             lo = int(tgt.group(1), 16)
-            body = [(o, r) for a, o, r in ins if lo <= a <= addr]
-            n_ld = sum(o.split(".")[0] == load_op for o, _ in body)
-            if n_ld >= loads:
+            body = [(a, o, r) for a, o, r in ins if lo <= a <= addr]
+            n_ld = sum(o.split(".")[0] == load_op for _, o, _ in body)
+            if n_ld >= loads and len(body) >= min_len:
                 loops.append((len(body), n_ld, body))
     if not loops:
         return None
@@ -572,16 +578,16 @@ def sass_loop(sass: str, kernel: str, loads: int,
 
 
 def sass_block_counts(sass: str, kernel: str, loads: int,
-                      load_op: str = "LDGSTS") -> dict | None:
+                      load_op: str = "LDGSTS",
+                      min_len: int = 0) -> dict | None:
     """Instructions of one message block of ``kernel`` in ``cuobjdump
     -sass`` text, by class: the body of the kernel's block loop
     (``sass_loop``) divided by the blocks it covers (``loads`` each).
     None when no such loop is found."""
-    loop = sass_loop(sass, kernel, loads, load_op)
+    loop = sass_loop(sass, kernel, loads, load_op, min_len)
     if loop is None:
         return None
-    body, n_ld = loop[0], loop[1]
-    body = [o for o, _ in body]
+    body, n_ld = [o for _, o, _ in loop[0]], loop[1]
     classes = {"LOP3/SHF": ("LOP3", "LOP", "SHF", "PRMT"),
                "IADD3": ("IADD3", "IADD"), "IMAD": ("IMAD",),
                load_op: (load_op,)}
@@ -596,17 +602,38 @@ def sass_block_counts(sass: str, kernel: str, loads: int,
 def _regs(text: str) -> list:
     """Registers named in SASS operand text (RZ, the zero register,
     left out): general ``R<n>``, uniform ``UR<n>`` and predicates."""
-    return [r for r in re.findall(r"\b(U?R\d+|U?P\d+)\b", text)]
+    return re.findall(r"\b(U?R\d+|U?P\d+)\b", text)
+
+
+def straight_runs(body: list) -> list:
+    """The branch-free runs of a loop body (``sass_loop``'s (address,
+    opcode, operands) list), each a list of (opcode, operands): a run
+    ends after a branch, exit or call and begins at a branch target."""
+    targets = {int(m.group(1), 16) for _, op, rest in body
+               if op.startswith("BRA")
+               for m in [re.match(r"0x([0-9a-f]+)", rest.strip())] if m}
+    runs, cur = [], []
+    for addr, op, rest in body:
+        if addr in targets and cur:
+            runs.append(cur)
+            cur = []
+        cur.append((op, rest))
+        if op.split(".")[0] in ("BRA", "EXIT", "RET", "CALL", "BRX", "JMP"):
+            runs.append(cur)
+            cur = []
+    if cur:
+        runs.append(cur)
+    return runs
 
 
 def sass_chain(body: list, rounds: int) -> dict:
-    """The longest chain of dependent instructions through one pass of a
-    loop body (``sass_loop``'s (opcode, operands) list, in program
+    """The longest chain of dependent instructions through a straight run
+    of SASS (a ``straight_runs`` list of (opcode, operands), in program
     order): an instruction depends on the last earlier instruction of
-    the body that wrote a register it reads; the first operand is the
+    the run that wrote a register it reads; the first operand is the
     one written where it is a register. -> {"length": instructions on
     the chain, "per_round": length / ``rounds``, "ops": opcode counts
-    on it}: for a loop of ``rounds`` dependent hash rounds, the
+    on it}: for a run of ``rounds`` dependent hash rounds, the
     instructions from one round's result to the next."""
     writer: dict = {}  # register -> index of its last writer
     depth, prev = [], []
@@ -637,15 +664,21 @@ def sass_chain(body: list, rounds: int) -> dict:
 
 
 #: md5_slices' product instances in the SASS (the split's instance,
-#: ``Lb1E``, is not on a product path).
-MD5_SASS = (("md5_slices", "md5_slices_kernelI7WindowsLb0E"),
-            ("md5_slices_lanes", "md5_slices_kernelI11PaddedLanesLb0E"))
+#: ``Lb1E``, is not on a product path) and the 16-byte cp.async of one
+#: pass of each one's block loop: a window's four pieces, its fifth and
+#: the five of the edge blocks' bounded copy; a padded lane's four. The
+#: block loop holds the 64 rounds (256 instructions at least); the copy
+#: prologue's loop is shorter.
+MD5_SASS = (("md5_slices", "md5_slices_kernelI7WindowsLb0E", 10),
+            ("md5_slices_lanes", "md5_slices_kernelI11PaddedLanesLb0E", 4))
+MD5_LOOP_MIN = 256
 
 
 def md5_sass_chain() -> dict:
-    """``sass_chain`` of each md5_slices product instance's block loop
-    (64 dependent rounds a block), from the built library; empty when
-    the toolkit has no cuobjdump."""
+    """``sass_chain`` of the rounds of each md5_slices product instance's
+    block loop (the loop's straight run with the longest chain: no branch
+    splits the 64 dependent rounds of a block), from the built library;
+    empty when the toolkit has no cuobjdump."""
     from volsync_tpu_torch.ops import _build
 
     tool = Path(_build._nvcc()).with_name("cuobjdump")
@@ -656,10 +689,13 @@ def md5_sass_chain() -> dict:
                           capture_output=True, text=True, timeout=120,
                           check=True).stdout
     out = {}
-    for name, kernel in MD5_SASS:
-        loop = sass_loop(text, kernel, 5)
+    for name, kernel, loads in MD5_SASS:
+        loop = sass_loop(text, kernel, loads, min_len=MD5_LOOP_MIN)
         if loop is not None:
-            out[name] = sass_chain(loop[0], 64 * (loop[1] // 5))
+            rounds = 64 * (loop[1] // loads)
+            out[name] = max((sass_chain(run, rounds)
+                             for run in straight_runs(loop[0])),
+                            key=lambda c: c["length"])
     return out
 
 
@@ -698,8 +734,9 @@ def sass_blocks() -> dict:
                                               "LDS"),
             "sha256_lanes": sass_block_counts(sha, "sha256_lanes_kernel", 4,
                                               "LDG"),
-            **{name: sass_block_counts(dump("md5.cu"), kernel, 5)
-               for name, kernel in MD5_SASS}}
+            **{name: sass_block_counts(dump("md5.cu"), kernel, loads,
+                                       min_len=MD5_LOOP_MIN)
+               for name, kernel, loads in MD5_SASS}}
 
 
 def as_list(x):
@@ -2698,11 +2735,13 @@ def md5_kernel_entries(torch, stats, seed: int, sass: dict,
     """md5_slices in both forms against its twin (max abs err 0) and
     hashlib, timed and bounded (with ``round_cycles``, also by the chain
     of the longest lane): the windows form at the signature's shape
-    (contiguous 32 KiB blocks of 512 MiB) and at a verify shape (4 KiB
-    windows at odd offsets, one running past the buffer's end, one at a
-    negative start), and the lanes form on ``md5_pack_host`` of mixed
-    lengths 0..200 bytes. The chain bound's cross-check: one launch of
-    a single 32 KiB window (one thread's chain), timed."""
+    (contiguous 32 KiB blocks of 512 MiB), at a 1 MiB file's signature
+    (256 4 KiB blocks) and at a verify shape (4 KiB windows at odd
+    offsets, one running past the buffer's end, one at a negative
+    start), and the lanes form on ``md5_pack_host`` of mixed lengths
+    0..200 bytes. The chain bound's cross-check: one launch of a single
+    32 KiB window (one thread's chain), timed. The compiled round's
+    chain and each shape's clock64 split are logged beside them."""
     from volsync_tpu_torch.ops import md5
 
     ops, src = md5_block_ops(sass)
@@ -2711,7 +2750,7 @@ def md5_kernel_entries(torch, stats, seed: int, sass: dict,
     for name, ch in md5_sass_chain().items():
         stats[name]["round_chain"] = ch
         log(f"{name} compiled round chain (cuobjdump -sass, the longest "
-            f"register dependency through one pass of the block loop): "
+            f"register dependency through the block loop's rounds): "
             f"{ch['length']} instructions, {ch['per_round']:.2f} a round; "
             f"on it {json.dumps(ch['ops'])}")
     rng = np.random.default_rng(seed + 9)

@@ -585,6 +585,79 @@ def test_md5_bound_takes_the_chain_when_it_is_longest():
     assert chip_smoke.md5_bound(1, 1, 1, 64, 100.0)["chain_ms"] is None
 
 
+def test_md5_bound_of_a_1_mib_signature():
+    """The 1 MiB signature's launch (256 lanes of 65 blocks): 4 blocks of
+    64 threads, one warp a scheduler, so the bound is the longest lane's
+    chain, 65 x 64 rounds, where the probe's round latency is given."""
+    n, nb = chip_smoke.MD5_SMALL_WINDOWS, (chip_smoke.MD5_SMALL_LEN + 72) // 64
+    assert (n, nb) == (256, 65)
+    b = chip_smoke.md5_bound(n, n * nb, nb, n * (4096 + 16),
+                             chip_smoke.MD5_BLOCK_ALU_OPS, 18.52)
+    chain = 65 * 64 * 18.52 / chip_smoke.CLOCK_HZ * 1e3
+    assert b["chain_ms"] == pytest.approx(chain)
+    assert (b["bound_ms"], b["bound_kind"]) == (pytest.approx(chain),
+                                                "chain")
+    assert b["floor_ms"] == pytest.approx(
+        65 * chip_smoke.MD5_BLOCK_ALU_OPS * 2 / chip_smoke.CLOCK_HZ * 1e3)
+
+
+def test_md5_split_summary_per_block_cycles():
+    """The split's raw sums (wait, words, edge, rounds, issue, loop,
+    blocks) become cycles a block; ``other`` is the loop less the four
+    timed parts (the edge path is inside words)."""
+    from volsync_tpu_torch.tools.time_md5_calls import split_summary
+
+    sp = split_summary([650, 1300, 260, 75400, 195, 78000, 65])
+    assert sp["blocks"] == 65
+    assert sp["per_block"] == pytest.approx({
+        "wait": 10.0, "words": 20.0, "edge": 4.0, "rounds": 1160.0,
+        "issue": 3.0, "loop": 1200.0, "other": 7.0})
+    assert sp["cycles"]["loop"] == 78000
+    # a lane that compressed nothing divides by one, not zero
+    assert split_summary([0] * 7)["per_block"]["loop"] == 0.0
+    line = chip_smoke.md5_split_line("verify", {**sp, "lane": 3}, 18.5)
+    assert "lane 3, 65 blocks" in line and "rounds 1160.0" in line
+    assert "chain of 1184.0" in line
+    assert "chain of not measured" in chip_smoke.md5_split_line(
+        "verify", {**sp, "lane": 3}, None)
+
+
+def test_sass_chain_follows_register_dependencies():
+    """The longest chain of dependent instructions through one pass of a
+    loop body: two rounds of LOP3 -> IADD3 -> SHF -> IADD3 on b give 8
+    (4 a round); independent instructions and stores add nothing."""
+    rnd = [("LOP3.LUT", "R6, R5, R7, R8, 0x96, !PT"),
+           ("IADD3", "R6, R6, R2, RZ"),
+           ("SHF.L.W.U32.HI", "R6, R6, 0x7, R6"),
+           ("IADD3", "R5, R5, R6, RZ")]
+    body = ([("LDS", "R8, [R3+0x10]")] + rnd
+            + [("IMAD.MOV.U32", "R9, RZ, RZ, R4"), ("STS", "[R3], R9")]
+            + rnd + [("BRA", "0x10")])
+    ch = chip_smoke.sass_chain(body, 2)
+    assert ch["length"] == 9  # the LDS feeds the first round's LOP3
+    assert ch["per_round"] == 4.5
+    assert ch["ops"] == {"LDS": 1, "LOP3": 2, "IADD3": 4, "SHF": 2}
+    assert chip_smoke.sass_chain([], 64)["length"] == 0
+
+
+def test_straight_runs_split_a_loop_at_its_branches():
+    """A loop body with an edge branch before its rounds: the run after
+    the branch target holds the rounds and the longest chain."""
+    body = [(0x10, "ISETP.GE.AND", "P0, PT, R2, R3, PT"),
+            (0x20, "BRA", "0x50"),  # past the edge words
+            (0x30, "LOP3.LUT", "R9, R9, R10, RZ, 0xc0, !PT"),
+            (0x40, "IADD3", "R9, R9, 0x80, RZ"),
+            (0x50, "LDS", "R8, [R3+0x10]"),
+            (0x60, "LOP3.LUT", "R6, R5, R7, R8, 0x96, !PT"),
+            (0x70, "IADD3", "R5, R5, R6, RZ"),
+            (0x80, "BRA", "0x10")]
+    runs = chip_smoke.straight_runs(body)
+    assert [[op for op, _ in r] for r in runs] == [
+        ["ISETP.GE.AND", "BRA"], ["LOP3.LUT", "IADD3"],
+        ["LDS", "LOP3.LUT", "IADD3", "BRA"]]
+    assert [chip_smoke.sass_chain(r, 1)["length"] for r in runs] == [1, 2, 3]
+
+
 def test_chrome_trace_busy_reads_device_events(tmp_path):
     """The busy seconds of a written trace: the union of its kernels',
     copies' and memsets' intervals (microseconds), host events ignored;

@@ -814,6 +814,107 @@ def test_md5_raises_on_what_the_kernel_does_not_take(cuda):
             md5.md5_blocks(b, n)
 
 
+def _md5_windows_case(cuda, host, starts, n):
+    """md5_fixed_blocks_device on the card (one launch) == its twin on
+    the same tensors, and == hashlib on every window inside the buffer."""
+    import hashlib
+
+    from volsync_tpu_torch.ops import md5
+
+    L = host.shape[0]
+    data = torch.from_numpy(host).to(cuda)
+    s = torch.from_numpy(np.asarray(starts, np.int64)).to(cuda)
+    launched = md5.MD5_WINDOWS.launches
+    got = md5.md5_fixed_blocks_device(data, s, block_len=n)
+    assert md5.MD5_WINDOWS.launches == launched + 1
+    assert torch.equal(got, md5._md5_windows_plain(data, s, block_len=n))
+    dig = md5.state_bytes(got)
+    for i, a in enumerate(starts):
+        if 0 <= a and a + n <= L:
+            assert dig[i] == hashlib.md5(host[a:a + n]).digest(), (i, a)
+
+
+@pytest.mark.parametrize("n", [1000, 4096])
+def test_md5_edge_lanes_across_warps_and_ctas(cuda, rng, n):
+    """Windows at the buffer's edges (past its end, its last window, a
+    few bytes before byte 0, wholly below 0 and wholly past L) placed at
+    lanes 0, 31, 32, 63, 64 and B - 1 of one launch of B = 200 lanes (not
+    a multiple of a block's 64): each lane's words are its own, so an
+    edge lane changes no other lane's digest."""
+    host = np.frombuffer(rng.bytes(40_000), np.uint8).copy()
+    L = host.shape[0]
+    B = 200
+    starts = list(rng.randint(0, L - n, size=B) | 1)
+    edges = [L - n + 5, L - n, -7, -n - 50, L + 1000, L - 3]
+    for lane, a in zip([0, 31, 32, 63, 64, B - 1], edges):
+        starts[lane] = a
+    _md5_windows_case(cuda, host, [int(a) for a in starts], n)
+
+
+@pytest.mark.parametrize("n", MD5_EDGE_LENGTHS)
+def test_md5_padding_lengths_at_every_start_residue(cuda, rng, n):
+    """Each padding-boundary length at every start residue mod 16: inside
+    the buffer, ending on its last byte, running past it, starting
+    before byte 0, and wholly below 0 (start <= -len) or past L."""
+    host = np.frombuffer(rng.bytes(9_000), np.uint8).copy()
+    L = host.shape[0]
+    starts = []
+    for r in range(16):
+        starts += [100 + 16 * r + r, L - n - r, L - n + r + 1, -r - 1,
+                   -n - r, -n - 200 - r, L + r, L + 5000 + r]
+    _md5_windows_case(cuda, host, starts, n)
+
+
+def test_md5_windows_past_4_gib(cuda, rng):
+    """One buffer of 4 GiB + 1 MiB: windows whose starts lie past 2**32
+    (and one across it, one ending on the last byte, one past the end)
+    equal hashlib. The port's starts and offsets are int64: a 32-bit
+    offset anywhere would read the wrong bytes here."""
+    import hashlib
+
+    from volsync_tpu_torch.ops import md5
+
+    L = (4 << 30) + (1 << 20)
+    data = torch.zeros(L, dtype=torch.uint8, device=cuda)
+    tail = np.frombuffer(rng.bytes(2 << 20), np.uint8).copy()
+    lo = L - tail.shape[0]  # the last 2 MiB: random, across 2**32
+    data[lo:] = torch.from_numpy(tail).to(cuda)
+    n = 4096
+    starts = ([(1 << 32) + 12345 + 4097 * k for k in range(60)]
+              + [(1 << 32) - 100, L - n, lo, (1 << 32) + 1])
+    s = torch.tensor(starts, dtype=torch.int64, device=cuda)
+    dig = md5.state_bytes(md5.md5_fixed_blocks_device(data, s, block_len=n))
+    for i, a in enumerate(starts):
+        assert dig[i] == hashlib.md5(tail[a - lo:a - lo + n]).digest(), a
+    past = md5.md5_fixed_blocks_device(
+        data, torch.tensor([L - 100], dtype=torch.int64, device=cuda),
+        block_len=n)
+    want = tail[-100:].tobytes() + bytes([tail[-1]]) * (n - 100)
+    assert md5.state_bytes(past) == [hashlib.md5(want).digest()]
+
+
+def test_md5_lanes_mixed_block_counts_in_one_warp(cuda, rng):
+    """The lanes form with block counts of 0 to 17 mixed inside every
+    warp (and counts below 0 and past N clamped) == twin and hashlib."""
+    import hashlib
+
+    from volsync_tpu_torch.ops import md5
+
+    lengths = [int(k) for k in rng.choice(
+        [0, 1, 55, 56, 63, 64, 119, 120, 500, 1000], size=150)]
+    chunks = [rng.bytes(k) for k in lengths]
+    blocks, nb = md5.md5_pack_host(chunks)
+    b = torch.from_numpy(blocks.view(np.int32)).to(cuda)
+    n = torch.from_numpy(nb).to(cuda)
+    got = md5.md5_blocks(b, n)
+    assert torch.equal(got, md5._md5_lanes_plain(b, n))
+    assert md5.state_bytes(got) == [hashlib.md5(c).digest() for c in chunks]
+    nb2 = nb.copy()
+    nb2[[0, 33, 70]] = [-3, 0, blocks.shape[1] + 5]
+    n2 = torch.from_numpy(nb2).to(cuda)
+    assert torch.equal(md5.md5_blocks(b, n2), md5._md5_lanes_plain(b, n2))
+
+
 def test_delta_scan_on_card_equals_cpu(cuda, rng):
     """A small delta batch (an unchanged file, an insertion, an edit, an
     unrelated file, a short tail) on the card: the signatures' wire

@@ -85,12 +85,32 @@ def test_md5_pack_and_blocks_equal_reference(rng):
     assert np.array_equal(_u32(got), np.asarray(want))
 
 
-@pytest.mark.parametrize("block_len", [1024, 1000, 64, 55, 7, 0])
-def test_md5_fixed_blocks_equal_reference(rng, block_len):
+def _md5_starts(kind: str, n: int) -> np.ndarray:
+    """Window starts into a 6,000-byte buffer: ``inside`` (windows at
+    every residue mod 16, one running past the end, whose last byte
+    repeats, and one with a negative start, where byte 0 repeats),
+    ``below`` (wholly below byte 0: start + n <= 0) and ``past`` (wholly
+    past the end); within int32, as the reference casts starts."""
+    if kind == "inside":
+        return np.array([0, 1, 15, 17, 333, 4999, 5999, 5500, -3]
+                        + [100 + 17 * r for r in range(16)], np.int64)
+    if kind == "below":
+        return np.array([-n - r for r in range(16)]
+                        + [-n - 64, -n - 1000, -2 * n - 100, -10**6],
+                        np.int64)
+    return np.array([6000 + r for r in range(16)]
+                    + [6064, 7000, 6000 + 2 * n, 10**6], np.int64)
+
+
+MD5_BLOCK_LENS = [1024, 1000, 120, 119, 64, 63, 56, 55, 7, 0]
+
+
+@pytest.mark.parametrize("block_len,kind", [
+    pytest.param(n, kind, id=str(n) if kind == "inside" else f"{n}-{kind}")
+    for kind in ("inside", "below", "past") for n in MD5_BLOCK_LENS])
+def test_md5_fixed_blocks_equal_reference(rng, block_len, kind):
     data = _bytes(rng, 6000)
-    # windows inside, at odd offsets, one running past the end (its last
-    # byte repeats) and one with a negative start (byte 0 repeats)
-    starts = np.array([0, 1, 15, 17, 333, 4999, 5999, 5500, -3], np.int64)
+    starts = _md5_starts(kind, block_len)
     got = tmd5.md5_fixed_blocks_device(_t(data), _t(starts),
                                        block_len=block_len)
     want = jmd5.md5_fixed_blocks_device(

@@ -24,36 +24,46 @@
 //   lane (md5_many's md5_pack_host layout); a lane is the message bytes
 //   b * N * 64 .. + 64 * min(max(nblocks[b], 0), N), already padded.
 //
-// A block of 64 threads keeps the 4-stage cp.async ring of sha256.cu's
-// sha256_slices: stage t holds, for each thread's row, the 16-byte
-// aligned window (80 bytes, five 16-byte pieces) that covers its message
-// block t, copied by 5 consecutive threads, so a message's byte shift
-// s & 15 is the same at every block. MD5's words are little-endian, the
-// card's byte order: word i of a block is one funnel shift of two
-// aligned ring words by 8 * (s & 3) bits. While a thread compresses
-// block t, the copies of blocks t+1 .. t+3 are in flight. Rows past
-// the buffer's end zero-fill. A block whose message bytes lie wholly past
-// either end of the buffer repeats the clamped end byte; one that
-// straddles an end takes a per-byte path that reads the clamped bytes
-// from global memory (one or two blocks of a window at an edge).
+// Bound: the compression chain. A round is one logic function (a LOP3),
+// a three-input add, and the rotation and add (compiled as an IMAD and
+// a LEA), each on the previous round's result: 64 dependent rounds a
+// 64-byte block, 18.5 SM cycles a round on the H100 (csrc/probe.cu
+// probe_md5_chain). At every shape the delta engine launches, a
+// scheduler holds one or two warps, so the longest lane's chain, not the
+// card's ALU rate or its memory rate, sets the time; chip_smoke.py logs
+// the compiled round's chain and both bounds.
 //
-// md5_slices_kernel<Lanes, true> is the same loop with clock64 reads
+// Design. Each thread owns its rows of an 8-stage cp.async ring in
+// shared memory and copies them itself, so a thread waits only for its
+// own copies (cp.async.wait_group, no barrier): a lane at an edge of the
+// buffer delays no other lane, and a block's words are read from the
+// ring and funnel-shifted while the previous block's rounds run. A row
+// is the 16-byte aligned window (80 bytes) that covers the lane's
+// message block t; the copies of block t + 7 are issued at block t.
+// MD5's words are little-endian, the card's byte order: word i of a
+// block is one funnel shift of two aligned ring words by 8 * (s & 3)
+// bits, s the start's byte offset in its 16 bytes. A per-lane plan made
+// once gives the blocks that lie wholly inside the buffer and the
+// message ([t_lo, t_hi)): their words are the ring's, with no compare a
+// word. The few others (the padding block, a block that straddles an
+// end of the buffer, the message's last partial block, blocks wholly
+// past either end) take the ring's in-bounds bytes and lay the clamped
+// end bytes, the terminator and the length over them with byte masks;
+// the lane's two end bytes are read once. Those blocks branch, but every
+// lane of a warp walks the same block index, so the rounds stay
+// converged.
+//
+// md5_slices_kernel<Lanes, true> is the same kernel with clock64 reads
 // around its parts, for one chosen lane (vt_md5_windows_split): never
 // launched on a product path.
-//
-// Bound: the compression chain. A round is one logic function (a LOP3),
-// a three-input add, a rotation (SHF) and an add, each on the previous
-// round's result: 64 dependent rounds a 64-byte block. At the signature's shape (16,384 windows of 32 KiB, 513 blocks
-// each) a scheduler holds about one warp, so the longest lane's chain,
-// not the card's ALU rate or its memory rate, sets the time;
-// chip_smoke.py logs the compiled block's instructions and both bounds.
 
 #include "common.cuh"
 
 static constexpr int kMd5Threads = 64;
-static constexpr int kMd5Ring = 4;
+static constexpr int kMd5Ring = 8;  // stages; a power of two
+static constexpr int kMd5Ahead = kMd5Ring - 1;  // blocks copied ahead
 static constexpr int kMd5Pitch = 64 + 16;  // 80-byte rows: 5 pieces
-static constexpr int kMd5Pieces = kMd5Pitch / 16;
+static constexpr int kMd5Stage = kMd5Threads * kMd5Pitch;
 
 // T[i] = floor(2^32 * |sin(i + 1)|) (RFC 1321 section 3.4); ops/md5.py
 // _T holds the same table.
@@ -79,9 +89,16 @@ __device__ __forceinline__ void md5_init(uint32_t s[4]) {
 }
 
 // One compression of the 16 little-endian words ``m`` into ``s``. Fully
-// unrolled, so each shift amount and message index is a constant.
-__device__ __forceinline__ void md5_compress(uint32_t s[4],
-                                             const uint32_t m[16]) {
+// unrolled, so each shift amount and message index is a constant; a + T
+// + m is summed apart from f, so the chain is f, one add, the rotation
+// and the add of b. The last 16 rounds use each word once: before them
+// ``prefetch()`` runs, and after round i the word it used is dead and
+// takes ``refill(g)``, the next block's word g, so the next block's
+// words are read beside the rounds and no copy of them is made.
+template <class Prefetch, class Refill>
+__device__ __forceinline__ void md5_compress(uint32_t s[4], uint32_t m[16],
+                                             Prefetch prefetch,
+                                             Refill refill) {
   constexpr int kS[4][4] = {{7, 12, 17, 22}, {5, 9, 14, 20},
                             {4, 11, 16, 23}, {6, 10, 15, 21}};
   uint32_t a = s[0], b = s[1], c = s[2], d = s[3];
@@ -102,7 +119,9 @@ __device__ __forceinline__ void md5_compress(uint32_t s[4],
       f = c ^ (b | ~d);
       g = (7 * i) & 15;
     }
-    const uint32_t tmp = a + f + kMd5T[i] + m[g];
+    if (i == 48) prefetch();
+    const uint32_t tmp = (a + (kMd5T[i] + m[g])) + f;
+    if (i >= 48) m[g] = refill(g);
     a = d;
     d = c;
     c = b;
@@ -111,15 +130,47 @@ __device__ __forceinline__ void md5_compress(uint32_t s[4],
   s[0] += a; s[1] += b; s[2] += c; s[3] += d;
 }
 
-// The two kinds of lanes. Each gives lane b's message: (start, len) in
-// bytes of the buffer; kPadded lanes are whole pre-padded blocks.
+// A lane's plan, made once: its message (start, len) in bytes of the
+// buffer, its nb padded blocks, the blocks [t_lo, t_hi) whose 64 bytes
+// are all message bytes inside the buffer (their words are the ring's),
+// the first t_row of them whose whole 80-byte row lies inside the buffer
+// (copied with no bound check), and of the t_full blocks wholly of
+// message bytes, those [0, f_lo) wholly before byte 0 and [f_hi, t_full)
+// wholly past the end (each byte the clamped end byte).
+struct Md5Plan {
+  long long start, len;
+  int nb, t_lo, t_hi, t_row, t_full, f_lo, f_hi;
+};
+
+static __device__ __forceinline__ int md5_clamp_blocks(long long t, int nb) {
+  return static_cast<int>(t < 0 ? 0 : (t > nb ? nb : t));
+}
+
+// The two kinds of lanes.
 struct Windows {
   static constexpr bool kPadded = false;
   const int64_t* starts;
   long long len;
-  __device__ void lane(int b, long long& start, long long& n) const {
-    start = starts[b];
-    n = len;
+  __device__ Md5Plan plan(int b, long long L) const {
+    Md5Plan p;
+    p.start = starts[b];
+    p.len = len;
+    p.nb = static_cast<int>((len + 72) / 64);
+    const long long s = p.start;
+    // p0(t) = s + 64 t >= 0; p0(t) + 64 <= L; 64 (t + 1) <= len
+    const long long lo = s >= 0 ? 0 : (63 - s) / 64;
+    const long long in = L - 64 - s < 0 ? 0 : (L - 64 - s) / 64 + 1;
+    const long long hi = in < len / 64 ? in : len / 64;
+    const long long row =
+        L - 80 - (s & ~15LL) < 0 ? 0 : (L - 80 - (s & ~15LL)) / 64 + 1;
+    p.t_lo = md5_clamp_blocks(lo, p.nb);
+    p.t_hi = max(p.t_lo, md5_clamp_blocks(hi, p.nb));
+    p.t_row = min(max(p.t_lo, md5_clamp_blocks(row, p.nb)), p.t_hi);
+    p.t_full = md5_clamp_blocks(len / 64, p.nb);
+    // p0(t) + 64 <= 0 below f_lo; p0(t) >= L from f_hi on
+    p.f_lo = md5_clamp_blocks(s < 0 ? -s / 64 : 0, p.nb);
+    p.f_hi = md5_clamp_blocks(L - s <= 0 ? 0 : (L - s + 63) / 64, p.nb);
+    return p;
   }
 };
 
@@ -127,35 +178,98 @@ struct PaddedLanes {
   static constexpr bool kPadded = true;
   const int32_t* nblocks;
   int N;
-  __device__ void lane(int b, long long& start, long long& n) const {
+  __device__ Md5Plan plan(int b, long long) const {
     const int nb = nblocks[b];
-    start = static_cast<long long>(b) * N * 64;
-    n = 64LL * (nb < 0 ? 0 : (nb > N ? N : nb));
+    Md5Plan p;
+    p.start = static_cast<long long>(b) * N * 64;
+    p.nb = nb < 0 ? 0 : (nb > N ? N : nb);
+    p.len = 64LL * p.nb;
+    p.t_lo = p.f_lo = 0;
+    p.t_hi = p.t_row = p.t_full = p.f_hi = p.nb;
+    return p;
   }
 };
 
-// One little-endian word of a block whose message bytes straddle an end of
-// the buffer: byte j of the message (buffer position p) is the buffer's
-// byte at p clamped into [0, L - 1]; past the message it is the terminator
-// at j == len, else 0. Out of line: at most two blocks of a window come
-// here.
-__device__ __noinline__ uint32_t md5_edge_word(const uint8_t* data,
-                                               long long L, long long j,
-                                               long long len, long long p) {
-  uint32_t w = 0;
+// The low ``n`` bytes (0..4) of a word as a mask.
+static __device__ __forceinline__ uint32_t md5_low_bytes(int n) {
+  return n <= 0 ? 0u : (n >= 4 ? 0xFFFFFFFFu : 0xFFFFFFFFu >> (32 - 8 * n));
+}
+
+// Words of a window's block t outside [t_lo, t_hi), laid over ``w``
+// (the ring's words of the block's row, whose in-bounds message bytes
+// were copied): byte j of the message (buffer position p) is the
+// buffer's byte at p clamped into [0, L - 1] (``first`` = data[0] and
+// ``last`` = data[L - 1], four times each), the terminator at j ==
+// len, else 0; the last block ends with the 64-bit bit length.
+static __device__ __forceinline__ void md5_edge_words(
+    uint32_t w[16], const Md5Plan& p, long long L, int t, uint32_t first,
+    uint32_t last) {
+  if (t < p.t_full && (t < p.f_lo || t >= p.f_hi)) {
+    const uint32_t fill = t < p.f_lo ? first : last;  // wholly past an end
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const long long jk = j + k;
-    uint32_t v;
-    if (jk < len) {
-      const long long pk = p + k;
-      v = data[pk < 0 ? 0 : (pk >= L ? L - 1 : pk)];
-    } else {
-      v = jk == len ? 0x80u : 0u;
-    }
-    w |= v << (8 * k);
+    for (int i = 0; i < 16; ++i) w[i] = fill;
+    return;
   }
-  return w;
+  const long long j0 = 64LL * t;
+  const long long p0 = p.start + j0;
+  const long long left = p.len - j0;
+  if (left <= 0) {  // padding only
+#pragma unroll
+    for (int i = 0; i < 16; ++i) w[i] = 0u;
+    if (left == 0) w[0] = 0x80u;
+  } else {
+    // Bytes before byte 0 of the buffer, inside it, and past its end;
+    // message bytes, then the terminator. Offsets clamped to a block.
+    const int below = static_cast<int>(min(max(-p0, -8LL), 72LL));
+    const int inside = static_cast<int>(min(max(L - p0, -8LL), 72LL));
+    const int msg = static_cast<int>(min(left, 72LL));
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const uint32_t lo = md5_low_bytes(below - 4 * i);
+      const uint32_t in = md5_low_bytes(inside - 4 * i);
+      const uint32_t v = (w[i] & in & ~lo) | (first & lo) | (last & ~in);
+      const int m = msg - 4 * i;
+      const uint32_t term = (m >= 0 && m < 4) ? 0x80u << (8 * m) : 0u;
+      w[i] = (v & md5_low_bytes(m)) | term;
+    }
+  }
+  if (t == p.nb - 1) {
+    const unsigned long long bits = static_cast<unsigned long long>(p.len)
+                                    * 8;
+    w[14] = static_cast<uint32_t>(bits);
+    w[15] = static_cast<uint32_t>(bits >> 32);
+  }
+}
+
+// A shared-memory word load and a funnel shift kept where the source
+// puts them (asm volatile): left to the compiler, the next block's words
+// are read after the current block's rounds, on the chain between
+// blocks, instead of beside them. And a 16-byte cp.async issued only
+// where ``on`` holds: a predicated instruction, not a branch.
+static __device__ __forceinline__ uint32_t md5_lds(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];"
+               : "=r"(v)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+  return v;
+}
+
+static __device__ __forceinline__ uint32_t md5_shf(uint32_t lo, uint32_t hi,
+                                                   int n) {
+  uint32_t v;
+  asm volatile("shf.r.wrap.b32 %0, %1, %2, %3;"
+               : "=r"(v) : "r"(lo), "r"(hi), "r"(n));
+  return v;
+}
+
+static __device__ __forceinline__ void md5_cp_async16_if(void* smem,
+                                                         const void* gmem,
+                                                         bool on) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
+      " @p cp.async.cg.shared.global [%0], [%1], 16;\n}\n"
+      :: "r"(s), "l"(gmem), "r"(static_cast<int>(on)) : "memory");
 }
 
 // The split of one lane's block loop (kSplit instances only): SM cycles
@@ -164,7 +278,7 @@ __device__ __noinline__ uint32_t md5_edge_word(const uint8_t* data,
 enum Md5Split {
   kSplitWait,      // cp.async wait (and any barrier)
   kSplitWords,     // block classification and word assembly
-  kSplitEdge,      // of which the per-byte edge path
+  kSplitEdge,      // of which the edge blocks' words
   kSplitRounds,    // the 64 rounds
   kSplitIssue,     // copy issue
   kSplitLoop,      // the whole loop, first block to last
@@ -177,144 +291,134 @@ __global__ void __launch_bounds__(kMd5Threads)
 md5_slices_kernel(const uint8_t* __restrict__ data, long long L, Lanes lanes,
                   uint32_t* __restrict__ out, int B,
                   long long* __restrict__ split = nullptr, int split_lane = 0) {
+  __shared__ __align__(16) uint8_t ring[kMd5Ring * kMd5Stage];
+  const int b = blockIdx.x * kMd5Threads + threadIdx.x;
+  if (b >= B) return;  // no barrier below: a thread waits for itself only
+  const Md5Plan p = lanes.plan(b, L);
   long long acc[kSplitN] = {};
-  constexpr int T = kMd5Threads;
-  constexpr int kStage = T * kMd5Pitch;
-  __shared__ __align__(16) uint8_t ring[kMd5Ring * kStage];
-  __shared__ long long row_off[T];  // the row's message start, 16-aligned
-  __shared__ long long row_lim[T];  // its copies end: min(end, L); -1: none
-  __shared__ int block_nb;
-  const int b = blockIdx.x * T + threadIdx.x;
-  long long start = 0, len = 0;
-  int nb = 0;
-  if (b < B) {
-    lanes.lane(b, start, len);
-    nb = static_cast<int>(Lanes::kPadded ? len / 64 : (len + 72) / 64);
-  }
-  if (threadIdx.x == 0) block_nb = 0;
-  row_off[threadIdx.x] = start & ~15LL;
-  row_lim[threadIdx.x] = nb > 0 ? (start + len < L ? start + len : L) : -1;
-  __syncthreads();
-  atomicMax(&block_nb, nb);
-  // Copy r (0..4) of this thread at every stage: piece c % 5 of row c / 5,
-  // c = r * T + thread. A padded lane's rows are 16-aligned, so its fifth
-  // piece (the next block's first bytes) is never copied.
-  long long off[kMd5Pieces], lim[kMd5Pieces];
-  int dst[kMd5Pieces];
-#pragma unroll
-  for (int r = 0; r < kMd5Pieces; ++r) {
-    const int c = r * T + threadIdx.x;
-    const int row = c / kMd5Pieces, piece = c % kMd5Pieces;
-    off[r] = row_off[row] + piece * 16;
-    lim[r] = (Lanes::kPadded && piece == kMd5Pieces - 1) ? -1
-                                                         : row_lim[row];
-    dst[r] = row * kMd5Pitch + piece * 16;
-  }
-  __syncthreads();
-  const int nb_max = block_nb;
-
-  auto issue = [&](int t) {
-    uint8_t* slot = ring + (t % kMd5Ring) * kStage;
-#pragma unroll
-    for (int r = 0; r < kMd5Pieces; ++r) {
-      const long long o = off[r] + 64LL * t;
-      if (o >= 0 && o < lim[r]) {
-        const long long rem = L - o;
-        vt_cp_async16(slot + dst[r], data + o,
-                      rem < 16 ? static_cast<int>(rem) : 16);
-      }
-    }
-  };
-
-  for (int t = 0; t < kMd5Ring - 1; ++t) {
-    if (t < nb_max) issue(t);
-    vt_cp_async_commit();
-  }
-  const int sh = static_cast<int>(start & 15);
-  const int rot = 8 * (sh & 3);
-  const unsigned long long bitlen = static_cast<unsigned long long>(len) * 8;
-  uint32_t s[4];
-  md5_init(s);
   long long c0 = 0, c1 = 0;
   if (kSplit) c0 = clock64();
   const long long loop0 = c0;
-#pragma unroll 1
-  for (int t = 0; t < nb_max; ++t) {
-    vt_cp_async_wait<kMd5Ring - 2>();  // this thread's copies of t landed
-    __syncthreads();  // everyone's have, and slot (t-1) % kMd5Ring is read
-    if (kSplit) { c1 = clock64(); acc[kSplitWait] += c1 - c0; c0 = c1; }
-    if (t + kMd5Ring - 1 < nb_max) issue(t + kMd5Ring - 1);
-    vt_cp_async_commit();
-    if (kSplit) { c1 = clock64(); acc[kSplitIssue] += c1 - c0; c0 = c1; }
-    if (t >= nb) continue;
-    const uint32_t* r32 = reinterpret_cast<const uint32_t*>(
-        ring + (t % kMd5Ring) * kStage + threadIdx.x * kMd5Pitch) + (sh >> 2);
-    uint32_t w[16];
-    if (Lanes::kPadded) {
+
+  uint8_t* const row0 = ring + threadIdx.x * kMd5Pitch;
+  const long long base = p.start & ~15LL;  // the rows' 16-byte alignment
+  const int sh = static_cast<int>(p.start & 15);
+  const int rot = 8 * (sh & 3);
+  // A padded lane's rows are 16-aligned: its fifth piece (the next
+  // block's first bytes) is never read; nor is a window's at sh == 0.
+  const bool fifth = !Lanes::kPadded && sh != 0;
+  uint32_t first = 0, last = 0;  // the clamped end bytes, four times
+  if (!Lanes::kPadded) {
+    first = 0x01010101u * data[0];
+    last = 0x01010101u * data[L - 1];
+  }
+
+  // Block t's copies into its ring slot: the fast copy (four or five
+  // predicated cp.async, no bound check) inside [t_lo, t_row); bounded
+  // copies for the blocks at either edge whose bytes the words need
+  // (issue_edge); nothing elsewhere.
+  auto issue_fast = [&](int t) {
+    const bool on = t >= p.t_lo && t < p.t_row;
+    uint8_t* dst = row0 + (t & (kMd5Ring - 1)) * kMd5Stage;
+    const uint8_t* src = data + (on ? base + 64LL * t : 0);
 #pragma unroll
-      for (int i = 0; i < 16; ++i) w[i] = r32[i];
-    } else {
-      const long long j0 = 64LL * t;  // the block's first message byte
-      const long long p0 = start + j0;  // and its place in the buffer
-      const long long left = len - j0;  // message bytes from here on
-      if (left >= 64 && p0 >= 0 && p0 + 64 <= L) {
+    for (int r = 0; r < 4; ++r)
+      md5_cp_async16_if(dst + 16 * r, src + 16 * r, on);
+    if (!Lanes::kPadded) md5_cp_async16_if(dst + 64, src + 64, on && fifth);
+  };
+  auto edge_copy = [&](int t) {
+    return !Lanes::kPadded && t < p.nb &&
+           (t == p.t_lo - 1 || (t >= p.t_row && t <= p.t_hi));
+  };
+  auto issue_edge = [&](int t) {
+    uint8_t* dst = row0 + (t & (kMd5Ring - 1)) * kMd5Stage;
 #pragma unroll
-        for (int i = 0; i < 16; ++i)
-          w[i] = __funnelshift_r(r32[i], r32[i + 1], rot);
-      } else if (left > 0 && (p0 >= L || p0 + min(left, 64LL) <= 0 ||
-                              (p0 >= 0 && p0 + left <= L))) {
-        // The message ends in this block inside the buffer, or the block's
-        // message bytes lie wholly past either end of it (each is then the
-        // clamped byte data[L - 1] or data[0]): word i keeps its m message
-        // bytes (the ring past them holds other bytes) and takes the
-        // terminator after them.
-        const bool flat = p0 >= L || p0 < 0;
-        const uint32_t fill = flat ? 0x01010101u * data[p0 < 0 ? 0 : L - 1]
-                                   : 0u;
-        const int n = static_cast<int>(min(left, 64LL));
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          const int m = min(max(n - 4 * i, -1), 4);
-          const uint32_t keep =
-              m >= 4 ? 0xFFFFFFFFu
-                     : (m <= 0 ? 0u : 0xFFFFFFFFu >> (32 - 8 * m));
-          const uint32_t term = (m >= 0 && m < 4) ? 0x80u << (8 * m) : 0u;
-          const uint32_t raw =
-              flat ? fill : __funnelshift_r(r32[i], r32[i + 1], rot);
-          w[i] = (raw & keep) | term;
-        }
-      } else if (left <= 0) {  // padding only
-#pragma unroll
-        for (int i = 0; i < 16; ++i) w[i] = 0u;
-        if (j0 == len) w[0] = 0x80u;
-      } else {
-        long long e0 = 0;
-        if (kSplit) e0 = clock64();
-#pragma unroll
-        for (int i = 0; i < 16; ++i)
-          w[i] = md5_edge_word(data, L, j0 + 4 * i, len, p0 + 4 * i);
-        if (kSplit) acc[kSplitEdge] += clock64() - e0;
-      }
-      // The last block ends with the 64-bit little-endian bit length; its
-      // words 14 and 15 lie past the terminator and are zero already.
-      if (t == nb - 1) {
-        w[14] = static_cast<uint32_t>(bitlen);
-        w[15] = static_cast<uint32_t>(bitlen >> 32);
+    for (int r = 0; r < 5; ++r) {
+      const long long o = base + 64LL * t + 16 * r;
+      if (o >= 0 && o < L) {
+        vt_cp_async16(dst + 16 * r, data + o,
+                      L - o < 16 ? static_cast<int>(L - o) : 16);
       }
     }
-    if (kSplit) { c1 = clock64(); acc[kSplitWords] += c1 - c0; c0 = c1; }
-    md5_compress(s, w);
+  };
+  auto edge = [&](int t) {
+    return !Lanes::kPadded && t < p.nb && (t < p.t_lo || t >= p.t_hi);
+  };
+  // Iterations with nothing at an edge: block t + 1 inside [t_lo, t_hi)
+  // and block t + 7 a fast copy.
+  const int q_lo = p.t_lo - 1;
+  const unsigned q_n = static_cast<unsigned>(
+      max(min(p.t_hi - 1, p.t_row - kMd5Ahead) - q_lo, 0));
+  // The ring words of block t (17: a word straddles two) and block t's
+  // word g from them.
+  uint32_t r[17];
+  auto ring_read = [&](int t) {
+    const uint32_t* r32 = reinterpret_cast<const uint32_t*>(
+        row0 + (t & (kMd5Ring - 1)) * kMd5Stage) + (sh >> 2);
+#pragma unroll
+    for (int i = 0; i < (Lanes::kPadded ? 16 : 17); ++i)
+      r[i] = md5_lds(r32 + i);
+  };
+  auto word = [&](int g) {
+    return Lanes::kPadded ? r[g] : md5_shf(r[g], r[g + 1], rot);
+  };
+
+  for (int t = 0; t < kMd5Ahead; ++t) {
+    issue_fast(t);
+    if (edge_copy(t)) issue_edge(t);
+    vt_cp_async_commit();
+  }
+  if (kSplit) { c1 = clock64(); acc[kSplitIssue] += c1 - c0; c0 = c1; }
+  vt_cp_async_wait<kMd5Ahead - 1>();  // block 0 landed
+  if (kSplit) { c1 = clock64(); acc[kSplitWait] += c1 - c0; c0 = c1; }
+  uint32_t m[16];
+  ring_read(0);
+#pragma unroll
+  for (int g = 0; g < 16; ++g) m[g] = word(g);
+  if (edge(0)) md5_edge_words(m, p, L, 0, first, last);
+  if (kSplit) { c1 = clock64(); acc[kSplitWords] += c1 - c0; c0 = c1; }
+  uint32_t s[4];
+  md5_init(s);
+  // Block t: copy block t + 7 (into the slot block t - 1 was read from),
+  // then the rounds, which read block t + 1's words from the ring as
+  // they free block t's; the rare edge copies and words after them,
+  // then the commit of block t + 7's copies. No branch splits the copies
+  // from the rounds, so the compiler can place them among the rounds.
+#pragma unroll 1
+  for (int t = 0; t < p.nb; ++t) {
+    const int tc = t + kMd5Ahead;
+    issue_fast(tc);
+    if (kSplit) { c1 = clock64(); acc[kSplitIssue] += c1 - c0; c0 = c1; }
+    md5_compress(s, m, [&]() {
+      if (kSplit) { c1 = clock64(); acc[kSplitRounds] += c1 - c0; c0 = c1; }
+      vt_cp_async_wait<kMd5Ahead - 2>();  // block t + 1 landed
+      if (kSplit) { c1 = clock64(); acc[kSplitWait] += c1 - c0; c0 = c1; }
+      ring_read(t + 1);
+      if (kSplit) { c1 = clock64(); acc[kSplitWords] += c1 - c0; c0 = c1; }
+    }, word);
     if (kSplit) {
       c1 = clock64(); acc[kSplitRounds] += c1 - c0; c0 = c1;
       ++acc[kSplitBlocks];
     }
+    if (static_cast<unsigned>(t - q_lo) >= q_n) {  // at an edge
+      if (edge_copy(tc)) issue_edge(tc);
+      if (kSplit) { c1 = clock64(); acc[kSplitIssue] += c1 - c0; c0 = c1; }
+      if (edge(t + 1)) {
+        md5_edge_words(m, p, L, t + 1, first, last);
+        if (kSplit) {
+          c1 = clock64(); acc[kSplitWords] += c1 - c0;
+          acc[kSplitEdge] += c1 - c0; c0 = c1;
+        }
+      }
+    }
+    vt_cp_async_commit();
   }
+  vt_cp_async_wait<0>();
   if (kSplit && b == split_lane) {
     acc[kSplitLoop] = clock64() - loop0;
 #pragma unroll
     for (int k = 0; k < kSplitN; ++k) split[k] = acc[k];
   }
-  if (b >= B) return;
 #pragma unroll
   for (int j = 0; j < 4; ++j) out[static_cast<size_t>(b) * 4 + j] = s[j];
 }

@@ -29,9 +29,9 @@ Where the package's ``csrc/md5.cu`` exports ``vt_md5_windows_split``,
 the script also launches that instrumented instance of the kernel at
 each shape and reports, for one lane, the SM cycles (clock64) its block
 loop spent in each part, summed over its blocks: the copies' wait (and
-any barrier), block classification and word assembly (the per-byte
-edge path also apart), the 64 rounds, the copy issue, and the loop's
-whole span; ``block_split`` below reads them.
+any barrier), block classification and word assembly (the edge
+blocks' words also apart), the 64 rounds, the copy issue, and the
+loop's whole span; ``block_split`` below reads them.
 
 The script imports ``volsync_tpu_torch`` from ``sys.path``:
 ``PYTHONPATH=<another checkout>`` times that checkout's kernel on the
