@@ -73,12 +73,12 @@ def split_summary(raw) -> dict:
     return {"blocks": cyc["blocks"], "cycles": cyc, "per_block": per}
 
 
-def block_split(torch, data, starts, block_len: int, lane: int,
-                runs: int = 3) -> dict | None:
+def block_split(torch, data, starts, block_len: int,
+                lane: int) -> dict | None:
     """``split_summary`` of lane ``lane``'s block loop in one launch of the
     windows form's instrumented instance (``vt_md5_windows_split``), the
-    run of ``runs`` with the shortest loop; None where the package's
-    md5.cu has no such entry point. Never a product path."""
+    run of 3 with the shortest loop; None where the package's md5.cu has
+    no such entry point. Never a product path."""
     from volsync_tpu_torch.ops import _build
 
     lib = _build.load("md5.cu")
@@ -95,7 +95,7 @@ def block_split(torch, data, starts, block_len: int, lane: int,
     split = torch.zeros((len(SPLIT_PARTS),), dtype=torch.int64,
                         device=data.device)
     best = None
-    for _ in range(runs):
+    for _ in range(3):
         rc = fn(data.data_ptr(), data.shape[0], starts.data_ptr(), block_len,
                 out.data_ptr(), B, split.data_ptr(), lane,
                 data.device.index or 0,
@@ -151,31 +151,6 @@ def check(data, starts, bl: int, host, digests: list, picks) -> None:
                                  f"hashlib")
 
 
-def call_ms(torch, fn, reps: int, graph: bool) -> float:
-    """Least mean ms of ``fn()`` over ``reps`` calls, of 3 trials: eager,
-    or replayed from one CUDA graph of ``reps`` calls (``graph``)."""
-    fn()
-    torch.cuda.synchronize()
-    run, n = fn, reps
-    if graph:
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(reps):
-                fn()
-        run, n = g.replay, 1
-    best = float("inf")
-    for _ in range(3):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(n):
-            run()
-        b.record()
-        torch.cuda.synchronize()
-        best = min(best, a.elapsed_time(b) / reps)
-    return best
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -189,6 +164,7 @@ def main() -> int:
         return 2
     import volsync_tpu_torch
     from volsync_tpu_torch.ops import md5
+    from volsync_tpu_torch.tools.time_leaf_calls import call_ms
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
