@@ -5,6 +5,7 @@
                           [--align1-mib M] [--pagemajor-gib G]
                           [--backup-gib G] [--backup64-mib M]
                           [--ec-gib G] [--delta-gib G] [--restic-mib M]
+                          [--rclone-files N]
 
 Run from the repository root on a machine with a CUDA card and nvcc. It
 imports nothing of JAX or of the JAX package, and every phase raises on
@@ -180,13 +181,33 @@ a mismatch:
    verify kernels a verify pass), one snapshot left, the restore
    byte-identical with the hole unwritten, one trace a backup and one
    of the restore (``obs.device_trace``), whose device events, where
-   the profiler kept them, give each run's busy share.
+   the profiler kept them, give each run's busy share;
+11. rclone: ``rclone_entrypoint`` (BASELINE.json configs[2], many small
+   files) through an S3 remote, the port's ``FakeS3Server`` on
+   127.0.0.1 named by an ``rclone.conf`` section, TRANSFERS 10, over a
+   seeded tree of ``--rclone-files`` small files (log-uniform 1 B to
+   128 KiB, one in 20 a copy of another) in 128 directories, 64 empty
+   files, 16 symlinks (two to directories), 4 empty directories, 32
+   files of 4-16 MiB and one of 256 MiB + 12,345 B (streamed): up into
+   the cold bucket, down into an empty directory, edits (1% of the
+   small files rewritten, 1% deleted, 1% added in a new directory, two
+   mid files appended, 1% chmodded), up again, down again. Each run
+   traced, its rc 0, its stats equal to those predicted from the trees,
+   its ``hash_spans`` flushes and streamed files and, on the card, its
+   launches exact (K1, ``sha256_slices`` and ``merkle_roots`` once a
+   flush, K1 once a streamed segment with a full page); every index
+   digest equal to hashlib's blob id, the bucket's objects exactly the
+   index's digests, no lock left, and the destination equal to the
+   source after each down (bytes, modes, mtimes, symlink targets, empty
+   directories, owners and xattrs where the filesystem keeps them).
+   Logs each run's wall, GiB/s, files/s, busy share, host spans and the
+   fake server's requests by verb.
 
 The line before the last is the kernels JSON (launches on the stream
 phase that runs each kernel, ``md5_slices``' on the delta phase, max
 difference from the twin, times and bounds; ``product_launches``: each
-kernel's launches in the backup, durability, delta, mover and restic
-entry phases' runs, on the entries named as the kernel is: a form's
+kernel's launches in the backup, durability, delta, mover, restic
+entry and rclone phases' runs, on the entries named as the kernel is: a form's
 entry has none, since its launches count under its kernel's name);
 the last line is ``{"ok": true, "device":
 {...}}``. Exits nonzero, with no result, when CUDA is unavailable or
@@ -1486,6 +1507,16 @@ class PassCounter:
         return counted
 
 
+def spans_since(before: dict) -> dict:
+    """Host seconds of each ``obs.span`` entered since ``span_totals()``
+    read ``before`` (summed over threads)."""
+    from volsync_tpu_torch.obs import span_totals
+
+    return {k: round(s - before.get(k, (0, 0.0))[1], 4)
+            for k, (n, s) in span_totals().items()
+            if n != before.get(k, (0, 0.0))[0]}
+
+
 def count_passes(hasher) -> PassCounter:
     """Wrap ``hasher.begin_device``; the counter's ``n`` is its device
     passes."""
@@ -1510,9 +1541,7 @@ def drive(torch, stream, params, per_pass: dict, label: str) -> dict:
         k.launches = 0
     results, views, secs = stream_once(torch, stream, params, hasher)
     launches = launch_counts()
-    spans = {k: round(s - before.get(k, (0, 0.0))[1], 4)
-             for k, (n, s) in span_totals().items()
-             if n != before.get(k, (0, 0.0))[0]}
+    spans = spans_since(before)
     off = sum(n for _, n, _ in results)
     if off != stream.total:
         raise AssertionError(f"{label} covered {off} of {stream.total} "
@@ -2038,9 +2067,7 @@ def product_run(torch, label: str, run, per_pass: dict,
                              or (per_pass and n < min_passes)):
         raise AssertionError(f"{label}: launches {launches}, expected "
                              f"{want} over {n} passes")
-    spans = {k: round(s - before.get(k, (0, 0.0))[1], 4)
-             for k, (c, s) in span_totals().items()
-             if c != before.get(k, (0, 0.0))[0]}
+    spans = spans_since(before)
     busy = traced["busy_s"]
     log(f"{label}: {secs:.3f} s, {n} device passes"
         + (f" and {verify.n} verify passes" if verify_per_pass else "")
@@ -3694,6 +3721,470 @@ def restic_entry_phase(torch, base: Path, total: int, seed: int,
     return res
 
 
+# -- rclone: the rclone mover's entry point through an S3 remote ------------
+
+#: The rclone phase's tree: BASELINE.json configs[2]'s many small files,
+#: cut in depth (``--rclone-files`` of them). Sizes are log-uniform from 1
+#: byte to ``small_max``; every 20th small file copies an earlier one.
+RCLONE_LAYOUT = {"dirs": 128, "small_max": 128 << 10, "dup_every": 20,
+                 "empty": 64, "links": 16, "dir_links": 2, "empty_dirs": 4,
+                 "n_mid": 32, "mid_min": 4 << 20, "mid_max": 16 << 20,
+                 "big": (256 << 20) + ODD_TAIL}
+RCLONE_TRANSFERS = 10
+#: ``hash_file_streaming``'s segment, as ``sync.hash_files`` calls it.
+RCLONE_SEGMENT = 32 << 20
+RCLONE_APPEND = 4097
+RCLONE_PREFIX = "pvc"
+#: Launches of one ``hash_spans`` flush of page-aligned spans.
+RCLONE_PER_FLUSH = VERIFY_PER_PASS
+
+
+def rclone_layout(files: int) -> dict:
+    return {**RCLONE_LAYOUT, "files": files}
+
+
+def make_rclone_tree(root: Path, layout: dict, seed: int) -> dict:
+    """The seeded many-small-files tree: ``files`` small files in ``dirs``
+    directories (every ``dup_every``-th a byte copy of an earlier one,
+    every 7th mode 0600), ``empty`` empty files, ``links`` symlinks
+    (``dir_links`` of them to directories), ``empty_dirs`` empty
+    directories, ``n_mid`` files of ``mid_min``..``mid_max`` bytes (mode
+    0640) and ``big.bin`` of ``big`` bytes. A ``user.`` xattr goes on
+    eight small files and one directory where the filesystem keeps it.
+    -> {"small": [rel], "mid": [rel], "xattrs": bool}."""
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True)
+    dirs = [f"d{i:03d}" for i in range(layout["dirs"])]
+    for d in dirs:
+        (root / d).mkdir()
+    sizes = np.exp(rng.uniform(0, np.log(layout["small_max"] + 1),
+                               layout["files"])).astype(np.int64)
+    sizes = np.clip(sizes, 1, layout["small_max"])
+    small, originals = [], []
+    for i, n in enumerate(sizes):
+        rel = f"{dirs[i % len(dirs)]}/f{i:05d}.bin"
+        if originals and i % layout["dup_every"] == layout["dup_every"] - 1:
+            data = (root / originals[rng.integers(len(originals))]).read_bytes()
+        else:
+            data = rng.bytes(int(n))
+            originals.append(rel)
+        (root / rel).write_bytes(data)
+        if i % 7 == 0:
+            os.chmod(root / rel, 0o600)
+        small.append(rel)
+    for i in range(layout["empty"]):
+        (root / dirs[i % len(dirs)] / f"e{i:03d}").write_bytes(b"")
+    mid = []
+    for i in range(layout["n_mid"]):
+        rel = f"{dirs[(4 * i + 1) % len(dirs)]}/m{i:03d}.bin"
+        n = int(rng.integers(layout["mid_min"], layout["mid_max"] + 1))
+        (root / rel).write_bytes(rng.bytes(n))
+        os.chmod(root / rel, 0o640)
+        mid.append(rel)
+    with open(root / "big.bin", "wb") as f:
+        left = layout["big"]
+        while left:
+            piece = min(left, 16 << 20)
+            f.write(rng.bytes(piece))
+            left -= piece
+    for k in range(layout["links"]):
+        if k < layout["dir_links"]:
+            os.symlink(dirs[k], root / f"dlink{k}")
+        else:
+            d = dirs[k % len(dirs)]
+            target = next(r for r in small if r.startswith(d + "/"))
+            os.symlink(target.split("/", 1)[1], root / d / f"l{k:02d}")
+    for k in range(layout["empty_dirs"]):
+        (root / f"empty{k}").mkdir()
+    try:
+        for rel in small[:8] + [dirs[0]]:
+            os.setxattr(root / rel, "user.rclone", rel.encode())
+        xattrs = True
+    except OSError:
+        xattrs = False
+    return {"small": small, "mid": mid, "xattrs": xattrs}
+
+
+def edit_rclone_tree(root: Path, made: dict, seed: int) -> dict:
+    """The second sync's edits: 1% of the small files rewritten in place
+    at their size, 1% deleted, 1% added in a new directory, 4,097 bytes
+    appended to two of the mid files and 1% chmodded. -> the rels of
+    each kind."""
+    rng = np.random.default_rng(seed)
+    small = made["small"]
+    k = max(len(small) // 100, 1)
+    pick = [small[i] for i in rng.permutation(len(small))[: 3 * k]]
+    edits = {"rewritten": pick[:k], "deleted": pick[k: 2 * k],
+             "chmodded": pick[2 * k:], "appended": made["mid"][:2],
+             "added": [f"new/n{i:04d}.bin" for i in range(k)]}
+    for rel in edits["rewritten"]:
+        n = (root / rel).stat().st_size
+        with open(root / rel, "r+b") as f:
+            f.write(rng.bytes(n))
+    for rel in edits["deleted"]:
+        (root / rel).unlink()
+    for rel in edits["chmodded"]:
+        mode = (root / rel).stat().st_mode & 0o7777
+        os.chmod(root / rel, 0o640 if mode != 0o640 else 0o600)
+    for rel in edits["appended"]:
+        with open(root / rel, "ab") as f:
+            f.write(rng.bytes(RCLONE_APPEND))
+    (root / "new").mkdir()
+    for rel in edits["added"]:
+        (root / rel).write_bytes(rng.bytes(int(rng.integers(1, 64 << 10))))
+    return edits
+
+
+def _xattrs(p: Path) -> tuple:
+    """(name, value) of each extended attribute ``p`` itself holds."""
+    try:
+        names = os.listxattr(p, follow_symlinks=False)
+    except OSError:
+        return ()
+    out = []
+    for n in sorted(names):
+        try:
+            out.append((n, os.getxattr(p, n, follow_symlinks=False)))
+        except OSError:
+            continue
+    return tuple(out)
+
+
+def rclone_state(root: Path) -> dict:
+    """rel -> what the rclone index keeps of each path below ``root``
+    (directories and symlinked directories not descended into as
+    ``scan_tree``, the root itself left out): a directory's mode, mtime,
+    owner and xattrs; a file's mode, mtime, size, SHA-256, owner and
+    xattrs; a symlink's target, owner and xattrs."""
+    out = {}
+    for dirpath, dirnames, filenames in os.walk(root):
+        d = Path(dirpath)
+        for name in dirnames + filenames:
+            p = d / name
+            st = p.lstat()
+            rel = p.relative_to(root).as_posix()
+            meta = (st.st_uid, st.st_gid, _xattrs(p))
+            if os.path.islink(p):
+                out[rel] = ("symlink", os.readlink(p)) + meta
+            elif p.is_dir():
+                out[rel] = ("dir", st.st_mode & 0o7777, st.st_mtime_ns) + meta
+            else:
+                with open(p, "rb") as f:
+                    digest = hashlib.file_digest(f, "sha256").hexdigest()
+                out[rel] = ("file", st.st_mode & 0o7777, st.st_mtime_ns,
+                            st.st_size, digest) + meta
+    return out
+
+
+def rclone_shard_of(rel: str) -> str:
+    """The index shard of a path: the first two hex digits of the SHA-256
+    of its directory (the bucket's index format)."""
+    d = rel.rsplit("/", 1)[0] if "/" in rel else ""
+    return hashlib.sha256(d.encode()).hexdigest()[:2]
+
+
+def rclone_walk_files(root: Path) -> list:
+    """[(rel, size)] of the regular files below ``root`` in ``os.walk``
+    order: the order ``sync.scan_tree`` lists and ``hash_files`` reads
+    them."""
+    out = []
+    for dirpath, _, filenames in os.walk(root):
+        for name in filenames:
+            p = Path(dirpath) / name
+            st = p.lstat()
+            if not os.path.islink(p) and p.is_file():
+                out.append((p.relative_to(root).as_posix(), st.st_size))
+    return out
+
+
+def rclone_hashing(sizes: list, batch: int, stream: int) -> dict:
+    """What ``sync.hash_files`` launches for files of ``sizes`` in read
+    order: a file over ``stream`` bytes hashes alone through
+    ``hash_file_streaming`` (one K1 a ``RCLONE_SEGMENT`` segment that
+    holds a full page); the others pack into a batch, flushed (one
+    ``hash_spans``) once it holds ``batch`` bytes and at the end.
+    -> {"flushes", "streamed", "launches": {kernel: n}}."""
+    flushes = n_batch = batch_bytes = 0
+    streamed = []
+    for n in sizes:
+        if n > stream:
+            streamed.append(n)
+            continue
+        n_batch += 1
+        batch_bytes += n
+        if batch_bytes >= batch:
+            flushes += 1
+            n_batch = batch_bytes = 0
+    flushes += n_batch > 0
+    pages = sum(n // RCLONE_SEGMENT + (n % RCLONE_SEGMENT >= 4096)
+                for n in streamed)
+    launches = {k: v * flushes for k, v in RCLONE_PER_FLUSH.items()}
+    launches["sha256_pages"] += pages
+    return {"flushes": flushes, "streamed": len(streamed),
+            "launches": launches}
+
+
+def _shards(state: dict) -> dict:
+    groups = defaultdict(dict)
+    for rel, v in state.items():
+        groups[rclone_shard_of(rel)][rel] = v
+    return groups
+
+
+def predict_up(old: dict | None, new: dict) -> dict:
+    """``sync_up``'s stats from the tree's states before (None: a cold
+    bucket) and now: uploads are the new distinct contents, deleted
+    objects the old ones no longer held, and an index shard is written
+    where any of its paths changed."""
+    files = [v for v in new.values() if v[0] == "file"]
+    have = {v[4] for v in (old or {}).values() if v[0] == "file"}
+    want = {v[4] for v in files}
+    shards = _shards(new)
+    old_shards = _shards(old or {})
+    return {"files": len(files), "uploaded": len(want - have),
+            "deduped": len(files) - len(want - have),
+            "deleted_objects": len(have - want),
+            "index_shards": len(shards),
+            "index_shards_written": sum(
+                old_shards.get(k) != g for k, g in shards.items()),
+            "bytes": sum(v[3] for v in files)}
+
+
+def predict_down(local: dict | None, state: dict) -> dict:
+    """``sync_down``'s stats into a tree in ``local`` (None: empty) from
+    a bucket of ``state``: a file of equal size and content is skipped,
+    every other file fetched, and each local path the bucket lacks is
+    deleted."""
+    local = local or {}
+    files = {r: v for r, v in state.items() if v[0] == "file"}
+    skipped = sum(1 for r, v in files.items()
+                  if local.get(r, ())[:1] == ("file",)
+                  and local[r][3:5] == v[3:5])
+    return {"files": len(files), "fetched": len(files) - skipped,
+            "skipped": skipped,
+            "deleted_local": sum(1 for r in local if r not in state),
+            "bytes": sum(v[3] for v in files.values())}
+
+
+def rclone_hashed(root: Path, entries: dict | None, batch: int,
+                  stream: int) -> dict:
+    """``rclone_hashing`` of the files a sync reads from ``root``: all
+    of them (``entries`` None, a sync up), or those a sync down rechecks
+    (a file of the bucket's ``entries`` state at the same size)."""
+    walk = rclone_walk_files(root)
+    if entries is not None:
+        walk = [(r, n) for r, n in walk
+                if entries.get(r, ())[:1] == ("file",)
+                and entries[r][3] == n]
+    return rclone_hashing([n for _, n in walk], batch, stream)
+
+
+@contextlib.contextmanager
+def verb_counts(server):
+    """Within the block, the fake server counts its requests by verb
+    (a GET of a bucket with no key is a LIST); yields the counts."""
+    counts = defaultdict(int)
+    lock = threading.Lock()
+    handler = server._httpd.RequestHandlerClass
+
+    def make(verb):
+        def wrap(fn):
+            def counted(self):
+                name = verb
+                if verb == "GET" and "/" not in self.path.lstrip("/").split(
+                        "?", 1)[0]:
+                    name = "LIST"
+                with lock:
+                    counts[name] += 1
+                return fn(self)
+            return counted
+        return wrap
+
+    with patched(handler, {f"do_{v}": make(v)
+                           for v in ("PUT", "GET", "HEAD", "DELETE")}):
+        yield counts
+
+
+def check_rclone_index(label: str, store, root: Path, state: dict) -> None:
+    """The bucket holds exactly ``state``: every file's index digest is
+    the host blob id (hashlib) of its bytes, the objects are exactly the
+    digests the index references, and no lock object is left."""
+    from volsync_tpu_torch.movers.rclone import sync
+    from volsync_tpu_torch.repo.blobid import blob_id
+
+    index = sync.read_index(store, RCLONE_PREFIX)
+    if set(index) != set(state):
+        diff = sorted(set(index) ^ set(state))[:5]
+        raise AssertionError(f"{label}: index paths differ, e.g. {diff}")
+    bad = [r for r, e in index.items() if e["type"] == "file"
+           and e["digest"] != blob_id((root / r).read_bytes())]
+    objects = {k.rsplit("/", 1)[-1]
+               for k in store.list(f"{RCLONE_PREFIX}/{sync.OBJECTS}/")}
+    digests = {e["digest"] for e in index.values() if e["type"] == "file"}
+    locks = list(store.list(f"{RCLONE_PREFIX}/{sync.LOCKS}/"))
+    if bad or objects != digests or locks:
+        raise AssertionError(f"{label}: digests differing from hashlib "
+                             f"{bad[:3]}, {len(objects ^ digests)} objects "
+                             f"unlike the index, locks left {locks}")
+
+
+def rclone_run(torch, label: str, server, run, want_stats: dict,
+               hashing: dict, card: str) -> dict:
+    """``run()`` (one ``rclone_entrypoint`` call, returning its rc and
+    stats) with every launch count set to 0 just before and read just
+    after, the card traced, the fake server's requests counted by verb
+    and ``sync``'s ``hash_spans`` and ``hash_file_streaming`` calls
+    counted. The rc must be 0, the stats ``want_stats``, the flushes and
+    streamed files ``hashing``'s and, on the card, the launches
+    ``hashing["launches"]`` exactly."""
+    from volsync_tpu_torch.movers.rclone import sync as rclone_sync
+    from volsync_tpu_torch.obs import span_totals
+    from volsync_tpu_torch.ops._build import KERNELS, launch_counts
+
+    flushes, streamed = PassCounter(), PassCounter()
+    before = span_totals()
+    for k in KERNELS:
+        k.launches = 0
+    with verb_counts(server) as verbs, device_trace(torch) as traced, \
+            patched(rclone_sync, {"hash_spans": flushes.wrap,
+                                  "hash_file_streaming": streamed.wrap}):
+        sync(torch)
+        t0 = time.perf_counter()
+        rc, stats = run()
+        sync(torch)
+        secs = time.perf_counter() - t0
+    launches = launch_counts()
+    want = {k: hashing["launches"].get(k, 0) for k in launches}
+    if rc != 0 or stats != want_stats:
+        raise AssertionError(f"{label}: rc {rc}, stats {stats}, expected "
+                             f"{want_stats}")
+    if (flushes.n, streamed.n) != (hashing["flushes"], hashing["streamed"]) \
+            or (DEVICE == "cuda" and launches != want):
+        raise AssertionError(
+            f"{label}: {flushes.n} flushes and {streamed.n} streamed files, "
+            f"launches {launches}; expected {hashing['flushes']}, "
+            f"{hashing['streamed']} and {want}")
+    spans = spans_since(before)
+    busy = traced["busy_s"]
+    res = {"secs": secs, "stats": stats, "launches": launches,
+           "flushes": flushes.n, "streamed": streamed.n, "spans": spans,
+           "verbs": dict(verbs), "busy_s": busy,
+           "gibs": stats["bytes"] / GIB / secs,
+           "files_per_s": stats["files"] / secs}
+    log(f"{label}: {secs:.3f} s, {res['gibs']:.4f} GiB/s, "
+        f"{res['files_per_s']:.1f} files/s; stats {json.dumps(stats)}; "
+        f"{flushes.n} hash_spans flushes, {streamed.n} streamed files, "
+        f"launches {json.dumps({k: v for k, v in launches.items() if v})}; "
+        f"card busy "
+        + (f"{busy:.4f} s ({100 * busy / secs:.2f}% of the wall; "
+           f"{traced['events']} device events, seconds by kind "
+           f"{json.dumps(traced['by_kind'])})" if busy is not None
+           else "not measured")
+        + f"; requests by verb {json.dumps(res['verbs'])}; host seconds by "
+          f"span (summed over threads): {json.dumps(spans)} ({card})")
+    return res
+
+
+def rclone_phase(torch, base: Path, layout: dict, seed: int,
+                 card: str) -> dict:
+    """The rclone mover's entry point on the port (ref
+    movers/rclone/entry.py) through an S3 remote: the port's
+    ``FakeS3Server`` on 127.0.0.1, named by an ``rclone.conf`` section
+    (``url = s3:http://127.0.0.1:<port>/bucket`` with the access key,
+    secret and endpoint), ``TRANSFERS`` 10, ``ResilientStore`` on. Over
+    the seeded tree of ``make_rclone_tree``: ``up`` into the cold bucket,
+    ``down`` into an empty directory, the edits of ``edit_rclone_tree``,
+    ``up2`` and ``down2`` into the tree ``down`` made. Each run
+    (``rclone_run``) is held to its rc, to its stats as ``predict_up`` /
+    ``predict_down`` give them, to its flushes and launches as
+    ``rclone_hashed`` gives them; after each up every index digest is
+    the host blob id of the file (``check_rclone_index``), after each
+    down the destination equals the source (``rclone_state``)."""
+    from volsync_tpu_torch.cluster.runner import JobContext
+    from volsync_tpu_torch.movers.rclone import entry, sync
+    from volsync_tpu_torch.objstore.fakes3 import FakeS3Server
+    from volsync_tpu_torch.objstore.s3 import S3ObjectStore
+
+    src, dst = base / "rclone-src", base / "rclone-dst"
+    t0 = time.perf_counter()
+    made = make_rclone_tree(src, layout, seed)
+    state = rclone_state(src)
+    total = sum(v[3] for v in state.values() if v[0] == "file")
+    log(f"rclone: tree of {sum(v[0] == 'file' for v in state.values())} "
+        f"files, {total} bytes, {len(state)} paths made in "
+        f"{time.perf_counter() - t0:.1f} s; xattrs "
+        + ("kept by this filesystem, compared" if made["xattrs"]
+           else "not kept by this filesystem, not compared"))
+    batch, stream = sync._BATCH_BYTES, sync._STREAM_THRESHOLD
+    res = {"bytes": total}
+    with FakeS3Server() as server:
+        conf = (f"[bucket]\nurl = s3:{server.endpoint}/bucket\n"
+                f"access_key_id = {server.access_key}\n"
+                f"secret_access_key = {server.secret_key}\n"
+                f"endpoint = {server.endpoint}\n")
+        bucket = S3ObjectStore(server.endpoint, "bucket",
+                               access_key=server.access_key,
+                               secret_key=server.secret_key)
+        captured = {}
+
+        def capture(fn):
+            def wrapper(*args, **kwargs):
+                captured["stats"] = fn(*args, **kwargs)
+                return captured["stats"]
+            return wrapper
+
+        def go(direction, data):
+            ctx = JobContext(
+                name="rclone", namespace="chip-smoke",
+                env={"RCLONE_DEST_PATH": RCLONE_PREFIX, "DIRECTION": direction,
+                     "RCLONE_CONFIG_SECTION": "bucket",
+                     "TRANSFERS": str(RCLONE_TRANSFERS)},
+                mounts={"data": data},
+                secrets={"rclone-secret": {"rclone.conf": conf.encode()}},
+                stop_event=threading.Event(), device=DEVICE)
+            captured.clear()
+            with patched(entry, {"sync_up": capture, "sync_down": capture}):
+                rc = entry.rclone_entrypoint(ctx)
+            return rc, captured.get("stats")
+
+        res["up"] = rclone_run(
+            torch, "rclone up", server, lambda: go("source", src),
+            predict_up(None, state), rclone_hashed(src, None, batch, stream),
+            card)
+        check_rclone_index("rclone up", bucket, src, state)
+        dst.mkdir()
+        res["down"] = rclone_run(
+            torch, "rclone down", server, lambda: go("destination", dst),
+            predict_down(None, state),
+            rclone_hashed(dst, state, batch, stream), card)
+        if rclone_state(dst) != state:
+            raise AssertionError("rclone down: the destination differs from "
+                                 "the source")
+        edits = edit_rclone_tree(src, made, seed + 1)
+        state2 = rclone_state(src)
+        res["up2"] = rclone_run(
+            torch, "rclone up2", server, lambda: go("source", src),
+            predict_up(state, state2),
+            rclone_hashed(src, None, batch, stream), card)
+        check_rclone_index("rclone up2", bucket, src, state2)
+        local = rclone_state(dst)
+        res["down2"] = rclone_run(
+            torch, "rclone down2", server, lambda: go("destination", dst),
+            predict_down(local, state2),
+            rclone_hashed(dst, state2, batch, stream), card)
+        if rclone_state(dst) != state2:
+            raise AssertionError("rclone down2: the destination differs from "
+                                 "the edited source")
+        res["objects"] = len(list(bucket.list(f"{RCLONE_PREFIX}/objects/")))
+    res["edits"] = {k: len(v) for k, v in edits.items()}
+    log(f"rclone: trees equal after down and down2 (bytes, modes, mtimes, "
+        f"symlink targets, empty directories, owners"
+        + (", xattrs" if made["xattrs"] else "") + "); every index digest "
+        f"equal to hashlib's blob id; edits {json.dumps(res['edits'])}; "
+        f"{res['objects']} objects left in the bucket ({card})")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3718,6 +4209,10 @@ def main() -> int:
     # The restic entry phase's tree: cut from the 10 GiB PVC, which the
     # backup phase already runs through the same engine.
     ap.add_argument("--restic-mib", type=float, default=256.0)
+    # The rclone phase's small files: BASELINE.json configs[2] (many small
+    # files) cut in depth, from 100 GiB to ~0.65 GiB with the mid files and
+    # the streamed file (PERF.md, section 4).
+    ap.add_argument("--rclone-files", type=int, default=8192)
     args = ap.parse_args()
 
     import torch
@@ -3900,6 +4395,17 @@ def main() -> int:
         shutil.rmtree(base, ignore_errors=True)
     log(f"restic entry phase: {time.perf_counter() - t1:.1f} s in all "
         f"({card})")
+    layout = rclone_layout(args.rclone_files)
+    need = (layout["big"] + layout["n_mid"] * layout["mid_max"]
+            + args.rclone_files * layout["small_max"] // 8)
+    base = Path(tempfile.mkdtemp(prefix="chip_smoke_rclone.", dir=backup_base(
+        build, 3 * need)))
+    t1 = time.perf_counter()
+    try:
+        rclone = rclone_phase(torch, base, layout, args.seed + 6, card)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    log(f"rclone phase: {time.perf_counter() - t1:.1f} s in all ({card})")
 
     # Launches: from the stream phase of the path that runs each kernel.
     launches = {**res["launches"],
@@ -3917,6 +4423,8 @@ def main() -> int:
     runs["mover.cold"] = mover["cold"]["launches"]
     for run in ("backup", "backup2", "restore"):
         runs[f"restic.{run}"] = restic[run]["launches"]
+    for run in ("up", "down", "up2", "down2"):
+        runs[f"rclone.{run}"] = rclone[run]["launches"]
     kernels = []
     for name in ("transpose_u32", "sha256_pages", "sha256_pages_pagemajor",
                  "sha256_lanes", "sha256_slices", "sha256_slices_tail",

@@ -725,3 +725,167 @@ def test_restic_entry_phase_on_cpu(monkeypatch, tmp_path):
                     .iterdir())) == 2
     assert len(list((tmp_path / "restic-traces" / "restic-restore")
                     .iterdir())) == 1
+
+
+# -- the rclone phase ------------------------------------------------------------
+
+SMALL_RCLONE = {**chip_smoke.RCLONE_LAYOUT, "files": 60, "dirs": 4,
+                "small_max": 8192, "empty": 3, "links": 4, "dir_links": 2,
+                "empty_dirs": 2, "n_mid": 2, "mid_min": 40_000,
+                "mid_max": 90_000, "big": 300_000 + 12345}
+
+
+def test_rclone_tree_maker_layout(tmp_path):
+    """The seeded tree: its counts of each kind, sizes, byte copies,
+    symlinks (two to directories) and empty directories, made the same
+    from the same seed."""
+    made = chip_smoke.make_rclone_tree(tmp_path / "a", SMALL_RCLONE, 4)
+    state = chip_smoke.rclone_state(tmp_path / "a")
+    kinds = [v[0] for v in state.values()]
+    files = {r: v for r, v in state.items() if v[0] == "file"}
+    assert len(files) == 60 + 3 + 2 + 1 and kinds.count("symlink") == 4
+    assert kinds.count("dir") == 4 + 2
+    assert {r for r, v in state.items() if v[0] == "symlink"
+            and (tmp_path / "a" / r).is_dir()} == {"dlink0", "dlink1"}
+    small = [files[r] for r in made["small"]]
+    assert all(1 <= v[3] <= 8192 for v in small)
+    assert len(small) - len({v[4] for v in small}) == 60 // 20
+    assert sum(v[3] == 0 for v in files.values()) == 3
+    assert all(40_000 <= files[r][3] <= 90_000 for r in made["mid"])
+    assert files["big.bin"][3] == 300_000 + 12345
+    assert [list((tmp_path / "a" / f"empty{k}").iterdir())
+            for k in (0, 1)] == [[], []]
+    chip_smoke.make_rclone_tree(tmp_path / "b", SMALL_RCLONE, 4)
+    strip = {r: v[:2] + v[3:5] if v[0] == "file" else v[:2]
+             for r, v in state.items()}
+    assert strip == {r: v[:2] + v[3:5] if v[0] == "file" else v[:2]
+                     for r, v in chip_smoke.rclone_state(
+                         tmp_path / "b").items()}
+
+
+@pytest.mark.parametrize("sizes,want", [
+    ([(256 << 20) + 12345], (0, 1, 9)),
+    ([32 << 20], (0, 1, 1)),
+    ([(32 << 20) + 4095], (0, 1, 1)),
+    ([(32 << 20) + 4096], (0, 1, 2)),
+    ([100, 0, 4095, 16 << 20], (1, 0, 0)),
+    ([12 << 20] * 5 + [4 << 20, 1], (2, 0, 0)),
+    ([], (0, 0, 0)),
+])
+def test_rclone_hashing_counts_streamed_segments(sizes, want):
+    """K1 launches a streamed file (over 16 MiB here): one a 32 MiB
+    segment that holds a full page (a 256 MiB + 12,345 B file: eight
+    and its last 12,345 bytes); a batch flushes once it holds 64 MiB and
+    at the end."""
+    got = chip_smoke.rclone_hashing(sizes, 64 << 20, 16 << 20)
+    flushes, streamed, pages = want
+    assert (got["flushes"], got["streamed"]) == (flushes, streamed)
+    assert got["launches"] == {"sha256_pages": flushes + pages,
+                               "sha256_slices": flushes,
+                               "merkle_roots": flushes}
+
+
+@pytest.mark.parametrize("pkg", ["ref", "port"])
+def test_rclone_flush_predictor_follows_hash_files(pkg, tmp_path,
+                                                   monkeypatch):
+    """The predicted flushes and streamed files are those of each
+    package's ``hash_files`` batching rule (its ``hash_spans`` and
+    ``hash_file_streaming`` stubbed and counted), in walk order, with the
+    batch and stream limits cut to the small tree."""
+    if pkg == "ref":
+        from volsync_tpu.movers.rclone import sync
+    else:
+        from volsync_tpu_torch.movers.rclone import sync
+    root = tmp_path / "t"
+    chip_smoke.make_rclone_tree(root, SMALL_RCLONE, 8)
+    monkeypatch.setattr(sync, "_BATCH_BYTES", 20_000)
+    monkeypatch.setattr(sync, "_STREAM_THRESHOLD", 200_000)
+    flushes, streamed = [], []
+    monkeypatch.setattr(sync, "hash_spans", lambda buf, spans, **kw: (
+        flushes.append(len(spans)) or ["0" * 64] * len(spans)))
+    monkeypatch.setattr(sync, "hash_file_streaming", lambda p, **kw: (
+        streamed.append(p) or "0" * 64))
+    rels = [r for r, _ in chip_smoke.rclone_walk_files(root)]
+    sync.hash_files(root, rels, **({"device": "cpu"} if pkg == "port"
+                                   else {}))
+    got = chip_smoke.rclone_hashed(root, None, 20_000, 200_000)
+    assert (got["flushes"], got["streamed"]) == (len(flushes), len(streamed))
+    assert len(flushes) > 3 and streamed == [root / "big.bin"]
+    assert [r for r, _ in chip_smoke.rclone_walk_files(root)] == [
+        r for r, e in sync.scan_tree(root).items() if e["type"] == "file"]
+    assert (chip_smoke.RCLONE_PER_FLUSH, sync.DEFAULT_TRANSFERS) == (
+        chip_smoke.VERIFY_PER_PASS, chip_smoke.RCLONE_TRANSFERS)
+
+
+def test_rclone_segment_is_hash_file_streamings():
+    import inspect
+
+    from volsync_tpu_torch.engine import chunker
+    from volsync_tpu_torch.movers.rclone import sync
+
+    seg = inspect.signature(chunker.hash_file_streaming).parameters[
+        "segment_size"].default
+    assert seg == chip_smoke.RCLONE_SEGMENT
+    assert (sync._BATCH_BYTES, sync._STREAM_THRESHOLD) == (64 << 20,
+                                                           256 << 20)
+
+
+def test_rclone_stats_predictors():
+    """The stats predicted from two tree states: distinct contents
+    upload once, objects no longer held are deleted, an index shard is
+    written where any of its paths changed, and a sync down skips the
+    files of equal size and content and deletes what the bucket
+    lacks."""
+    meta = (0, 0, ())
+    old = {"a": ("dir", 0o755, 1) + meta,
+           "a/x": ("file", 0o644, 1, 3, "h1") + meta,
+           "a/y": ("file", 0o644, 1, 3, "h1") + meta,
+           "b": ("dir", 0o755, 1) + meta,
+           "b/z": ("file", 0o644, 1, 5, "h2") + meta,
+           "l": ("symlink", "a/x") + meta}
+    up = chip_smoke.predict_up(None, old)
+    shards = {chip_smoke.rclone_shard_of(r) for r in old}
+    assert up == {"files": 3, "uploaded": 2, "deduped": 1,
+                  "deleted_objects": 0, "index_shards": len(shards),
+                  "index_shards_written": len(shards), "bytes": 11}
+    new = dict(old)
+    new["b/z"] = ("file", 0o600, 1, 5, "h2") + meta  # chmod only
+    del new["a/y"]
+    new["a/x"] = ("file", 0o644, 2, 3, "h3") + meta  # rewritten
+    up2 = chip_smoke.predict_up(old, new)
+    changed = {chip_smoke.rclone_shard_of(r) for r in ("b/z", "a/x")}
+    assert up2 == {"files": 2, "uploaded": 1, "deduped": 1,
+                   "deleted_objects": 1, "index_shards": len(shards),
+                   "index_shards_written": len(changed), "bytes": 8}
+    assert chip_smoke.predict_down(None, new) == {
+        "files": 2, "fetched": 2, "skipped": 0, "deleted_local": 0,
+        "bytes": 8}
+    assert chip_smoke.predict_down(old, new) == {
+        "files": 2, "fetched": 1, "skipped": 1, "deleted_local": 1,
+        "bytes": 8}
+    from volsync_tpu.movers.rclone.sync import _shard_of
+
+    assert all(chip_smoke.rclone_shard_of(r) == _shard_of(r)
+               for r in ("a", "a/x", "x/y/z", ""))
+
+
+def test_rclone_phase_on_cpu(monkeypatch, tmp_path):
+    """The rclone phase on a small tree with the twins: up, down, the
+    edits, up2 and down2 through ``rclone_entrypoint`` and the port's
+    fake S3, each held to its predicted stats and flushes, the index to
+    hashlib's blob ids and the destinations to the source."""
+    from volsync_tpu_torch.movers.rclone import sync
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(sync, "_BATCH_BYTES", 150_000)
+    monkeypatch.setattr(sync, "_STREAM_THRESHOLD", 256 * 1024)
+    res = chip_smoke.rclone_phase(torch, tmp_path, SMALL_RCLONE, 3, "cpu")
+    assert res["up"]["stats"]["uploaded"] == res["up"]["stats"]["files"] - 5
+    assert res["up"]["flushes"] > 1 and res["up"]["streamed"] == 1
+    assert (res["down"]["flushes"], res["down"]["streamed"]) == (0, 0)
+    assert res["down2"]["streamed"] == 1
+    assert res["down2"]["stats"]["deleted_local"] == res["edits"]["deleted"]
+    assert "rclone.meta" in res["down2"]["spans"]
+    assert res["up"]["verbs"]["PUT"] >= res["up"]["stats"]["uploaded"]
+    for run in ("up", "down", "up2", "down2"):
+        assert res[run]["busy_s"] is None and res[run]["gibs"] > 0

@@ -22,6 +22,8 @@ from volsync_tpu_torch.engine import chunker as tch
 from volsync_tpu_torch.engine import deltasync
 from volsync_tpu_torch.engine.backup import TreeBackup
 from volsync_tpu_torch.engine.restore import TreeRestore, restore_snapshot
+from volsync_tpu_torch.movers.rclone import entry as rclone_entry
+from volsync_tpu_torch.movers.rclone import sync as rclone_sync
 from volsync_tpu_torch.movers.restic import entry as restic_entry
 from volsync_tpu_torch.movers.rsync import entry as rsync_entry
 from volsync_tpu_torch.objstore.store import MemObjectStore
@@ -77,8 +79,17 @@ def test_no_file_imports_jax_or_the_reference():
             "volsync_tpu_torch/movers/rsync/entry.py",
             "volsync_tpu_torch/movers/rsync/standalone.py",
             "volsync_tpu_torch/movers/restic/entry.py",
+            "volsync_tpu_torch/movers/rclone/__init__.py",
+            "volsync_tpu_torch/movers/rclone/sync.py",
+            "volsync_tpu_torch/movers/rclone/entry.py",
+            "volsync_tpu_torch/objstore/s3.py",
+            "volsync_tpu_torch/objstore/fakes3.py",
+            "volsync_tpu_torch/objstore/azure.py",
+            "volsync_tpu_torch/objstore/fakeazure.py",
+            "volsync_tpu_torch/objstore/swift.py",
+            "volsync_tpu_torch/objstore/fakeswift.py",
             "volsync_tpu_torch/obs.py"} <= names
-    assert len(_port_files()) >= 53
+    assert len(_port_files()) >= 62
 
 
 def test_importing_the_port_loads_no_jax_module():
@@ -103,7 +114,10 @@ def test_importing_the_port_loads_no_jax_module():
                          text=True, env=env, cwd=str(ROOT), timeout=300,
                          check=True)
     added = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "volsync_tpu_torch.ops.segment" in added
+    assert {"volsync_tpu_torch.ops.segment",
+            "volsync_tpu_torch.movers.rclone.sync",
+            "volsync_tpu_torch.objstore.s3",
+            "volsync_tpu_torch.objstore.fakeswift"} <= set(added)
     assert [m for m in added if _forbidden(m)] == []
 
 
@@ -255,9 +269,10 @@ def test_delta_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_mover_entry_points_raise_without_cuda(monkeypatch, tmp_path):
-    """The movers' entry points run on CUDA unless given a device: with
-    no CUDA, a ``JobContext`` with no ``device`` and no ``device=`` they
-    raise before they bind, connect, send or write anything."""
+    """The movers' entry points (rsync, restic, rclone and its bucket
+    sync) run on CUDA unless given a device: with no CUDA, a
+    ``JobContext`` with no ``device`` and no ``device=`` they raise
+    before they bind, connect, send, open a remote or write anything."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     src = tmp_path / "src"
     src.mkdir()
@@ -283,6 +298,10 @@ def test_mover_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     keys = {"source": b"k" * 64, "destination-id": b"00",
             "destination": b"k" * 64, "source-id": b"00"}
     repo = tmp_path / "repo"
+    conf = {"rclone-secret": {"rclone.conf": (
+        f"[b]\nurl = file://{tmp_path / 'bucket'}\n").encode()}}
+    bucket = MemObjectStore()
+    dst = tmp_path / "dst"
     calls = [
         lambda: rsync_entry.serve_destination(
             src, b"k" * 64, "00", on_port=bound.append),
@@ -296,6 +315,15 @@ def test_mover_entry_points_raise_without_cuda(monkeypatch, tmp_path):
             {"RESTIC_REPOSITORY": str(repo)}, {})),
         lambda: restic_entry.restic_entrypoint(ctx(
             {"RESTIC_REPOSITORY": str(repo), "DIRECTION": "restore"}, {})),
+        lambda: rclone_entry.rclone_entrypoint(ctx(
+            {"RCLONE_DEST_PATH": "p", "DIRECTION": "source",
+             "RCLONE_CONFIG_SECTION": "b"}, conf)),
+        lambda: rclone_entry.rclone_entrypoint(ctx(
+            {"RCLONE_DEST_PATH": "p", "DIRECTION": "destination",
+             "RCLONE_CONFIG_SECTION": "b"}, conf)),
+        lambda: rclone_sync.sync_up(src, bucket, "p"),
+        lambda: rclone_sync.sync_down(bucket, "p", dst),
+        lambda: rclone_sync.hash_files(src, ["f"]),
     ]
     listener.settimeout(0.2)
     for call in calls:
@@ -306,3 +334,5 @@ def test_mover_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     listener.close()
     assert sent == [] and bound == [] and not repo.exists()
     assert [p.name for p in src.iterdir()] == ["f"]
+    assert list(bucket.list()) == [] and not dst.exists()
+    assert not (tmp_path / "bucket").exists()

@@ -7,8 +7,8 @@ blob equal and passes ``check(read_data=True)`` under the other (the
 port's on ``device="cpu"``). A restore group fetches each pack once, and
 a corrupt primary heals from its mirror copy. Under ``VOLSYNC_EC_SCHEME``
 a flush writes only ``ec/`` shards and a shard-only pack reconstructs;
-``VOLSYNC_FAULT_SEED`` wraps the local stores in the fault store; the
-network stores raise. The stand-ins (trace context, metrics, lock
+``VOLSYNC_FAULT_SEED`` wraps the local stores in the fault store (the
+network stores: ``tests/test_torch_objstore.py``). The stand-ins (trace context, metrics, lock
 factory) behave as the reference's.
 """
 
@@ -417,15 +417,6 @@ def test_shard_only_pack_reconstructs_and_missing_pack_is_no_such_key(rng):
         pack) is False
     with pytest.raises(tstore.NoSuchKey, match="fewer than k"):
         trepo.Repository.open(repo.store, device="cpu").ec_reconstruct(pack)
-
-
-@pytest.mark.parametrize("url", [
-    "s3:http://localhost:9000/bucket/prefix", "s3://bucket/prefix",
-    "azure:container:/path", "b2:bucket:/path", "gs:bucket:/path",
-    "swift:container:/path"])
-def test_network_stores_raise(url):
-    with pytest.raises(tstore.UnportedStoreError, match="volsync_tpu/objstore"):
-        tstore.open_store(url, env={})
 
 
 def test_fault_seed_wraps_local_stores(monkeypatch, tmp_path):

@@ -2,7 +2,9 @@
 
 Ports the part of ``volsync_tpu/envflags.py`` that the port's modules
 use: the stream engine's (``pipeline_enabled``, ``readahead_segments``),
-the repository's write pipeline, index, locking and retry knobs, the
+the repository's write pipeline, index, locking and retry knobs,
+``open_store``'s wrapping of network stores
+(``store_resilience_enabled``), the
 backup and restore workers', the scrub's and the repacker's cadence,
 the fault-injection store's seed and spec, the sync-protocol
 planner's and the batched delta scan's, the device trace's directory
@@ -201,6 +203,12 @@ def breaker_threshold() -> int:
 def breaker_reset_seconds() -> float:
     """Cooldown before an open breaker admits the half-open probe."""
     return env_float("VOLSYNC_BREAKER_RESET_S", 30.0, minimum=0.1)
+
+
+def store_resilience_enabled() -> bool:
+    """VOLSYNC_STORE_RESILIENCE=0 opts open_store() out of wrapping
+    network backends in the shared retry/breaker layer."""
+    return env_bool("VOLSYNC_STORE_RESILIENCE", True)
 
 
 def fault_seed() -> Optional[int]:

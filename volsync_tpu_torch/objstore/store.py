@@ -1,13 +1,13 @@
 """Key/value object stores: filesystem-backed and in-memory.
 
-Ports ``volsync_tpu/objstore/store.py``: the store protocol, the
-filesystem and in-memory stores, ``open_store`` and ``unwrap``. The
-network backends (``objstore/s3.py``, ``azure.py``, ``swift.py``, and
-``b2:``/``gs:`` through the S3 client) are not ported: ``open_store``
-raises for their URL schemes instead of serving them from a local
-store. A set ``VOLSYNC_FAULT_SEED`` wraps the local stores in the
-fault-injection store (``objstore/faultstore.py``), as in the
-reference.
+Ports ``volsync_tpu/objstore/store.py`` whole: the store protocol, the
+module-level ``put_file``/``get_file``, the filesystem and in-memory
+stores, ``LatencyStore``, ``open_store`` with every URL form the
+reference serves (the network clients are the port's ``objstore/s3.py``,
+``azure.py`` and ``swift.py``; ``b2:`` and ``gs:`` go through the S3
+client) and ``unwrap``. Network stores come back inside
+``ResilientStore``, with the fault-injection store under it when
+``VOLSYNC_FAULT_SEED`` is set, as in the reference.
 
 Keys are slash-separated paths (``data/ab/abcdef...``). Writes are
 atomic (temp file + rename) so a crashed backup never leaves a torn
@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 
 from pathlib import Path
 from typing import Iterator, Optional, Protocol, Sequence, Union
@@ -82,6 +83,32 @@ class ObjectStore(Protocol):
     def delete(self, key: str) -> None: ...
     def list(self, prefix: str = "") -> Iterator[str]: ...
     def size(self, key: str) -> int: ...
+
+
+def put_file(store, key: str, src) -> None:
+    """Upload a local file as one object with bounded memory when the
+    store supports it (multipart-upload analogue); whole-bytes fallback
+    otherwise."""
+    fn = getattr(store, "put_file", None)
+    if fn is not None:
+        fn(key, src)
+    else:
+        store.put(key, Path(src).read_bytes())
+
+
+def get_file(store, key: str, dst) -> int:
+    """Download an object into a local file with bounded memory when the
+    store supports it; returns bytes written. The write is atomic
+    (temp + rename) so a crashed transfer never leaves a torn file."""
+    fn = getattr(store, "get_file", None)
+    if fn is not None:
+        return fn(key, dst)
+    data = store.get(key)
+    dst = Path(dst)
+    tmp = dst.parent / f".volsync.tmp.{os.getpid()}.{dst.name}"
+    tmp.write_bytes(data)
+    tmp.replace(dst)
+    return len(data)
 
 
 class NoSuchKey(KeyError):
@@ -249,49 +276,248 @@ class MemObjectStore:
         return len(self.get(key))
 
 
-#: URL schemes of the network backends and the reference module each
-#: needs; the port refuses them until those modules are ported.
-_UNPORTED_SCHEMES = {
-    "s3:": "volsync_tpu/objstore/s3.py",
-    "azure:": "volsync_tpu/objstore/azure.py",
-    "b2:": "volsync_tpu/objstore/s3.py (B2's S3-compatible endpoint)",
-    "gs:": "volsync_tpu/objstore/s3.py (GCS's S3 interoperability API)",
-    "swift:": "volsync_tpu/objstore/swift.py",
-    "swift-temp:": "volsync_tpu/objstore/swift.py",
-}
+class LatencyStore:
+    """Wrap any ObjectStore with synthetic per-op latency (seconds) —
+    the fake-cloud backend for pipeline benchmarks and backpressure
+    tests (a MemObjectStore put is ~1 µs; a real store put is tens of
+    ms, which is the regime the async upload stage exists for). Also
+    counts ops and tracks high-water marks of concurrent puts/gets so
+    tests can assert the upload window is honored and the restore
+    drills can account store GETs (``pack_gets`` isolates data-pack
+    fetches — the number the single-flight cache bounds). Zero-latency
+    instances double as pure op counters."""
 
+    def __init__(self, inner: ObjectStore, *, put_latency: float = 0.0,
+                 get_latency: float = 0.0):
+        self.inner = inner
+        self.put_latency = put_latency
+        self.get_latency = get_latency
+        self.puts = 0
+        self.max_concurrent_puts = 0
+        self._active_puts = 0
+        self.gets = 0            # get + get_range arrivals
+        self.pack_gets = 0       # ... with a data/ key (any read)
+        self.pack_fetches = 0    # whole-object data/ GETs only — the
+        #                          count the single-flight cache bounds
+        #                          (ranged tree-blob reads excluded)
+        self.max_concurrent_gets = 0
+        self._active_gets = 0
+        self._lock = lockcheck.make_lock("objstore.latency")
 
-class UnportedStoreError(NotImplementedError):
-    """A store the reference serves whose module the port lacks."""
+    def _enter_get(self, key: str, whole: bool = False) -> None:
+        with self._lock:
+            self.gets += 1
+            if key.startswith("data/"):
+                self.pack_gets += 1
+                if whole:
+                    self.pack_fetches += 1
+            self._active_gets += 1
+            self.max_concurrent_gets = max(self.max_concurrent_gets,
+                                           self._active_gets)
+
+    def _exit_get(self) -> None:
+        with self._lock:
+            self._active_gets -= 1
+
+    def put(self, key: str, data: PutBody) -> None:
+        with self._lock:
+            self.puts += 1
+            self._active_puts += 1
+            self.max_concurrent_puts = max(self.max_concurrent_puts,
+                                           self._active_puts)
+        try:
+            if self.put_latency:
+                time.sleep(self.put_latency)
+            self.inner.put(key, data)
+        finally:
+            with self._lock:
+                self._active_puts -= 1
+
+    def put_if_absent(self, key: str, data: PutBody) -> bool:
+        if self.put_latency:
+            time.sleep(self.put_latency)
+        return self.inner.put_if_absent(key, data)
+
+    def get(self, key: str) -> bytes:
+        self._enter_get(key, whole=True)
+        try:
+            if self.get_latency:
+                time.sleep(self.get_latency)
+            return self.inner.get(key)
+        finally:
+            self._exit_get()
+
+    def get_range(self, key: str, offset: int, length: int) -> bytes:
+        self._enter_get(key)
+        try:
+            if self.get_latency:
+                time.sleep(self.get_latency)
+            return self.inner.get_range(key, offset, length)
+        finally:
+            self._exit_get()
+
+    def exists(self, key: str) -> bool:
+        return self.inner.exists(key)
+
+    def delete(self, key: str) -> None:
+        self.inner.delete(key)
+
+    def list(self, prefix: str = "") -> Iterator[str]:
+        return self.inner.list(prefix)
+
+    def size(self, key: str) -> int:
+        return self.inner.size(key)
 
 
 def open_store(url: str, env: Optional[dict] = None) -> ObjectStore:
-    """Open a store by repository URL: ``file:///path``, ``mem:`` or a
-    bare path (the reference's local forms, wrapped as there: a set
-    VOLSYNC_FAULT_SEED puts them inside a ``FaultStore``).
+    """Open a store by repository URL with credentials from ``env`` —
+    the Secret->env passthrough contract of
+    controllers/mover/restic/mover.go:317-364.
 
-    Network URLs (``s3:``, ``azure:``, ``b2:``, ``gs:``, ``swift:``)
-    raise ``UnportedStoreError`` naming the reference module still to
-    port. ``env`` is the credential map of the network forms; the local
-    ones ignore it."""
-    from volsync_tpu_torch.objstore.faultstore import maybe_wrap
+    Supported forms (restic's URL vocabulary):
+      ``s3:http://endpoint/bucket/prefix`` / ``s3://bucket/prefix``,
+      ``azure:container:/path`` (SharedKey client, objstore/azure.py),
+      ``b2:bucket:/path`` (via B2's S3-compatible endpoint),
+      ``gs:bucket:/path`` (via GCS's S3-interop XML API, HMAC keys),
+      ``swift:container:/path`` (Keystone v3 / v1 auth,
+      objstore/swift.py), ``file:///path``, ``mem:``, or a bare path.
 
-    for scheme, module in _UNPORTED_SCHEMES.items():
-        if url.startswith(scheme):
-            raise UnportedStoreError(
-                f"{scheme} repositories need {module}, which "
-                "volsync_tpu_torch does not port yet")
+    Network backends come back wrapped in the shared retry policy +
+    per-backend circuit breaker (resilience.ResilientStore; opt out
+    with VOLSYNC_STORE_RESILIENCE=0). Local/mem stores are not wrapped
+    — their failures are programming errors, not weather. Setting
+    VOLSYNC_FAULT_SEED arms the deterministic fault-injection wrapper
+    (objstore/faultstore.py) UNDER the resilience layer, exactly where
+    real faults occur.
+    """
+    import os as _os
+
+    from volsync_tpu_torch import envflags as _envflags
+    from volsync_tpu_torch.resilience import ResilientStore
+
+    def _resilient(store: ObjectStore, backend: str) -> ObjectStore:
+        from volsync_tpu_torch.objstore.faultstore import maybe_wrap
+
+        store = maybe_wrap(store)
+        if not _envflags.store_resilience_enabled():
+            return store
+        return ResilientStore(store, backend=backend)
+
+    env_map = dict(_os.environ if env is None else env)
+    if url.startswith("s3:"):
+        from volsync_tpu_torch.objstore.s3 import S3ObjectStore
+
+        return _resilient(S3ObjectStore.from_url(url, env=env), "s3")
+    if url.startswith("azure:"):
+        from volsync_tpu_torch.objstore.azure import AzureBlobStore
+
+        return _resilient(AzureBlobStore.from_url(url, env_map), "azure")
+    if url.startswith("b2:"):
+        return _resilient(_b2_store(url, env_map), "b2")
+    if url.startswith("gs:"):
+        return _resilient(_gs_store(url, env_map), "gs")
+    if url.startswith("swift:") or url.startswith("swift-temp:"):
+        from volsync_tpu_torch.objstore.swift import SwiftObjectStore
+
+        return _resilient(SwiftObjectStore.from_url(url, env_map), "swift")
     if url.startswith("mem:"):
+        from volsync_tpu_torch.objstore.faultstore import maybe_wrap
+
         return maybe_wrap(MemObjectStore())
     if url.startswith("file://"):
+        from volsync_tpu_torch.objstore.faultstore import maybe_wrap
+
         return maybe_wrap(FsObjectStore(url[len("file://"):]))
+    from volsync_tpu_torch.objstore.faultstore import maybe_wrap
+
     return maybe_wrap(FsObjectStore(url))
 
 
 def unwrap(store: ObjectStore) -> ObjectStore:
-    """Peel wrappers (``ResilientStore``, ``FaultStore``) off a store —
-    diagnostics and tests that need the concrete backend (wrappers all
-    expose the wrapped store as ``.inner``)."""
+    """Peel resilience/fault-injection wrappers off a store opened via
+    open_store() — diagnostics and tests that need the concrete backend
+    (wrappers all expose the wrapped store as ``.inner``)."""
     while hasattr(store, "inner"):
         store = store.inner
     return store
+
+
+def _bucket_path(url: str, scheme: str) -> tuple[str, str]:
+    """Split restic's ``scheme:bucket:/path`` (or ``scheme:bucket/path``)
+    into (bucket, path)."""
+    rest = url[len(scheme) + 1:]
+    if ":" in rest:
+        bucket, _, path = rest.partition(":")
+    else:
+        bucket, _, path = rest.partition("/")
+    if not bucket:
+        raise ValueError(f"{scheme} URL {url!r} has no bucket")
+    return bucket, path.lstrip("/")
+
+
+def _b2_store(url: str, env: dict) -> ObjectStore:
+    """Backblaze B2 via its S3-compatible endpoint (restic's b2: URL,
+    B2_ACCOUNT_ID/B2_ACCOUNT_KEY env family — mover.go:331-334). B2's
+    S3 endpoint embeds the bucket's region, so it must be given:
+    B2_S3_ENDPOINT explicitly, or derived from B2_REGION."""
+    from volsync_tpu_torch.objstore.s3 import S3ObjectStore
+
+    account = env.get("B2_ACCOUNT_ID", "")
+    key = env.get("B2_ACCOUNT_KEY", "")
+    if not account or not key:
+        raise ValueError(
+            "b2: repository needs B2_ACCOUNT_ID and B2_ACCOUNT_KEY in "
+            "the repository Secret (restic/mover.go:331-334 passthrough); "
+            "use the bucket's S3-compatible application key")
+    endpoint = env.get("B2_S3_ENDPOINT")
+    region = env.get("B2_REGION")
+    if not endpoint and region:
+        endpoint = f"https://s3.{region}.backblazeb2.com"
+    if not endpoint:
+        raise ValueError(
+            "b2: repository needs B2_S3_ENDPOINT (e.g. "
+            "https://s3.us-west-004.backblazeb2.com) or B2_REGION in "
+            "the repository Secret — B2's S3-compatible endpoint is "
+            "region-scoped")
+    if not region:
+        # B2 validates the SigV4 credential-scope region against the
+        # endpoint, so it must match — derive it from the documented
+        # hostname shape rather than defaulting to a wrong value.
+        import re as _re
+
+        m = _re.search(r"//s3\.([a-z0-9-]+)\.backblazeb2\.com", endpoint)
+        if not m:
+            raise ValueError(
+                f"cannot derive the signing region from B2_S3_ENDPOINT="
+                f"{endpoint!r}; set B2_REGION in the repository Secret")
+        region = m.group(1)
+    bucket, path = _bucket_path(url, "b2")
+    return S3ObjectStore(endpoint, bucket, path, access_key=account,
+                         secret_key=key, region=region)
+
+
+def _gs_store(url: str, env: dict) -> ObjectStore:
+    """Google Cloud Storage via the S3-interoperability XML API with
+    HMAC keys (restic's gs: URL). Service-account JSON auth
+    (GOOGLE_APPLICATION_CREDENTIALS) needs RS256 signing, which the
+    stdlib cannot do — refuse with guidance instead of misconfiguring."""
+    from volsync_tpu_torch.objstore.s3 import S3ObjectStore
+
+    access = env.get("GS_ACCESS_KEY_ID") or env.get("AWS_ACCESS_KEY_ID", "")
+    secret = (env.get("GS_SECRET_ACCESS_KEY")
+              or env.get("AWS_SECRET_ACCESS_KEY", ""))
+    if not access or not secret:
+        hint = ""
+        if env.get("GOOGLE_APPLICATION_CREDENTIALS") or \
+                env.get("GOOGLE_PROJECT_ID"):
+            hint = (" — service-account JSON auth is not supported "
+                    "(needs RS256); create HMAC interoperability keys "
+                    "for the bucket and set GS_ACCESS_KEY_ID/"
+                    "GS_SECRET_ACCESS_KEY")
+        raise ValueError(
+            "gs: repository needs GS_ACCESS_KEY_ID and "
+            f"GS_SECRET_ACCESS_KEY in the repository Secret{hint}")
+    endpoint = env.get("GS_S3_ENDPOINT", "https://storage.googleapis.com")
+    bucket, path = _bucket_path(url, "gs")
+    return S3ObjectStore(endpoint, bucket, path, access_key=access,
+                         secret_key=secret, region="auto")
