@@ -5,7 +5,8 @@
                           [--align1-mib M] [--pagemajor-gib G]
                           [--backup-gib G] [--backup64-mib M]
                           [--ec-gib G] [--delta-gib G] [--restic-mib M]
-                          [--rclone-files N]
+                          [--rclone-files N] [--service-tenants SPEC]
+                          [--service-mib M]
 
 Run from the repository root on a machine with a CUDA card and nvcc. It
 imports nothing of JAX or of the JAX package, and every phase raises on
@@ -71,7 +72,10 @@ a mismatch:
    ids); prints GiB/s and the dedup ratio. A second pass with each
    stage's functions bracketed by CUDA events gives per-stage device
    time, and a third plain pass the GiB/s spread; both must give the
-   first pass's chunks;
+   first pass's chunks. Then the same stream alone through the engine's
+   own pipeline and through the default hasher (on CUDA the shared
+   micro-batcher, one lane a pass), in turns off, on, off, on, each
+   turn giving those chunks;
 4. verify: ``verify_blob_batch`` over 256 produced chunks returns [] and,
    with one byte flipped, exactly that chunk's id; its span-tail
    ``sha256_slices`` call equals its twin;
@@ -88,7 +92,33 @@ a mismatch:
    word-major passes over the same bytes, the layouts alternating
    pm/wm/wm/pm). Each stream also prints its host seconds by
    ``obs.span``;
-6. backup: the restic mover's product path. A seeded tree of about
+6. service: the mover-jax gRPC service (BASELINE.json configs[4], 100
+   concurrent sources; ``tools/service_bench.run_closed_loop``): the
+   port's ``MoverJaxServer`` on 127.0.0.1 (``DEFAULT_PARAMS``, 32 MiB
+   segments, pipeline depth 2, admission at its defaults, gRPC workers
+   = clients + 4) answers ``--service-tenants`` closed-loop ChunkHash
+   sources (``gold:4:25;silver:2:25;bronze:1:50``) of ``--service-mib``
+   MiB each (32) less 12,345 bytes (so every eof segment ends mid-page),
+   salted from one seeded base and made piece by piece as they are sent; shed sources honour the retry-after hint. A warm
+   round and the timed round with a 2 ms batch window, then the same
+   load per request (window 0), each with the launch counts set to 0
+   just before and read just after, the fused passes counted and the
+   card traced: the fused kernels once a pass, no mid-stream abort,
+   fewer batched passes than segments. Every stream equals the
+   unbatched ``DeviceChunkHasher`` on the card over its bytes (stream 0
+   also hashlib's ids), the per-request lists the batched ones; ``Info``
+   reports the device; HashSpans over a 64 MiB buffer equals
+   ``hash_spans``; a forced-open breaker sheds at admission in under
+   10 ms; 8 streams of 80 MiB less 12,345 bytes under
+   ``VOLSYNC_TPU_LOCKCHECK=1``, each crossing the 40 MiB segment cut,
+   equal the unbatched hasher and record no violation. Logs GiB/s, p50/p99, admitted and shed counts by
+   tenant, lanes a pass, spans, the card's busy share, peak device
+   memory and peak host RSS. Then the fused kernels at the batched
+   pass's shape (the pass shape that hashed the most of the timed
+   round's segments, and 8 lanes of it), on the service's own lanes
+   (each a whole source, eof, with a tail leaf): each held against its
+   twin (max abs err 0), timed and bounded;
+7. backup: the restic mover's product path. A seeded tree of about
    ``--backup-gib`` GiB on local disk (in the process's temporary
    directory where its filesystem keeps holes and has room, else under
    ``build/``; removed after) from the stream's block pattern: a file of half the volume, one
@@ -109,11 +139,15 @@ a mismatch:
    ``merkle_roots`` once a verify pass. Logs backup and restore GiB/s,
    each run's host seconds by span and the seconds the card was busy
    (a ``torch.profiler`` trace of its kernels, copies and memsets).
-   Every restore must leave the hole unwritten (its writes into
+   On the card the fused engine's segments go through the shared
+   micro-batcher (its default there): a run counts its batched passes
+   and the segments they hashed, the fused kernels once a pass and
+   passes no more than segments. Every restore must leave the hole
+   unwritten (its writes into
    ``sparse.bin`` are recorded); where the filesystem keeps holes, the
    restored file must keep it as one too, and the log says whether it
    did;
-7. durability: ``gf_matmul`` (the Reed-Solomon field product, plain
+8. durability: ``gf_matmul`` (the Reed-Solomon field product, plain
    torch ops) at a 16 MiB pack's shape, held exactly against the NumPy
    oracle and timed (CUDA-graph replay and eager) beside its CPU twin
    and its bytes bound; then ``durability_phase`` over a seeded tree of
@@ -131,7 +165,7 @@ a mismatch:
    launches (the fused kernels once a backup pass, the verify kernels
    once a verify batch), ``gf_matmul``'s calls and the packs decoded,
    and traces the card;
-8. delta: the rsync mover's data plane (BASELINE.json configs[0], a
+9. delta: the rsync mover's data plane (BASELINE.json configs[0], a
    1 GiB PVC replicated by rsync; ``--delta-gib``). Seeded destination
    and source trees on disk: a file of half the volume with 16 scattered
    1 KiB overwrites, a 37-byte insertion a third of the way in and a
@@ -153,7 +187,7 @@ a mismatch:
    the card's busy share, and the rolling + membership torch ops timed
    again at the largest group's shape and a 4 KiB group's beside their
    bytes bound;
-9. mover: the rsync mover's entry points over the delta phase's trees
+10. mover: the rsync mover's entry points over the delta phase's trees
    (BASELINE.json configs[0], before they are removed): with the launch
    counts set to 0 and the card traced, ``serve_destination`` on the
    destination tree in a thread on 127.0.0.1 and
@@ -173,16 +207,19 @@ a mismatch:
    and seal. Then a device the listener does not know and a wrong
    pinned ID are refused at the handshake, and a cold push of 64 MiB
    into an empty directory ships all literal with no kernel launched;
-10. restic entry: ``restic_entrypoint`` over a seeded ``--restic-mib``
+11. restic entry: ``restic_entrypoint`` over a seeded ``--restic-mib``
    MiB tree in an encrypted ``FsObjectStore`` repository with
    ``VOLSYNC_TRACE_DIR`` set: a backup, edits, a second backup with
    FORGET_LAST=1 and PRUNE=1, a restore into an empty directory; rc 0
    each, exact launches each run (the fused kernels a backup pass, the
    verify kernels a verify pass), one snapshot left, the restore
-   byte-identical with the hole unwritten, one trace a backup and one
+   byte-identical with the hole unwritten, the backup again into fresh
+   repositories in turns with ``VOLSYNC_BATCH_SEGMENTS=0`` twice and
+   batched once (the same segments and root tree each), one trace a
+   backup and one
    of the restore (``obs.device_trace``), whose device events, where
    the profiler kept them, give each run's busy share;
-11. rclone: ``rclone_entrypoint`` (BASELINE.json configs[2], many small
+12. rclone: ``rclone_entrypoint`` (BASELINE.json configs[2], many small
    files) through an S3 remote, the port's ``FakeS3Server`` on
    127.0.0.1 named by an ``rclone.conf`` section, TRANSFERS 10, over a
    seeded tree of ``--rclone-files`` small files (log-uniform 1 B to
@@ -204,11 +241,13 @@ a mismatch:
    fake server's requests by verb.
 
 The line before the last is the kernels JSON (launches on the stream
-phase that runs each kernel, ``md5_slices``' on the delta phase, max
+phase that runs each kernel, ``md5_slices``' on the delta phase, the
+``*_batched`` entries' on the service phase's timed batched round, max
 difference from the twin, times and bounds; ``product_launches``: each
 kernel's launches in the backup, durability, delta, mover, restic
-entry and rclone phases' runs, on the entries named as the kernel is: a form's
-entry has none, since its launches count under its kernel's name);
+entry, rclone and service phases' runs, on the entries named as the
+kernel is: a form's entry has none, since its launches count under its
+kernel's name);
 the last line is ``{"ok": true, "device":
 {...}}``. Exits nonzero, with no result, when CUDA is unavailable or
 any phase fails.
@@ -229,7 +268,7 @@ import sys
 import tempfile
 import threading
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 from pathlib import Path
 
 import numpy as np
@@ -278,6 +317,10 @@ REPLACES = {
     "merkle_roots": "volsync_tpu/ops/segment.py:367",
     "md5_slices": "volsync_tpu/ops/md5.py:168",
     "md5_slices_lanes": "volsync_tpu/ops/md5.py:113",
+    "sha256_pages_batched": "volsync_tpu/ops/sha256.py:367",
+    "fastcdc_walk_batched": "volsync_tpu/ops/segment.py:205",
+    "sha256_slices_tail_batched": "volsync_tpu/ops/segment.py:126",
+    "merkle_roots_batched": "volsync_tpu/ops/segment.py:367",
 }
 SOURCES = {
     "transpose_u32": "volsync_tpu_torch/csrc/transpose.cu",
@@ -293,6 +336,10 @@ SOURCES = {
     "merkle_roots": "volsync_tpu_torch/csrc/merkle.cu",
     "md5_slices": "volsync_tpu_torch/csrc/md5.cu",
     "md5_slices_lanes": "volsync_tpu_torch/csrc/md5.cu",
+    "sha256_pages_batched": "volsync_tpu_torch/csrc/sha256.cu",
+    "fastcdc_walk_batched": "volsync_tpu_torch/csrc/fastcdc.cu",
+    "sha256_slices_tail_batched": "volsync_tpu_torch/csrc/sha256.cu",
+    "merkle_roots_batched": "volsync_tpu_torch/csrc/merkle.cu",
 }
 #: K1 block sizes of the K5 sweep (the library launches 64).
 SWEEP_THREADS = (32, 64, 128, 256)
@@ -1175,6 +1222,7 @@ def tail_bound(torch, args, kwargs) -> dict:
     w = slice_work(torch, tl[has], sha.slice_blocks(seg.LEAF_SIZE))
     nbytes = w["bytes"] + S * 12 + int(has.sum()) * 32
     return {**w, "lanes": S, "max_tail": int(tl.max()),
+            "lanes_with_tail": int(has.sum()),
             **lanes_bound(S, sha.SLICES_THREADS, w["lane_ops"], sha_bound(
                 w["data_blocks"], w["pad_blocks"], nbytes))}
 
@@ -1525,16 +1573,67 @@ def count_passes(hasher) -> PassCounter:
     return passes
 
 
+class SegmentPasses(PassCounter):
+    """Device passes of the fused engine, batched or not: calls of
+    ``segment.chunk_hash_segments`` (``n``; the unbatched path makes one
+    a segment, the shared micro-batcher, on by default on CUDA, one a
+    batched pass of several, and each launches the fused kernels once)
+    and the segments they hashed (``lanes``: their lanes holding bytes,
+    as deterministic as the segmentation). ``counting()`` counts within
+    a block; ``product_run`` enters it."""
+
+    def __init__(self):
+        super().__init__()
+        self.lanes = 0
+        self.shapes: Counter = Counter()  # (S, P) of each pass
+
+    @contextlib.contextmanager
+    def counting(self):
+        from volsync_tpu_torch.ops import segment as seg
+
+        def make(fn):
+            def counted(data, valid_len, eof, **kw):
+                live = sum(1 for v in valid_len if int(v) > 0)
+                with self._lock:
+                    self.n += 1
+                    self.lanes += live
+                    self.shapes[tuple(data.shape)] += 1
+                return fn(data, valid_len, eof, **kw)
+            return counted
+
+        with patched(seg, {"chunk_hash_segments": make}):
+            yield self
+
+
+def fused_passes(hasher) -> PassCounter:
+    """The pass counter of a backup's hasher: ``SegmentPasses`` on the
+    fused engine (whose segments may go through the shared batcher),
+    else its ``begin_device`` calls."""
+    return SegmentPasses() if hasher.fused is not None \
+        else count_passes(hasher)
+
+
+def engine_hasher(params):
+    """A ``DeviceChunkHasher`` with the shared micro-batcher off: the
+    stream cells time the engine's own pipeline (a segment in flight
+    while the next is read); the batcher, on by default on CUDA, is
+    timed in the backup and service phases."""
+    from volsync_tpu_torch.engine import DeviceChunkHasher
+
+    hasher = DeviceChunkHasher(params, device=DEVICE)
+    hasher.use_shared_batcher = False
+    return hasher
+
+
 def drive(torch, stream, params, per_pass: dict, label: str) -> dict:
     """One pass of ``stream_chunk_batches`` through a fresh hasher with
     every launch count set to 0 just before and read just after. On the
     card every kernel must have launched ``per_pass[name]`` times per
     device pass (0 when absent)."""
-    from volsync_tpu_torch.engine import DeviceChunkHasher
     from volsync_tpu_torch.obs import span_totals
     from volsync_tpu_torch.ops._build import KERNELS, launch_counts
 
-    hasher = DeviceChunkHasher(params, device=DEVICE)
+    hasher = engine_hasher(params)
     passes = count_passes(hasher)
     before = span_totals()
     for k in KERNELS:
@@ -1631,7 +1730,6 @@ def check_oracle(label: str, results, stream, params) -> float:
 
 
 def stream_phase(torch, stream, params) -> dict:
-    from volsync_tpu_torch.engine import DeviceChunkHasher
     from volsync_tpu_torch.ops import segment as seg
 
     res = drive(torch, stream, params, FUSED_PER_PASS, "stream")
@@ -1639,7 +1737,7 @@ def stream_phase(torch, stream, params) -> dict:
 
     # Per-stage device time, from a pass of its own: the probes' events
     # stay out of the GiB/s above, and this pass's GiB/s shows their cost.
-    hasher = DeviceChunkHasher(params, device=DEVICE)
+    hasher = engine_hasher(params)
     timer = StageTimer(torch)
     longest = []  # each root launch's longest lane, read after the pass
 
@@ -1674,7 +1772,50 @@ def stream_phase(torch, stream, params) -> dict:
     check_oracle("stream", results, stream, params)
     return {"launches": res["launches"], "segments": segments,
             "views": res["views"], "gibs": res["gibs"], "stages": stages,
-            "longest": longest}
+            "longest": longest, "results": results}
+
+
+def batcher_turns(torch, stream, params, want: list) -> dict:
+    """One stream of the fused cell through ``engine_hasher`` (the
+    engine's own pipeline: a segment in flight while the next is read)
+    and through the default ``DeviceChunkHasher`` (on CUDA each segment
+    a lane of the shared micro-batcher, here alone: one lane a pass,
+    after the batch window), in turns: off, on, off, on. Every turn must
+    give ``want``'s chunks and, on the card, launch each fused kernel
+    once a device pass. Returns each kind's seconds, GiB/s and passes
+    in turn order, and whether the default hasher batched."""
+    from volsync_tpu_torch.engine import DeviceChunkHasher
+    from volsync_tpu_torch.ops._build import KERNELS, launch_counts
+    from volsync_tpu_torch.ops.batcher import shared_batcher
+
+    hashers = {"off": engine_hasher(params),
+               "on": DeviceChunkHasher(params, device=DEVICE)}
+    batching = hashers["on"].use_shared_batcher and \
+        shared_batcher(params, device=DEVICE) is not None
+    if DEVICE == "cuda" and not batching:
+        raise AssertionError("the default hasher does not batch on the card")
+    out: dict = {"off": [], "on": [], "batching": batching}
+    for turn, kind in enumerate(("off", "on", "off", "on"), 1):
+        passes = SegmentPasses()
+        for k in KERNELS:
+            k.launches = 0
+        with passes.counting():
+            results, _, secs = stream_once(torch, stream, params,
+                                           hashers[kind])
+        launches = launch_counts()
+        if results != want:
+            raise AssertionError(f"stream, batcher {kind}: other chunks")
+        expect = {k: FUSED_PER_PASS.get(k, 0) * passes.n for k in launches}
+        if DEVICE == "cuda" and launches != expect:
+            raise AssertionError(f"stream, batcher {kind}: launches "
+                                 f"{launches}, expected {expect}")
+        gibs = stream.total / GIB / secs
+        out[kind].append({"secs": secs, "gibs": gibs, "passes": passes.n,
+                          "segments": passes.lanes})
+        log(f"stream, shared batcher {kind} (turn {turn} of 4): "
+            f"{secs:.3f} s = {gibs:.4f} GiB/s, {passes.n} device "
+            f"passes of {passes.lanes} segments")
+    return out
 
 
 def split_stream_phase(torch, stream, params) -> dict:
@@ -2049,27 +2190,31 @@ def product_run(torch, label: str, run, per_pass: dict,
 
     verify = PassCounter()
     before = span_totals()
+    counting = getattr(passes, "counting", contextlib.nullcontext)
     for k in KERNELS:
         k.launches = 0
     with device_trace(torch, trace) as traced:
         sync(torch)
         t0 = time.perf_counter()
-        with patched(chunker, {"hash_spans": verify.wrap}):
+        with patched(chunker, {"hash_spans": verify.wrap}), counting():
             out = run()
         sync(torch)
         secs = time.perf_counter() - t0
     launches = launch_counts()
     n = passes.n if passes is not None else verify.n
+    lanes = getattr(passes, "lanes", n)
     want = {k: per_pass.get(k, 0) * n
             + (verify_per_pass or {}).get(k, 0) * verify.n
             for k in launches}
-    if DEVICE == "cuda" and (launches != want
-                             or (per_pass and n < min_passes)):
+    if DEVICE == "cuda" and (launches != want or lanes < n
+                             or (per_pass and lanes < min_passes)):
         raise AssertionError(f"{label}: launches {launches}, expected "
-                             f"{want} over {n} passes")
+                             f"{want} over {n} passes of {lanes} "
+                             f"segments")
     spans = spans_since(before)
     busy = traced["busy_s"]
     log(f"{label}: {secs:.3f} s, {n} device passes"
+        + (f" of {lanes} segments" if hasattr(passes, "lanes") else "")
         + (f" and {verify.n} verify passes" if verify_per_pass else "")
         + f", launches "
         f"{json.dumps({k: v for k, v in launches.items() if v})}; card busy "
@@ -2081,7 +2226,8 @@ def product_run(torch, label: str, run, per_pass: dict,
         + f"; host seconds by span (summed over threads): "
           f"{json.dumps(spans)}")
     return {"out": out, "secs": secs, "launches": launches, "passes": n,
-            "verify_passes": verify.n, "spans": spans, "busy_s": busy}
+            "lanes": lanes, "verify_passes": verify.n, "spans": spans,
+            "busy_s": busy}
 
 
 def repo_round_trip(torch, label: str, base: Path, total: int, seed: int,
@@ -2124,7 +2270,7 @@ def repo_round_trip(torch, label: str, base: Path, total: int, seed: int,
 
     def backup_run():
         backup = TreeBackup(repo)
-        return backup, count_passes(backup.hasher)
+        return backup, fused_passes(backup.hasher)
 
     backup, passes = backup_run()
     r = product_run(torch, f"{label} backup ({backup.workers} workers)",
@@ -2418,7 +2564,7 @@ def durability_phase(torch, base: Path, total: int, seed: int, card: str,
         backup = TreeBackup(repo)
         r = ec_run(torch, f"ec backup ({backup.workers} workers)",
                    lambda: backup.run(src), FUSED_PER_PASS,
-                   count_passes(backup.hasher))
+                   fused_passes(backup.hasher))
         snap, stats = r["out"]
         r["gibs"] = stats.bytes_scanned / GIB / r["secs"]
         res["backup"] = r
@@ -2544,7 +2690,7 @@ def durability_phase(torch, base: Path, total: int, seed: int, card: str,
         again = TreeBackup(opened())
         r = ec_run(torch, "ec second backup (a quarter of the bytes new)",
                    lambda: again.run(src), FUSED_PER_PASS,
-                   count_passes(again.hasher))
+                   fused_passes(again.hasher))
         snap2 = r["out"][0]
         res["backup2"] = r
         forgotten = opened().forget(last=1)
@@ -3598,6 +3744,59 @@ def mover_phase(torch, base: Path, made: dict, seed: int, card: str) -> dict:
 RESTIC_HOLE = 4 << 20
 
 
+def batching_turns(run_entry, base: Path, src: Path, made: dict,
+                   first: dict) -> list:
+    """The restic entry's backup of ``src`` into fresh repositories in
+    turns after ``first`` (the shared micro-batcher on, the CUDA
+    default): ``VOLSYNC_BATCH_SEGMENTS=0``, again, then batched, each
+    untraced and its repository removed after. Every turn hashes the
+    segments ``first`` did (an unbatched turn one pass a segment) and
+    leaves the same root tree."""
+    from volsync_tpu_torch.objstore.store import FsObjectStore
+    from volsync_tpu_torch.repo.repository import Repository
+
+    def tree_of(repo_dir):
+        repo = Repository.open(FsObjectStore(repo_dir), EC_PASSWORD,
+                               device=DEVICE)
+        (snap, meta), = repo.list_snapshots()
+        return meta["tree"]
+
+    want_tree = tree_of(base / "restic-repo")
+    turns = []
+    with env_set("VOLSYNC_TRACE_DIR", None):
+        for i, batched in enumerate((False, False, True)):
+            repo_dir = base / f"restic-turn{i}"
+            how = "batched" if batched else "VOLSYNC_BATCH_SEGMENTS=0"
+            with env_set("VOLSYNC_BATCH_SEGMENTS", None if batched
+                         else "0"):
+                r = run_entry(f"restic entry backup, turn {i + 1} ({how})",
+                              {"RESTIC_REPOSITORY": f"file://{repo_dir}"},
+                              src, True)
+            tree = tree_of(repo_dir)
+            shutil.rmtree(repo_dir, ignore_errors=True)
+            if DEVICE == "cuda" and (
+                    r["lanes"] != first["lanes"]
+                    or (not batched and r["passes"] != r["lanes"])):
+                raise AssertionError(
+                    f"turn {i + 1}: {r['passes']} passes of {r['lanes']} "
+                    f"segments, the first backup {first['lanes']}")
+            if tree != want_tree:
+                raise AssertionError(f"turn {i + 1}: root tree {tree}, "
+                                     f"expected {want_tree}")
+            turns.append({"batched": batched, "secs": r["secs"],
+                          "passes": r["passes"], "lanes": r["lanes"],
+                          "gibs": made["bytes"] / GIB / r["secs"]})
+    log("restic entry backup in turns (batched first, then "
+        + ", ".join(("batched" if t["batched"] else "unbatched")
+                    for t in turns)
+        + f"): {first['secs']:.3f} s in {first['passes']} passes of "
+        f"{first['lanes']} segments, then "
+        + ", ".join(f"{t['secs']:.3f} s in {t['passes']} passes"
+                    for t in turns)
+        + f" ({made['bytes']} bytes)")
+    return turns
+
+
 def restic_entry_phase(torch, base: Path, total: int, seed: int,
                        card: str) -> dict:
     """The restic mover's entry point on the port (ref
@@ -3617,7 +3816,6 @@ def restic_entry_phase(torch, base: Path, total: int, seed: int,
     three files, where they hold device events."""
     from volsync_tpu_torch import obs
     from volsync_tpu_torch.cluster.runner import JobContext
-    from volsync_tpu_torch.engine import chunker
     from volsync_tpu_torch.movers.restic import entry
     from volsync_tpu_torch.objstore.store import FsObjectStore
     from volsync_tpu_torch.repo.repository import DEFAULT_CHUNKER, Repository
@@ -3637,17 +3835,15 @@ def restic_entry_phase(torch, base: Path, total: int, seed: int,
         """A backup (hasher passes counted; it traces the card itself,
         ``restic-backup``) or a restore (verify passes; traced here by
         ``obs.device_trace("restic-restore")``) through the entry."""
-        passes = PassCounter()
+        passes = SegmentPasses()
         ctx = JobContext(name="restic", namespace="chip-smoke",
                          env={**env, **extra}, mounts={"data": data},
                          secrets={}, stop_event=threading.Event(),
                          device=DEVICE)
 
         def run():
-            with patched(chunker.DeviceChunkHasher,
-                         {"begin_device": passes.wrap}), \
-                    (contextlib.nullcontext() if backup
-                     else obs.device_trace("restic-restore")):
+            with (contextlib.nullcontext() if backup
+                  else obs.device_trace("restic-restore")):
                 return entry.restic_entrypoint(ctx)
 
         if backup:
@@ -3664,6 +3860,8 @@ def restic_entry_phase(torch, base: Path, total: int, seed: int,
     with env_set("VOLSYNC_TRACE_DIR", str(traces.parent)):
         res["backup"] = run_entry("restic entry backup", {}, src, True)
         res["backup"]["bytes"] = made["bytes"]
+        res["turns"] = batching_turns(run_entry, base, src, made,
+                                      res["backup"])
         with open(src / "big.bin", "r+b") as f:
             f.seek(os.path.getsize(src / "big.bin") // 3)
             f.write(rng.bytes(total // 256))
@@ -4185,6 +4383,381 @@ def rclone_phase(torch, base: Path, layout: dict, seed: int,
     return res
 
 
+# -- service: the mover-jax gRPC service, 100 concurrent sources ------------
+
+#: BASELINE.json configs[4]'s 100 concurrent sources, in three tenants
+#: (name:weight:clients).
+SERVICE_TENANTS = "gold:4:25;silver:2:25;bronze:1:50"
+#: The server's default segment (ref ``server.py:91``), in KiB.
+SERVICE_SEGMENT_KIB = 32 * 1024
+#: Each source ends this many bytes short of its whole MiB, so that its
+#: last (eof) segment ends mid-page and every lane of that segment's pass
+#: hashes a partial tail leaf, as a volume's stream does.
+SERVICE_SHORT = 12345
+#: The armed round: 8 streams of 80 MiB (less ``SERVICE_SHORT``) under
+#: VOLSYNC_TPU_LOCKCHECK=1. Each crosses the server's 40 MiB segment cut
+#: (32 MiB + max_size) twice, so the carry-the-tail join, the stream
+#: credits and non-eof batched lanes run on the card.
+SERVICE_LOCKCHECK_TENANTS = "gold:4:4;bronze:1:4"
+SERVICE_LOCKCHECK_MIB = 80
+#: gRPC's default 4 MiB receive cap (neither package's server raises it)
+#: bounds one request, so HashSpans over the 64 MiB buffer goes as
+#: requests of four 512 KiB spans.
+SPANS_LEN = 512 << 10
+SPANS_PER_REQUEST = 4
+
+
+class RssPeak:
+    """Samples this process's resident set (``VmRSS``) every 50 ms while
+    the block runs; ``start`` is the first sample and ``peak`` the
+    largest, in bytes."""
+
+    def __init__(self):
+        self.start = self.peak = 0
+        self._stop = threading.Event()
+
+    @staticmethod
+    def now() -> int:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    def _run(self):
+        while not self._stop.wait(0.05):
+            self.peak = max(self.peak, self.now())
+
+    def __enter__(self):
+        self.start = self.peak = self.now()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="rss-peak")
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.peak = max(self.peak, self.now())
+
+
+def source_bytes(mib: float) -> int:
+    """A service source's bytes: ``mib`` MiB less ``SERVICE_SHORT``."""
+    return int(mib * (1 << 20)) - SERVICE_SHORT
+
+
+def source_mib(mib: float) -> float:
+    """``source_bytes`` as ``run_closed_loop``'s MiB (a dyadic float, so
+    its bytes come back exact)."""
+    return source_bytes(mib) / (1 << 20)
+
+
+def service_round(torch, label: str, tenants: list, mib: float,
+                  window_ms: float, seed: int, *, warm: bool) -> dict:
+    """One closed-loop round of ``tools/service_bench.run_closed_loop``
+    through the port's ``MoverJaxServer`` on the card (one request a
+    client of ``mib`` MiB less ``SERVICE_SHORT`` bytes, ``DEFAULT_PARAMS``,
+    the server's 32 MiB segment, a ``window_ms`` batch window; 0 is the
+    per-request path). Every launch
+    count is set to 0 just before the timed phase and read just after,
+    with the card traced and the fused passes counted; every kernel of
+    the fused path must have launched once a pass, no stream may abort,
+    every client must finish, and a batched round must make fewer passes
+    than segments."""
+    from volsync_tpu_torch.ops._build import KERNELS, launch_counts
+    from volsync_tpu_torch.ops.gearcdc import DEFAULT_PARAMS
+    from volsync_tpu_torch.tools import service_bench as sb
+
+    passes = SegmentPasses()
+    got: dict = {}
+
+    @contextlib.contextmanager
+    def around_timed():
+        for k in KERNELS:
+            k.launches = 0
+        with device_trace(torch) as traced:
+            with passes.counting():
+                yield
+            sync(torch)
+        got["launches"] = launch_counts()
+        got["traced"] = traced
+
+    res = sb.run_closed_loop(
+        tenants=tenants, requests_per_client=1,
+        mib_per_request=source_mib(mib), segment_kib=SERVICE_SEGMENT_KIB,
+        window_ms=window_ms, params=DEFAULT_PARAMS,
+        warm=warm, device=DEVICE, seed=seed, keep_chunks=True,
+        client_timeout=600.0, around_timed=around_timed)
+    clients = sum(t["clients"] for t in tenants)
+    launches = got["launches"]
+    want = {k: FUSED_PER_PASS.get(k, 0) * passes.n for k in launches}
+    if res["mid_stream_aborts"] or res["requests_total"] != clients:
+        raise AssertionError(f"{label}: {res['requests_total']} of "
+                             f"{clients} streams, aborts "
+                             f"{res['mid_stream_aborts'][:3]}")
+    if DEVICE == "cuda" and launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{want} over {passes.n} passes")
+    if window_ms > 0 and not (passes.n < passes.lanes
+                              and res["coalesced"]):
+        raise AssertionError(f"{label}: {passes.n} passes for "
+                             f"{passes.lanes} segments: nothing coalesced")
+    busy = got["traced"]["busy_s"]
+    res.update(launches=launches, passes=passes.n, lanes=passes.lanes,
+               busy_s=busy, pass_shapes=passes.shapes)
+    log(f"{label}: {clients} sources x {source_bytes(mib)} B in "
+        f"{res['wall_s']} s = "
+        f"{res['value']} GiB/s; {passes.n} device passes of "
+        f"{passes.lanes} segments (segments a dispatch: "
+        f"{json.dumps(res['lanes_histogram'])}; passes by [lanes, bytes "
+        f"a lane]: {json.dumps(sorted(passes.shapes.items()))}); launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}; card "
+        "busy "
+        + (f"{busy:.4f} s ({100 * busy / res['wall_s']:.2f}% of the wall;"
+           f" seconds by kind {json.dumps(got['traced']['by_kind'])})"
+           if busy is not None else "not measured"))
+    for name, t in res["tenants"].items():
+        log(f"{label} tenant {name} (weight {t['weight']}, {t['clients']} "
+            f"clients): p50 {t['p50_ms']} ms, p99 {t['p99_ms']} ms, "
+            f"{t['goodput_gibs']} GiB/s; admitted "
+            f"{res['admitted_by_tenant'].get(name, 0):.0f}, shed "
+            f"{res['shed_by_tenant'].get(name, 0):.0f}; server seconds by "
+            f"stage {json.dumps(t['stages_s'])}")
+    log(f"{label}: host seconds by span (summed over threads): "
+        + json.dumps({k: v["seconds"] for k, v in res["spans"].items()}))
+    return res
+
+
+def service_phase(torch, seed: int, tenants_spec: str, mib: float,
+                  card: str) -> dict:
+    """BASELINE.json configs[4] on one card: the port's mover-jax server
+    (``DEFAULT_PARAMS``, 32 MiB segments, pipeline depth 2, admission at
+    its defaults) answering ``tenants_spec``'s closed-loop ChunkHash
+    sources, ``mib`` MiB each, salted from one seeded base. A warm round
+    and the timed round with a 2 ms batch window, then the same load
+    per request (window 0); every stream of the batched round equal to
+    the unbatched ``DeviceChunkHasher`` on the card over its bytes, one
+    stream's ids equal to hashlib's, the per-request round's lists equal
+    to the batched round's; ``Info`` reports the device and HashSpans
+    over a 64 MiB buffer equals ``hash_spans``; the shed latency with a
+    forced-open breaker (under 10 ms in process); then 8 streams of 80
+    MiB under ``VOLSYNC_TPU_LOCKCHECK=1`` with no violation, each cut
+    into two or more segments and equal to the unbatched hasher. Each
+    source ends ``SERVICE_SHORT`` bytes short of its MiB. Logs GiB/s,
+    p50/p99, admitted and shed counts by tenant, lanes a pass, spans,
+    the card's busy share, peak device memory and peak host RSS."""
+    from volsync_tpu_torch.analysis import lockcheck
+    from volsync_tpu_torch.engine.chunker import hash_spans
+    from volsync_tpu_torch.ops.gearcdc import DEFAULT_PARAMS
+    from volsync_tpu_torch.repo import blobid
+    from volsync_tpu_torch.service import MoverJaxClient, MoverJaxServer
+    from volsync_tpu_torch.tools import service_bench as sb
+
+    tenants = sb.parse_tenants(tenants_spec)
+    t0 = time.perf_counter()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with RssPeak() as rss:
+        batched = service_round(torch, "service, 2 ms window", tenants, mib,
+                                2.0, seed, warm=True)
+        per_request = service_round(torch, "service, per request "
+                                    "(window 0)", tenants, mib, 0.0, seed,
+                                    warm=False)
+    peak_dev = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    base = batched.pop("base")
+    streams = batched.pop("streams")
+    t1 = time.perf_counter()
+    ref = engine_hasher(DEFAULT_PARAMS)
+    for i, lists in sorted(streams.items()):
+        data = sb.salted(base, i + 1)
+        want = ref.process(data)
+        if any(chunks != want for chunks in lists) or \
+                per_request["streams"][i] != lists:
+            raise AssertionError(f"service stream {i} differs from the "
+                                 f"unbatched hasher on the card")
+        if i == 0:
+            for o, n, d in want:
+                if d != blobid.blob_id(data[o:o + n]):
+                    raise AssertionError(f"service stream 0: chunk at {o} "
+                                         f"differs from hashlib")
+            if sum(n for _, n, _ in want) != data.shape[0]:
+                raise AssertionError("service stream 0 left bytes out")
+    log(f"service: all {len(streams)} streams equal the unbatched hasher "
+        f"on the card (stream 0 also hashlib's ids, "
+        f"{len(streams[0][0])} chunks), the per-request round's lists "
+        f"equal the batched round's; checked in "
+        f"{time.perf_counter() - t1:.1f} s")
+
+    data = sb.salted(base, 1).tobytes()
+    spans = [(o, min(SPANS_LEN, len(data) - o))
+             for o in range(0, len(data), SPANS_LEN)]
+    with MoverJaxServer(params=DEFAULT_PARAMS, device=DEVICE) as srv:
+        with MoverJaxClient("127.0.0.1", srv.port, srv.token) as c:
+            info = c.info()
+            if info.backend != torch.device(DEVICE).type:
+                raise AssertionError(f"Info reports {info.backend}")
+            remote = []
+            for k in range(0, len(spans), SPANS_PER_REQUEST):
+                part = spans[k:k + SPANS_PER_REQUEST]
+                lo, hi = part[0][0], part[-1][0] + part[-1][1]
+                remote += c.hash_spans(data[lo:hi],
+                                       [(o - lo, n) for o, n in part])
+    if remote != hash_spans(data, spans, device=DEVICE):
+        raise AssertionError("HashSpans differs from hash_spans")
+    log(f"service: Info reports {info.backend}; HashSpans over "
+        f"{len(data)} bytes ({len(spans)} spans, "
+        f"{SPANS_PER_REQUEST} a request) equals hash_spans")
+
+    brk = sb.run_closed_loop(tenants=tenants[:1], force_breaker=True,
+                             mib_per_request=1, params=DEFAULT_PARAMS,
+                             device=DEVICE)["breaker"]
+    if brk["direct_shed_p99_ms"] >= 10.0:
+        raise AssertionError(f"breaker shed p99 {brk}")
+    log(f"service: forced-open breaker sheds at admission in "
+        f"{brk['direct_shed_p99_ms']} ms p99 in process (max "
+        f"{brk['direct_shed_max_ms']}), {brk['rpc_shed_ms']} ms through "
+        f"a client, retry after {brk['retry_after_s']} s")
+
+    armed_passes = SegmentPasses()
+    with env_set("VOLSYNC_TPU_LOCKCHECK", "1"):
+        lockcheck.reset()
+        armed = sb.run_closed_loop(
+            tenants=sb.parse_tenants(SERVICE_LOCKCHECK_TENANTS),
+            requests_per_client=1,
+            mib_per_request=source_mib(SERVICE_LOCKCHECK_MIB),
+            segment_kib=SERVICE_SEGMENT_KIB, window_ms=2.0,
+            params=DEFAULT_PARAMS,
+            warm=False, device=DEVICE, seed=seed + 1, client_timeout=600.0,
+            keep_chunks=True, around_timed=armed_passes.counting)
+        bad = lockcheck.violations()
+        graph = sorted(lockcheck.graph())
+    n_armed = armed["clients"]
+    if bad or armed["mid_stream_aborts"] or armed["requests_total"] != \
+            n_armed:
+        raise AssertionError(f"armed service round: violations {bad}, "
+                             f"aborts {armed['mid_stream_aborts']}")
+    if armed_passes.lanes < 2 * n_armed:
+        raise AssertionError(f"armed service round: {armed_passes.lanes} "
+                             f"segments for {n_armed} streams; a stream "
+                             f"must cross the segment cut")
+    for i, lists in sorted(armed["streams"].items()):
+        if any(chunks != ref.process(sb.salted(armed["base"], i + 1))
+               for chunks in lists):
+            raise AssertionError(f"armed service stream {i} differs from "
+                                 f"the unbatched hasher on the card")
+    log(f"service under VOLSYNC_TPU_LOCKCHECK=1: {n_armed} streams x "
+        f"{source_bytes(SERVICE_LOCKCHECK_MIB)} B in "
+        f"{armed_passes.lanes} segments ({armed_passes.n} device passes), "
+        f"every stream equal to the unbatched hasher, no violation; "
+        f"observed lock order {graph}")
+    log(f"service phase: {time.perf_counter() - t0:.1f} s in all; batched "
+        f"{batched['value']} GiB/s against per request "
+        f"{per_request['value']} GiB/s; peak device memory {peak_dev} B, "
+        f"host RSS {rss.start} B at the start of the rounds, peak "
+        f"{rss.peak} B ({card})")
+    return {"batched": batched, "per_request": per_request, "base": base,
+            "breaker": brk, "peak_device": peak_dev, "peak_rss": rss.peak,
+            "armed": {"streams": n_armed, "segments": armed_passes.lanes,
+                      "passes": armed_passes.n}}
+
+
+#: The fused kernels' entries at the service's batched shape.
+BATCHED = {"sha256_pages": "sha256_pages_batched",
+           "fastcdc_walk": "fastcdc_walk_batched",
+           "sha256_slices_tail": "sha256_slices_tail_batched",
+           "merkle_roots": "merkle_roots_batched"}
+def batched_kernel_entries(torch, stats, base: np.ndarray, shapes: list,
+                           lat: dict, merkle_floor) -> None:
+    """The fused kernels at the batched pass's shapes, on the lanes the
+    service dispatches: each (S, P) of ``shapes`` is S lanes of P bytes,
+    lane i source i's whole salted payload (``base`` XOR i + 1, one eof
+    segment ending mid-page, zero-padded to P; a source longer than
+    ``P - SERVICE_SHORT`` gives that many of its first bytes), through
+    ``chunk_hash_segments`` with every kernel's inputs recorded, each
+    held against its twin on those inputs, timed (graph replay and
+    eager) and bounded as the kernels phase bounds it. Every lane must
+    carry a partial tail leaf, so the tail form hashes S real tails. The
+    first shape fills the entry, every shape its ``shapes``."""
+    from volsync_tpu_torch.ops import segment as seg
+    from volsync_tpu_torch.ops import sha256 as sha
+    from volsync_tpu_torch.ops.gearcdc import DEFAULT_PARAMS as p
+    from volsync_tpu_torch.tools.service_bench import salted
+
+    fns = kernel_fns(seg, sha)
+    for k, (S, P) in enumerate(shapes):
+        cc, kc = seg.segment_caps(P, p)
+        kw = dict(min_size=p.min_size, avg_size=p.avg_size,
+                  max_size=p.max_size, seed=p.seed, mask_s=p.mask_s,
+                  mask_l=p.mask_l, align=p.align, cand_cap=cc,
+                  chunk_cap=kc)
+        n = min(base.shape[0], P - SERVICE_SHORT)
+        rows = torch.zeros((S, P), dtype=torch.uint8, device=DEVICE)
+        for i in range(S):
+            rows[i, :n] = torch.from_numpy(salted(base[:n], i + 1)).to(
+                DEVICE)
+        with pagemajor_env(False):
+            calls = capture_calls(seg, sha, lambda: seg.chunk_hash_segments(
+                rows, [n] * S, [True] * S, **kw))
+        sync(torch)
+        expect_calls(f"batched pass of {S} lanes", calls, FUSED_CALLS)
+        del rows
+        for name, args, kwargs in calls:
+            out_k, _, err, plain_s = against_twin(torch, fns, name, args,
+                                                  kwargs)
+            st = stats[BATCHED[name]]
+            st["err"] = max(st["err"], err)
+            reps = 5 if DEVICE == "cuda" else 1
+            ms = time_ms(torch, lambda: fns[0][name](*args, **kwargs), reps)
+            eager = time_ms(torch, lambda: fns[0][name](*args, **kwargs),
+                            reps, graph=False)
+            if name == "sha256_pages":
+                npp = args[1]
+                b = dict(zip(("bound_ms", "bound_by"), sha_bound(
+                    64 * npp, npp, S * P + npp * 32)))
+            elif name == "fastcdc_walk":
+                b = walk_bound(torch, args, out_k, lat)
+            elif name == "sha256_slices_tail":
+                b = tail_bound(torch, args, kwargs)
+                tails = b["lanes_with_tail"]
+                if tails != S:
+                    raise AssertionError(f"batched tail: {tails} of {S} "
+                                         f"lanes carry a tail")
+            else:
+                flat, npp, page0, nleaves, lens, live = args
+                blocks = root_lane_blocks(torch, nleaves, live,
+                                          kwargs["nb_max"])
+                C = page0.shape[0]
+                nbytes = (int(nleaves.sum()) * 32 + C * (3 * 8 + 1)
+                          + C * 32)
+                b = dict(zip(("bound_ms", "bound_by"), sha_bound(
+                    int(blocks.sum()), 0, nbytes)))
+                if merkle_floor:
+                    b["chain_ms"] = int(blocks.max()) * merkle_floor
+            shape = {"lanes": S, "valid_len": n, "ms": ms,
+                     "eager_ms": eager,
+                     "plain_ms": plain_s * 1e3, "bound_ms": b["bound_ms"],
+                     "bound_by": b["bound_by"]}
+            if "chain_ms" in b:
+                shape["chain_ms"] = b["chain_ms"]
+            if k == 0:
+                st["ms"].append(ms)
+                st["eager_ms"].append(eager)
+                st["plain_ms"].append(plain_s * 1e3)
+                st["bound"].append(b["bound_ms"])
+                st["bound_by"] = b["bound_by"]
+            st.setdefault("shapes", {})[f"{S}x{P}"] = shape
+            log(f"{BATCHED[name]} at {S} lanes of {P} bytes ({n} valid, "
+                f"eof): equals twin "
+                f"(max abs err {err}); kernel {ms:.4f} ms (eager "
+                f"{eager:.4f}), twin {plain_s * 1e3:.1f} ms, bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']})"
+                + (f", chain bound {b['chain_ms']:.4f} ms"
+                   if "chain_ms" in b else ""))
+        del calls
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4200,9 +4773,10 @@ def main() -> int:
     # only by the engine.
     ap.add_argument("--backup-gib", type=float, default=10.0)
     ap.add_argument("--backup64-mib", type=float, default=256.0)
-    # The erasure-coded round trip's volume: cut from the 10 GiB PVC to
-    # keep the whole script inside its time limit (PERF.md, section 4).
-    ap.add_argument("--ec-gib", type=float, default=2.0)
+    # The erasure-coded round trip's volume: cut from the 10 GiB PVC, and
+    # from 2 to 0.5 GiB once the service phase came, to keep the whole
+    # script inside its time limit on a slower host (PERF.md, section 4).
+    ap.add_argument("--ec-gib", type=float, default=0.5)
     # The delta phase's volume: BASELINE.json configs[0], a 1 GiB PVC
     # replicated by rsync, not cut. The mover phase syncs the same trees.
     ap.add_argument("--delta-gib", type=float, default=1.0)
@@ -4210,9 +4784,15 @@ def main() -> int:
     # backup phase already runs through the same engine.
     ap.add_argument("--restic-mib", type=float, default=256.0)
     # The rclone phase's small files: BASELINE.json configs[2] (many small
-    # files) cut in depth, from 100 GiB to ~0.65 GiB with the mid files and
-    # the streamed file (PERF.md, section 4).
-    ap.add_argument("--rclone-files", type=int, default=8192)
+    # files) cut in depth, from 100 GiB to ~0.6 GiB with the mid files and
+    # the streamed file, and from 8,192 to 4,096 files once the service
+    # phase came (PERF.md, section 4).
+    ap.add_argument("--rclone-files", type=int, default=4096)
+    # The service phase: BASELINE.json configs[4], 100 concurrent sources,
+    # cut in depth to 32 MiB less SERVICE_SHORT a source, one segment
+    # each (PERF.md, section 4).
+    ap.add_argument("--service-tenants", default=SERVICE_TENANTS)
+    ap.add_argument("--service-mib", type=float, default=32.0)
     args = ap.parse_args()
 
     import torch
@@ -4286,6 +4866,11 @@ def main() -> int:
             f"({card})")
     res = stream_phase(torch, stream, DEFAULT_PARAMS)
     verify_phase(res.pop("views"))
+    turns = batcher_turns(torch, stream, DEFAULT_PARAMS, res.pop("results"))
+    log("stream GiB/s, a lone stream with the shared batcher off / on in "
+        "turns: " + " / ".join(
+            ", ".join(f"{t['gibs']:.4f}" for t in turns[k])
+            for k in ("off", "on")) + f" ({card})")
     per_seg = {k: v / res["segments"] for k, v in res["launches"].items()}
     log(f"launches per segment pass: {json.dumps(per_seg)} ({card})")
     log(f"stream roots {res['stages'].get('roots', 0):.3f} ms, roots.tail "
@@ -4308,6 +4893,18 @@ def main() -> int:
     log(f"GiB/s by engine: fused {res['gibs']:.4f}, align=64 "
         f"{split['gibs']:.4f}, align=1 {legacy['gibs']:.4f}, page-major "
         f"{pm['gibs']:.4f} ({card})")
+
+    t1 = time.perf_counter()
+    svc = service_phase(torch, args.seed + 7, args.service_tenants,
+                        args.service_mib, card)
+    # the pass shape that hashed the most of the timed round's segments
+    shapes = svc["batched"]["pass_shapes"]
+    most = max(shapes, key=lambda sp: (sp[0] * shapes[sp], sp))
+    batched_kernel_entries(torch, stats, svc.pop("base"),
+                           [most] + ([(8, most[1])] if most[0] != 8 else []),
+                           lat, floors["merkle_roots"])
+    log(f"service phase with the batched-shape kernels: "
+        f"{time.perf_counter() - t1:.1f} s ({card})")
 
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
@@ -4386,7 +4983,7 @@ def main() -> int:
         shutil.rmtree(base, ignore_errors=True)
     restic_bytes = int(args.restic_mib * (1 << 20))
     base = Path(tempfile.mkdtemp(prefix="chip_smoke_restic.", dir=backup_base(
-        build, 4 * restic_bytes)))
+        build, 5 * restic_bytes)))
     t1 = time.perf_counter()
     try:
         restic = restic_entry_phase(torch, base, restic_bytes, args.seed + 5,
@@ -4417,12 +5014,19 @@ def main() -> int:
                 "sha256_slices_tail": res["launches"]["sha256_slices"],
                 "md5_slices": delta["launches"]["md5_slices"],
                 "md5_slices_lanes": 0}
+    launches.update({b: svc["batched"]["launches"][k]
+                     for k, b in BATCHED.items()
+                     if k in svc["batched"]["launches"]})
+    launches["sha256_slices_tail_batched"] = \
+        svc["batched"]["launches"]["sha256_slices"]
     runs["delta"] = delta["launches"]
     runs["mover.delta"] = mover["delta_pinned"]["launches"]
     runs["mover"] = mover["launches"]
     runs["mover.cold"] = mover["cold"]["launches"]
     for run in ("backup", "backup2", "restore"):
         runs[f"restic.{run}"] = restic[run]["launches"]
+    runs["service"] = svc["batched"]["launches"]
+    runs["service.per_request"] = svc["per_request"]["launches"]
     for run in ("up", "down", "up2", "down2"):
         runs[f"rclone.{run}"] = rclone[run]["launches"]
     kernels = []
@@ -4430,7 +5034,7 @@ def main() -> int:
                  "sha256_lanes", "sha256_slices", "sha256_slices_tail",
                  "fastcdc_walk", "sha256_rows", "pagemajor_u32",
                  "sha256_pages_sweep", "merkle_roots", "md5_slices",
-                 "md5_slices_lanes"):
+                 "md5_slices_lanes", *BATCHED.values()):
         st = stats[name]
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],

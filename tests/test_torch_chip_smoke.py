@@ -55,6 +55,30 @@ def test_stream_and_verify_phases_on_cpu(monkeypatch):
     chip_smoke.verify_phase(res.pop("views"))
 
 
+def test_batcher_turns_on_cpu(monkeypatch):
+    """A lone stream through the engine's own pipeline and through the
+    shared batcher (forced on, as CUDA has it by default), in turns:
+    the same chunks every turn, one device pass a segment either way."""
+    from volsync_tpu_torch.ops import batcher
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "BLOCK", 256 * 1024)
+    monkeypatch.setenv("VOLSYNC_BATCH_SEGMENTS", "1")
+    monkeypatch.setattr(batcher, "_SHARED", {})
+    stream = chip_smoke.SeededStream(torch, 0, 3 * 256 * 1024 + 12345)
+    want, _, _ = chip_smoke.stream_once(torch, stream, PARAMS,
+                                        chip_smoke.engine_hasher(PARAMS))
+    try:
+        turns = chip_smoke.batcher_turns(torch, stream, PARAMS, want)
+    finally:
+        for b in batcher._SHARED.values():
+            b.stop()
+    assert turns["batching"] and len(batcher._SHARED) == 1
+    assert [len(turns[k]) for k in ("off", "on")] == [2, 2]
+    assert all(t["passes"] == t["segments"] == 1 and t["gibs"] > 0
+               for k in ("off", "on") for t in turns[k])
+
+
 def _wrappers() -> dict:
     """The objects behind every attribute ``capture_calls`` patches."""
     from volsync_tpu_torch.engine import chunker
@@ -889,3 +913,54 @@ def test_rclone_phase_on_cpu(monkeypatch, tmp_path):
     assert res["up"]["verbs"]["PUT"] >= res["up"]["stats"]["uploaded"]
     for run in ("up", "down", "up2", "down2"):
         assert res[run]["busy_s"] is None and res[run]["gibs"] > 0
+
+
+# -- the service phase -----------------------------------------------------------
+
+def test_service_phase_on_cpu(monkeypatch):
+    """The service phase at four sources of 64 KiB less
+    ``SERVICE_SHORT`` in two tenants (the test chunker, 16 KiB server
+    segments, one segment a source): both rounds, every stream against
+    the unbatched hasher, Info, HashSpans in pieces, the breaker shed
+    and the armed round, whose streams cross the segment cut; then the
+    batched-shape kernel entries at 2 lanes, each equal to its twin and
+    each lane carrying a tail."""
+    from volsync_tpu_torch.ops import gearcdc
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(gearcdc, "DEFAULT_PARAMS", PARAMS)
+    # a 16 KiB segment cuts at 80 KiB (with max_size): one segment a
+    # source, two an armed stream
+    monkeypatch.setattr(chip_smoke, "SERVICE_SEGMENT_KIB", 16)
+    monkeypatch.setattr(chip_smoke, "SERVICE_LOCKCHECK_TENANTS",
+                        "gold:4:2;bronze:1:2")
+    monkeypatch.setattr(chip_smoke, "SERVICE_LOCKCHECK_MIB", 1 / 8)
+    monkeypatch.setattr(chip_smoke, "SPANS_LEN", 16 * 1024)
+    # the card's 2 ms window is too short for the CPU's thread starts to
+    # coalesce reliably (the round refuses a batched round that did not)
+    real = chip_smoke.service_round
+    monkeypatch.setattr(
+        chip_smoke, "service_round",
+        lambda torch, label, tenants, mib, window_ms, seed, **kw: real(
+            torch, label, tenants, mib, window_ms and 200.0, seed, **kw))
+    res = chip_smoke.service_phase(torch, 3, "gold:4:2;bronze:1:2",
+                                   1 / 16, "cpu")
+    batched, per_request = res["batched"], res["per_request"]
+    assert batched["requests_total"] == per_request["requests_total"] == 4
+    assert batched["passes"] < batched["lanes"] == 4
+    assert per_request["passes"] == per_request["lanes"] == 4
+    assert set(batched["admitted_by_tenant"]) == {"gold", "bronze"}
+    assert res["breaker"]["direct_shed_p99_ms"] < 10
+    assert res["armed"]["streams"] == 4
+    assert res["armed"]["segments"] >= 2 * res["armed"]["streams"]
+    stats = chip_smoke.new_stats()
+    shapes = batched["pass_shapes"]
+    S, P = max(shapes, key=lambda sp: (sp[0] * shapes[sp], sp))
+    assert P == 64 * 1024
+    chip_smoke.batched_kernel_entries(
+        torch, stats, res["base"], [(2, P)],
+        {"l2_ns": 500.0, "shared_ns": 30.0}, None)
+    for name in chip_smoke.BATCHED.values():
+        st = stats[name]
+        assert st["err"] == 0 and st["bound"][0] > 0 and st["bound_by"]
+        assert set(st["shapes"]) == {f"2x{P}"}

@@ -100,6 +100,44 @@ def test_batched_segments_on_card_equal_cpu(cuda, rng):
     assert torch.equal(got.cpu(), want)
 
 
+def test_service_streams_on_card_equal_cpu(cuda, rng):
+    """Eight concurrent ChunkHash streams through the port's server on
+    the card (scheduler + micro-batcher) give the CPU port's chunk
+    lists; Info reports cuda and HashSpans equals the CPU's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from volsync_tpu_torch.engine.chunker import DeviceChunkHasher, hash_spans
+    from volsync_tpu_torch.service import MoverJaxClient, MoverJaxServer
+
+    payloads = [rng.bytes(300_000 + 4099 * i) for i in range(8)]
+    lanes = []
+    with MoverJaxServer(params=PARAMS, segment_size=128 * 1024,
+                        batch_window_ms=25.0, max_workers=12) as srv:
+        inner = srv._batcher._hasher.hash_segments
+
+        def spy(items):
+            lanes.append(len(items))
+            return inner(items)
+
+        srv._batcher._hasher.hash_segments = spy
+
+        def run(data):
+            with MoverJaxClient("127.0.0.1", srv.port, srv.token) as c:
+                return c.chunk_bytes(data)
+
+        with ThreadPoolExecutor(8) as pool:
+            got = list(pool.map(run, payloads))
+        with MoverJaxClient("127.0.0.1", srv.port, srv.token) as c:
+            assert c.info().backend == "cuda"
+            spans = [(0, 5000), (8192, 70_000), (100_000, 0)]
+            assert c.hash_spans(payloads[0], spans) == hash_spans(
+                payloads[0], spans, device="cpu")
+    cpu = DeviceChunkHasher(PARAMS, device="cpu")
+    for data, chunks in zip(payloads, got):
+        assert chunks == cpu.process(np.frombuffer(data, np.uint8))
+    assert sum(lanes) > len(lanes)  # coalesced
+
+
 def test_hash_file_streaming_on_card(cuda, rng, tmp_path):
     from volsync_tpu_torch.engine import hash_file_streaming
     from volsync_tpu_torch.repo import blobid

@@ -32,6 +32,7 @@ from volsync_tpu.objstore import faultstore as jfault
 from volsync_tpu.objstore.store import MemObjectStore as JMem
 from volsync_tpu.repo import erasure as jerasure
 from volsync_tpu.repo.repository import Repository as JRepo
+from volsync_tpu_torch.analysis import lockcheck
 from volsync_tpu_torch.engine.backup import TreeBackup
 from volsync_tpu_torch.engine.restore import restore_snapshot
 from volsync_tpu_torch.objstore import faultstore as tfault
@@ -43,6 +44,27 @@ from volsync_tpu_torch.repo.repository import Repository
 from volsync_tpu_torch.repo.scrub import ScrubService
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _lockcheck_armed_module():
+    """The lock-order/race detector is armed for the whole module, so
+    every Repository and store built here (module fixtures included)
+    gets instrumented locks (the env flag is read when a lock is
+    built)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("VOLSYNC_TPU_LOCKCHECK", "1")
+        yield
+
+
+@pytest.fixture(autouse=True)
+def _lockcheck_armed():
+    """Each test starts with an empty order graph and fails on any
+    lock-order cycle or unguarded pipeline-state mutation the detector
+    recorded, even one a worker thread swallowed."""
+    lockcheck.reset()
+    yield
+    assert lockcheck.violations() == []
 
 CHUNKER = {"min_size": 4096, "avg_size": 32768, "max_size": 65536,
            "seed": 7, "align": 4096}

@@ -27,11 +27,12 @@ from volsync_tpu_torch.movers.rclone import sync as rclone_sync
 from volsync_tpu_torch.movers.restic import entry as restic_entry
 from volsync_tpu_torch.movers.rsync import entry as rsync_entry
 from volsync_tpu_torch.objstore.store import MemObjectStore
-from volsync_tpu_torch.ops import gearcdc, md5, rs, segment, sha256
+from volsync_tpu_torch.ops import batcher, gearcdc, md5, rs, segment, sha256
 from volsync_tpu_torch.repo import erasure
 from volsync_tpu_torch.repo.repack import RepackService
 from volsync_tpu_torch.repo.repository import Repository
 from volsync_tpu_torch.repo.scrub import ScrubService
+from volsync_tpu_torch.service import MoverJaxServer
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "volsync_tpu_torch"
@@ -88,8 +89,18 @@ def test_no_file_imports_jax_or_the_reference():
             "volsync_tpu_torch/objstore/fakeazure.py",
             "volsync_tpu_torch/objstore/swift.py",
             "volsync_tpu_torch/objstore/fakeswift.py",
-            "volsync_tpu_torch/obs.py"} <= names
-    assert len(_port_files()) >= 62
+            "volsync_tpu_torch/obs.py",
+            "volsync_tpu_torch/analysis/lockcheck.py",
+            "volsync_tpu_torch/ops/batcher.py",
+            "volsync_tpu_torch/service/__init__.py",
+            "volsync_tpu_torch/service/tenants.py",
+            "volsync_tpu_torch/service/admission.py",
+            "volsync_tpu_torch/service/scheduler.py",
+            "volsync_tpu_torch/service/moverjax_pb2.py",
+            "volsync_tpu_torch/service/server.py",
+            "volsync_tpu_torch/service/client.py",
+            "volsync_tpu_torch/tools/service_bench.py"} <= names
+    assert len(_port_files()) >= 72
 
 
 def test_importing_the_port_loads_no_jax_module():
@@ -117,7 +128,10 @@ def test_importing_the_port_loads_no_jax_module():
     assert {"volsync_tpu_torch.ops.segment",
             "volsync_tpu_torch.movers.rclone.sync",
             "volsync_tpu_torch.objstore.s3",
-            "volsync_tpu_torch.objstore.fakeswift"} <= set(added)
+            "volsync_tpu_torch.objstore.fakeswift",
+            "volsync_tpu_torch.ops.batcher",
+            "volsync_tpu_torch.service.server",
+            "volsync_tpu_torch.tools.service_bench"} <= set(added)
     assert [m for m in added if _forbidden(m)] == []
 
 
@@ -336,3 +350,36 @@ def test_mover_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     assert [p.name for p in src.iterdir()] == ["f"]
     assert list(bucket.list()) == [] and not dst.exists()
     assert not (tmp_path / "bucket").exists()
+
+
+def test_service_entry_points_raise_without_cuda(monkeypatch):
+    """The mover-jax server, the segment micro-batcher and a forced
+    shared batcher run on CUDA unless given a device: with no CUDA they
+    raise before a port is bound or a thread started; unforced, the
+    shared batcher is off for the CPU, and a CPU server reports its
+    device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(batcher, "_SHARED", {})
+    p = gearcdc.GearParams(min_size=4096, avg_size=32768, max_size=65536,
+                           align=4096)
+    threads = threading.active_count()
+    monkeypatch.setenv("VOLSYNC_BATCH_SEGMENTS", "1")
+    calls = [
+        lambda: MoverJaxServer(),
+        lambda: MoverJaxServer(params=p, device="cuda"),
+        lambda: MoverJaxServer(params=p, batch_window_ms=0.0),
+        lambda: batcher.SegmentMicroBatcher(p),
+        lambda: batcher.SegmentMicroBatcher(p, device="cuda"),
+        lambda: batcher.shared_batcher(p),
+        lambda: batcher.shared_batcher(p, device="cuda"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert threading.active_count() == threads and batcher._SHARED == {}
+    monkeypatch.delenv("VOLSYNC_BATCH_SEGMENTS")
+    assert batcher.shared_batcher(p, device="cpu") is None
+    srv = MoverJaxServer(params=p, device="cpu")
+    assert srv.device.type == "cpu" and srv._hasher.device.type == "cpu"
+    assert srv._batcher.device.type == "cpu"
+    srv.stop(grace=0.1, drain=0.1)

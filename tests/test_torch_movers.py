@@ -46,6 +46,7 @@ from volsync_tpu.movers.rsync import entry as jentry
 from volsync_tpu.objstore.store import open_store as jopen_store
 from volsync_tpu.repo.repository import Repository as JRepo
 from volsync_tpu_torch import obs, resilience
+from volsync_tpu_torch.analysis import lockcheck
 from volsync_tpu_torch.cluster.runner import JobContext
 from volsync_tpu_torch.engine import syncstats
 from volsync_tpu_torch.metrics import GLOBAL as METRICS
@@ -60,6 +61,27 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKGS = ("ref", "port")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _lockcheck_armed_module():
+    """The lock-order/race detector is armed for the whole module, so
+    every Repository and store built here (module fixtures included)
+    gets instrumented locks (the env flag is read when a lock is
+    built)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("VOLSYNC_TPU_LOCKCHECK", "1")
+        yield
+
+
+@pytest.fixture(autouse=True)
+def _lockcheck_armed():
+    """Each test starts with an empty order graph and fails on any
+    lock-order cycle or unguarded pipeline-state mutation the detector
+    recorded, even one a worker thread swallowed."""
+    lockcheck.reset()
+    yield
+    assert lockcheck.violations() == []
 
 
 @pytest.fixture(autouse=True)

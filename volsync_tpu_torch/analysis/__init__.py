@@ -1,2 +1,3 @@
-"""Stand-ins for the reference's ``volsync_tpu/analysis/`` (the lock
-factory the repository layer routes its locks through)."""
+"""The port's part of the reference's ``volsync_tpu/analysis/``: the
+lock-order and race detector (``lockcheck``) that the repository, the
+stores, the batcher and the service build their locks through."""

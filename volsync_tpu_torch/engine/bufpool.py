@@ -1,9 +1,9 @@
 """Reusable page-granular byte buffers for the zero-copy data plane.
 
-A copy of ``volsync_tpu/engine/bufpool.py`` with a plain
-``threading.Lock`` (the reference routes its lock through
-``analysis.lockcheck``). The chunker fills pooled ``bytearray`` segments
-with ``readinto()`` and hands consumers memoryview slices of them.
+A copy of ``volsync_tpu/engine/bufpool.py``; its lock is built through
+``analysis.lockcheck`` as the reference's is. The chunker fills pooled
+``bytearray`` segments with ``readinto()`` and hands consumers
+memoryview slices of them.
 
 Release is safe by construction: a ``bytearray`` with exported views
 refuses to resize, so ``release()`` probes with a 1-byte append/undo. A
@@ -14,8 +14,9 @@ while any view of it is alive.
 
 from __future__ import annotations
 
-import threading
 from collections import defaultdict
+
+from volsync_tpu_torch.analysis import lockcheck
 
 _PAGE = 4096
 
@@ -31,7 +32,7 @@ class BufferPool:
 
     def __init__(self, max_free_bytes: int = _MAX_FREE_BYTES,
                  max_parked: int = _MAX_PARKED):
-        self._lock = threading.Lock()
+        self._lock = lockcheck.make_lock("engine.bufpool")
         self._free: defaultdict = defaultdict(list)  # size -> [bytearray]
         self._free_bytes = 0
         self._max_free_bytes = max_free_bytes

@@ -21,10 +21,16 @@ one of three engines, picked by the repository's ``align``:
   route unaligned
   ``hash_spans`` also takes (ref :527).
 
-Not ported yet (see ROADMAP.md): the shared segment micro-batcher and
-the hasher's ``use_shared_batcher`` attribute that goes with it, the
-benchmark hooks ``leaf_device_fn`` / ``cand_device_fn``, and the native
-``volio`` readahead reader (plain ``open()`` here).
+On the fused path ``begin`` hands the segment to the process-wide
+segment micro-batcher (``ops/batcher.shared_batcher``, ref :164-175)
+when batching is on: by default where the hasher's device is CUDA, and
+as ``VOLSYNC_BATCH_SEGMENTS`` forces it. Concurrent workers' segments
+then coalesce into one batched pass; owners that batch for themselves
+(``MoverJaxServer``) clear ``use_shared_batcher``.
+
+Not ported yet (see ROADMAP.md): the benchmark hooks ``leaf_device_fn``
+/ ``cand_device_fn`` and the native ``volio`` readahead reader (plain
+``open()`` here).
 """
 
 from __future__ import annotations
@@ -122,6 +128,11 @@ class DeviceChunkHasher:
     #: files at once only when this is set.
     thread_safe = True
 
+    #: Owners that manage their own batching (MoverJaxServer) set this
+    #: False so the process-wide shared batcher cannot override their
+    #: explicit per-request configuration (ref chunker.py:100-101).
+    use_shared_batcher = True
+
     #: ``begin()`` takes ``valid_len`` (ref chunker.py:103-107): a
     #: stream hands it a view already padded to the device bucket with
     #: a zeroed pad lane, so no ``np.pad`` copy happens per segment.
@@ -146,7 +157,11 @@ class DeviceChunkHasher:
         in-flight result, so ``.end`` fetches it; on the split-phase
         path the walk runs here and only the leaf digests stay in
         flight until ``finish()``. Callers that hold a bucket-padded
-        view pass it plus ``valid_len``."""
+        view pass it plus ``valid_len``.
+
+        When the shared batcher is on (``ops/batcher.shared_batcher``:
+        by default on CUDA) the fused path submits the segment to it
+        and blocks for its lane of a batched pass instead."""
         if isinstance(buffer, (bytes, bytearray, memoryview)):
             buffer = np.frombuffer(buffer, dtype=np.uint8)
         have = int(buffer.shape[0])
@@ -159,6 +174,17 @@ class DeviceChunkHasher:
                 return PendingSegment([])
             return PendingSegment(
                 [(0, length, blobid.blob_id(buffer[:length]))])
+        if self.use_shared_batcher and self.fused is not None:
+            from volsync_tpu_torch.ops.batcher import shared_batcher
+
+            batcher = shared_batcher(p, device=self.device)
+            if batcher is not None:
+                # consumed == the last chunk's end, which is what
+                # PendingSegment.end derives from the chunk list. The
+                # buffer passes through uncopied (submit blocks, so it
+                # stays alive).
+                chunks, _consumed = batcher.submit(buffer, length, eof)
+                return PendingSegment(chunks)
         padded = _buffer_bucket(length)
         if have < padded:
             record_copy("device.pad", length)

@@ -8,7 +8,9 @@ the repository's write pipeline, index, locking and retry knobs,
 backup and restore workers', the scrub's and the repacker's cadence,
 the fault-injection store's seed and spec, the sync-protocol
 planner's and the batched delta scan's, the device trace's directory
-(``trace_dir``), plus the page-major digest-table gate of
+(``trace_dir``), the segment micro-batcher's (``batch_*``), the
+service plane's (``svc_*``), the lock detector's switch
+(``lockcheck_enabled``), plus the page-major digest-table gate of
 ``volsync_tpu/ops/segment.py`` (``pagemajor``). Names, defaults and
 the falsy-token set are the reference's, so one environment configures
 both packages alike. The reference's ``VOLSYNC_NO_PALLAS`` has no
@@ -75,6 +77,33 @@ def readahead_segments() -> int:
     if not pipeline_enabled():
         return 0
     return env_int("VOLSYNC_TPU_READAHEAD", 2, minimum=0)
+
+
+# -- cross-stream segment microbatching knobs (ops/batcher.py) -----------
+
+def batch_segments_override() -> Optional[bool]:
+    """VOLSYNC_BATCH_SEGMENTS tri-state: None when unset (callers fall
+    back to the device-aware default), else the forced bool."""
+    if os.environ.get("VOLSYNC_BATCH_SEGMENTS") is None:
+        return None
+    return env_bool("VOLSYNC_BATCH_SEGMENTS")
+
+
+def batch_max() -> int:
+    """Max segments coalesced into one batched device dispatch."""
+    return env_int("VOLSYNC_BATCH_MAX", 16, minimum=1)
+
+
+def batch_window_ms() -> float:
+    """How long (ms) the first segment of a batch waits for
+    companions."""
+    return env_float("VOLSYNC_BATCH_WINDOW_MS", 2.0, minimum=0.0)
+
+
+def batch_pipeline_depth() -> int:
+    """Batched dispatches in flight per microbatcher (ops/batcher.py
+    and the gRPC server's per-process batcher share this knob)."""
+    return env_int("VOLSYNC_BATCH_PIPELINE", 2, minimum=1)
 
 
 def pagemajor() -> bool:
@@ -345,6 +374,100 @@ def repack_packs_per_cycle() -> int:
     """VOLSYNC_REPACK_PACKS: packs rewritten per repack cycle; 0 (the
     default) repacks every eligible pack each cycle."""
     return env_int("VOLSYNC_REPACK_PACKS", 0, minimum=0)
+
+
+# -- multi-tenant service plane (service/admission.py, scheduler.py) -----
+
+def svc_max_streams() -> int:
+    """Global cap on concurrently admitted ChunkHash streams; the
+    stream that would exceed it is shed at admission with
+    RESOURCE_EXHAUSTED (never wedged mid-stream)."""
+    return env_int("VOLSYNC_SVC_MAX_STREAMS", 64, minimum=1)
+
+
+def svc_tenant_streams() -> int:
+    """Default per-tenant concurrent-stream cap (a TenantConfig
+    max_streams overrides it per tenant)."""
+    return env_int("VOLSYNC_SVC_TENANT_STREAMS", 16, minimum=1)
+
+
+def svc_max_queued() -> int:
+    """Global cap on segments queued in the service scheduler; new
+    streams are shed at admission while the backlog is at the cap."""
+    return env_int("VOLSYNC_SVC_MAX_QUEUED", 256, minimum=1)
+
+
+def svc_tenant_queued() -> int:
+    """Default per-tenant bound on scheduler-queued segments: the
+    credit pool behind the per-stream backpressure pause (a
+    TenantConfig max_queued overrides it per tenant)."""
+    return env_int("VOLSYNC_SVC_TENANT_QUEUED", 32, minimum=1)
+
+
+def svc_stream_credits() -> int:
+    """Segments' worth of request bytes one stream may buffer in the
+    server beyond the segment in flight before the handler stops
+    reading (gRPC flow control then pauses the sender)."""
+    return env_int("VOLSYNC_SVC_STREAM_CREDITS", 2, minimum=1)
+
+
+def svc_retry_after_ms() -> float:
+    """Base retry-after hint (milliseconds) stamped on quota sheds;
+    breaker sheds carry the breaker's remaining cooldown instead."""
+    return env_float("VOLSYNC_SVC_RETRY_AFTER_MS", 100.0, minimum=1.0)
+
+
+def svc_quantum() -> int:
+    """Deficit-round-robin quantum in bytes credited to each backlogged
+    tenant per scheduler round (multiplied by the tenant weight)."""
+    return env_int("VOLSYNC_SVC_QUANTUM", 256 * 1024, minimum=1)
+
+
+def svc_dispatch_window() -> int:
+    """Max scheduler-dispatched segments outstanding in the
+    microbatcher at once; 0 derives it from the batcher geometry
+    (max_batch * (pipeline_depth + 1))."""
+    return env_int("VOLSYNC_SVC_DISPATCH_WINDOW", 0, minimum=0)
+
+
+def svc_drain_seconds() -> float:
+    """How long stop() waits for in-flight streams to finish before
+    aborting the stragglers with UNAVAILABLE."""
+    return env_float("VOLSYNC_SVC_DRAIN_S", 10.0, minimum=0.0)
+
+
+def svc_tenants_spec() -> Optional[str]:
+    """VOLSYNC_SVC_TENANTS: per-tenant quota/weight spec, e.g.
+    ``gold:weight=4,streams=8,queued=64;bronze:weight=1`` (see
+    service/tenants.py parse rules); None = all tenants on defaults."""
+    return env_str("VOLSYNC_SVC_TENANTS")
+
+
+def svc_breaker_backend() -> Optional[str]:
+    """VOLSYNC_SVC_BREAKER_BACKEND: name of the resilience circuit
+    breaker the admission controller watches: while that breaker is
+    open, new streams shed at admission with the remaining cooldown as
+    the retry-after hint. None = no breaker wired."""
+    return env_str("VOLSYNC_SVC_BREAKER_BACKEND")
+
+
+def svc_deadline_spec() -> Optional[str]:
+    """VOLSYNC_SVC_DEADLINES: deadline-class map for the segment
+    scheduler, e.g. ``interactive=0.5,standard=5,background=none`` (see
+    scheduler.parse_deadline_classes); None = built-in defaults."""
+    return env_str("VOLSYNC_SVC_DEADLINES")
+
+
+# -- debug/verification toggles (analysis/lockcheck.py) ------------------
+
+def lockcheck_enabled() -> bool:
+    """VOLSYNC_TPU_LOCKCHECK=1 swaps the locks built through
+    ``analysis.lockcheck`` for instrumented wrappers that record the
+    per-thread lock-acquisition graph, fail fast on lock-order cycles
+    (potential deadlock), and back the assert_held guards on pipeline
+    shared state. Debug/test only: never on by default (every acquire
+    pays a bookkeeping step)."""
+    return env_bool("VOLSYNC_TPU_LOCKCHECK")
 
 
 # -- observability (obs.py) -------------------------------------------------

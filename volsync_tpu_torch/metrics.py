@@ -1,10 +1,11 @@
 """In-memory stand-in for the reference's Prometheus metrics.
 
 Ports the part of ``volsync_tpu/metrics.py`` that the port's repository,
-index, resilience, pack-cache, restore, scrub and repack modules and
-the protocol planner touch: the families of ``GLOBAL`` with the
-reference's names and label sets, each an in-memory counter or gauge
-with the ``labels(...).inc/set/observe`` shape. The reference builds
+index, resilience, pack-cache, restore, scrub and repack modules, the
+protocol planner and the service plane (admission, scheduler) touch:
+the families of ``GLOBAL`` with the reference's names and label sets,
+each an in-memory counter or gauge with the
+``labels(...).inc/dec/set/observe`` shape. The reference builds
 them on ``prometheus_client``, which the port does not depend on;
 nothing here is exported over HTTP. A family's ``values()`` reads its
 series, keyed by label values.
@@ -27,6 +28,10 @@ class _Child:
     def inc(self, amount: float = 1.0) -> None:
         with self._lock:
             self.value += amount
+
+    def dec(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self.value -= amount
 
     def set(self, value: float) -> None:
         with self._lock:
@@ -104,6 +109,13 @@ _FAMILIES = {
     "repack_packs": ("volsync_repack_packs_total", ()),
     "svc_protocol_selected": ("volsync_svc_protocol_selected_total",
                               ("protocol", "reason")),
+    "svc_admitted": ("volsync_svc_admitted_total", ("tenant",)),
+    "svc_shed": ("volsync_svc_shed_total", ("tenant", "reason")),
+    "svc_active_streams": ("volsync_svc_active_streams", ("tenant",)),
+    "svc_queue_depth": ("volsync_svc_queue_depth", ("tenant",)),
+    "svc_sched_latency": ("volsync_svc_sched_latency_seconds", ("tenant",)),
+    "svc_deadline_exceeded": ("volsync_svc_deadline_exceeded_total",
+                              ("tenant",)),
 }
 
 

@@ -395,8 +395,9 @@ class Repository:
         # the bytes), so they can never go stale.
         self._ec_memo: dict[str, bytes] = {}
         self._ec_memo_lock = lockcheck.make_lock("repo.ec_memo")
-        #: pack id -> lock of the one decode in flight (ec_reconstruct)
-        self._ec_flights: dict[str, threading.Lock] = {}
+        #: pack id -> lock of the one decode in flight (ec_reconstruct),
+        #: every one named "repo.ec_flight" for the lock detector
+        self._ec_flights: dict = {}
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -1279,7 +1280,10 @@ class Repository:
             body = self._ec_memo.get(pack_id)
             if body is not None:
                 return body
-            flight = self._ec_flights.setdefault(pack_id, threading.Lock())
+            flight = self._ec_flights.get(pack_id)
+            if flight is None:
+                flight = self._ec_flights[pack_id] = \
+                    lockcheck.make_lock("repo.ec_flight")
         # The port's single flight: readers of one pack (check's pool,
         # the serial restore's workers) wait for one decode and take it
         # from the memo.
