@@ -6,7 +6,8 @@
                           [--backup-gib G] [--backup64-mib M]
                           [--ec-gib G] [--delta-gib G] [--restic-mib M]
                           [--rclone-files N] [--service-tenants SPEC]
-                          [--service-mib M]
+                          [--service-mib M] [--turns-gib G]
+                          [--fleet-mib M] [--syncthing-mib M]
 
 Run from the repository root on a machine with a CUDA card and nvcc. It
 imports nothing of JAX or of the JAX package, and every phase raises on
@@ -72,10 +73,11 @@ a mismatch:
    ids); prints GiB/s and the dedup ratio. A second pass with each
    stage's functions bracketed by CUDA events gives per-stage device
    time, and a third plain pass the GiB/s spread; both must give the
-   first pass's chunks. Then the same stream alone through the engine's
-   own pipeline and through the default hasher (on CUDA the shared
-   micro-batcher, one lane a pass), in turns off, on, off, on, each
-   turn giving those chunks;
+   first pass's chunks. Then the stream's first ``--turns-gib`` GiB +
+   12,345 B alone through the engine's own pipeline and through the
+   default hasher (on CUDA the shared micro-batcher, one lane a pass),
+   in turns off, on, off, on, each turn giving the whole stream's chunks
+   that end inside it and the one it cuts short;
 4. verify: ``verify_blob_batch`` over 256 produced chunks returns [] and,
    with one byte flipped, exactly that chunk's id; its span-tail
    ``sha256_slices`` call equals its twin;
@@ -238,14 +240,52 @@ a mismatch:
    source after each down (bytes, modes, mtimes, symlink targets, empty
    directories, owners and xattrs where the filesystem keeps them).
    Logs each run's wall, GiB/s, files/s, busy share, host spans and the
-   fake server's requests by verb.
+   fake server's requests by verb;
+13. fleet: BASELINE.json configs[4] (many ReplicationSources served by
+   one fleet) in the shape of the fleet drill: 12 seeded jobs of
+   ``--fleet-mib`` MiB less 12,345 B (the backup cell's layout without
+   its hole, half of each shared across jobs) submitted from 6 threads
+   to a ``ReplicaGroup`` of 3 replicas (each its own fenced writer over
+   its own ``FaultStore`` stack on one encrypted ``FsObjectStore``
+   repository at ``DEFAULT_CHUNKER``; servers at their defaults but 2
+   streams a replica, so that sheds happen; a shed job waits out the
+   hint) beside a ``ContinuousGC`` (0.5 s, grace 2 s) over a deleted
+   snapshot's garbage. r00's store crashes on its second data put and
+   r00 is killed. Then: every job completed, failovers counted; the
+   stale locks taken over, a zombie writer fenced and its late backup
+   refused; no pending-delete left and every live pack present; the
+   distinct data bytes equal the trees' oracle; ``check(read_data=
+   True)`` clean; one restore a replica that completed a job, the
+   failed-over one's among them, byte-identical; ``repair`` clears the
+   dead stamp. The round runs batched (the CUDA default) and with
+   ``VOLSYNC_BATCH_SEGMENTS=0`` (the jobs, their failovers and the
+   oracle only), each into a fresh repository, launches exact a pass;
+   then ``python -m volsync_tpu_torch.cli scrub`` in a
+   subprocess exits 0, ``repack`` exits 0 and, after a pack body rots,
+   ``scrub`` exits 2 with one unhealable pack. Logs each round's wall,
+   GiB/s, passes against segments, busy share, spans and GC outcomes;
+14. syncthing: three daemons through ``syncthing_entrypoint`` on
+   127.0.0.1 (A knows B and C; B and C know A as their introducer) over
+   a seeded folder on A (``--syncthing-mib``: small files log-uniform 1
+   B to 128 KiB, files of 4-16 MiB, one of 48 MiB + 12,345 B that
+   streams, a symlink, an empty file, an empty directory). A's folder
+   converges to B and C, an unknown device is refused, idle rescans
+   hash and launch nothing, B's edits (rewrites, deletes, adds, a file
+   turned into a directory) converge back, and after a restart a file
+   written on A and on C goes to the larger (version, device id). After
+   each run the folders are equal (bytes, modes, mtimes) and every
+   digest is hashlib's blob id; launches exact from the files hashed
+   (one ``hash_spans`` pass a file up to 32 MiB, K1 once a streamed
+   segment with a full page). Logs the time to convergence, files and
+   bytes hashed and pulled, the busy share and the host seconds.
 
 The line before the last is the kernels JSON (launches on the stream
 phase that runs each kernel, ``md5_slices``' on the delta phase, the
 ``*_batched`` entries' on the service phase's timed batched round, max
 difference from the twin, times and bounds; ``product_launches``: each
 kernel's launches in the backup, durability, delta, mover, restic
-entry, rclone and service phases' runs, on the entries named as the
+entry, rclone, service, fleet and syncthing phases' runs, on the
+entries named as the
 kernel is: a form's entry has none, since its launches count under its
 kernel's name);
 the last line is ``{"ok": true, "device":
@@ -258,6 +298,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import copy
 import hashlib
 import json
 import os
@@ -268,7 +309,9 @@ import sys
 import tempfile
 import threading
 import time
+import types
 from collections import Counter, defaultdict
+from datetime import datetime, timedelta, timezone
 from pathlib import Path
 
 import numpy as np
@@ -1714,9 +1757,10 @@ def check_oracle(label: str, results, stream, params) -> float:
         raise AssertionError(f"{label}: cut list differs from the host "
                              f"oracle at chunk {bad} ({len(results)} vs "
                              f"{len(cuts)} chunks)")
-    with concurrent.futures.ThreadPoolExecutor(8) as ex:
-        ids = list(ex.map(lambda c: blobid.blob_id(stream.view(*c)), cuts,
-                          chunksize=16))
+    # One thread: hashlib hands the interpreter lock around on every 4 KiB
+    # leaf, and eight threads contending for it hashed the 10 GiB stream's
+    # ids in 60.6 s against one thread's 12.1 s (PERF.md, section 4).
+    ids = [blobid.blob_id(stream.view(*c)) for c in cuts]
     for (o, n, bid), want in zip(results, ids):
         if bid != want:
             raise AssertionError(f"{label}: blob id of chunk ({o}, {n}) "
@@ -1815,6 +1859,31 @@ def batcher_turns(torch, stream, params, want: list) -> dict:
         log(f"stream, shared batcher {kind} (turn {turn} of 4): "
             f"{secs:.3f} s = {gibs:.4f} GiB/s, {passes.n} device "
             f"passes of {passes.lanes} segments")
+    return out
+
+
+def stream_prefix(stream, total: int):
+    """The first ``total`` bytes of ``stream`` as a stream of their own
+    (the same blocks, no copy); ``stream`` itself when it is no longer."""
+    if total >= stream.total:
+        return stream
+    prefix = copy.copy(stream)
+    prefix.total, prefix.pos = total, 0
+    return prefix
+
+
+def prefix_chunks(results: list, prefix) -> list:
+    """The chunks of ``prefix`` from those of the whole stream: a cut
+    depends only on the bytes since the chunk's start, so every chunk
+    that ends inside the prefix is kept, and the one it cuts short ends
+    at the prefix's end (its id from hashlib)."""
+    from volsync_tpu_torch.repo import blobid
+
+    n = prefix.total
+    out = [c for c in results if c[0] + c[1] <= n]
+    end = out[-1][0] + out[-1][1] if out else 0
+    if end < n:
+        out.append((end, n - end, blobid.blob_id(prefix.view(end, n - end))))
     return out
 
 
@@ -4758,6 +4827,957 @@ def batched_kernel_entries(torch, stats, base: np.ndarray, shapes: list,
             torch.cuda.empty_cache()
 
 
+# -- fleet: fenced replicas behind the router, with the continuous GC -------
+
+#: The fleet drill's shape (tests/test_fleet_chaos.py): three replicas,
+#: each its own fenced writer over its own store stack on one repository,
+#: the server at its defaults but two streams a replica, so that sheds
+#: happen, and a continuous GC beside them.
+FLEET_REPLICAS = 3
+FLEET_MAX_STREAMS = 2
+FLEET_JOBS = 12
+FLEET_THREADS = 6
+FLEET_GC_INTERVAL = 0.5
+FLEET_GC_GRACE = 2.0
+FLEET_PASSWORD = "smoke-password"
+#: r00's store crashes on its second data put (the drill's
+#: fleet-kill-mid-stream schedule), and then r00 is killed.
+FLEET_CRASH_AT = 2
+#: The seeded garbage: a deleted snapshot's files, four of 1 MiB.
+FLEET_PRE = (4, 1 << 20)
+#: A job's tree is ``--fleet-mib`` MiB less this.
+FLEET_SHORT = 12345
+#: The nominal job (128 MiB less FLEET_SHORT), which holds the backup
+#: cell's 300 small files; a smaller job holds them in proportion.
+FLEET_NOMINAL = (128 << 20) - FLEET_SHORT
+
+
+def make_fleet_tree(root: Path, total: int, seed: int, shared: bytes,
+                    min_size: int) -> dict:
+    """One fleet job's tree of ``total`` bytes in the backup cell's
+    layout without its hole: ``big.bin`` holds ``shared`` (the same bytes
+    in every job, half the volume), ``odd.bin`` the rest of the volume
+    (this job's own; an odd length), a hard link to it two directories
+    down, an empty file and files below ``min_size`` in 16 directories
+    (``SMALL_FILES`` in a ``FLEET_NOMINAL`` job, in proportion in a
+    smaller one, at least one). Every byte outside ``big.bin`` is drawn
+    from ``seed``, so a blob is shared across jobs only where a whole
+    file is.
+    -> {"bytes": total, "files": {sha256 hex: size} of its distinct
+    non-empty contents}."""
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True)
+    n_small = max(1, round(SMALL_FILES * total / FLEET_NOMINAL))
+    sizes = rng.integers(1, min(min_size, 64 << 10), size=n_small)
+    files = {hashlib.sha256(shared).hexdigest(): len(shared)}
+    (root / "big.bin").write_bytes(shared)
+    odd = total - len(shared) - int(sizes.sum())
+    h = hashlib.sha256()
+    with open(root / "odd.bin", "wb") as f:
+        left = odd
+        while left:
+            piece = rng.bytes(min(left, 16 << 20))
+            h.update(piece)
+            f.write(piece)
+            left -= len(piece)
+    files[h.hexdigest()] = odd
+    (root / "empty").write_bytes(b"")
+    (root / "nested" / "deeper").mkdir(parents=True)
+    os.link(root / "odd.bin", root / "nested" / "deeper" / "link.bin")
+    for i, n in enumerate(sizes):
+        d = root / "small" / f"{i % 16:02d}"
+        d.mkdir(parents=True, exist_ok=True)
+        data = rng.bytes(int(n))
+        (d / f"f{i:04d}.bin").write_bytes(data)
+        files[hashlib.sha256(data).hexdigest()] = int(n)
+        if i % 7 == 0:
+            os.chmod(d / f"f{i:04d}.bin", 0o600)
+    os.chmod(root / "odd.bin", 0o640)
+    os.utime(root / "nested", ns=(1_600_000_000 * 10**9,) * 2)
+    return {"bytes": total, "files": files}
+
+
+def fleet_garbage(store, root: Path, seed: int) -> tuple:
+    """Back up a seeded tree, rewrite half of it, back it up again and
+    delete the first snapshot: the continuous GC's garbage. -> (the data
+    blob ids now in the index, the kept snapshot, the tree)."""
+    from volsync_tpu_torch.engine.backup import TreeBackup
+    from volsync_tpu_torch.repo.repository import Repository
+
+    rng = np.random.default_rng([seed, 1])
+    root.mkdir(parents=True)
+    n, size = FLEET_PRE
+    for i in range(n):
+        (root / f"g{i}.bin").write_bytes(rng.bytes(size + 11 * i))
+    repo = Repository.open(store, FLEET_PASSWORD, device=DEVICE)
+    doomed, _ = TreeBackup(repo).run(root)
+    for i in range(n // 2):
+        (root / f"g{i}.bin").write_bytes(rng.bytes(size + 11 * i))
+    kept, _ = TreeBackup(repo).run(root)
+    repo.delete_snapshot(doomed)
+    ids = {b for b in repo.blob_ids() if repo._entry(b).type == "data"}
+    return ids, kept
+
+
+def age_locks(store, seconds: float) -> int:
+    """Backdate every lock's refresh stamp by ``seconds``: the
+    fingerprint of holders that died that long ago."""
+    when = (datetime.now(timezone.utc)
+            - timedelta(seconds=seconds)).isoformat()
+    keys = list(store.list("locks/"))
+    for key in keys:
+        info = json.loads(store.get(key))
+        info["time"] = when
+        store.put(key, json.dumps(info).encode())
+    return len(keys)
+
+
+def fleet_stack(root: Path, seed: int, specs: list):
+    """A replica's own view of the shared repository: ``open_store``'s
+    layering (``ResilientStore`` over ``FaultStore`` over the directory)
+    with the drill's retry policy (no wall-clock backoff, a breaker that
+    never trips). -> (its FaultStore, its top)."""
+    from volsync_tpu_torch.objstore.faultstore import (FaultSchedule,
+                                                       FaultStore)
+    from volsync_tpu_torch.objstore.store import FsObjectStore
+    from volsync_tpu_torch.resilience import (CircuitBreaker,
+                                              ResilientStore, RetryPolicy)
+
+    faults = FaultStore(FsObjectStore(root),
+                        FaultSchedule(seed=seed, specs=specs))
+    policy = RetryPolicy(site="fleet", max_attempts=10, base_delay=0.001,
+                         max_delay=0.01, sleep_fn=lambda s: None)
+    return faults, ResilientStore(
+        faults, policy=policy,
+        breaker=CircuitBreaker("fleet", threshold=10**9, reset_seconds=0.01))
+
+
+def fleet_round(torch, label: str, base: Path, trees: list, made: list,
+                seed: int, card: str, full: bool = True) -> dict:
+    """One round of the fleet drill into a fresh encrypted repository at
+    ``DEFAULT_CHUNKER`` seeded with a deleted snapshot's garbage: a
+    ``ReplicaGroup`` of three replicas (``FLEET_MAX_STREAMS`` a replica,
+    r00's store crashing on its second data put) and a ``ContinuousGC``
+    (``FLEET_GC_INTERVAL``, ``FLEET_GC_GRACE``) run the ``trees`` as
+    jobs submitted from ``FLEET_THREADS`` threads, each retried after a
+    shed's hint; the attempt that meets r00's crash kills r00. A zombie
+    writer holds a shared lock from before the round. Then: every job
+    completed, failovers counted, r00's stamp left, every live pack
+    present, the distinct data bytes equal to the oracle's; and with
+    ``full``, the dead writers fenced and the garbage swept (``fence``),
+    ``check(read_data=True)`` clean, one restore a replica that
+    completed a job, the failed-over job's among them, byte-identical,
+    and ``repair`` clearing r00's stamp. Launches exact: the fused
+    kernels once a device pass of the jobs, the verify kernels once a
+    verify pass of the check and restores."""
+    from volsync_tpu_torch.engine.restore import restore_snapshot
+    from volsync_tpu_torch.metrics import GLOBAL as METRICS
+    from volsync_tpu_torch.objstore.faultstore import FaultSpec
+    from volsync_tpu_torch.objstore.store import FsObjectStore
+    from volsync_tpu_torch.repo.repository import (DEFAULT_CHUNKER,
+                                                   Repository)
+    from volsync_tpu_torch.service import fleet
+    from volsync_tpu_torch.service.admission import AdmissionRejected
+    from volsync_tpu_torch.service.gc import ContinuousGC
+
+    root = base / f"{label}-repo"
+    fs = FsObjectStore(root)
+    Repository.init(fs, FLEET_PASSWORD, chunker=DEFAULT_CHUNKER,
+                    device=DEVICE)
+    pre_ids, kept = fleet_garbage(fs, base / f"{label}-pre", seed)
+    crash = FaultSpec(kind="crash", at=FLEET_CRASH_AT, op="put",
+                      key_prefix="data/")
+    stacks = [fleet_stack(root, seed + r, [crash] if r == 0 else [])
+              for r in range(FLEET_REPLICAS)]
+    zombie = Repository.open(fs, FLEET_PASSWORD, device=DEVICE)
+    zombie._write_lock("shared")
+    failovers = METRICS.fleet_failovers_total.values().get((), 0.0)
+    sheds_before = sum(METRICS.svc_shed.values().values())
+    group = fleet.ReplicaGroup(
+        [top for _, top in stacks], router_store=fs, password=FLEET_PASSWORD,
+        ttl_seconds=30.0, beat_seconds=0.25, max_streams=FLEET_MAX_STREAMS,
+        device=DEVICE)
+    gc = ContinuousGC(FsObjectStore(root), password=FLEET_PASSWORD,
+                      interval_seconds=FLEET_GC_INTERVAL,
+                      grace_seconds=FLEET_GC_GRACE, lock_wait=2.0,
+                      device=DEVICE)
+    lock = threading.Lock()
+    attempts = defaultdict(list)  # job -> [(replica, outcome)]
+    killed = []
+    waits = []
+
+    def record(fn):
+        def backup(self, tree, *, tenant="fleet", hostname=None):
+            try:
+                snap = fn(self, tree, tenant=tenant, hostname=hostname)
+            except BaseException as ex:
+                with lock:
+                    attempts[hostname].append((self.replica_id,
+                                               type(ex).__name__))
+                    if stacks[0][0].crashed and not killed:
+                        group.kill("r00")  # the pod goes away
+                        killed.append(hostname)
+                raise
+            with lock:
+                attempts[hostname].append((self.replica_id, "ok"))
+            return snap
+        return backup
+
+    def job(j):
+        deadline = time.monotonic() + 600
+        while True:
+            try:
+                out = group.submit_backup(trees[j], hostname=f"job{j:02d}")
+                break
+            except AdmissionRejected as rej:
+                # every replica shed it: honour the hint, as a client does
+                if time.monotonic() > deadline:
+                    raise
+                with lock:
+                    waits.append(rej.retry_after)
+                time.sleep(rej.retry_after)
+        return out
+
+    def run():
+        with group, gc, concurrent.futures.ThreadPoolExecutor(
+                FLEET_THREADS) as ex:
+            out = list(ex.map(job, range(len(trees))))
+            while gc.cycles < 2:
+                time.sleep(0.05)
+        return out
+
+    logical = sum(m["bytes"] for m in made)
+    with patched(fleet.Replica, {"backup": record}):
+        r = product_run(torch, f"{label}: {len(trees)} jobs on "
+                        f"{FLEET_REPLICAS} replicas", run, FUSED_PER_PASS,
+                        SegmentPasses())
+    for rep in group.replicas:  # the killed replica's service threads
+        if rep.server.scheduler is not None:
+            rep.server.scheduler.stop()
+        if rep.server._batcher is not None:
+            rep.server._batcher.stop()
+    jobs_end = time.perf_counter()
+    done = r["out"]
+    res = {"jobs": r, "secs": r["secs"], "gibs": logical / GIB / r["secs"],
+           "passes": r["passes"], "segments": r["lanes"],
+           "busy_s": r["busy_s"], "gc": dict(gc.outcomes),
+           "gc_cycles": gc.cycles,
+           "failovers": METRICS.fleet_failovers_total.values().get((), 0.0)
+           - failovers,
+           "sheds": sum(METRICS.svc_shed.values().values()) - sheds_before,
+           "shed_waits": len(waits),
+           "by_replica": dict(Counter(rid for _, rid in done))}
+    hopped = sorted(h for h, a in attempts.items() if len(a) > 1)
+    if not killed or not stacks[0][0].crashed or res["failovers"] < 1 \
+            or not hopped:
+        raise AssertionError(f"{label}: r00's store crashed "
+                             f"{stacks[0][0].crashed}, killed {killed}, "
+                             f"{res['failovers']} failovers")
+    # a cycle may fail (outcome "error") and keep its cadence, as when
+    # it reads a snapshot published after its index load; one must run
+    if not gc.outcomes.get("ok"):
+        raise AssertionError(f"{label}: GC outcomes {gc.outcomes}")
+    log(f"{label}: {len(done)} jobs, {logical} bytes in {r['secs']:.3f} s "
+        f"= {res['gibs']:.4f} GiB/s; {r['passes']} device passes of "
+        f"{r['lanes']} segments; completed by replica "
+        f"{json.dumps(res['by_replica'])}; {res['failovers']:.0f} "
+        f"failovers ({len(hopped)} jobs moved, r00 killed in "
+        f"{killed[0]}), {res['sheds']:.0f} sheds, {len(waits)} waits on a "
+        f"shed's hint; GC {gc.cycles} cycles {json.dumps(gc.outcomes)} "
+        f"({card})")
+
+    # -- the dead writer: stamp left, locks taken over, zombie fenced ---
+    steps, t_post = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        steps[name] = round(now - t_post[0], 3)
+        t_post[0] = now
+
+    if not fs.exists("fleet/r00"):
+        raise AssertionError(f"{label}: the killed replica's stamp is gone")
+    horizon = Repository.LOCK_STALE_SECONDS + 60
+    if full:
+        fence(fs, zombie, base / f"{label}-late", horizon, jobs_end)
+        lap("takeover, zombie, sweep")
+    final = Repository.open(fs, FLEET_PASSWORD, device=DEVICE)
+    with final._lock:
+        packs = [p for p in final._index.live_packs() if p]
+    gone = [p for p in packs if not fs.exists(f"data/{p[:2]}/{p}")]
+    if gone:
+        raise AssertionError(f"{label}: the index names swept packs {gone}")
+    job_ids = {b for b in final.blob_ids()
+               if final._entry(b).type == "data"} - pre_ids
+    stored = sum(final._entry(b).raw_length for b in job_ids)
+    distinct = {}
+    for m in made:
+        distinct.update(m["files"])
+    if stored != sum(distinct.values()):
+        raise AssertionError(f"{label}: {stored} distinct data bytes, the "
+                             f"oracle has {sum(distinct.values())}")
+    res["dedup"] = stored / logical
+    lap("dedup")
+    log(f"{label}: all {len(packs)} live packs present; dedup ratio "
+        f"(distinct data bytes / logical) {res['dedup']:.6f}, equal to the "
+        f"oracle's")
+    res["root"] = root
+    if not full:
+        log(f"{label}: seconds after the jobs {json.dumps(steps)}")
+        return res
+    r = product_run(torch, f"{label} check(read_data=True)",
+                    lambda: final.check(read_data=True), VERIFY_PER_PASS,
+                    None)
+    if r["out"] != []:
+        raise AssertionError(f"{label}: check found {r['out'][:3]}")
+    res["check"] = r
+    lap("check")
+    ids = [s for s, _ in final.list_snapshots()]
+    pick = {}
+    for h in hopped[:1] + sorted(attempts):
+        rid = next(rid for rid, how in attempts[h] if how == "ok")
+        if rid not in pick.values() and h not in pick:
+            pick[h] = rid
+    res["restores"] = []
+    for h, rid in pick.items():
+        j = int(h[3:])
+        dst = base / f"{label}-restore-{h}"
+        r = product_run(torch, f"{label} restore of {h} (made on {rid})",
+                        lambda: restore_snapshot(
+                            Repository.open(fs, FLEET_PASSWORD,
+                                            device=DEVICE), dst,
+                            previous=len(ids) - 1 - ids.index(done[j][0])),
+                        VERIFY_PER_PASS, None)
+        check_restored(f"{label} restore of {h}", tree_state(trees[j]), dst, 0)
+        shutil.rmtree(dst)
+        res["restores"].append(r)
+    lap("restores")
+    if kept not in ids:
+        raise AssertionError(f"{label}: the kept snapshot is gone")
+    stamp = json.loads(fs.get("fleet/r00"))
+    stamp["time"] = (datetime.now(timezone.utc)
+                     - timedelta(seconds=horizon)).isoformat()
+    fs.put("fleet/r00", json.dumps(stamp).encode())
+    report = Repository.open(fs, FLEET_PASSWORD, device=DEVICE).repair(
+        grace_seconds=0.5)
+    if "fleet/r00" not in report["stale_markers"] or fs.exists("fleet/r00"):
+        raise AssertionError(f"{label}: repair left r00's stamp")
+    lap("repair")
+    tried = attempts[hopped[0]]
+    log(f"{label}: check clean, {len(pick)} restores byte-identical "
+        f"({json.dumps(pick)}; {hopped[0]} failed over in {len(tried)} "
+        f"attempts: {tried[:2]}...{tried[-1:]}); repair cleared r00's "
+        f"stamp; seconds after the jobs {json.dumps(steps)} ({card})")
+    return res
+
+
+def fence(fs, zombie, late: Path, horizon: float, jobs_end: float) -> None:
+    """The dead writers after a fleet round: age every lock past
+    ``horizon`` (the crashed replica's and the zombie's), a prune takes
+    them over and fences the zombie, whose late backup of ``late`` is
+    refused (its lock left behind, aged too); then a mark-and-sweep pair,
+    once the GC's last manifests have expired (``FLEET_GC_GRACE`` after
+    ``jobs_end``) and the pair's own (0.5 s), leaves no pending-delete
+    manifest."""
+    from volsync_tpu_torch.engine.backup import TreeBackup
+    from volsync_tpu_torch.repo.repository import (Repository,
+                                                   StaleWriterError)
+
+    aged = age_locks(fs, horizon)
+    retry = Repository.open(fs, FLEET_PASSWORD, device=DEVICE)
+    retry.default_lock_wait = 10.0
+    retry.prune(grace_seconds=0.5)
+    if not fs.exists(f"fenced/{zombie.writer_id}"):
+        raise AssertionError("fleet: the zombie writer was not fenced")
+    late.mkdir()
+    (late / "late.bin").write_bytes(b"late" * 1024)
+    try:
+        TreeBackup(zombie, workers=1).run(late, hostname="zombie-late")
+    except StaleWriterError:
+        pass
+    else:
+        raise AssertionError("fleet: the zombie's late publish landed")
+    aged += age_locks(fs, horizon)
+    time.sleep(max(0.0, FLEET_GC_GRACE + 0.1 - (time.perf_counter()
+                                                - jobs_end)))
+    retry.prune(grace_seconds=0.5)
+    time.sleep(0.6)
+    retry.prune(grace_seconds=0.5)
+    left = list(fs.list("pending-delete/"))
+    if left:
+        raise AssertionError(
+            "fleet: pending-delete manifests left: "
+            + json.dumps([json.loads(fs.get(k)) for k in left])[:2000]
+            + "; locks " + json.dumps([json.loads(fs.get(k)) for k
+                                       in fs.list("locks/")])[:2000])
+    log(f"fleet: {aged} stale locks taken over, the zombie fenced and its "
+        f"late backup refused (StaleWriterError); no pending-delete left")
+
+
+def fleet_cli(root: Path, argv: list) -> tuple:
+    """``python -m volsync_tpu_torch.cli`` in a subprocess from the
+    checkout on ``root``'s repository: (exit code, --json report or
+    None, seconds)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(Path(__file__).resolve().parent)]
+        + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "volsync_tpu_torch.cli", argv[0], str(root),
+         "--password", FLEET_PASSWORD, "--json", *argv[1:]],
+        capture_output=True, text=True, env=env, timeout=300,
+        cwd=str(Path(__file__).resolve().parent))
+    secs = time.perf_counter() - t0
+    try:
+        report = json.loads(out.stdout)
+    except ValueError:
+        report = None
+    if report is None:
+        log(f"cli {argv[0]}: rc {out.returncode}, no report; stderr "
+            f"{out.stderr[-2000:]}")
+    return out.returncode, report, secs
+
+
+def fleet_phase(torch, base: Path, total: int, seed: int, card: str) -> dict:
+    """The fleet (BASELINE.json configs[4]: many ReplicationSources served
+    by one fleet): ``FLEET_JOBS`` seeded trees of ``total`` bytes (half
+    shared across jobs), ``fleet_round`` batched (the shared
+    micro-batcher, the CUDA default; with the dead writers fenced, the
+    check, restores and repair) and unbatched
+    (``VOLSYNC_BATCH_SEGMENTS=0``; the jobs and the dedup oracle) into
+    fresh repositories; then on the batched round's repository the
+    maintenance verbs: ``scrub`` in a subprocess exits 0, ``repack``
+    exits 0, and after one pack body is rotted ``scrub`` exits 2 with
+    one unhealable pack (those two through the same ``main`` in process,
+    launches counted)."""
+    from volsync_tpu_torch.objstore.store import FsObjectStore
+    from volsync_tpu_torch.repo.repository import (DEFAULT_CHUNKER,
+                                                   Repository)
+
+    t0 = time.perf_counter()
+    shared = np.random.default_rng([seed, 2]).bytes(total // 2)
+    trees, made = [], []
+    for j in range(FLEET_JOBS):
+        trees.append(base / f"job{j:02d}")
+        made.append(make_fleet_tree(trees[-1], total, seed + 1 + j, shared,
+                                    DEFAULT_CHUNKER["min_size"]))
+    logical = sum(m["bytes"] for m in made)
+    log(f"fleet: {FLEET_JOBS} trees of {total} bytes ({logical} in all, "
+        f"{total // 2} of each shared) made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    res = {"batched": fleet_round(torch, "fleet batched", base, trees, made,
+                                  seed, card)}
+    with env_set("VOLSYNC_BATCH_SEGMENTS", "0"):
+        res["unbatched"] = fleet_round(torch, "fleet unbatched", base, trees,
+                                       made, seed, card, full=False)
+    shutil.rmtree(res["unbatched"].pop("root"))
+    root = res["batched"].pop("root")
+    for k in ("batched", "unbatched"):
+        r = res[k]
+        if r["passes"] > r["segments"] or (k == "unbatched" and DEVICE ==
+                                           "cuda" and r["passes"] !=
+                                           r["segments"]):
+            raise AssertionError(f"fleet {k}: {r['passes']} passes of "
+                                 f"{r['segments']} segments")
+    rc, report, secs = fleet_cli(root, ["scrub"])
+    if rc != 0 or report is None:
+        raise AssertionError(f"fleet: scrub exited {rc}, report {report}")
+    cli = {"scrub": {"rc": rc, "report": report, "secs": secs}}
+    cli["repack"] = fleet_verb(torch, root, ["repack"])
+    if cli["repack"]["rc"] != 0:
+        raise AssertionError(f"fleet: repack exited {cli['repack']}")
+    fs = FsObjectStore(root)
+    repo = Repository.open(fs, FLEET_PASSWORD, device=DEVICE)
+    with repo._lock:
+        segs = sorted((p, off) for _, (p, _t, off, _n, _r)
+                      in repo._index.items() if p and
+                      fs.exists(f"data/{p[:2]}/{p}"))
+    pack, off = segs[0]
+    key = f"data/{pack[:2]}/{pack}"
+    body = bytearray(fs.get(key))
+    body[off + 5] ^= 0xFF
+    fs.put(key, bytes(body))
+    cli["scrub_rotted"] = fleet_verb(torch, root, ["scrub"])
+    if cli["scrub_rotted"]["rc"] != 2 or cli["scrub_rotted"]["report"].get(
+            "unhealable") != 1 or not fs.exists(f"quarantine/{pack}"):
+        raise AssertionError(f"fleet: the rotted pack's scrub gave "
+                             f"{cli['scrub_rotted']}")
+    shutil.rmtree(root)
+    log("fleet maintenance verbs (the first scrub as python -m "
+        "volsync_tpu_torch.cli in a subprocess, the others through the "
+        "same main in process): " + json.dumps(
+            {k: {"rc": v["rc"], "s": round(v["secs"], 3),
+                 "report": v["report"]} for k, v in cli.items()})
+        + f" ({card})")
+    res["cli"] = cli
+    return res
+
+
+def fleet_verb(torch, root: Path, argv: list) -> dict:
+    """A maintenance verb through ``volsync_tpu_torch.cli.main`` in this
+    process on ``root``'s repository, as a ``product_run`` (the verify
+    kernels once a verify pass). -> {"rc", "report", "secs", "launches"}."""
+    from volsync_tpu_torch import cli
+
+    lines: list = []
+    r = product_run(torch, f"fleet {argv[0]} (in process)",
+                    lambda: cli.main([argv[0], str(root), "--password",
+                                      FLEET_PASSWORD, "--json", *argv[1:]],
+                                     out=lines.append, device=DEVICE),
+                    {}, None, verify_per_pass=VERIFY_PER_PASS)
+    return {"rc": r["out"], "report": json.loads("\n".join(lines)),
+            "secs": r["secs"], "launches": r["launches"]}
+
+
+# -- syncthing: three always-on daemons converge one folder -----------------
+
+#: The folder on A at ``--syncthing-mib`` 256 (counts scale with it):
+#: small files log-uniform from 1 B to 128 KiB in 32 directories, files
+#: of 4-16 MiB, and one above the 32 MiB streaming cut; plus a symlink, an
+#: empty file and an empty directory.
+ST_LAYOUT = {"small": 1024, "small_max": 128 << 10, "dirs": 32, "n_mid": 8,
+             "mid_min": 4 << 20, "mid_max": 16 << 20,
+             "big": (48 << 20) + ODD_TAIL}
+#: The daemons' idle backoff ceiling (VOLSYNC_ST_MAX_INTERVAL) here.
+ST_MAX_INTERVAL = "0.5"
+ST_TIMEOUT = 300.0
+
+
+def st_layout(mib: float) -> dict:
+    scale = mib / 256
+    return {**ST_LAYOUT, "small": max(1, round(ST_LAYOUT["small"] * scale)),
+            "n_mid": max(1, round(ST_LAYOUT["n_mid"] * scale))}
+
+
+def make_st_folder(root: Path, layout: dict, seed: int) -> dict:
+    """The seeded folder of ``layout`` -> {"small": [rel], "mid": [rel]}."""
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True)
+    dirs = [f"d{i:02d}" for i in range(layout["dirs"])]
+    for d in dirs:
+        (root / d).mkdir()
+    sizes = np.clip(np.exp(rng.uniform(0, np.log(layout["small_max"] + 1),
+                                       layout["small"])).astype(np.int64),
+                    1, layout["small_max"])
+    small = []
+    for i, n in enumerate(sizes):
+        rel = f"{dirs[i % len(dirs)]}/f{i:04d}.bin"
+        (root / rel).write_bytes(rng.bytes(int(n)))
+        if i % 7 == 0:
+            os.chmod(root / rel, 0o600)
+        small.append(rel)
+    mid = []
+    for i in range(layout["n_mid"]):
+        rel = f"m{i:02d}.bin"
+        n = int(rng.integers(layout["mid_min"], layout["mid_max"] + 1))
+        (root / rel).write_bytes(rng.bytes(n))
+        mid.append(rel)
+    with open(root / "big.bin", "wb") as f:
+        left = layout["big"]
+        while left:
+            piece = rng.bytes(min(left, 16 << 20))
+            f.write(piece)
+            left -= len(piece)
+    (root / "empty").write_bytes(b"")
+    (root / "empty-dir").mkdir()
+    os.symlink(small[0], root / "link")
+    return {"small": small, "mid": mid}
+
+
+def st_state(root: Path) -> dict:
+    """rel -> (kind, mode, size, sha256, mtime_ns) of files, (kind,
+    mode) of directories, (kind, target) of symlinks."""
+    out = {}
+    for dirpath, dirnames, filenames in os.walk(root):
+        for name in dirnames + filenames:
+            p = Path(dirpath) / name
+            st = p.lstat()
+            rel = p.relative_to(root).as_posix()
+            if p.is_symlink():
+                out[rel] = ("link", os.readlink(p))
+            elif p.is_dir():
+                out[rel] = ("dir", st.st_mode & 0o7777)
+            else:
+                h = hashlib.sha256()
+                with open(p, "rb") as f:
+                    while piece := f.read(8 << 20):
+                        h.update(piece)
+                out[rel] = ("file", st.st_mode & 0o7777, st.st_size,
+                            h.hexdigest(), st.st_mtime_ns)
+    return out
+
+
+class StCluster:
+    """The two calls a daemon makes of its cluster (``JobContext.cluster``
+    is duck-typed): ``try_get`` a Service, ``update_status`` it with the
+    port the daemon bound."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.services: dict = {}
+
+    def try_get(self, kind, namespace, name):
+        with self._lock:
+            return self.services.setdefault(name, types.SimpleNamespace(
+                status=types.SimpleNamespace(bound_port=None,
+                                             cluster_ip=None)))
+
+    def update_status(self, obj):
+        pass
+
+    def port(self, name: str) -> int:
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            port = self.try_get("Service", "", name).status.bound_port
+            if port:
+                return port
+            time.sleep(0.02)
+        raise AssertionError(f"syncthing: {name} never bound a port")
+
+
+class StDaemon:
+    """One daemon: ``syncthing_entrypoint`` in a thread with a
+    ``JobContext`` (device None: CUDA) over its data and config
+    directories, its device key and API key kept across restarts."""
+
+    def __init__(self, base: Path, name: str, seed: int):
+        from volsync_tpu_torch.movers.syncthing import transport
+
+        rng = np.random.default_rng(seed)
+        self.name, self.base = name, base
+        self.data = base / name / "data"
+        self.config = base / name / "config"
+        self.config.mkdir(parents=True)
+        self.key = transport.generate_device_key()
+        self.apikey = rng.bytes(32)
+        self.id = transport.device_id_from_private(self.key)
+
+    def start(self, cluster: StCluster) -> "StDaemon":
+        from volsync_tpu_torch.cluster.runner import JobContext
+        from volsync_tpu_torch.movers.syncthing import entry
+
+        self.data.mkdir(parents=True, exist_ok=True)
+        for svc in ("api", "data"):  # a restart binds new ports
+            cluster.try_get("Service", "", f"{self.name}-{svc}") \
+                .status.bound_port = None
+        self.ctx = JobContext(
+            name=self.name, namespace="chip-smoke",
+            env={"SERVICE_API": f"{self.name}-api",
+                 "SERVICE_DATA": f"{self.name}-data",
+                 "VOLSYNC_ST_MAX_INTERVAL": ST_MAX_INTERVAL},
+            mounts={"data": self.data, "config": self.config},
+            secrets={"secret": {"apikey": self.apikey, "cert": self.key}},
+            stop_event=threading.Event(), cluster=cluster, kind="Deployment",
+            device=None if DEVICE == "cuda" else DEVICE)
+        self.rc = None
+
+        def run():
+            self.rc = entry.syncthing_entrypoint(self.ctx)
+
+        self.thread = threading.Thread(target=run, name=f"st-{self.name}",
+                                       daemon=True)
+        self.thread.start()
+        self.api_port = cluster.port(f"{self.name}-api")
+        self.data_port = cluster.port(f"{self.name}-data")
+        return self
+
+    def peer(self, other: "StDaemon", introducer: bool = False) -> dict:
+        return {"id": other.id,
+                "address": f"tcp://127.0.0.1:{other.data_port}",
+                "introducer": introducer}
+
+    def publish(self, devices: list) -> None:
+        from volsync_tpu_torch.movers.syncthing.apiclient import (
+            SyncthingConnection)
+
+        SyncthingConnection("127.0.0.1", self.api_port,
+                            self.apikey).publish_config({"devices": devices})
+
+    def fetch(self):
+        from volsync_tpu_torch.movers.syncthing.apiclient import (
+            SyncthingConnection)
+
+        return SyncthingConnection("127.0.0.1", self.api_port,
+                                   self.apikey).fetch()
+
+    def index(self) -> dict:
+        """The folder index the daemon last saved (its config volume)."""
+        try:
+            return json.loads((self.config / "index.json").read_text())
+        except (OSError, ValueError):
+            return {"entries": {}, "max_version": 0}
+
+    def stop(self) -> None:
+        self.ctx.stop_event.set()
+        self.thread.join(timeout=30)
+        if self.thread.is_alive() or self.rc != 0:
+            raise AssertionError(f"syncthing {self.name}: rc {self.rc}")
+
+
+def st_hashing(sizes: list, stream_above: int) -> dict:
+    """What ``_hash_file`` launches for files of ``sizes``: an empty file
+    nothing, one of at most ``stream_above`` bytes one ``hash_spans``
+    pass (K1, span-form ``sha256_slices``, ``merkle_roots``), a larger
+    one K1 once a streamed 32 MiB segment that holds a full page."""
+    spans = sum(1 for n in sizes if 0 < n <= stream_above)
+    big = [n for n in sizes if n > stream_above]
+    launches = {k: v * spans for k, v in VERIFY_PER_PASS.items()}
+    launches["sha256_pages"] += sum(
+        n // RCLONE_SEGMENT + (n % RCLONE_SEGMENT >= 4096) for n in big)
+    return {"spans": spans, "streamed": len(big), "launches": launches}
+
+
+def st_run(torch, label: str, daemons: list, act, card: str) -> dict:
+    """``act()`` (starting, configuring or editing the daemons), then wait
+    until every daemon's saved index equals the others' and the first's
+    has moved from where it was before ``act()``, with every
+    launch count set to 0 just before, the card traced, every
+    ``_hash_file`` call's size and every pulled byte recorded. The
+    ``hash_spans`` and ``hash_file_streaming`` calls must be those the
+    recorded sizes give, and on the card the launches exactly
+    ``st_hashing``'s."""
+    from volsync_tpu_torch.engine import chunker
+    from volsync_tpu_torch.movers.syncthing import entry
+    from volsync_tpu_torch.obs import span_totals
+    from volsync_tpu_torch.ops._build import KERNELS, launch_counts
+
+    sizes, pulled = [], []
+    host = {"hash": 0.0, "pull": 0.0}
+    lock = threading.Lock()
+    spans, streamed = PassCounter(), PassCounter()
+
+    def hashed(fn):
+        def wrapper(path, device):
+            n = path.stat().st_size
+            t1 = time.perf_counter()
+            out = fn(path, device)
+            with lock:
+                sizes.append(n)
+                host["hash"] += time.perf_counter() - t1
+            return out
+        return wrapper
+
+    def fetched(fn):
+        def wrapper(self, ch, rel):
+            t1 = time.perf_counter()
+            tmp = fn(self, ch, rel)
+            with lock:
+                host["pull"] += time.perf_counter() - t1
+                if tmp is not None:
+                    pulled.append(tmp.stat().st_size)
+            return tmp
+        return wrapper
+
+    start = daemons[0].index()["entries"]
+    before = span_totals()
+    for k in KERNELS:
+        k.launches = 0
+    with patched(entry, {"_hash_file": hashed}), \
+            patched(entry.SyncthingDaemon, {"_fetch_to_temp": fetched}), \
+            patched(chunker, {"hash_spans": spans.wrap,
+                              "hash_file_streaming": streamed.wrap}), \
+            device_trace(torch) as traced:
+        sync(torch)
+        t0 = time.perf_counter()
+        act()
+        deadline = time.monotonic() + ST_TIMEOUT
+        while True:
+            indexes = [d.index()["entries"] for d in daemons]
+            if indexes[0] and indexes[0] != start and \
+                    all(i == indexes[0] for i in indexes[1:]):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{label}: no convergence in "
+                                     f"{ST_TIMEOUT} s")
+            time.sleep(0.05)
+        sync(torch)
+        secs = time.perf_counter() - t0
+    launches = launch_counts()
+    want = st_hashing(sizes, entry._STREAM_ABOVE)
+    if (spans.n, streamed.n) != (want["spans"], want["streamed"]) or (
+            DEVICE == "cuda" and launches != {k: want["launches"].get(k, 0)
+                                              for k in launches}):
+        raise AssertionError(f"{label}: {spans.n} hash_spans and "
+                             f"{streamed.n} streamed hashes, launches "
+                             f"{launches}; expected {want}")
+    busy = traced["busy_s"]
+    res = {"secs": secs, "hashed": len(sizes), "hashed_bytes": sum(sizes),
+           "pulled": len(pulled), "pulled_bytes": sum(pulled),
+           "launches": launches, "busy_s": busy,
+           "host": {k: round(v, 4) for k, v in host.items()},
+           "spans": spans_since(before), "index": indexes[0]}
+    log(f"{label}: converged in {secs:.3f} s; {len(sizes)} files hashed "
+        f"({sum(sizes)} bytes; {spans.n} hash_spans, {streamed.n} "
+        f"streamed), {len(pulled)} files pulled ({sum(pulled)} bytes), "
+        f"launches {json.dumps({k: v for k, v in launches.items() if v})}; "
+        f"card busy "
+        + (f"{busy:.4f} s ({100 * busy / secs:.2f}% of the wall; seconds "
+           f"by kind {json.dumps(traced['by_kind'])})" if busy is not None
+           else "not measured")
+        + f"; host seconds in _hash_file and in pulls (summed over the "
+          f"daemons' threads) {json.dumps(res['host'])}, by span "
+          f"{json.dumps(res['spans'])} ({card})")
+    return res
+
+
+def st_check(label: str, daemons: list, index: dict) -> dict:
+    """Every folder equals the first (bytes, modes, mtimes, symlink
+    targets, empty directories) and every live file's index digest is
+    hashlib's blob id of its bytes ("" for an empty file)."""
+    from volsync_tpu_torch.repo.blobid import blob_id
+
+    states = [st_state(d.data) for d in daemons]
+    for d, s in zip(daemons[1:], states[1:]):
+        if s != states[0]:
+            diff = sorted(set(s.items()) ^ set(states[0].items()))[:3]
+            raise AssertionError(f"{label}: {d.name}'s folder differs, "
+                                 f"e.g. {diff}")
+    root = daemons[0].data
+    bad = [rel for rel, e in index.items()
+           if e.get("type") == "file" and not e.get("deleted")
+           and e["digest"] != ((lambda b: blob_id(b) if b else "")(
+               (root / rel).read_bytes()))]
+    live = {rel for rel, e in index.items() if not e.get("deleted")}
+    if bad or live != set(states[0]):
+        raise AssertionError(f"{label}: digests unlike hashlib {bad[:3]}, "
+                             f"index paths {len(live)} against "
+                             f"{len(states[0])} in the folder")
+    return states[0]
+
+
+def st_edit(root: Path, made: dict, seed: int) -> dict:
+    """B's edits: 2% of the small files rewritten at new sizes, 2%
+    deleted, one in 64 added in a new directory, one mid file turned into
+    a directory holding a file. -> the rels of each kind."""
+    rng = np.random.default_rng(seed)
+    small = made["small"]
+    k = max(1, len(small) // 50)
+    picks = rng.permutation(len(small))
+    rewrite = [small[i] for i in picks[:k]]
+    delete = [small[i] for i in picks[k: 2 * k]]
+    for rel in rewrite:
+        (root / rel).write_bytes(rng.bytes(int(rng.integers(1, 64 << 10))))
+    for rel in delete:
+        (root / rel).unlink()
+    (root / "added").mkdir()
+    added = []
+    for i in range(max(1, len(small) // 64)):
+        rel = f"added/a{i:02d}.bin"
+        (root / rel).write_bytes(rng.bytes(int(rng.integers(1, 128 << 10))))
+        added.append(rel)
+    turned = made["mid"][0]
+    (root / turned).unlink()
+    (root / turned).mkdir()
+    (root / turned / "inside.bin").write_bytes(rng.bytes(4097))
+    return {"rewrite": rewrite, "delete": delete, "added": added,
+            "turned": [turned]}
+
+
+def syncthing_phase(torch, base: Path, layout: dict, seed: int,
+                    card: str) -> dict:
+    """The syncthing mover's daemon on the port (ref
+    movers/syncthing/entry.py): three daemons A, B and C through
+    ``syncthing_entrypoint`` on 127.0.0.1, A knowing B and C, B and C
+    knowing only A as their introducer. A's seeded folder converges to B
+    and C (``st_run``: launches exact from the files hashed); a device
+    none of them knows is refused at A's handshake; an unchanged rescan
+    hashes nothing and launches nothing; B's edits (``st_edit``: rewrites,
+    deletes, adds, a file turned into a directory) converge back to A
+    and C; then, with the daemons stopped, one file is written on A and
+    on C, the daemons restart, and last-writer-wins settles it by
+    (version, device id) on all three. After each run every folder is
+    equal and every digest hashlib's blob id (``st_check``)."""
+    from volsync_tpu_torch.movers.rsync.channel import ChannelError
+    from volsync_tpu_torch.movers.syncthing import entry, transport
+    from volsync_tpu_torch.ops._build import KERNELS, launch_counts
+
+    a, b, c = (StDaemon(base, n, seed + i) for i, n in enumerate("ABC"))
+    t0 = time.perf_counter()
+    made = make_st_folder(a.data, layout, seed)
+    total = sum(v[2] for v in st_state(a.data).values() if v[0] == "file")
+    log(f"syncthing: folder of {len(made['small']) + len(made['mid']) + 2} "
+        f"files, {total} bytes made on A in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cluster = StCluster()
+    daemons = [a, b, c]
+    res = {"bytes": total}
+
+    def wire():
+        a.publish([a.peer(b), a.peer(c)])
+        b.publish([b.peer(a, introducer=True)])
+        c.publish([c.peer(a, introducer=True)])
+
+    def start_all():
+        for d in daemons:
+            d.start(cluster)
+        wire()
+
+    res["initial"] = st_run(torch, "syncthing initial (A to B and C)",
+                            daemons, start_all, card)
+    st_check("syncthing initial", daemons, res["initial"]["index"])
+    introduced = {d.name: sorted(p.get("introduced_by", "")[:8]
+                                 for p in d.fetch().config["devices"])
+                  for d in (b, c)}
+    stranger = transport.generate_device_key()
+    try:
+        transport.connect_device("127.0.0.1", a.data_port, stranger, a.id,
+                                 timeout=5.0)
+    except ChannelError:
+        pass
+    else:
+        raise AssertionError("syncthing: A accepted a device it does not "
+                             "know")
+    hashed = PassCounter()
+    for k in KERNELS:
+        k.launches = 0
+    with patched(entry, {"_hash_file": hashed.wrap}):
+        time.sleep(3 * float(ST_MAX_INTERVAL) + 1)
+    if hashed.n or any(launch_counts().values()):
+        raise AssertionError(f"syncthing: an unchanged folder re-hashed "
+                             f"{hashed.n} files, launches {launch_counts()}")
+    log(f"syncthing: introducer: B's and C's peers introduced by "
+        f"{json.dumps(introduced)}; an unknown device refused at A's "
+        f"handshake; idle rescans over {3 * float(ST_MAX_INTERVAL) + 1} s "
+        f"hashed nothing and launched nothing")
+
+    edits = {}
+    res["edits"] = st_run(torch, "syncthing edits (B to A and C)", daemons,
+                          lambda: edits.update(st_edit(b.data, made,
+                                                       seed + 7)), card)
+    st_check("syncthing edits", [b, a, c], res["edits"]["index"])
+
+    for d in daemons:
+        d.stop()
+    rel = made["small"][1]
+    stamps = {}
+    for d, fill in ((a, b"A"), (c, b"C")):
+        (d.data / rel).write_bytes(fill * 1000)
+        stamps[d.name] = (d.index()["max_version"] + 1, d.id)
+    winner = max(stamps, key=stamps.get)
+    res["conflict"] = st_run(torch, "syncthing conflict (A and C restart)",
+                             daemons, start_all, card)
+    state = st_check("syncthing conflict", daemons,
+                     res["conflict"]["index"])
+    got = (a.data / rel).read_bytes()
+    ent = res["conflict"]["index"][rel]
+    if got != winner.encode() * 1000 or \
+            (ent["version"], ent["modified_by"]) != stamps[winner]:
+        raise AssertionError(f"syncthing conflict: {rel} holds {got[:4]!r} "
+                             f"by {ent['modified_by'][:8]}, expected "
+                             f"{winner}'s")
+    for d in daemons:
+        d.stop()
+    res["edits_made"] = {k: len(v) for k, v in edits.items()}
+    log(f"syncthing: all three folders equal ({len(state)} paths: bytes, "
+        f"modes, mtimes, symlink, empty directory) after each run; edits "
+        f"{json.dumps(res['edits_made'])}; the same-time write on A and C "
+        f"went to {winner} by (version, device id) {json.dumps(stamps)} "
+        f"({card})")
+    for r in ("initial", "edits", "conflict"):
+        res[r].pop("index")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4793,6 +5813,17 @@ def main() -> int:
     # each (PERF.md, section 4).
     ap.add_argument("--service-tenants", default=SERVICE_TENANTS)
     ap.add_argument("--service-mib", type=float, default=32.0)
+    # The lone-stream batcher turns: the first GiB of the fused stream,
+    # cut from the whole 10 GiB once the fleet and syncthing phases came
+    # (PERF.md, section 4).
+    ap.add_argument("--turns-gib", type=float, default=1.0)
+    # The fleet phase: BASELINE.json configs[4], many ReplicationSources
+    # served by one fleet; 12 jobs of this many MiB less FLEET_SHORT, cut
+    # from 128 to keep the script inside its limit (PERF.md, section 4).
+    ap.add_argument("--fleet-mib", type=float, default=16.0)
+    # The syncthing phase's folder on A (its small and mid files' counts
+    # scale with it), cut from 256 for the same reason.
+    ap.add_argument("--syncthing-mib", type=float, default=32.0)
     args = ap.parse_args()
 
     import torch
@@ -4866,9 +5897,11 @@ def main() -> int:
             f"({card})")
     res = stream_phase(torch, stream, DEFAULT_PARAMS)
     verify_phase(res.pop("views"))
-    turns = batcher_turns(torch, stream, DEFAULT_PARAMS, res.pop("results"))
-    log("stream GiB/s, a lone stream with the shared batcher off / on in "
-        "turns: " + " / ".join(
+    turns_stream = stream_prefix(stream, int(args.turns_gib * GIB) + ODD_TAIL)
+    turns = batcher_turns(torch, turns_stream, DEFAULT_PARAMS,
+                          prefix_chunks(res.pop("results"), turns_stream))
+    log(f"stream GiB/s, a lone stream of {turns_stream.total} bytes with the "
+        "shared batcher off / on in turns: " + " / ".join(
             ", ".join(f"{t['gibs']:.4f}" for t in turns[k])
             for k in ("off", "on")) + f" ({card})")
     per_seg = {k: v / res["segments"] for k, v in res["launches"].items()}
@@ -5003,6 +6036,34 @@ def main() -> int:
     finally:
         shutil.rmtree(base, ignore_errors=True)
     log(f"rclone phase: {time.perf_counter() - t1:.1f} s in all ({card})")
+    fleet_bytes = int(args.fleet_mib * (1 << 20)) - FLEET_SHORT
+    base = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet.", dir=backup_base(
+        build, 3 * FLEET_JOBS * fleet_bytes)))
+    t1 = time.perf_counter()
+    try:
+        fleet = fleet_phase(torch, base, fleet_bytes, args.seed + 8, card)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    log(f"fleet phase: {time.perf_counter() - t1:.1f} s in all; batched / "
+        "unbatched: " + "; ".join(
+            f"{k} {fleet[k]['secs']:.3f} s, {fleet[k]['gibs']:.4f} GiB/s, "
+            f"{fleet[k]['passes']} passes of {fleet[k]['segments']} "
+            f"segments, card busy "
+            + (f"{100 * fleet[k]['busy_s'] / fleet[k]['secs']:.2f}%"
+               if fleet[k]["busy_s"] is not None else "not measured")
+            for k in ("batched", "unbatched")) + f" ({card})")
+    layout = st_layout(args.syncthing_mib)
+    base = Path(tempfile.mkdtemp(prefix="chip_smoke_syncthing.",
+                                 dir=backup_base(build, 4 * (256 << 20))))
+    t1 = time.perf_counter()
+    try:
+        st = syncthing_phase(torch, base, layout, args.seed + 9, card)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    log(f"syncthing phase: {time.perf_counter() - t1:.1f} s in all; "
+        f"convergence initial {st['initial']['secs']:.3f} s, edits "
+        f"{st['edits']['secs']:.3f} s, conflict {st['conflict']['secs']:.3f} "
+        f"s ({card})")
 
     # Launches: from the stream phase of the path that runs each kernel.
     launches = {**res["launches"],
@@ -5029,6 +6090,15 @@ def main() -> int:
     runs["service.per_request"] = svc["per_request"]["launches"]
     for run in ("up", "down", "up2", "down2"):
         runs[f"rclone.{run}"] = rclone[run]["launches"]
+    for k in ("batched", "unbatched"):
+        runs[f"fleet.{k}"] = fleet[k]["jobs"]["launches"]
+    runs["fleet.check"] = fleet["batched"]["check"]["launches"]
+    for i, r in enumerate(fleet["batched"]["restores"]):
+        runs[f"fleet.restore{i + 1}"] = r["launches"]
+    for verb in ("repack", "scrub_rotted"):
+        runs[f"fleet.{verb}"] = fleet["cli"][verb]["launches"]
+    for run in ("initial", "edits", "conflict"):
+        runs[f"syncthing.{run}"] = st[run]["launches"]
     kernels = []
     for name in ("transpose_u32", "sha256_pages", "sha256_pages_pagemajor",
                  "sha256_lanes", "sha256_slices", "sha256_slices_tail",

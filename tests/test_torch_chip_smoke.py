@@ -964,3 +964,116 @@ def test_service_phase_on_cpu(monkeypatch):
         st = stats[name]
         assert st["err"] == 0 and st["bound"][0] > 0 and st["bound_by"]
         assert set(st["shapes"]) == {f"2x{P}"}
+
+
+# -- the lone-stream turns' prefix, the fleet and syncthing phases ----------------
+
+@pytest.mark.parametrize("blocks,cut", [(3, 256 * 1024 + 12345),
+                                        (3, 100_000), (2, 0)])
+def test_stream_prefix_chunks_equal_a_pass_over_the_prefix(monkeypatch,
+                                                           blocks, cut):
+    """``--turns-gib``'s stream is the first bytes of the fused stream:
+    the chunks ``prefix_chunks`` derives from the whole stream's equal a
+    pass over the prefix alone (0: the prefix is the whole stream)."""
+    stream = _tiny_stream(monkeypatch, blocks)
+    hasher = chip_smoke.engine_hasher(PARAMS)
+    whole, _, _ = chip_smoke.stream_once(torch, stream, PARAMS, hasher)
+    prefix = chip_smoke.stream_prefix(stream, cut or stream.total + 1)
+    got, _, _ = chip_smoke.stream_once(torch, prefix, PARAMS, hasher)
+    assert got == chip_smoke.prefix_chunks(whole, prefix)
+    assert (prefix is stream) == (cut == 0)
+    assert sum(n for _, n, _ in got) == prefix.total
+
+
+SMALL_CHUNKER = {"min_size": 4096, "avg_size": 32768, "max_size": 65536,
+                 "seed": 7, "align": 4096}
+
+
+def test_fleet_tree_maker_and_oracle(tmp_path, monkeypatch):
+    monkeypatch.setattr(chip_smoke, "SMALL_FILES", 5)
+    shared = np.random.default_rng(1).bytes(50_000)
+    made = [chip_smoke.make_fleet_tree(tmp_path / f"j{j}", 120_000 - 12345,
+                                       2 + j, shared, 4096)
+            for j in range(2)]
+    for j, m in enumerate(made):
+        root = tmp_path / f"j{j}"
+        files = [p for p in root.rglob("*") if p.is_file()]
+        inodes = {p.stat().st_ino: p.stat().st_size for p in files}
+        assert sum(inodes.values()) == m["bytes"] == 120_000 - 12345
+        assert (root / "big.bin").read_bytes() == shared
+        assert (root / "nested" / "deeper" / "link.bin").stat().st_ino \
+            == (root / "odd.bin").stat().st_ino
+        assert sum(m["files"].values()) == m["bytes"]
+    # the shared half counts once across the jobs
+    both = {**made[0]["files"], **made[1]["files"]}
+    assert sum(both.values()) == 2 * made[0]["bytes"] - len(shared)
+
+
+def test_fleet_phase_on_cpu(monkeypatch, tmp_path):
+    """The fleet phase with the twins at three jobs of ~100 KB on one
+    thread (the test chunker): both rounds (r00's store crashing on its
+    second data put, r00 killed, the job failed over; the GC's cycles;
+    the stale locks taken over, the zombie fenced and refused; the
+    dedup oracle; check, one restore a replica, repair of r00's stamp),
+    then the maintenance verbs (the subprocess's scrub here in process
+    on the CPU): scrub 0, repack 0, and scrub 2 with one unhealable pack
+    once a pack rots."""
+    from volsync_tpu_torch import cli
+    from volsync_tpu_torch.repo import repository
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(repository, "DEFAULT_CHUNKER", SMALL_CHUNKER)
+    monkeypatch.setattr(chip_smoke, "SMALL_FILES", 4)
+    monkeypatch.setattr(chip_smoke, "FLEET_JOBS", 3)
+    monkeypatch.setattr(chip_smoke, "FLEET_THREADS", 1)
+    monkeypatch.setattr(chip_smoke, "FLEET_PRE", (2, 60_000))
+    calls = []
+
+    def in_process(root, argv):
+        lines = []
+        rc = cli.main([argv[0], str(root), "--password",
+                       chip_smoke.FLEET_PASSWORD, "--json", *argv[1:]],
+                      out=lines.append, device="cpu")
+        calls.append((argv[0], rc))
+        return rc, json.loads("\n".join(lines)), 0.0
+
+    monkeypatch.setattr(chip_smoke, "fleet_cli", in_process)
+    res = chip_smoke.fleet_phase(torch, tmp_path, 100_000 - 12345, 5, "cpu")
+    for k in ("batched", "unbatched"):
+        r = res[k]
+        assert r["failovers"] >= 1 and r["gc"].get("ok", 0) >= 1
+        assert r["passes"] == r["segments"] > 0 and r["busy_s"] is None
+        assert 0.5 < r["dedup"] < 0.7
+        assert sum(r["by_replica"].values()) == 3
+    # check, restores and repair run in the batched round
+    assert len(res["batched"]["restores"]) >= 2
+    assert res["batched"]["check"]["out"] == []
+    assert "restores" not in res["unbatched"]
+    assert calls == [("scrub", 0)]  # the subprocess's stand-in
+    assert res["cli"]["repack"]["rc"] == 0
+    assert res["cli"]["scrub_rotted"]["rc"] == 2
+    assert res["cli"]["scrub_rotted"]["report"]["unhealable"] == 1
+
+
+def test_syncthing_phase_on_cpu(monkeypatch, tmp_path):
+    """The syncthing phase with the twins on a folder of two small
+    files, a mid file and one above a 64 KiB streaming cut: A to B and
+    C, the unknown device, the idle rescans, B's edits back to A and C,
+    and the conflict settled by (version, device id) after a restart,
+    each run's hashing counted against the files hashed."""
+    from volsync_tpu_torch.movers.syncthing import entry
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(entry, "_STREAM_ABOVE", 64 * 1024)
+    layout = {**chip_smoke.ST_LAYOUT, "small": 2, "small_max": 16 << 10,
+              "dirs": 2, "n_mid": 1, "mid_min": 20 << 10,
+              "mid_max": 40 << 10, "big": 70_000 + 12345}
+    res = chip_smoke.syncthing_phase(torch, tmp_path, layout, 5, "cpu")
+    init = res["initial"]
+    # A hashes its five files; B and C pull all five and verify the four
+    # with bytes (an empty file's digest is "")
+    assert init["hashed"] == 5 + 2 * 4 and init["pulled"] == 2 * 5
+    assert init["busy_s"] is None and init["host"]["hash"] > 0
+    assert res["edits_made"] == {"rewrite": 1, "delete": 1, "added": 1,
+                                 "turned": 1}
+    assert res["conflict"]["pulled"] >= 2  # B may take both versions

@@ -1,8 +1,10 @@
 """The port stands alone: no file of volsync_tpu_torch/ or chip_smoke.py
 imports JAX or the JAX package (AST scan and a fresh-interpreter
-``sys.modules`` diff), and with no CUDA and no ``device`` argument the
-entry points (the durability path's, the delta engine's and the
-movers' among them) raise instead of moving to the CPU."""
+``sys.modules`` diff, also around ``python -m volsync_tpu_torch.cli
+scrub``), and with no CUDA and no ``device`` argument the entry points
+(the durability path's, the delta engine's, the movers', the fleet's,
+the GC's and the maintenance verbs' among them) raise instead of moving
+to the CPU, before they touch a store or bind a port."""
 
 import ast
 import json
@@ -99,8 +101,18 @@ def test_no_file_imports_jax_or_the_reference():
             "volsync_tpu_torch/service/moverjax_pb2.py",
             "volsync_tpu_torch/service/server.py",
             "volsync_tpu_torch/service/client.py",
-            "volsync_tpu_torch/tools/service_bench.py"} <= names
-    assert len(_port_files()) >= 72
+            "volsync_tpu_torch/tools/service_bench.py",
+            "volsync_tpu_torch/service/gc.py",
+            "volsync_tpu_torch/service/fleet.py",
+            "volsync_tpu_torch/cli/__init__.py",
+            "volsync_tpu_torch/cli/__main__.py",
+            "volsync_tpu_torch/cli/scrub.py",
+            "volsync_tpu_torch/cli/repack.py",
+            "volsync_tpu_torch/movers/syncthing/__init__.py",
+            "volsync_tpu_torch/movers/syncthing/transport.py",
+            "volsync_tpu_torch/movers/syncthing/apiclient.py",
+            "volsync_tpu_torch/movers/syncthing/entry.py"} <= names
+    assert len(_port_files()) >= 82
 
 
 def test_importing_the_port_loads_no_jax_module():
@@ -110,7 +122,7 @@ def test_importing_the_port_loads_no_jax_module():
     mods = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
             ".__init__")
-        for p in PKG.rglob("*.py"))
+        for p in PKG.rglob("*.py") if p.name != "__main__.py")
     code = (
         "import importlib, json, sys\n"
         "before = set(sys.modules)\n"
@@ -131,8 +143,45 @@ def test_importing_the_port_loads_no_jax_module():
             "volsync_tpu_torch.objstore.fakeswift",
             "volsync_tpu_torch.ops.batcher",
             "volsync_tpu_torch.service.server",
-            "volsync_tpu_torch.tools.service_bench"} <= set(added)
+            "volsync_tpu_torch.tools.service_bench",
+            "volsync_tpu_torch.service.gc",
+            "volsync_tpu_torch.service.fleet",
+            "volsync_tpu_torch.cli.scrub",
+            "volsync_tpu_torch.cli.repack",
+            "volsync_tpu_torch.movers.syncthing.entry",
+            "volsync_tpu_torch.movers.syncthing.apiclient"} <= set(added)
     assert [m for m in added if _forbidden(m)] == []
+
+
+def test_cli_scrub_in_a_subprocess_loads_no_jax(tmp_path):
+    """``python -m volsync_tpu_torch.cli scrub STORE`` in a fresh
+    interpreter: the verb's imports add no JAX module and nothing of the
+    JAX package, and with no CUDA it raises before opening the store."""
+    store = tmp_path / "store"
+    code = (
+        "import json, runpy, sys\n"
+        "before = set(sys.modules)\n"
+        f"sys.argv = ['volsync', 'scrub', {str(store)!r}]\n"
+        "try:\n"
+        "    runpy.run_module('volsync_tpu_torch.cli', run_name='__main__',\n"
+        "                     alter_sys=True)\n"
+        "except RuntimeError as e:\n"
+        "    err = str(e)\n"
+        "print(json.dumps([err, sorted(set(sys.modules) - before)]))\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(tmp_path), timeout=300,
+                         check=True)
+    err, added = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "CUDA is not available" in err
+    assert {"volsync_tpu_torch.cli", "volsync_tpu_torch.cli.scrub",
+            "volsync_tpu_torch.repo.scrub"} <= set(added)
+    assert [m for m in added if _forbidden(m)] == []
+    assert not store.exists()
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
@@ -383,3 +432,74 @@ def test_service_entry_points_raise_without_cuda(monkeypatch):
     assert srv.device.type == "cpu" and srv._hasher.device.type == "cpu"
     assert srv._batcher.device.type == "cpu"
     srv.stop(grace=0.1, drain=0.1)
+
+
+class _SpyStore(MemObjectStore):
+    """A store that records every call made of it."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __getattribute__(self, name):
+        attr = super().__getattribute__(name)
+        if name in ("get", "put", "list", "exists", "delete", "get_range",
+                    "size"):
+            super().__getattribute__("calls").append(name)
+        return attr
+
+
+def test_fleet_gc_cli_and_syncthing_raise_without_cuda(monkeypatch,
+                                                       tmp_path):
+    """The continuous GC, a fleet replica and a replica group, the
+    ``scrub`` and ``repack`` verbs and the syncthing daemon run on CUDA
+    unless given a device: with no CUDA they raise before they touch a
+    store, bind a port or publish one, and start no thread."""
+    from volsync_tpu_torch import cli
+    from volsync_tpu_torch.movers.syncthing import entry as st_entry
+    from volsync_tpu_torch.service.fleet import Replica, ReplicaGroup
+    from volsync_tpu_torch.service.gc import ContinuousGC
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    store = _SpyStore()
+    published = []
+
+    class _Cluster:
+        def try_get(self, kind, namespace, name):  # pragma: no cover
+            published.append(name)
+
+        def update_status(self, obj):  # pragma: no cover
+            published.append(obj)
+
+    data, config = tmp_path / "data", tmp_path / "config"
+    ctx = JobContext(name="st", namespace="ns",
+                     env={"SERVICE_API": "api", "SERVICE_DATA": "data"},
+                     mounts={"data": data, "config": config},
+                     secrets={"secret": {"apikey": b"k" * 32,
+                                         "cert": b"\x01" * 32}},
+                     stop_event=threading.Event(), cluster=_Cluster())
+    repo_dir = tmp_path / "repo"
+    threads = threading.active_count()
+    calls = [
+        lambda: ContinuousGC(store),
+        lambda: ContinuousGC(store, device="cuda", grace_seconds=1.0),
+        lambda: Replica("r00", store),
+        lambda: Replica("r00", store, device="cuda"),
+        lambda: ReplicaGroup([store, store]),
+        lambda: cli.main(["scrub", str(repo_dir)], out=lambda s: None),
+        lambda: cli.main(["repack", str(repo_dir), "--json"],
+                         out=lambda s: None),
+        lambda: cli.main(["scrub", str(repo_dir)], out=lambda s: None,
+                         device="cuda"),
+        lambda: st_entry.syncthing_entrypoint(ctx),
+        lambda: st_entry.SyncthingDaemon(ctx),
+        lambda: st_entry.FolderIndex(config / "index.json", "dev"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert store.calls == [] and published == []
+    assert threading.active_count() == threads
+    assert not repo_dir.exists() and not data.exists() \
+        and not config.exists()
+    assert ContinuousGC(store, device="cpu").device.type == "cpu"

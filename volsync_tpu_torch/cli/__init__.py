@@ -1,0 +1,41 @@
+"""The port's ``volsync`` CLI: the two maintenance verbs.
+
+Ports the part of ``volsync_tpu/cli/`` that needs no operator: the
+``scrub`` and ``repack`` verbs (cli/scrub.py, cli/repack.py), dispatched
+as ``volsync_tpu/cli/main.py`` dispatches them, before anything of a
+cluster is imported. The replication, migration, lint, trace, session
+and repair verbs belong to the operator and its tools, which the port
+does not have.
+
+    python -m volsync_tpu_torch.cli scrub STORE [--password P] [--json]
+    python -m volsync_tpu_torch.cli repack STORE [--scheme k+m] [--json]
+
+Both run on CUDA (``main(..., device=)`` picks another device for
+tests) and raise where CUDA is absent, before the store is opened.
+"""
+
+from __future__ import annotations
+
+import sys
+
+VERBS = ("scrub", "repack")
+
+
+def main(argv=None, out=print, device=None) -> int:
+    """Dispatch ``argv`` (default: the command line) to its verb's
+    ``main``; 2 with a usage line for anything else."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "scrub":
+        from volsync_tpu_torch.cli.scrub import main as scrub_main
+
+        return scrub_main(argv[1:], out=out, device=device)
+    if argv and argv[0] == "repack":
+        from volsync_tpu_torch.cli.repack import main as repack_main
+
+        return repack_main(argv[1:], out=out, device=device)
+    out(f"usage: volsync {{{','.join(VERBS)}}} STORE ... "
+        f"(got {argv[:1] or 'no verb'})")
+    return 2
+
+
+__all__ = ["VERBS", "main"]

@@ -9,7 +9,8 @@ backup and restore workers', the scrub's and the repacker's cadence,
 the fault-injection store's seed and spec, the sync-protocol
 planner's and the batched delta scan's, the device trace's directory
 (``trace_dir``), the segment micro-batcher's (``batch_*``), the
-service plane's (``svc_*``), the lock detector's switch
+service plane's (``svc_*``), the fleet's and the continuous GC's
+(``fleet_*``, ``gc_interval_seconds``), the lock detector's switch
 (``lockcheck_enabled``), plus the page-major digest-table gate of
 ``volsync_tpu/ops/segment.py`` (``pagemajor``). Names, defaults and
 the falsy-token set are the reference's, so one environment configures
@@ -456,6 +457,31 @@ def svc_deadline_spec() -> Optional[str]:
     scheduler, e.g. ``interactive=0.5,standard=5,background=none`` (see
     scheduler.parse_deadline_classes); None = built-in defaults."""
     return env_str("VOLSYNC_SVC_DEADLINES")
+
+
+# -- fleet replica plane (service/fleet.py, service/gc.py) ---------------
+
+def fleet_beat_seconds() -> float:
+    """VOLSYNC_FLEET_BEAT_S: interval between a replica's heartbeat
+    stamps into the shared object store (``fleet/<replica-id>``). The
+    stamp carries headroom + backlog, so the beat is also how fast the
+    router's routing picture refreshes."""
+    return env_float("VOLSYNC_FLEET_BEAT_S", 2.0, minimum=0.1)
+
+
+def fleet_ttl_seconds() -> float:
+    """VOLSYNC_FLEET_TTL_S: heartbeat-stamp TTL — a replica whose stamp
+    is older than this is presumed dead: the router stops routing to it
+    and ``repair`` may clear the stale stamp. Keep it a few beats wide
+    so one slow put does not declare a live replica dead."""
+    return env_float("VOLSYNC_FLEET_TTL_S", 10.0, minimum=0.5)
+
+
+def gc_interval_seconds() -> float:
+    """VOLSYNC_GC_INTERVAL_S: pause between continuous-GC prune cycles
+    (service/gc.py). Each cycle is the two-phase mark-then-sweep prune;
+    the interval bounds how much garbage accumulates between cycles."""
+    return env_float("VOLSYNC_GC_INTERVAL_S", 60.0, minimum=0.1)
 
 
 # -- debug/verification toggles (analysis/lockcheck.py) ------------------

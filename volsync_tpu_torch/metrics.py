@@ -2,7 +2,8 @@
 
 Ports the part of ``volsync_tpu/metrics.py`` that the port's repository,
 index, resilience, pack-cache, restore, scrub and repack modules, the
-protocol planner and the service plane (admission, scheduler) touch:
+protocol planner, the service plane (admission, scheduler), the fleet
+and the continuous GC touch:
 the families of ``GLOBAL`` with the reference's names and label sets,
 each an in-memory counter or gauge with the
 ``labels(...).inc/dec/set/observe`` shape. The reference builds
@@ -116,6 +117,11 @@ _FAMILIES = {
     "svc_sched_latency": ("volsync_svc_sched_latency_seconds", ("tenant",)),
     "svc_deadline_exceeded": ("volsync_svc_deadline_exceeded_total",
                               ("tenant",)),
+    "fleet_replica_headroom": ("volsync_fleet_replica_headroom",
+                               ("replica",)),
+    "fleet_routed_total": ("volsync_fleet_routed_total", ("replica",)),
+    "fleet_failovers_total": ("volsync_fleet_failovers_total", ()),
+    "gc_cycles": ("volsync_gc_cycles_total", ("outcome",)),
 }
 
 

@@ -3,8 +3,8 @@
 Ports ``volsync_tpu/repo/repack.py`` whole. ``RepackService`` takes
 ``device=`` (CUDA by default, raising where CUDA is absent) and opens
 its repository there: the stripes are encoded, read back, decoded and
-device-verified on it. The one-shot ``volsync repack`` CLI verb and
-service/gc.py's ``ContinuousGC`` are not ported yet.
+device-verified on it. The one-shot ``repack`` CLI verb is
+``volsync_tpu_torch/cli/repack.py``.
 
 Prune (repo/repository.py) keeps the repository CORRECT as snapshots
 are forgotten, but its victims are chosen by liveness alone; a

@@ -4,8 +4,8 @@ Ports ``volsync_tpu/repo/scrub.py`` whole. ``ScrubService`` takes
 ``device=`` (CUDA by default, raising where CUDA is absent) and opens
 its repository there; ``verify_pack_blobs`` re-hashes on
 ``repo.device``, and the stripe arms decode and re-encode there. The
-one-shot ``volsync scrub`` CLI verb and its exit code are the
-reference's CLI, not ported yet.
+one-shot ``scrub`` CLI verb and its exit codes are
+``volsync_tpu_torch/cli/scrub.py``.
 
 Every fault the chaos harness injected before this layer was LOUD —
 transient errors, throttles, crashes — but the failure mode that

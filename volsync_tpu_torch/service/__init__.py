@@ -2,9 +2,10 @@
 service (ports ``volsync_tpu/service/``), with the multi-tenant service
 plane in front of it: admission control (service/admission.py),
 weighted deficit-round-robin scheduling with deadline classes
-(service/scheduler.py) and the tenancy model (service/tenants.py). The
-reference's fleet replica plane (``fleet.py``) and continuous GC
-(``gc.py``) are not ported yet.
+(service/scheduler.py), the tenancy model (service/tenants.py), and the
+fleet replica plane on top — N fenced server replicas on one repository
+with headroom routing (service/fleet.py) and a continuous GC service
+(service/gc.py).
 """
 
 from volsync_tpu_torch.service.admission import (
@@ -17,6 +18,14 @@ from volsync_tpu_torch.service.client import (
     ShedError,
     open_client,
 )
+from volsync_tpu_torch.service.fleet import (
+    FleetRouter,
+    Replica,
+    ReplicaGroup,
+    ReplicaHeartbeat,
+    ReplicaStamp,
+)
+from volsync_tpu_torch.service.gc import ContinuousGC
 from volsync_tpu_torch.service.scheduler import (
     DeadlineExceeded,
     SchedulerStopped,
@@ -33,9 +42,15 @@ from volsync_tpu_torch.service.tenants import (
 __all__ = [
     "AdmissionController",
     "AdmissionRejected",
+    "ContinuousGC",
     "DeadlineExceeded",
+    "FleetRouter",
     "MoverJaxClient",
     "MoverJaxServer",
+    "Replica",
+    "ReplicaGroup",
+    "ReplicaHeartbeat",
+    "ReplicaStamp",
     "SchedulerStopped",
     "SegmentScheduler",
     "ShedError",

@@ -33,11 +33,11 @@ same instant retry spread out instead of re-colliding as a thundering
 herd — which matters once multiple fleet replicas share one backlog
 signal. Breaker sheds keep the breaker's exact remaining cooldown.
 
-Cross-replica admission (the reference's service/fleet.py, not ported
-yet): when a ``sibling_fn`` is wired, every shed also carries the
-address of a sibling replica with advertised headroom — the server
-stamps it into ``x-volsync-sibling`` trailing metadata so a shed client
-retries *there* instead of re-offering the hot replica the same stream.
+Cross-replica admission (service/fleet.py): when a ``sibling_fn`` is
+wired, every shed also carries the address of a sibling replica with
+advertised headroom — the server stamps it into ``x-volsync-sibling``
+trailing metadata so a shed client retries *there* instead of
+re-offering the hot replica the same stream.
 
 Admitted/shed counts are kept per tenant in the port's in-memory
 ``volsync_svc_admitted_total{tenant}`` /

@@ -171,8 +171,7 @@ class MoverJaxServer:
     pass a CircuitBreaker, a backend name (resolved via breaker_for),
     or leave None to follow VOLSYNC_SVC_BREAKER_BACKEND.
 
-    Fleet mode (the reference's service/fleet.py, not ported yet):
-    ``sibling_fn`` returns a sibling
+    Fleet mode (service/fleet.py): ``sibling_fn`` returns a sibling
     replica's ``host:port`` with headroom (or None) — stamped into
     ``x-volsync-sibling`` trailing metadata on every shed so clients
     fail over instead of hammering this replica. ``deadline_classes``
