@@ -8,6 +8,7 @@
                           [--rclone-files N] [--service-tenants SPEC]
                           [--service-mib M] [--turns-gib G]
                           [--fleet-mib M] [--syncthing-mib M]
+                          [--mesh-gib G]
 
 Run from the repository root on a machine with a CUDA card and nvcc. It
 imports nothing of JAX or of the JAX package, and every phase raises on
@@ -277,15 +278,47 @@ a mismatch:
    digest is hashlib's blob id; launches exact from the files hashed
    (one ``hash_spans`` pass a file up to 32 MiB, K1 once a streamed
    segment with a full page). Logs the time to convergence, files and
-   bytes hashed and pulled, the busy share and the host seconds.
+   bytes hashed and pulled, the busy share and the host seconds;
+15. mesh (``parallel/``; runs after phase 5, on its volumes): the fused
+   stream's first ``--mesh-gib`` GiB + 12,345 B, the align-64 volume's
+   first 256 MiB and the align-1 volume's first 32 MiB, each through the
+   single-device engine and through ``MeshChunkHasher`` on a 4-shard
+   mesh of the one card (the fused prefix also on the default mesh,
+   every CUDA device: one shard) in 32 MiB segments, the counts set to
+   0 before each: chunks and ids equal to the stream phase's, launches
+   exact a pass (fused: ``sha256_pages`` once a shard, one
+   ``fastcdc_walk``, one ``merkle_roots``, one tail ``sha256_slices`` a
+   pass with a partial tail leaf; leaf and byte paths one
+   ``sha256_slices`` a shard), GiB/s beside the single device's. Then
+   ``make_chunk_hash_step`` on a (2, 2) mesh of the card over a seeded
+   [4, 16 MiB] (one ``sha256_slices`` a shard): every 64 KiB block's
+   digest equal to hashlib, the candidate mask to a numpy gear oracle,
+   each row to ``chunk_hash_block`` on the card, the bloom and stats to
+   the host's; ``sha256_fixed_blocks`` at [1024, 64 KiB] against its
+   twin and hashlib, timed (graph replay and eager) and bounded by its
+   per-warp floor; ``init_distributed()`` with nothing configured gives
+   one process, and ``require=True`` raises. In phase 11, after the
+   first backup, ``TreeBackup`` of the restic tree through a 4-shard
+   mesh (launches exact) and the restic entry with
+   ``VOLSYNC_ENGINE=mesh`` give its root tree;
+16. session (last): ``TorchSessionBackend`` probes the card in a
+   subprocess (seconds and the device it names); a ``SessionSupervisor``
+   and ``BenchQueue`` run a child that hashes a seeded 64 MiB buffer
+   with ``hash_spans`` on the card (blob id equal to hashlib's, its
+   environment carrying ``VOLSYNC_SESSION_ID``, ``_EPOCH`` and
+   ``_BACKEND=torch``); a job past a 2 s deadline is refused;
+   ``force_release`` kills a marked sleeping child and spares an
+   unmarked one; ``python -m volsync_tpu_torch.cli session status
+   --probe`` exits 0. This process never carries the marker.
 
 The line before the last is the kernels JSON (launches on the stream
 phase that runs each kernel, ``md5_slices``' on the delta phase, the
-``*_batched`` entries' on the service phase's timed batched round, max
+``*_batched`` entries' on the service phase's timed batched round,
+``sha256_slices_fixed``'s on the mesh phase's step, max
 difference from the twin, times and bounds; ``product_launches``: each
 kernel's launches in the backup, durability, delta, mover, restic
-entry, rclone, service, fleet and syncthing phases' runs, on the
-entries named as the
+entry, rclone, service, fleet, syncthing and mesh phases' runs, on
+the entries named as the
 kernel is: a form's entry has none, since its launches count under its
 kernel's name);
 the last line is ``{"ok": true, "device":
@@ -364,6 +397,7 @@ REPLACES = {
     "fastcdc_walk_batched": "volsync_tpu/ops/segment.py:205",
     "sha256_slices_tail_batched": "volsync_tpu/ops/segment.py:126",
     "merkle_roots_batched": "volsync_tpu/ops/segment.py:367",
+    "sha256_slices_fixed": "volsync_tpu/parallel/engine.py:76",
 }
 SOURCES = {
     "transpose_u32": "volsync_tpu_torch/csrc/transpose.cu",
@@ -383,6 +417,7 @@ SOURCES = {
     "fastcdc_walk_batched": "volsync_tpu_torch/csrc/fastcdc.cu",
     "sha256_slices_tail_batched": "volsync_tpu_torch/csrc/sha256.cu",
     "merkle_roots_batched": "volsync_tpu_torch/csrc/merkle.cu",
+    "sha256_slices_fixed": "volsync_tpu_torch/csrc/sha256.cu",
 }
 #: K1 block sizes of the K5 sweep (the library launches 64).
 SWEEP_THREADS = (32, 64, 128, 256)
@@ -3867,7 +3902,7 @@ def batching_turns(run_entry, base: Path, src: Path, made: dict,
 
 
 def restic_entry_phase(torch, base: Path, total: int, seed: int,
-                       card: str) -> dict:
+                       card: str, mesh_check=None) -> dict:
     """The restic mover's entry point on the port (ref
     movers/restic/entry.py) over a seeded tree of about ``total`` bytes
     (``make_backup_tree``) in an encrypted ``FsObjectStore`` repository,
@@ -3882,7 +3917,9 @@ def restic_entry_phase(torch, base: Path, total: int, seed: int,
     restored``) and leaves the hole unwritten; each backup wrote its
     trace, and the restore is traced by the same ``obs.device_trace``
     (``restic-restore``): the card's busy seconds are read from these
-    three files, where they hold device events."""
+    three files, where they hold device events. ``mesh_check(base, src,
+    tree)``, where given, runs after the first backup with its root
+    tree."""
     from volsync_tpu_torch import obs
     from volsync_tpu_torch.cluster.runner import JobContext
     from volsync_tpu_torch.movers.restic import entry
@@ -3931,6 +3968,11 @@ def restic_entry_phase(torch, base: Path, total: int, seed: int,
         res["backup"]["bytes"] = made["bytes"]
         res["turns"] = batching_turns(run_entry, base, src, made,
                                       res["backup"])
+        if mesh_check is not None:
+            (_, meta), = Repository.open(
+                FsObjectStore(base / "restic-repo"), EC_PASSWORD,
+                device=DEVICE).list_snapshots()
+            res["mesh"] = mesh_check(base, src, meta["tree"])
         with open(src / "big.bin", "r+b") as f:
             f.seek(os.path.getsize(src / "big.bin") // 3)
             f.write(rng.bytes(total // 256))
@@ -5778,16 +5820,525 @@ def syncthing_phase(torch, base: Path, layout: dict, seed: int,
     return res
 
 
+# -- multi-device: the sharded engine on a mesh of one card ------------------
+
+#: Shards of the mesh phase's meshes, all on the one card: every
+#: per-shard kernel, seam, gather and global table runs for real.
+MESH_SHARDS = 4
+#: The leaf and byte paths' prefixes of the align=64 and align=1 volumes.
+MESH_ALIGN64 = 256 << 20
+MESH_ALIGN1 = 32 << 20
+#: The sharded step's [W, L] on a (2, 2) mesh, its block length, and the
+#: fixed-block shape sha256_fixed_blocks is timed at.
+MESH_STEP = (4, 16 << 20)
+MESH_BLOCK = 64 << 10
+FIXED_SHAPE = (1024, 64 << 10)
+
+
+def stream_head(stream, total: int):
+    """``stream_prefix`` that keeps only the fresh blocks the prefix
+    uses, so the whole volume's host memory can go."""
+    head = stream_prefix(stream, total)
+    if head is stream:
+        return stream
+    nb = -(-total // BLOCK)
+    used = {k for k in stream.plan[:nb] if k >= 0}
+    head.plan = stream.plan[:nb]
+    head.unique = [u if i in used else None
+                   for i, u in enumerate(stream.unique)]
+    return head
+
+
+def mesh_cell(label: str, params, stream, total: int, run: dict) -> tuple:
+    """A mesh phase cell: (label, params, the stream's first ``total``
+    bytes, their chunks from the stream phase ``run``)."""
+    head = stream_head(stream, total)
+    return label, params, head, prefix_chunks(run["results"], head)
+
+
+def mesh_hasher(params, shards: int):
+    """A ``MeshChunkHasher`` over ``shards`` shards of the phase's device,
+    or (0) over the default mesh: every CUDA device of the process (one
+    CPU shard in a rehearsal)."""
+    from volsync_tpu_torch.parallel.sharded_chunker import (
+        MeshChunkHasher,
+        make_stream_mesh,
+    )
+
+    if shards:
+        return MeshChunkHasher(params, mesh=make_stream_mesh(
+            [DEVICE] * shards))
+    if DEVICE == "cuda":
+        return MeshChunkHasher(params)
+    return MeshChunkHasher(params, mesh=make_stream_mesh([DEVICE]))
+
+
+@contextlib.contextmanager
+def mesh_counting(hasher):
+    """Counts the mesh hasher's device passes (fused passes, or leaf
+    stages on the other paths), the fused passes' tail launches and the
+    verify passes (``hash_spans``) within the block; yields
+    ``want(launches)`` -> the launch counts those passes must make."""
+    from volsync_tpu_torch.engine import chunker
+    from volsync_tpu_torch.parallel import sharded_chunker as sc
+
+    fused = hasher.params.align == 4096
+    passes, tails, verify = PassCounter(), PassCounter(), PassCounter()
+    S = hasher.n_shards
+
+    def want(launches: dict) -> dict:
+        per = ({"sha256_pages": S * passes.n, "fastcdc_walk": passes.n,
+                "sha256_slices": tails.n, "merkle_roots": passes.n}
+               if fused else {"sha256_slices": S * passes.n})
+        return {k: per.get(k, 0) + VERIFY_PER_PASS.get(k, 0) * verify.n
+                for k in launches}
+
+    want.passes, want.tails, want.verify = passes, tails, verify
+    with patched(hasher, {"_fused_pass" if fused else "_span_roots":
+                          passes.wrap}), \
+            patched(sc, {"tail_leaves_into": tails.wrap}), \
+            patched(chunker, {"hash_spans": verify.wrap}):
+        yield want
+
+
+def mesh_stream(torch, label: str, stream, params, want: list,
+                hasher) -> dict:
+    """One pass of ``stream_chunk_batches`` through a mesh hasher with
+    every launch count set to 0 just before and read just after: the
+    chunks must be ``want`` (the single-device engine's), and on the
+    card each kernel must launch exactly as the passes need (fused: K1
+    once a shard, one walk, one ``merkle_roots``, one ``sha256_slices``
+    a pass with a partial tail leaf and never more than one; the other
+    paths: one ``sha256_slices`` a shard a pass)."""
+    from volsync_tpu_torch.ops._build import KERNELS, launch_counts
+
+    for k in KERNELS:
+        k.launches = 0
+    with mesh_counting(hasher) as expect:
+        results, _, secs = stream_once(torch, stream, params, hasher)
+    launches = launch_counts()
+    if results != want:
+        bad = next((i for i, (a, b) in enumerate(zip(results, want))
+                    if a != b), min(len(results), len(want)))
+        raise AssertionError(f"{label}: chunks differ from the single-device "
+                             f"engine's at chunk {bad} ({len(results)} vs "
+                             f"{len(want)})")
+    passes, tails = expect.passes.n, expect.tails.n
+    if DEVICE == "cuda" and (launches != expect(launches) or tails > passes
+                             or not passes):
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{expect(launches)} over {passes} passes with "
+                             f"{tails} tails")
+    gibs = stream.total / GIB / secs
+    log(f"{label}: {stream.total} bytes, {len(results)} chunks equal to the "
+        f"single-device engine's in {secs:.3f} s = {gibs:.4f} GiB/s over "
+        f"{passes} passes ({tails} with a tail leaf); launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}, per pass "
+        + json.dumps({k: v / max(passes, 1) for k, v in launches.items()
+                      if v}))
+    return {"gibs": gibs, "secs": secs, "passes": passes, "tails": tails,
+            "launches": launches}
+
+
+def host_dense_mask(x: np.ndarray, params) -> np.ndarray:
+    """numpy strict per-position candidate mask of one stream (the gear
+    table, shift-doubling on uint32 words), as the step computes it."""
+    h = params.table[x]
+    for m in (1, 2, 4, 8, 16):
+        h[m:] += h[:-m] << np.uint32(m)
+    return (h & np.uint32(params.dense_mask_s)) == 0
+
+
+def fixed_blocks_entry(torch, stats, seed: int) -> None:
+    """``sha256_fixed_blocks`` (one ``sha256_slices`` launch) at [B, L]:
+    equal to its twin and to hashlib on seeded blocks, timed by graph
+    replay and eagerly, bounded by its work and its per-warp floor (each
+    lane one L-byte message; [B, L] is ``FIXED_SHAPE``)."""
+    from volsync_tpu_torch.ops import sha256 as sha
+    from volsync_tpu_torch.parallel.engine import sha256_fixed_blocks
+
+    B, L = shape = FIXED_SHAPE
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    blocks = torch.randint(0, 256, (B, L), dtype=torch.uint8, device=DEVICE,
+                           generator=gen)
+    got = sha256_fixed_blocks(blocks)
+    starts = torch.arange(B, dtype=torch.int64, device=DEVICE) * L
+    lengths = torch.full((B,), L, dtype=torch.int64, device=DEVICE)
+    sync(torch)
+    t0 = time.perf_counter()
+    want = sha._sha256_chunks_plain(blocks.reshape(-1), starts, lengths,
+                                    max_len=L)
+    sync(torch)
+    plain_s = time.perf_counter() - t0
+    st = stats["sha256_slices_fixed"]
+    st["err"] = max(st["err"], max_abs_err(torch, got, want))
+    if not torch.equal(got, want):
+        raise AssertionError(f"sha256_fixed_blocks at {shape} differs from "
+                             f"its twin")
+    host = blocks[:8].cpu().numpy()
+    dig = got[:8].cpu().numpy().view(np.uint32).astype(">u4")
+    for i in range(8):
+        if dig[i].tobytes() != hashlib.sha256(host[i].tobytes()).digest():
+            raise AssertionError(f"sha256_fixed_blocks block {i} differs "
+                                 f"from hashlib")
+
+    def run():
+        return sha256_fixed_blocks(blocks)
+
+    ms = time_ms(torch, run, 5)
+    eager = time_ms(torch, run, 5, graph=False)
+    w = slice_work(torch, lengths, sha.slice_blocks(L))
+    b = lanes_bound(B, sha.SLICES_THREADS, w["lane_ops"], sha_bound(
+        w["data_blocks"], w["pad_blocks"], w["bytes"] + B * 40))
+    st["ms"].append(ms)
+    st["eager_ms"].append(eager)
+    st["plain_ms"].append(plain_s * 1e3)
+    set_bound(st, b)
+    st["shapes"] = {f"{B}x{L}": {"lanes": B, "blocks": w["data_blocks"]
+                                 + w["pad_blocks"], "floor_ms":
+                                 b["floor_ms"]}}
+    log(f"sha256_slices (sha256_fixed_blocks, [{B}, {L}]): {B} lanes of "
+        f"{w['longest']} blocks; kernel {ms:.4f} ms (eager {eager:.4f}), "
+        f"twin {plain_s * 1e3:.1f} ms, bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_kind']}; per-warp floor {b['floor_ms']:.4f} ms, work "
+        f"{sha_bound(w['data_blocks'], w['pad_blocks'], w['bytes'])[0]:.4f}"
+        f" ms)")
+
+
+def mesh_step_check(torch, stats, seed: int, card: str) -> dict:
+    """``make_chunk_hash_step`` on a (2, 2) mesh of the phase's device
+    over a seeded ``MESH_STEP`` [W, L] of ``MESH_BLOCK``-byte blocks
+    (duplicate blocks in it): one ``sha256_slices``
+    a shard and nothing else; every block digest equal to hashlib, the
+    candidate mask to a numpy gear oracle and, row by row, digests and
+    candidate count to ``chunk_hash_block`` on the device; the bloom and
+    the stats to a host computation. Then ``fixed_blocks_entry``."""
+    from volsync_tpu_torch.ops._build import KERNELS, launch_counts
+    from volsync_tpu_torch.ops.gearcdc import DEFAULT_PARAMS as p
+    from volsync_tpu_torch.parallel import (
+        chunk_hash_block,
+        make_chunk_hash_step,
+        make_mesh,
+    )
+
+    W, L = MESH_STEP
+    block = MESH_BLOCK
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    host = torch.randint(0, 256, (W, L), dtype=torch.uint8, device=DEVICE,
+                         generator=gen).cpu().numpy()
+    host[1, :block] = host[0, :block]
+    host[3, 5 * block:6 * block] = host[0, :block]
+    mesh = make_mesh([DEVICE] * 4)
+    step = make_chunk_hash_step(mesh, block_len=block, params=p)
+    for k in KERNELS:
+        k.launches = 0
+    sync(torch)
+    t0 = time.perf_counter()
+    out = step(host)
+    sync(torch)
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    expect = {k: (mesh.size if k == "sha256_slices" else 0)
+              for k in launches}
+    if DEVICE == "cuda" and launches != expect:
+        raise AssertionError(f"step: launches {launches}, expected {expect}")
+    nb = L // block
+    digests = out["digests"].cpu().numpy().view(np.uint32)
+    mask = out["cand_mask"].cpu().numpy()
+    if digests.shape != (W, nb, 8) or mask.shape != (W, L):
+        raise AssertionError(f"step: shapes {digests.shape} {mask.shape}")
+    raw = np.frombuffer(b"".join(
+        hashlib.sha256(host[w, b * block:(b + 1) * block]).digest()
+        for w in range(W) for b in range(nb)), ">u4").reshape(W, nb, 8)
+    if not np.array_equal(digests, raw):
+        raise AssertionError("step: a block digest differs from hashlib")
+    want_mask = np.stack([host_dense_mask(host[w], p) for w in range(W)])
+    if not np.array_equal(mask, want_mask):
+        raise AssertionError("step: the candidate mask differs from the "
+                             "numpy gear oracle")
+    for w in range(W):
+        dig, count = chunk_hash_block(torch.from_numpy(host[w]).to(DEVICE),
+                                      block_len=block, params=p)
+        if not np.array_equal(dig.cpu().numpy().view(np.uint32),
+                              digests[w]) or int(count) != int(mask[w].sum()):
+            raise AssertionError(f"step: row {w} differs from "
+                                 f"chunk_hash_block on the device")
+    wave, seq = mesh.devices.shape
+    bloom = np.zeros((1 << 20,), np.int64)
+    for s in range(mesh.size):
+        wi, si = divmod(s, seq)
+        rows = slice(wi * W // wave, (wi + 1) * W // wave)
+        cols = slice(si * nb // seq, (si + 1) * nb // seq)
+        bloom[np.unique(raw[rows, cols, 0].astype(np.int64)
+                        & ((1 << 20) - 1))] += 1
+    distinct = int((bloom > 0).sum())
+    want_stats = {"total_bytes": W * L,
+                  "total_candidates": int(want_mask.sum()),
+                  "distinct_block_estimate": distinct,
+                  "duplicate_block_estimate": W * nb - distinct}
+    if not np.array_equal(out["bloom"].cpu().numpy(), bloom) \
+            or out["stats"] != want_stats:
+        raise AssertionError(f"step: bloom or stats {out['stats']} differ "
+                             f"from the host's {want_stats}")
+    log(f"step (make_chunk_hash_step, (2, 2) mesh of {DEVICE}, [{W}, {L}], "
+        f"{block}-byte blocks): {secs:.3f} s = {W * L / GIB / secs:.4f} "
+        f"GiB/s, launches {json.dumps({k: v for k, v in launches.items() if v})}; "
+        f"{W * nb} digests equal hashlib, mask equal the oracle, stats "
+        f"{json.dumps(out['stats'])} ({card})")
+    fixed_blocks_entry(torch, stats, seed + 1)
+    return {"secs": secs, "launches": launches, "stats": out["stats"]}
+
+
+def multihost_check() -> dict:
+    """``init_distributed`` with nothing configured: the one-process
+    summary, and ``require=True`` refuses."""
+    from volsync_tpu_torch.parallel import multihost
+
+    dev = None if DEVICE == "cuda" else DEVICE
+    info = multihost.init_distributed(device=dev)
+    want = {"process_index": 0, "process_count": 1, "local_devices": 1,
+            "global_devices": 1}
+    if info != want:
+        raise AssertionError(f"init_distributed() -> {info}, expected "
+                             f"{want}")
+    try:
+        multihost.init_distributed(require=True, device=dev)
+    except RuntimeError as e:
+        if "explicitly requested" not in str(e):
+            raise
+    else:
+        raise AssertionError("init_distributed(require=True) did not raise")
+    log(f"multihost: init_distributed() -> {json.dumps(info)}; "
+        f"require=True refused")
+    return info
+
+
+def mesh_phase(torch, cells: list, stats, seed: int, card: str) -> dict:
+    """The sharded engine over the stream phases' volumes. ``cells``:
+    (label, params, head stream, its single-device chunks). Each head
+    goes through the single-device engine (timed beside the mesh), a
+    ``MESH_SHARDS``-shard mesh of the phase's device and, on the fused
+    path, the default mesh; chunks and ids must equal the single-device
+    engine's. Then the sharded step and ``init_distributed``."""
+    out: dict = {}
+    for label, params, head, want in cells:
+        per = {4096: FUSED_PER_PASS, 64: SPLIT_PER_PASS}.get(
+            params.align, LEGACY_PER_PASS)
+        single = drive(torch, head, params, per, f"mesh {label}, single "
+                       f"device")
+        if single["results"] != want:
+            raise AssertionError(f"mesh {label}: the single-device engine "
+                                 f"gave other chunks over the prefix")
+        rec = {"single": single["gibs"], "mesh": mesh_stream(
+            torch, f"mesh {label}, {MESH_SHARDS} shards of {DEVICE}", head,
+            params, want, mesh_hasher(params, MESH_SHARDS))}
+        if params.align == 4096:
+            rec["default"] = mesh_stream(
+                torch, f"mesh {label}, the default mesh", head, params,
+                want, mesh_hasher(params, 0))
+        log(f"mesh {label} GiB/s over {head.total} bytes: single device "
+            f"{rec['single']:.4f}, {MESH_SHARDS} shards "
+            f"{rec['mesh']['gibs']:.4f}"
+            + (f", default mesh {rec['default']['gibs']:.4f}"
+               if "default" in rec else "") + f" ({card})")
+        out[label] = rec
+    out["step"] = mesh_step_check(torch, stats, seed, card)
+    out["multihost"] = multihost_check()
+    return out
+
+
+def mesh_tree_check(torch, base: Path, src: Path, want_tree: str,
+                    card: str) -> dict:
+    """``TreeBackup`` of ``src`` through a ``MESH_SHARDS``-shard mesh
+    hasher into a fresh encrypted repository, and the restic entry's
+    backup with ``VOLSYNC_ENGINE=mesh`` (the default mesh): both give
+    ``want_tree``, the single-device backup's root tree; the TreeBackup's
+    launches are exact (the mesh passes' and the verify passes')."""
+    from volsync_tpu_torch.cluster.runner import JobContext
+    from volsync_tpu_torch.engine.backup import TreeBackup
+    from volsync_tpu_torch.movers.restic import entry
+    from volsync_tpu_torch.objstore.store import FsObjectStore
+    from volsync_tpu_torch.ops._build import KERNELS, launch_counts
+    from volsync_tpu_torch.ops.gearcdc import DEFAULT_PARAMS
+    from volsync_tpu_torch.parallel.sharded_chunker import MeshChunkHasher
+    from volsync_tpu_torch.repo.repository import Repository
+
+    def tree_of(path: Path) -> str:
+        repo = Repository.open(FsObjectStore(path), EC_PASSWORD,
+                               device=DEVICE)
+        (_, meta), = repo.list_snapshots()
+        return meta["tree"]
+
+    hasher = mesh_hasher(DEFAULT_PARAMS, MESH_SHARDS)
+    repo = Repository.init(FsObjectStore(base / "mesh-repo"), EC_PASSWORD,
+                           device=DEVICE)
+    for k in KERNELS:
+        k.launches = 0
+    sync(torch)
+    t0 = time.perf_counter()
+    with mesh_counting(hasher) as expect:
+        TreeBackup(repo, hasher=hasher).run(src, hostname="chip-smoke")
+    sync(torch)
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    if DEVICE == "cuda" and launches != expect(launches):
+        raise AssertionError(f"mesh TreeBackup: launches {launches}, "
+                             f"expected {expect(launches)}")
+    tree = tree_of(base / "mesh-repo")
+    ctx = JobContext(name="restic", namespace="chip-smoke", env={
+        "RESTIC_REPOSITORY": f"file://{base / 'mesh-entry'}",
+        "RESTIC_PASSWORD": EC_PASSWORD, "HOSTNAME": "chip-smoke",
+        "VOLSYNC_ENGINE": "mesh"}, mounts={"data": src}, secrets={},
+        stop_event=threading.Event(), device=DEVICE)
+    t1 = time.perf_counter()
+    with env_set("VOLSYNC_TRACE_DIR", None):
+        rc = entry.restic_entrypoint(ctx)
+    entry_secs = time.perf_counter() - t1
+    hashers = [h for h in entry._MESH_HASHERS.values()
+               if isinstance(h, MeshChunkHasher)]
+    entry_tree = tree_of(base / "mesh-entry")
+    if rc != 0 or tree != want_tree or entry_tree != want_tree \
+            or not hashers:
+        raise AssertionError(f"mesh backups: rc {rc}, trees {tree} and "
+                             f"{entry_tree}, expected {want_tree}")
+    for d in ("mesh-repo", "mesh-entry"):
+        shutil.rmtree(base / d, ignore_errors=True)
+    log(f"mesh TreeBackup ({MESH_SHARDS} shards of {DEVICE}): {secs:.3f} s, "
+        f"{expect.passes.n} mesh passes and {expect.verify.n} verify "
+        f"passes, launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}; restic "
+        f"entry with VOLSYNC_ENGINE=mesh ({hashers[0].n_shards} shard(s)) "
+        f"{entry_secs:.3f} s; both give the single-device root tree "
+        f"({card})")
+    return {"secs": secs, "launches": launches, "entry_secs": entry_secs}
+
+
+# -- supervised device sessions ------------------------------------------------
+
+#: The session phase's hashing child: a seeded buffer's blob id by
+#: ``hash_spans`` on the device, and the session variables it was given.
+SESSION_CHILD = """
+import json, os, sys
+import numpy as np
+from volsync_tpu_torch.engine.chunker import hash_spans
+n, seed, dev = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+buf = np.random.default_rng(seed).integers(0, 256, n, dtype=np.uint8)
+print(json.dumps({"id": hash_spans(buf, [(0, n)], device=dev)[0],
+                  "env": {k: os.environ.get(k) for k in (
+                      "VOLSYNC_SESSION_ID", "VOLSYNC_SESSION_EPOCH",
+                      "VOLSYNC_SESSION_BACKEND")}}))
+"""
+
+
+def session_phase(torch, base: Path, seed: int, card: str,
+                  nbytes: int = 64 << 20) -> dict:
+    """``TorchSessionBackend`` on the phase's device, under a
+    ``SessionSupervisor`` and ``BenchQueue``: the acquire probe (its
+    seconds); ``python -m volsync_tpu_torch.cli session status --probe``
+    in a subprocess beside the rest (0 on the card; the device its probe
+    names); one queued child that hashes a seeded buffer with the port
+    (its blob id equal to hashlib's, its environment carrying the
+    session); a job past a 2 s deadline refused; ``force_release``
+    killing a marked sleeping child and sparing an unmarked one. This
+    process never carries the marker."""
+    from volsync_tpu_torch.cluster import sessions
+    from volsync_tpu_torch.repo import blobid
+
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    key, _, value = sessions.BENCH_CHILD_MARKER.partition("=")
+    if os.environ.get(key) == value:
+        raise AssertionError("chip_smoke carries the measurement marker")
+    dev = None if DEVICE == "cuda" else DEVICE
+    status = base / "session-status.json"
+    sup = sessions.SessionSupervisor(
+        sessions.TorchSessionBackend(device=dev, probe_timeout=300.0),
+        probe_timeout=300.0, status_path=str(status))
+    queue = sessions.BenchQueue(sup, job_deadline=300.0)
+    t0 = time.perf_counter()
+    sid = sup.ensure()  # the acquire probe
+    probe_s = time.perf_counter() - t0
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "volsync_tpu_torch.cli", "session", "status",
+         "--probe", "--probe-timeout", "300"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(env, VOLSYNC_SESSION_STATUS=str(status)))
+    marker = f"{key}=chip-smoke-{os.getpid()}"
+    sleeper = [sys.executable, "-c", "import time; time.sleep(300)"]
+    marked = subprocess.Popen(sleeper, env=dict(env, **{key: marker.split(
+        "=", 1)[1]}))
+    plain = subprocess.Popen(sleeper, env=env)
+    try:
+        t0 = time.perf_counter()
+        res = queue.run_command(
+            [sys.executable, "-c", SESSION_CHILD, str(nbytes), str(seed),
+             DEVICE], label="hash",
+            env_extra={"PYTHONPATH": env["PYTHONPATH"]})
+        job_s = time.perf_counter() - t0
+        inner = res["result"]
+        if inner["rc"] != 0:
+            raise AssertionError(f"session job rc {inner['rc']}: "
+                                 f"{inner['stderr'][-800:]}")
+        got = json.loads(inner["stdout"].strip().splitlines()[-1])
+        buf = np.random.default_rng(seed).integers(0, 256, nbytes,
+                                                   dtype=np.uint8)
+        want_env = {"VOLSYNC_SESSION_ID": res["session"]["session_id"],
+                    "VOLSYNC_SESSION_EPOCH": str(res["session"]["epoch"]),
+                    "VOLSYNC_SESSION_BACKEND": "torch"}
+        if got["id"] != blobid.blob_id(buf) or got["env"] != want_env \
+                or res["session"]["session_id"] != sid:
+            raise AssertionError(f"session job: {got} under "
+                                 f"{res['session']}, expected id "
+                                 f"{blobid.blob_id(buf)} and env {want_env}")
+        try:
+            queue.run_command([sys.executable, "-c",
+                               "import time; time.sleep(30)"],
+                              label="overrun", deadline=2.0)
+        except sessions.JobDeadlineExceeded:
+            pass
+        else:
+            raise AssertionError("a job past its 2 s deadline was not "
+                                 "refused")
+        killed = sessions.TorchSessionBackend(
+            device=dev, marker=marker).force_release()
+        if killed != 1 or marked.wait(timeout=30) == 0 \
+                or plain.poll() is not None:
+            raise AssertionError(f"force_release killed {killed}; marked "
+                                 f"rc {marked.poll()}, unmarked rc "
+                                 f"{plain.poll()}")
+        out, err = cli.communicate(timeout=600)
+    finally:
+        for p in (marked, plain, cli):
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    live = [ln for ln in out.splitlines() if ln.startswith("probe: ")]
+    if cli.returncode != (0 if DEVICE == "cuda" else 75) or not live:
+        raise AssertionError(f"session status --probe rc {cli.returncode}: "
+                             f"{out[-400:]} {err[-400:]}")
+    log(f"session: acquire probe {probe_s:.2f} s; 'session status --probe' "
+        f"rc {cli.returncode}: {live[0]}; a hash job of {nbytes} bytes "
+        f"through the queue {job_s:.2f} s (its verify probe included), its "
+        f"blob id equal to hashlib's under session {sid} epoch "
+        f"{res['session']['epoch']}; a 2 s overrun refused; force_release "
+        f"killed the marked child and spared the other ({card})")
+    return {"probe_s": probe_s, "device": live[0], "job_s": job_s}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stream-gib", type=float, default=10.0)
     # The other engines' volumes are cut from 10 GiB to keep their host
     # oracles (numpy candidates at 64 or 1 byte granularity) within the
-    # time limit.
-    ap.add_argument("--align64-gib", type=float, default=2.0)
+    # time limit; align 64 from 2 to 1 GiB and page-major from 1 to 0.5
+    # once the mesh and session phases came (PERF.md, section 4).
+    ap.add_argument("--align64-gib", type=float, default=1.0)
     ap.add_argument("--align1-mib", type=float, default=256.0)
-    ap.add_argument("--pagemajor-gib", type=float, default=1.0)
+    ap.add_argument("--pagemajor-gib", type=float, default=0.5)
     # The backup phase's volumes: the mover's 10 GiB PVC (BASELINE.json
     # configs[1]); the align-64 tree is cut, since it differs from it
     # only by the engine.
@@ -5824,6 +6375,11 @@ def main() -> int:
     # The syncthing phase's folder on A (its small and mid files' counts
     # scale with it), cut from 256 for the same reason.
     ap.add_argument("--syncthing-mib", type=float, default=32.0)
+    # The mesh phase's fused prefix: the fused stream's first half GiB
+    # + 12,345 B through a 4-shard mesh of the card, cut from 1 GiB with
+    # the two above (the align-64 and align-1 prefixes are MESH_ALIGN64
+    # and MESH_ALIGN1).
+    ap.add_argument("--mesh-gib", type=float, default=0.5)
     args = ap.parse_args()
 
     import torch
@@ -5898,6 +6454,8 @@ def main() -> int:
     res = stream_phase(torch, stream, DEFAULT_PARAMS)
     verify_phase(res.pop("views"))
     turns_stream = stream_prefix(stream, int(args.turns_gib * GIB) + ODD_TAIL)
+    mesh_cells = [mesh_cell("fused", DEFAULT_PARAMS, stream,
+                            int(args.mesh_gib * GIB) + ODD_TAIL, res)]
     turns = batcher_turns(torch, turns_stream, DEFAULT_PARAMS,
                           prefix_chunks(res.pop("results"), turns_stream))
     log(f"stream GiB/s, a lone stream of {turns_stream.total} bytes with the "
@@ -5916,16 +6474,24 @@ def main() -> int:
             f"({card})")
     del stream
 
-    split = split_stream_phase(
-        torch, volume(int(args.align64_gib * GIB), "align=64"), params64)
-    legacy = legacy_stream_phase(
-        torch, volume(int(args.align1_mib * (1 << 20)), "align=1"), params1)
+    vol = volume(int(args.align64_gib * GIB), "align=64")
+    split = split_stream_phase(torch, vol, params64)
+    mesh_cells.append(mesh_cell("align=64", params64, vol, MESH_ALIGN64,
+                                split))
+    vol = volume(int(args.align1_mib * (1 << 20)), "align=1")
+    legacy = legacy_stream_phase(torch, vol, params1)
+    mesh_cells.append(mesh_cell("align=1", params1, vol, MESH_ALIGN1, legacy))
+    del vol
     pm = pagemajor_stream_phase(
         torch, volume(int(args.pagemajor_gib * GIB), "page-major"),
         DEFAULT_PARAMS)
     log(f"GiB/s by engine: fused {res['gibs']:.4f}, align=64 "
         f"{split['gibs']:.4f}, align=1 {legacy['gibs']:.4f}, page-major "
         f"{pm['gibs']:.4f} ({card})")
+    t1 = time.perf_counter()
+    mesh = mesh_phase(torch, mesh_cells, stats, args.seed + 10, card)
+    del mesh_cells
+    log(f"mesh phase: {time.perf_counter() - t1:.1f} s in all ({card})")
 
     t1 = time.perf_counter()
     svc = service_phase(torch, args.seed + 7, args.service_tenants,
@@ -6019,8 +6585,10 @@ def main() -> int:
         build, 5 * restic_bytes)))
     t1 = time.perf_counter()
     try:
-        restic = restic_entry_phase(torch, base, restic_bytes, args.seed + 5,
-                                    card)
+        restic = restic_entry_phase(
+            torch, base, restic_bytes, args.seed + 5, card,
+            mesh_check=lambda b, src, tree: mesh_tree_check(
+                torch, b, src, tree, card))
     finally:
         shutil.rmtree(base, ignore_errors=True)
     log(f"restic entry phase: {time.perf_counter() - t1:.1f} s in all "
@@ -6064,6 +6632,13 @@ def main() -> int:
         f"convergence initial {st['initial']['secs']:.3f} s, edits "
         f"{st['edits']['secs']:.3f} s, conflict {st['conflict']['secs']:.3f} "
         f"s ({card})")
+    base = Path(tempfile.mkdtemp(prefix="chip_smoke_session.", dir=build))
+    t1 = time.perf_counter()
+    try:
+        session_phase(torch, base, args.seed + 11, card)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    log(f"session phase: {time.perf_counter() - t1:.1f} s in all ({card})")
 
     # Launches: from the stream phase of the path that runs each kernel.
     launches = {**res["launches"],
@@ -6080,6 +6655,8 @@ def main() -> int:
                      if k in svc["batched"]["launches"]})
     launches["sha256_slices_tail_batched"] = \
         svc["batched"]["launches"]["sha256_slices"]
+    launches["sha256_slices_fixed"] = \
+        mesh["step"]["launches"]["sha256_slices"]
     runs["delta"] = delta["launches"]
     runs["mover.delta"] = mover["delta_pinned"]["launches"]
     runs["mover"] = mover["launches"]
@@ -6099,12 +6676,18 @@ def main() -> int:
         runs[f"fleet.{verb}"] = fleet["cli"][verb]["launches"]
     for run in ("initial", "edits", "conflict"):
         runs[f"syncthing.{run}"] = st[run]["launches"]
+    for label in ("fused", "align=64", "align=1"):
+        runs[f"mesh.{label}"] = mesh[label]["mesh"]["launches"]
+    runs["mesh.fused.default"] = mesh["fused"]["default"]["launches"]
+    runs["mesh.step"] = mesh["step"]["launches"]
+    runs["mesh.treebackup"] = restic["mesh"]["launches"]
     kernels = []
     for name in ("transpose_u32", "sha256_pages", "sha256_pages_pagemajor",
                  "sha256_lanes", "sha256_slices", "sha256_slices_tail",
                  "fastcdc_walk", "sha256_rows", "pagemajor_u32",
                  "sha256_pages_sweep", "merkle_roots", "md5_slices",
-                 "md5_slices_lanes", *BATCHED.values()):
+                 "md5_slices_lanes", *BATCHED.values(),
+                 "sha256_slices_fixed"):
         st = stats[name]
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],

@@ -253,8 +253,9 @@ def test_dispatcher_routes_only_the_two_verbs(tmp_path):
     assert cli.main([], out=lines.append, device=DEV) == 2
     assert cli.main(["replication", "create", "x"], out=lines.append,
                     device=DEV) == 2
-    assert all(ln.startswith("usage: volsync {scrub,repack}") for ln in lines)
-    assert cli.VERBS == ("scrub", "repack")
+    assert all(ln.startswith("usage: volsync {scrub,repack,session}")
+               for ln in lines)
+    assert cli.VERBS == ("scrub", "repack", "session")
     lines.clear()
     assert cli.main(["scrub", str(tmp_path / "none")], out=lines.append,
                     device=DEV) == 2

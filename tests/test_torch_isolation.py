@@ -111,8 +111,15 @@ def test_no_file_imports_jax_or_the_reference():
             "volsync_tpu_torch/movers/syncthing/__init__.py",
             "volsync_tpu_torch/movers/syncthing/transport.py",
             "volsync_tpu_torch/movers/syncthing/apiclient.py",
-            "volsync_tpu_torch/movers/syncthing/entry.py"} <= names
-    assert len(_port_files()) >= 82
+            "volsync_tpu_torch/movers/syncthing/entry.py",
+            "volsync_tpu_torch/parallel/__init__.py",
+            "volsync_tpu_torch/parallel/mesh.py",
+            "volsync_tpu_torch/parallel/multihost.py",
+            "volsync_tpu_torch/parallel/engine.py",
+            "volsync_tpu_torch/parallel/sharded_chunker.py",
+            "volsync_tpu_torch/cluster/sessions.py",
+            "volsync_tpu_torch/cluster/sessioncli.py"} <= names
+    assert len(_port_files()) >= 89
 
 
 def test_importing_the_port_loads_no_jax_module():
@@ -149,7 +156,11 @@ def test_importing_the_port_loads_no_jax_module():
             "volsync_tpu_torch.cli.scrub",
             "volsync_tpu_torch.cli.repack",
             "volsync_tpu_torch.movers.syncthing.entry",
-            "volsync_tpu_torch.movers.syncthing.apiclient"} <= set(added)
+            "volsync_tpu_torch.movers.syncthing.apiclient",
+            "volsync_tpu_torch.parallel.sharded_chunker",
+            "volsync_tpu_torch.parallel.multihost",
+            "volsync_tpu_torch.cluster.sessions",
+            "volsync_tpu_torch.cluster.sessioncli"} <= set(added)
     assert [m for m in added if _forbidden(m)] == []
 
 
@@ -503,3 +514,48 @@ def test_fleet_gc_cli_and_syncthing_raise_without_cuda(monkeypatch,
     assert not repo_dir.exists() and not data.exists() \
         and not config.exists()
     assert ContinuousGC(store, device="cpu").device.type == "cpu"
+
+
+def test_mesh_and_session_entry_points_raise_without_cuda(monkeypatch,
+                                                          tmp_path):
+    """The meshes, the mesh hasher, the sharded steps and the join run on
+    CUDA unless given devices: with no CUDA they raise before they bind
+    a port or touch a store; the restic entry's VOLSYNC_ENGINE=mesh
+    raises before its repository is written; the default session
+    backend's probe child fails naming CUDA."""
+    from volsync_tpu_torch.cluster.sessions import TorchSessionBackend
+    from volsync_tpu_torch.parallel import engine as pengine
+    from volsync_tpu_torch.parallel import mesh as pmesh
+    from volsync_tpu_torch.parallel import multihost, sharded_chunker
+    from volsync_tpu_torch.resilience import TransientError
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
+    p = gearcdc.GearParams(min_size=4096, avg_size=32768, max_size=65536,
+                           align=4096)
+    src = tmp_path / "src"
+    src.mkdir()
+    (src / "f").write_bytes(b"x" * 10)
+    repo = tmp_path / "repo"
+    calls = [
+        lambda: pmesh.make_mesh(),
+        lambda: sharded_chunker.make_stream_mesh(),
+        lambda: sharded_chunker.MeshChunkHasher(p),
+        lambda: pengine.chunk_hash_block(b"x" * 4096, block_len=64),
+        lambda: multihost.init_distributed(),
+        lambda: multihost.init_distributed(require=True),
+        lambda: multihost.init_distributed("127.0.0.1:1", 2, 0),
+        lambda: restic_entry.restic_entrypoint(JobContext(
+            name="j", namespace="ns", env={"RESTIC_REPOSITORY": str(repo),
+                                           "VOLSYNC_ENGINE": "mesh"},
+            mounts={"data": src}, secrets={},
+            stop_event=threading.Event())),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert multihost.process_group() is None and not repo.exists()
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    with pytest.raises(TransientError, match="CUDA is not available"):
+        TorchSessionBackend(probe_timeout=120.0).acquire()

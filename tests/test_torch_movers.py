@@ -986,18 +986,52 @@ def test_restic_entry_parses_env_like_the_reference():
             jbase.normalize_protocol(v, default="cdc")
 
 
-def test_mesh_engine_raises_unported(tmp_path):
-    """VOLSYNC_ENGINE=mesh raises UnportedEngineError, naming the module
-    to port, before any repository is written."""
+def test_restic_entry_mesh_engine_tree_id(tmp_path, one_worker):
+    """VOLSYNC_ENGINE=mesh through the port's entry on device="cpu" (a
+    one-shard mesh) backs up with ``MeshChunkHasher`` and leaves the
+    root tree of the port's default engine and of the reference's."""
     src = tmp_path / "src"
-    src.mkdir()
-    (src / "f").write_bytes(b"x")
-    env = {"RESTIC_REPOSITORY": f"file://{tmp_path / 'r'}",
+    _restic_tree(src, np.random.default_rng(43))
+    trees = {}
+    for name, pkg, extra in (("mesh", "port", {"VOLSYNC_ENGINE": "mesh"}),
+                             ("port", "port", {}), ("ref", "ref", {})):
+        url = f"file://{tmp_path / ('repo-' + name)}"
+        env = {"RESTIC_REPOSITORY": url, "RESTIC_PASSWORD": "pw", **extra}
+        assert _restic(pkg, env, src) == 0
+        trees[name] = _open(pkg, url, "pw").list_snapshots()[-1][1]["tree"]
+    assert trees["mesh"] == trees["port"] == trees["ref"]
+    assert not hasattr(restic, "UnportedEngineError")
+
+
+def test_restic_entry_mesh_hasher_reused(tmp_path, one_worker,
+                                         monkeypatch):
+    """Two entry runs with VOLSYNC_ENGINE=mesh use one memoized
+    MeshChunkHasher (one per chunker params and device), over a
+    one-shard CPU mesh, and the second run dedups against the first."""
+    from volsync_tpu_torch.parallel.sharded_chunker import MeshChunkHasher
+
+    monkeypatch.setattr(restic, "_MESH_HASHERS", {})
+    made = []
+    real = restic._select_hasher
+
+    def spy(env, repo, device=None):
+        made.append(real(env, repo, device))
+        return made[-1]
+
+    monkeypatch.setattr(restic, "_select_hasher", spy)
+    src = tmp_path / "src"
+    _restic_tree(src, np.random.default_rng(44))
+    url = f"file://{tmp_path / 'repo'}"
+    env = {"RESTIC_REPOSITORY": url, "RESTIC_PASSWORD": "pw",
            "VOLSYNC_ENGINE": "mesh"}
-    with pytest.raises(restic.UnportedEngineError, match="parallel"):
-        _restic("port", env, src)
-    assert not (tmp_path / "r").exists()
-    assert issubclass(restic.UnportedEngineError, NotImplementedError)
+    assert _restic("port", env, src) == 0
+    assert _restic("port", env, src) == 0
+    assert len(made) == 2 and made[0] is made[1]
+    assert isinstance(made[0], MeshChunkHasher)
+    assert [str(d) for d in made[0].mesh.local_devices] == ["cpu"]
+    assert list(restic._MESH_HASHERS.values()) == [made[0]]
+    snaps = _open("port", url, "pw").list_snapshots()
+    assert len(snaps) == 2 and snaps[0][1]["tree"] == snaps[1][1]["tree"]
 
 
 # ---------------------------------------------------------------------------

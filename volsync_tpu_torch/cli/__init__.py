@@ -1,24 +1,27 @@
-"""The port's ``volsync`` CLI: the two maintenance verbs.
+"""The port's ``volsync`` CLI: the maintenance and session verbs.
 
 Ports the part of ``volsync_tpu/cli/`` that needs no operator: the
-``scrub`` and ``repack`` verbs (cli/scrub.py, cli/repack.py), dispatched
-as ``volsync_tpu/cli/main.py`` dispatches them, before anything of a
-cluster is imported. The replication, migration, lint, trace, session
-and repair verbs belong to the operator and its tools, which the port
-does not have.
+``scrub`` and ``repack`` verbs (cli/scrub.py, cli/repack.py) and the
+``session`` verbs (``cluster/sessioncli.py``), dispatched as
+``volsync_tpu/cli/main.py`` dispatches them, before anything of a
+cluster is imported. The replication, migration, lint, trace and repair
+verbs belong to the operator and its tools, which the port does not
+have.
 
     python -m volsync_tpu_torch.cli scrub STORE [--password P] [--json]
     python -m volsync_tpu_torch.cli repack STORE [--scheme k+m] [--json]
+    python -m volsync_tpu_torch.cli session run|status|recycle ...
 
-Both run on CUDA (``main(..., device=)`` picks another device for
-tests) and raise where CUDA is absent, before the store is opened.
+They run on CUDA (``main(..., device=)`` picks another device for
+tests): scrub and repack raise where CUDA is absent, before the store
+is opened; a session probe fails there (exit 75).
 """
 
 from __future__ import annotations
 
 import sys
 
-VERBS = ("scrub", "repack")
+VERBS = ("scrub", "repack", "session")
 
 
 def main(argv=None, out=print, device=None) -> int:
@@ -33,7 +36,11 @@ def main(argv=None, out=print, device=None) -> int:
         from volsync_tpu_torch.cli.repack import main as repack_main
 
         return repack_main(argv[1:], out=out, device=device)
-    out(f"usage: volsync {{{','.join(VERBS)}}} STORE ... "
+    if argv and argv[0] == "session":
+        from volsync_tpu_torch.cluster.sessioncli import main as session_main
+
+        return session_main(argv[1:], out=out, device=device)
+    out(f"usage: volsync {{{','.join(VERBS)}}} ... "
         f"(got {argv[:1] or 'no verb'})")
     return 2
 

@@ -677,7 +677,9 @@ def stream_chunk_batches(reader: Callable[[int], bytes],
     VOLSYNC_TPU_READAHEAD, 0 under VOLSYNC_TPU_PIPELINE=0) runs the fill
     that many buffers ahead on a producer thread. The hasher (default
     ``DeviceChunkHasher(params, device)``) is made before the first
-    ``next()``, so a missing device raises at the call."""
+    ``next()``, so a missing device raises at the call. A hasher that
+    does not take pre-padded views (``parallel.sharded_chunker.
+    MeshChunkHasher``) runs each segment through ``process``."""
     hasher = hasher or DeviceChunkHasher(params, device=device)
     if readahead is None:
         readahead = envflags.readahead_segments()
@@ -691,6 +693,7 @@ def _stream(reader, params: GearParams, segment_size: int, hasher,
     if readahead > 0:
         ra = src = _SegmentReadahead(src, readahead)
     head = src.head
+    prepadded = getattr(hasher, "accepts_prepadded", False)
 
     def _dispatch(buf, start, fill, eof):
         length = fill - start
@@ -698,6 +701,11 @@ def _stream(reader, params: GearParams, segment_size: int, hasher,
             if length == 0:
                 return PendingSegment([])
             arr = np.frombuffer(buf, np.uint8)
+            if not prepadded:
+                # Engines without split-phase support (the mesh hasher)
+                # still work, just without the overlap (ref :872-877).
+                return PendingSegment(
+                    hasher.process(arr[start:fill], eof=eof))
             # Hand the device a view already padded to its bucket: zero
             # the pad lane in place (a memset over buffer slack).
             plen = _buffer_bucket(length)

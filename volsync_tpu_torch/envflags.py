@@ -11,7 +11,8 @@ planner's and the batched delta scan's, the device trace's directory
 (``trace_dir``), the segment micro-batcher's (``batch_*``), the
 service plane's (``svc_*``), the fleet's and the continuous GC's
 (``fleet_*``, ``gc_interval_seconds``), the lock detector's switch
-(``lockcheck_enabled``), plus the page-major digest-table gate of
+(``lockcheck_enabled``), the session supervisor's
+(``session_*``, cluster/sessions.py), plus the page-major digest-table gate of
 ``volsync_tpu/ops/segment.py`` (``pagemajor``). Names, defaults and
 the falsy-token set are the reference's, so one environment configures
 both packages alike. The reference's ``VOLSYNC_NO_PALLAS`` has no
@@ -502,3 +503,61 @@ def trace_dir() -> Optional[str]:
     """VOLSYNC_TRACE_DIR: where ``obs.device_trace`` writes its
     ``torch.profiler`` traces; None (the default) disables tracing."""
     return env_str("VOLSYNC_TRACE_DIR")
+
+
+# -- supervised accelerator sessions (cluster/sessions.py) ----------------
+
+def session_ttl_seconds() -> float:
+    """VOLSYNC_SESSION_TTL_S: hard lease TTL — a session whose keepalive
+    has not succeeded for this long is recycled no matter what (the
+    8-hour wedge of rounds 4/5 becomes a bounded outage)."""
+    return env_float("VOLSYNC_SESSION_TTL_S", 900.0, minimum=1.0)
+
+
+def session_keepalive_seconds() -> float:
+    """VOLSYNC_SESSION_KEEPALIVE_S: interval between keepalive beats."""
+    return env_float("VOLSYNC_SESSION_KEEPALIVE_S", 30.0, minimum=0.1)
+
+
+def session_keepalive_failures() -> int:
+    """VOLSYNC_SESSION_KEEPALIVE_FAILS: consecutive keepalive failures
+    before the supervisor force-recycles the session."""
+    return env_int("VOLSYNC_SESSION_KEEPALIVE_FAILS", 3, minimum=1)
+
+
+def session_probe_timeout() -> float:
+    """VOLSYNC_SESSION_PROBE_TIMEOUT_S: verify-probe budget; a probe
+    that exceeds it counts as a wedged backend and triggers a recycle."""
+    return env_float("VOLSYNC_SESSION_PROBE_TIMEOUT_S", 300.0, minimum=1.0)
+
+
+def session_job_deadline() -> float:
+    """VOLSYNC_SESSION_JOB_DEADLINE_S: per-job hard deadline in the
+    serialized bench queue — a job is killed at this wall-clock bound,
+    never allowed to hold the single-tenant device open-endedly."""
+    return env_float("VOLSYNC_SESSION_JOB_DEADLINE_S", 1800.0, minimum=1.0)
+
+
+def session_id() -> Optional[str]:
+    """VOLSYNC_SESSION_ID: stamped into a job's environment by the
+    session queue so bench provenance can carry the supervised-session
+    identity; None when the process runs outside a session."""
+    return env_str("VOLSYNC_SESSION_ID")
+
+
+def session_epoch() -> int:
+    """VOLSYNC_SESSION_EPOCH: the fencing epoch stamped alongside
+    VOLSYNC_SESSION_ID (0 when unset)."""
+    return env_int("VOLSYNC_SESSION_EPOCH", 0)
+
+
+def session_backend() -> Optional[str]:
+    """VOLSYNC_SESSION_BACKEND: backend name stamped alongside
+    VOLSYNC_SESSION_ID."""
+    return env_str("VOLSYNC_SESSION_BACKEND")
+
+
+def session_status_path() -> Optional[str]:
+    """VOLSYNC_SESSION_STATUS: file where the supervisor mirrors its
+    state for observers (``volsync session status``); None = no mirror."""
+    return env_str("VOLSYNC_SESSION_STATUS")

@@ -2,8 +2,8 @@
 
 Ports the part of ``volsync_tpu/metrics.py`` that the port's repository,
 index, resilience, pack-cache, restore, scrub and repack modules, the
-protocol planner, the service plane (admission, scheduler), the fleet
-and the continuous GC touch:
+protocol planner, the service plane (admission, scheduler), the fleet,
+the continuous GC and the session supervisor touch:
 the families of ``GLOBAL`` with the reference's names and label sets,
 each an in-memory counter or gauge with the
 ``labels(...).inc/dec/set/observe`` shape. The reference builds
@@ -122,6 +122,15 @@ _FAMILIES = {
     "fleet_routed_total": ("volsync_fleet_routed_total", ("replica",)),
     "fleet_failovers_total": ("volsync_fleet_failovers_total", ()),
     "gc_cycles": ("volsync_gc_cycles_total", ("outcome",)),
+    "session_state": ("volsync_session_state", ("backend",)),
+    "session_transitions": ("volsync_session_transitions_total",
+                            ("backend", "to")),
+    "session_recycles": ("volsync_session_recycles_total",
+                         ("backend", "cause")),
+    "session_keepalives": ("volsync_session_keepalive_total",
+                           ("backend", "outcome")),
+    "session_fenced_writes": ("volsync_session_fenced_writes_total",
+                              ("backend",)),
 }
 
 

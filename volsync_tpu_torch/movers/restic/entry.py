@@ -3,10 +3,10 @@
 Ports ``volsync_tpu/movers/restic/entry.py`` whole, on the port's
 repository, ``TreeBackup`` and ``restore_snapshot``. The engines run on
 ``ctx.device`` (CUDA when None, raising without it); the reference runs
-on JAX's default device. ``VOLSYNC_ENGINE=mesh`` raises
-``UnportedEngineError``: the mesh engine (``volsync_tpu/parallel/``) is
-not ported, and the entry point does not fall back to the single-card
-engine in its place.
+on JAX's default device. ``VOLSYNC_ENGINE=mesh`` shards the scan with
+``parallel.sharded_chunker.MeshChunkHasher`` over ``make_stream_mesh``
+of ``ctx.device``: every CUDA device of the process by default, one
+shard for an explicit device (``"cpu"`` in the tests).
 
 Dispatches on DIRECTION the way mover-restic/entry.sh dispatches on its
 argv verb: ``backup`` ensures the repository exists (probe, then init on
@@ -115,22 +115,34 @@ def _forget_kwargs(env: dict) -> dict:
 RC_LOCKED = 4
 
 
-class UnportedEngineError(NotImplementedError):
-    """An engine the reference can select whose module the port lacks."""
+#: Mesh hashers memoized per (chunker params, device): a hasher keeps no
+#: compiled state in the port, but reusing it keeps one mesh per job
+#: stream, as the reference's ``_MESH_HASHERS`` does.
+_MESH_HASHERS: dict = {}
 
 
-def _select_hasher(env: dict):
-    """VOLSYNC_ENGINE=mesh shards the scan over the device mesh in the
-    reference (parallel/sharded_chunker.py); the default (None) is the
-    single-card engine. The port has no mesh engine yet, so ``mesh``
-    raises, before the repository is opened or created, instead of
-    running the single-card engine in its place."""
+def _select_hasher(env: dict, repo: Repository, device=None):
+    """VOLSYNC_ENGINE=mesh shards the scan over the device mesh
+    (parallel/sharded_chunker.py); the default (None) is the
+    single-card engine. Both give bit-identical snapshots, so the
+    switch is a throughput and topology choice."""
     if env.get("VOLSYNC_ENGINE", "").lower() != "mesh":
         return None
-    raise UnportedEngineError(
-        "VOLSYNC_ENGINE=mesh needs volsync_tpu/parallel/ "
-        "(sharded_chunker.MeshChunkHasher), which volsync_tpu_torch does "
-        "not port yet (ROADMAP queue 1 item 8, multi-device)")
+    from volsync_tpu_torch.engine.chunker import params_from_config
+    from volsync_tpu_torch.parallel.sharded_chunker import (
+        MeshChunkHasher,
+        make_stream_mesh,
+    )
+
+    params = params_from_config(repo.chunker_params)
+    dev = resolve_device(device)
+    key = (params, str(dev))
+    hasher = _MESH_HASHERS.get(key)
+    if hasher is None:
+        every_card = dev.type == "cuda" and dev.index is None
+        mesh = make_stream_mesh(None if every_card else [dev])
+        hasher = _MESH_HASHERS[key] = MeshChunkHasher(params, mesh=mesh)
+    return hasher
 
 
 def restic_entrypoint(ctx) -> int:
@@ -158,8 +170,8 @@ def _dispatch(ctx, env: dict, direction: str) -> int:
         if not any(data.iterdir()):
             log.info("source is empty, skipping backup (entry.sh:44-50)")
             return 0
-        hasher = _select_hasher(env)
         repo = _open_or_init(env, ctx.device)
+        hasher = _select_hasher(env, repo, ctx.device)
         t0 = time.perf_counter()
         # SYNC_PROTOCOL=auto delegates per-file full-vs-cdc storage to
         # the cost-model planner (engine/protoplan.py); default stays

@@ -7,8 +7,9 @@ Ports ``volsync_tpu/ops/gearcdc.py``:
   with the reference's fields, masks and gear table (the two packages
   chunk identically under equal parameters; see
   ``engine/chunker.params_from_reference``);
-- ``_mix_u32``, ``_make_gear_table``, ``gear_at_aligned`` and
-  ``gear_hash_positions`` (ref :169-199) in torch;
+- ``_mix_u32``, ``_make_gear_table``, ``gear_at_aligned``,
+  ``gear_hash_positions`` (ref :169-199) and the shift-doubling it runs
+  (``gear_doubling``, also the mesh's) in torch;
 - ``cdc_candidates_aligned[_packed]`` (ref :202-243, the split-phase
   engine's candidates) and ``cdc_candidates`` (ref :246-273, the legacy
   align=1 engine's), compacted without a host sync by ``nonzero_fixed``;
@@ -161,19 +162,26 @@ def gear_at_aligned(data: torch.Tensor, seed: int,
     return ((g << shifts) & _M).sum(dim=1) & _M
 
 
-def gear_hash_positions(data: torch.Tensor, seed: int) -> torch.Tensor:
-    """Gear hash at every byte position of ``data`` ([L] uint8 -> [L]
-    int64 holding u32 values), by shift-doubling: after the passes m =
-    1, 2, 4, 8, 16 position i sums ``G[b_{i-k}] << k`` over k < 32.
-    Positions < 31 hash a shorter prefix window (the recurrence starts
-    from 0, as in the reference); no cut reads them since min_size >=
-    32."""
-    L = data.shape[0]
-    h = _mix_u32((data.to(torch.int64) + (seed & _M)) & _M)
+def gear_doubling(g: torch.Tensor) -> torch.Tensor:
+    """Per-byte gear table values (int64 u32 values, last axis) -> the
+    32-byte-window gear hash, by shift-doubling: after the passes m = 1,
+    2, 4, 8, 16 position i sums ``g[i-k] << k`` over k < 32."""
+    h = g
     for m in (1, 2, 4, 8, 16):
-        shifted = torch.cat([h.new_zeros(min(m, L)), h[: max(L - m, 0)]])
+        n = h.shape[-1]
+        shifted = torch.cat([h.new_zeros((*h.shape[:-1], min(m, n))),
+                             h[..., : max(n - m, 0)]], dim=-1)
         h = (h + (shifted << m)) & _M
     return h
+
+
+def gear_hash_positions(data: torch.Tensor, seed: int) -> torch.Tensor:
+    """Gear hash at every byte position of ``data`` ([L] uint8 -> [L]
+    int64 holding u32 values), by ``gear_doubling``. Positions < 31
+    hash a shorter prefix window (the recurrence starts from 0, as in
+    the reference); no cut reads them since min_size >= 32."""
+    return gear_doubling(_mix_u32((data.to(torch.int64) + (seed & _M))
+                                  & _M))
 
 
 def nonzero_fixed(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
