@@ -8,7 +8,7 @@
                           [--rclone-files N] [--service-tenants SPEC]
                           [--service-mib M] [--turns-gib G]
                           [--fleet-mib M] [--syncthing-mib M]
-                          [--mesh-gib G]
+                          [--mesh-gib G] [--trace-out FILE]
 
 Run from the repository root on a machine with a CUDA card and nvcc. It
 imports nothing of JAX or of the JAX package, and every phase raises on
@@ -19,7 +19,10 @@ a mismatch:
    instructions of one message block of K1 (both instances), K2,
    sha256_slices (its three forms' loops), merkle_roots and sha256_lanes as
    compiled (``cuobjdump -sass``), the card's name and power limit, and
-   the torch and CUDA versions;
+   the torch and CUDA versions; builds the native host library
+   (``io/native.py``: ``native/volio.cpp`` with g++, its build time
+   logged) and fails where it is not available, so no run measures
+   the Python routes by accident;
 2. kernels: runs one real 48 MiB segment through ``chunk_hash_segment``
    while recording each kernel wrapper's inputs, then holds every
    kernel of that pass (K1 sha256_pages, fastcdc_walk, the tail form of
@@ -94,14 +97,17 @@ a mismatch:
    fused launches, no ``pagemajor_u32``; chunks and ids equal to
    word-major passes over the same bytes, the layouts alternating
    pm/wm/wm/pm). Each stream also prints its host seconds by
-   ``obs.span``;
+   ``obs.span``. The align-64 and align-1 streams walk their segments
+   in C (the native library); each runs again through the Python walk
+   and the C walk in turns (Python, C, Python), every turn with the
+   first pass's cuts and ids, the walk's host seconds logged by route;
 6. service: the mover-jax gRPC service (BASELINE.json configs[4], 100
    concurrent sources; ``tools/service_bench.run_closed_loop``): the
    port's ``MoverJaxServer`` on 127.0.0.1 (``DEFAULT_PARAMS``, 32 MiB
    segments, pipeline depth 2, admission at its defaults, gRPC workers
    = clients + 4) answers ``--service-tenants`` closed-loop ChunkHash
    sources (``gold:4:25;silver:2:25;bronze:1:50``) of ``--service-mib``
-   MiB each (32) less 12,345 bytes (so every eof segment ends mid-page),
+   MiB each (16) less 12,345 bytes (so every eof segment ends mid-page),
    salted from one seeded base and made piece by piece as they are sent; shed sources honour the retry-after hint. A warm
    round and the timed round with a 2 ms batch window, then the same
    load per request (window 0), each with the launch counts set to 0
@@ -127,16 +133,21 @@ a mismatch:
    ``build/``; removed after) from the stream's block pattern: a file of half the volume, one
    ending in a 12,345-byte odd tail and its hard link, a sparse file
    with a 32 MiB hole, an empty file and 300 files below min_size.
-   ``TreeBackup`` into an encrypted ``FsObjectStore`` repository at the
+   First the native reader: the first GiB of its big file through
+   ``ReadaheadReader`` and ``open()`` in turns, equal SHA-256, both
+   rates. ``TreeBackup`` (its files opened through the native reader,
+   counted) into an encrypted ``FsObjectStore`` repository at the
    repository default chunker (align 4096), a second backup (nothing
    new, the same root tree), ``check(read_data=True)``, a pipelined
    ``restore_snapshot`` and a serial ``TreeRestore`` with device verify
    (each byte-identical: SHA-256, mode and mtime of every path, hard
    links, the hole), and one flipped byte in a pack (IntegrityError
-   before the affected file is written); then the same for an
+   before the affected file is written, with ``VOLSYNC_TRACE_DUMP``
+   set); then the same for an
    unencrypted align-64 repository over ``--backup64-mib`` MiB (K2 in
    the product path; the device verify, not the MAC, catches its
-   flipped byte). Every run sets the launch counts to 0 before and
+   flipped byte, and the flight recorder's ``restore_verify_fail`` dump
+   lands). Every run sets the launch counts to 0 before and
    reads them after: the fused or split-phase kernels once a backup
    pass, none on the second backup, and K1, ``sha256_slices`` and
    ``merkle_roots`` once a verify pass. Logs backup and restore GiB/s,
@@ -169,7 +180,8 @@ a mismatch:
    once a verify batch), ``gf_matmul``'s calls and the packs decoded,
    and traces the card;
 9. delta: the rsync mover's data plane (BASELINE.json configs[0], a
-   1 GiB PVC replicated by rsync; ``--delta-gib``). Seeded destination
+   1 GiB PVC replicated by rsync; ``--delta-gib``, 0.5: the counts
+   below halve). Seeded destination
    and source trees on disk: a file of half the volume with 16 scattered
    1 KiB overwrites, a 37-byte insertion a third of the way in and a
    12,345-byte append; 64 files of 4 MiB and 240 of 1 MiB, in turns
@@ -221,7 +233,14 @@ a mismatch:
    batched once (the same segments and root tree each), one trace a
    backup and one
    of the restore (``obs.device_trace``), whose device events, where
-   the profiler kept them, give each run's busy share;
+   the profiler kept them, give each run's busy share. The first backup
+   runs under one root trace of the flight recorder
+   (``VOLSYNC_TRACE_RING`` large enough for all of its spans):
+   ``volsync trace dump --out`` through the port's CLI in process
+   (``--trace-out`` keeps the file), loaded back, its spans of one
+   trace, nested, on more than one thread, with ``engine.*``,
+   ``repo.seal`` and ``ops.batch_dispatch`` among them; each thread's
+   busy seconds over the backup's wall, and ``trace summary``;
 12. rclone: ``rclone_entrypoint`` (BASELINE.json configs[2], many small
    files) through an S3 remote, the port's ``FakeS3Server`` on
    127.0.0.1 named by an ``rclone.conf`` section, TRANSFERS 10, over a
@@ -257,8 +276,11 @@ a mismatch:
    refused; no pending-delete left and every live pack present; the
    distinct data bytes equal the trees' oracle; ``check(read_data=
    True)`` clean; one restore a replica that completed a job, the
-   failed-over one's among them, byte-identical; ``repair`` clears the
-   dead stamp. The round runs batched (the CUDA default) and with
+   failed-over one's among them, byte-identical; the ``repair`` verb
+   in process, ``--dry-run --json`` (exit 0, the dead stamp found and
+   left) and then applying (exit 0, the stamp cleared, the GC pass run).
+   No job attempt and no GC cycle reads a tree "not in index", and no
+   GC cycle ends "error" (the outcomes are logged by kind). The round runs batched (the CUDA default) and with
    ``VOLSYNC_BATCH_SEGMENTS=0`` (the jobs, their failovers and the
    oracle only), each into a fresh repository, launches exact a pass;
    then ``python -m volsync_tpu_torch.cli scrub`` in a
@@ -334,6 +356,7 @@ import contextlib
 import copy
 import hashlib
 import json
+import logging
 import os
 import re
 import shutil
@@ -1757,7 +1780,9 @@ def oracle_cuts(stream, params) -> list:
     """The stream's cut list from host candidates (``host_candidates``
     for aligned params, cached by block content; ``dense_candidates``
     with a 31-byte halo at align 1) and the host FastCDC walk."""
-    from volsync_tpu_torch.ops.gearcdc import host_candidates, select_boundaries
+    # the Python walk: the engines' host walk is the native C one
+    from volsync_tpu_torch.ops.gearcdc import (_select_boundaries_py,
+                                               host_candidates)
 
     cs, cl, cache = [], [], {}
     halo = np.zeros((0,), np.uint8)
@@ -1775,8 +1800,8 @@ def oracle_cuts(stream, params) -> list:
             s, l = cache[key]
         cs.append(s + base)
         cl.append(l + base)
-    return select_boundaries(np.concatenate(cs), np.concatenate(cl),
-                             stream.total, params, eof=True)
+    return _select_boundaries_py(np.concatenate(cs), np.concatenate(cl),
+                                 stream.total, params, eof=True)
 
 
 def check_oracle(label: str, results, stream, params) -> float:
@@ -1938,6 +1963,53 @@ def legacy_stream_phase(torch, stream, params) -> dict:
     res = drive(torch, stream, params, LEGACY_PER_PASS, "align=1 stream")
     check_oracle("align=1 stream", res["results"], stream, params)
     return res
+
+
+def walk_turns(torch, stream, params, per_pass: dict, label: str,
+               first: dict, card: str) -> dict:
+    """The host FastCDC walk's two routes over one engine's stream, in
+    turns after ``first`` (that stream's pass on the default route, the
+    native C walk, held against the oracle): the Python walk
+    (``_select_boundaries_py``), the C walk, the Python walk. Every turn
+    must give ``first``'s cuts and ids; each C turn must walk every
+    segment in C (``select_boundaries_native`` counted, none falling
+    back). -> the walk's host seconds (``engine.boundary_walk`` spans)
+    a turn by route."""
+    from volsync_tpu_torch.engine import chunker
+    from volsync_tpu_torch.io import native
+    from volsync_tpu_torch.ops.gearcdc import _select_boundaries_py
+
+    walks = {"c": [first["spans"].get("engine.boundary_walk", 0.0)],
+             "py": []}
+    for route in ("py", "c", "py"):
+        calls = []
+
+        def counted(fn):
+            def walk(*args, **kwargs):
+                out = fn(*args, **kwargs)
+                calls.append(out is not None)
+                return out
+            return walk
+
+        route_patch = (patched(chunker, {"select_boundaries": lambda fn:
+                                         _select_boundaries_py})
+                       if route == "py" else
+                       patched(native, {"select_boundaries_native": counted}))
+        with route_patch:
+            r = drive(torch, stream, params, per_pass,
+                      f"{label}, {'Python' if route == 'py' else 'C'} walk")
+        if r["results"] != first["results"]:
+            raise AssertionError(f"{label}: the {route} walk gave other "
+                                 f"chunks")
+        if route == "c" and (len(calls) != r["passes"] or not all(calls)):
+            raise AssertionError(f"{label}: {len(calls)} C walks for "
+                                 f"{r['passes']} passes, {calls.count(False)}"
+                                 f" fell back")
+        walks[route].append(r["spans"].get("engine.boundary_walk", 0.0))
+    log(f"{label}: the C walk and the Python walk in turns (C, Python, C, "
+        f"Python) give equal cuts and ids; the walk's host seconds a pass "
+        f"of the stream: C {walks['c']}, Python {walks['py']} ({card})")
+    return walks
 
 
 def pagemajor_stream_phase(torch, stream, params) -> dict:
@@ -2334,16 +2406,95 @@ def product_run(torch, label: str, run, per_pass: dict,
             "busy_s": busy}
 
 
+#: The native readahead reader's check reads this much of the backup
+#: tree's big.bin through each route.
+READER_BYTES = 1 << 30
+
+
+def reader_check(path: Path, nbytes: int, card: str) -> dict:
+    """The first ``nbytes`` of ``path`` through the native readahead
+    reader (``io/native.ReadaheadReader``, 32 MiB segments, as
+    ``TreeBackup`` opens files) and through ``open()``, in turns
+    (native, open, native, open), each ``readinto`` a pooled 32 MiB
+    buffer and hashed: equal SHA-256 every turn. -> GiB/s by route
+    (reads and hashing, right after the file was written: a warm read
+    where the filesystem caches it)."""
+    from volsync_tpu_torch.engine import bufpool
+    from volsync_tpu_torch.io import ReadaheadReader
+
+    seg = 32 << 20
+    rates = {"native": [], "open": []}
+    digests = set()
+    buf = bufpool.GLOBAL.acquire(seg)
+    view = memoryview(buf)
+    try:
+        for route in ("native", "open", "native", "open"):
+            h = hashlib.sha256()
+            left = nbytes
+            t0 = time.perf_counter()
+            with (ReadaheadReader(path, seg) if route == "native"
+                  else open(path, "rb")) as f:
+                while left > 0:
+                    got = f.readinto(view[: min(seg, left)]) or 0
+                    if got == 0:
+                        break
+                    h.update(view[:got])
+                    left -= got
+            secs = time.perf_counter() - t0
+            if left:
+                raise AssertionError(f"reader check: {path.name} ended "
+                                     f"{left} bytes early ({route})")
+            digests.add(h.hexdigest())
+            rates[route].append(nbytes / GIB / secs)
+    finally:
+        view.release()
+        bufpool.GLOBAL.release(buf)
+    if len(digests) != 1:
+        raise AssertionError(f"reader check: the routes read other bytes "
+                             f"({sorted(digests)})")
+    log(f"native reader: the first {nbytes} bytes of {path.name} through "
+        f"ReadaheadReader and open() in turns, equal SHA-256 "
+        f"{next(iter(digests))[:16]}...; GiB/s (read and hashed, right "
+        f"after the file was written) native {[round(x, 4) for x in rates['native']]}, "
+        f"open() {[round(x, 4) for x in rates['open']]} ({card})")
+    return rates
+
+
+@contextlib.contextmanager
+def reader_types():
+    """Within the block, the type of every file object
+    ``engine/chunker._open_readahead`` returns (``TreeBackup`` opens its
+    files through it) is counted; yields the Counter."""
+    from volsync_tpu_torch.engine import chunker
+
+    seen: Counter = Counter()
+
+    def spy(fn):
+        def opened(path, segment_size):
+            f = fn(path, segment_size)
+            seen[type(f).__name__] += 1
+            return f
+        return opened
+
+    with patched(chunker, {"_open_readahead": spy}):
+        yield seen
+
+
 def repo_round_trip(torch, label: str, base: Path, total: int, seed: int,
                     chunker: dict, password, hole: int, card: str,
-                    holes: bool) -> dict:
+                    holes: bool, reader_bytes: int = 0) -> dict:
     """Back up a seeded tree into a new ``FsObjectStore`` repository on the
     card, back it up again (nothing new, the same root tree), check it
     with ``read_data=True``, restore it pipelined and serially (both
     byte-identical to the source; ``holes``: ``base`` keeps holes, so
     the source's must be there), then flip one byte in the pack of
-    ``big.bin``'s first blob and restore again: IntegrityError, with
-    ``big.bin`` not written and every file that was written complete."""
+    ``big.bin``'s first blob and restore again with ``VOLSYNC_TRACE_DUMP``
+    set: IntegrityError, with ``big.bin`` not written and every file
+    that was written complete; without a password (the device verify
+    catches the byte) the flight recorder's ``restore_verify_fail`` dump
+    lands. The first backup must open its files through the native
+    readahead reader where the card runs; ``reader_bytes``: first the
+    ``reader_check`` of that much of ``big.bin``."""
     from volsync_tpu_torch.engine.backup import TreeBackup
     from volsync_tpu_torch.engine.restore import TreeRestore, \
         restore_snapshot
@@ -2368,6 +2519,10 @@ def repo_round_trip(torch, label: str, base: Path, total: int, seed: int,
     if holes and not res["hole_kept"]:
         raise AssertionError(f"{label}: {base} keeps holes, but sparse.bin "
                              f"has {sparse[7]} bytes of them")
+    if reader_bytes:
+        res["reader"] = reader_check(
+            src / "big.bin", min(reader_bytes,
+                                 (src / "big.bin").stat().st_size), card)
     store = FsObjectStore(base / f"{label}-repo")
     repo = Repository.init(store, password, chunker=chunker, device=DEVICE)
     per_pass = FUSED_PER_PASS if chunker["align"] == 4096 else SPLIT_PER_PASS
@@ -2377,8 +2532,14 @@ def repo_round_trip(torch, label: str, base: Path, total: int, seed: int,
         return backup, fused_passes(backup.hasher)
 
     backup, passes = backup_run()
-    r = product_run(torch, f"{label} backup ({backup.workers} workers)",
-                    lambda: backup.run(src), per_pass, passes)
+    with reader_types() as opened:
+        r = product_run(torch, f"{label} backup ({backup.workers} workers)",
+                        lambda: backup.run(src), per_pass, passes)
+    res["readers"] = dict(opened)
+    log(f"{label} backup: files opened through {json.dumps(res['readers'])}")
+    if DEVICE == "cuda" and set(opened) != {"ReadaheadReader"}:
+        raise AssertionError(f"{label}: the backup opened its files "
+                             f"through {dict(opened)}")
     snap, stats = r["out"]
     res["backup"] = r
     res["backup_gibs"] = stats.bytes_scanned / GIB / r["secs"]
@@ -2443,9 +2604,10 @@ def repo_round_trip(torch, label: str, base: Path, total: int, seed: int,
     # big.bin's first blob stored uncompressed (a flag byte and the
     # cipher's overhead around the plaintext): without a password its
     # flipped byte reaches the device verify, not the decompressor
-    ie = next(e for e in map(bad_repo._entry, next(
-        e for e in tree["entries"] if e["name"] == "big.bin")["content"])
-        if e.length == e.raw_length + 1 + bad_repo.box.overhead)
+    big = next(e for e in tree["entries"]
+               if e["name"] == "big.bin")["content"]
+    ie = next(e for e in map(bad_repo._entry, big)
+              if e.length == e.raw_length + 1 + bad_repo.box.overhead)
     pack = store.root / f"data/{ie.pack[:2]}/{ie.pack}"
     with open(pack, "r+b") as f:
         f.seek(ie.offset + ie.length // 2)
@@ -2453,12 +2615,29 @@ def repo_round_trip(torch, label: str, base: Path, total: int, seed: int,
         f.seek(ie.offset + ie.length // 2)
         f.write(bytes([byte[0] ^ 0x20]))
     dst = base / f"{label}-corrupt"
+    dumps = base / f"{label}-trace-dumps"
     try:
-        restore_snapshot(bad_repo, dst)
+        with env_set("VOLSYNC_TRACE_DUMP", str(dumps)), \
+                env_set("VOLSYNC_TRACE_TRIGGER_INTERVAL_S", "0"):
+            restore_snapshot(bad_repo, dst)
     except crypto.IntegrityError as e:
         caught = str(e)
     else:
         raise AssertionError(f"{label}: the corrupt pack restored")
+    landed = sorted(p.name for p in dumps.glob("trace-*.json"))
+    fails = sorted(dumps.glob("trace-restore_verify_fail-*.json"))
+    if password is None:
+        if not fails:
+            raise AssertionError(f"{label}: no restore_verify_fail dump "
+                                 f"landed (dumps {landed})")
+        doc = json.loads(fails[0].read_text())
+        if doc["trigger"].get("reason") != "restore_verify_fail" or \
+                doc["trigger"].get("blob") not in big:
+            raise AssertionError(f"{label}: the dump's trigger is "
+                                 f"{doc['trigger']}")
+    res["trace_dumps"] = landed
+    log(f"{label}: flight-recorder dumps of the corrupt restore "
+        f"(VOLSYNC_TRACE_DUMP): {landed}")
     if (dst / "big.bin").exists():
         raise AssertionError(f"{label}: big.bin was written from a "
                              f"corrupt pack")
@@ -2489,7 +2668,8 @@ def backup_phase(torch, base: Path, backup_bytes: int, backup64_bytes: int,
     chunker = dict(chunker or DEFAULT_CHUNKER)
     holes = keeps_holes(base)
     fused = repo_round_trip(torch, "backup", base, backup_bytes, seed,
-                            chunker, "smoke-password", hole, card, holes)
+                            chunker, "smoke-password", hole, card, holes,
+                            reader_bytes=READER_BYTES)
     split = repo_round_trip(torch, "backup64", base, backup64_bytes,
                             seed + 1, {**chunker, "align": 64}, None,
                             hole, card, holes)
@@ -3848,6 +4028,121 @@ def mover_phase(torch, base: Path, made: dict, seed: int, card: str) -> dict:
 RESTIC_HOLE = 4 << 20
 
 
+#: The flight recorder's ring while the restic entry's first backup is
+#: traced: room for every span it records (the log says whether it held
+#: them all).
+TRACE_RING = 1 << 20
+
+
+@contextlib.contextmanager
+def flight_recorder():
+    """Within the block: ``VOLSYNC_TRACE_RING`` is ``TRACE_RING``, the
+    flight recorder starts empty, and one sampled root trace is active
+    (the trace context the block's spans nest under); yields its
+    context. The ring goes back to its default size after."""
+    from volsync_tpu_torch import obs
+
+    with env_set("VOLSYNC_TRACE_RING", str(TRACE_RING)), \
+            env_set("VOLSYNC_TRACE_SAMPLE", None):
+        obs.reset_trace()
+        with obs.trace_context(sampled=True) as root:
+            yield root
+    obs.reset_trace()
+
+
+def _union_s(intervals: list) -> float:
+    """Seconds covered by a list of (start, end) microsecond pairs."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e6
+
+
+def flight_report(root, path: Path, wall: float, batching: bool,
+                  hashed: bool, card: str) -> dict:
+    """``volsync trace dump --out path`` through the port's CLI in this
+    process after a run traced under ``root`` (``flight_recorder``), the
+    dump loaded back and checked: the ring did not wrap; every span
+    carries ``root``'s trace id and names as its parent ``root`` or a
+    span of the dump (a span's parent on its own thread encloses it);
+    ``repo.seal`` spans and (``hashed``: the run made device passes)
+    ``engine.*`` spans and (and ``batching``: the shared micro-batcher
+    ran them) ``ops.batch_dispatch`` spans are there, on more than one
+    thread. Logs each thread's busy seconds
+    (the union of its spans; of its ``repo.seal`` and ``engine.*``
+    spans) against the run's ``wall``, then ``trace summary``."""
+    from volsync_tpu_torch import cli, envflags, obs
+
+    lines: list = []
+    if cli.main(["trace", "dump", "--out", str(path)],
+                out=lines.append) != 0:
+        raise AssertionError(f"trace dump: {lines}")
+    ring = envflags.trace_ring_size()
+    held = len(obs.trace_events())
+    doc = json.loads(path.read_text())
+    events = doc["traceEvents"]
+    threads = {e["tid"]: e["args"]["name"] for e in events
+               if e["ph"] == "M"}
+    spans = [e for e in events if e["ph"] == "X"]
+    if held >= ring:
+        raise AssertionError(f"trace: the ring of {ring} wrapped")
+    if {e["args"]["trace_id"] for e in spans} != {root.trace_id}:
+        raise AssertionError("trace: spans of another trace in the dump")
+    by_id = {e["args"]["span_id"]: e for e in spans}
+    for e in spans:
+        parent = e["args"]["parent_span_id"]
+        if parent != root.span_id and parent not in by_id:
+            raise AssertionError(f"trace: {e['name']}'s parent {parent} is "
+                                 f"in no span of the dump")
+        up = by_id.get(parent)
+        if up is not None and up["tid"] == e["tid"] and not (
+                up["ts"] - 1 <= e["ts"]
+                and e["ts"] + e["dur"] <= up["ts"] + up["dur"] + 1):
+            raise AssertionError(f"trace: {e['name']} runs outside its "
+                                 f"parent {up['name']} on one thread")
+    names = Counter(e["name"] for e in spans)
+    need = ["repo.seal"] + (["ops.batch_dispatch"]
+                            if hashed and batching else [])
+    missing = [n for n in need if n not in names]
+    if hashed and not any(n.startswith("engine.") for n in names):
+        missing.append("engine.*")
+    if missing:
+        raise AssertionError(f"trace: no {missing} span in {dict(names)}")
+    tids = {e["tid"] for e in spans}
+    if len(tids) < 2:
+        raise AssertionError("trace: every span on one thread")
+    busy = {}
+    for tid in sorted(tids, key=lambda t: threads.get(t, "")):
+        mine = [e for e in spans if e["tid"] == tid]
+
+        def cover(pick):
+            return _union_s([(e["ts"], e["ts"] + e["dur"]) for e in mine
+                             if pick(e["name"])])
+
+        busy[f"{threads.get(tid, tid)}"] = {
+            "spans": len(mine), "busy_s": round(cover(lambda n: True), 4),
+            "seal_s": round(cover(lambda n: n == "repo.seal"), 4),
+            "engine_s": round(cover(lambda n: n.startswith("engine.")), 4)}
+    log(f"trace dump of the restic entry's first backup: "
+        f"{path.stat().st_size} bytes, {len(spans)} spans ({held} events, "
+        f"ring of {ring} not wrapped) on {len(tids)} threads, names "
+        f"{json.dumps(dict(sorted(names.items())))}")
+    log(f"trace: each thread's busy seconds over the backup's {wall:.3f} s "
+        f"wall (the union of its spans; of repo.seal; of engine.*): "
+        + json.dumps(busy) + f" ({card})")
+    lines.clear()
+    cli.main(["trace", "summary"], out=lines.append)
+    for line in lines:
+        log(f"trace summary | {line}")
+    return {"spans": len(spans), "events": held, "threads": busy,
+            "names": dict(names)}
+
+
 def batching_turns(run_entry, base: Path, src: Path, made: dict,
                    first: dict) -> list:
     """The restic entry's backup of ``src`` into fresh repositories in
@@ -3902,7 +4197,8 @@ def batching_turns(run_entry, base: Path, src: Path, made: dict,
 
 
 def restic_entry_phase(torch, base: Path, total: int, seed: int,
-                       card: str, mesh_check=None) -> dict:
+                       card: str, mesh_check=None,
+                       trace_out: Path | None = None) -> dict:
     """The restic mover's entry point on the port (ref
     movers/restic/entry.py) over a seeded tree of about ``total`` bytes
     (``make_backup_tree``) in an encrypted ``FsObjectStore`` repository,
@@ -3917,7 +4213,10 @@ def restic_entry_phase(torch, base: Path, total: int, seed: int,
     restored``) and leaves the hole unwritten; each backup wrote its
     trace, and the restore is traced by the same ``obs.device_trace``
     (``restic-restore``): the card's busy seconds are read from these
-    three files, where they hold device events. ``mesh_check(base, src,
+    three files, where they hold device events. The first backup runs
+    under one root trace of the flight recorder (``flight_recorder``),
+    and ``trace dump`` writes its spans to ``trace_out`` (default: under
+    ``base``), checked by ``flight_report``. ``mesh_check(base, src,
     tree)``, where given, runs after the first backup with its root
     tree."""
     from volsync_tpu_torch import obs
@@ -3962,9 +4261,17 @@ def restic_entry_phase(torch, base: Path, total: int, seed: int,
             raise AssertionError(f"{label}: rc {r['out']}")
         return r
 
+    from volsync_tpu_torch.ops.batcher import _batching_enabled
+
     res = {}
     with env_set("VOLSYNC_TRACE_DIR", str(traces.parent)):
-        res["backup"] = run_entry("restic entry backup", {}, src, True)
+        with flight_recorder() as root:
+            res["backup"] = run_entry("restic entry backup", {}, src, True)
+            res["flight"] = flight_report(
+                root, trace_out or base / "restic-flight.json",
+                res["backup"]["secs"],
+                _batching_enabled(torch.device(DEVICE)),
+                res["backup"]["passes"] > 0, card)
         res["backup"]["bytes"] = made["bytes"]
         res["turns"] = batching_turns(run_entry, base, src, made,
                                       res["backup"])
@@ -5045,6 +5352,7 @@ def fleet_round(torch, label: str, base: Path, trees: list, made: list,
                       device=DEVICE)
     lock = threading.Lock()
     attempts = defaultdict(list)  # job -> [(replica, outcome)]
+    errors = []  # every failed attempt's message
     killed = []
     waits = []
 
@@ -5056,6 +5364,7 @@ def fleet_round(torch, label: str, base: Path, trees: list, made: list,
                 with lock:
                     attempts[hostname].append((self.replica_id,
                                                type(ex).__name__))
+                    errors.append(f"{type(ex).__name__}: {ex}")
                     if stacks[0][0].crashed and not killed:
                         group.kill("r00")  # the pod goes away
                         killed.append(hostname)
@@ -5089,7 +5398,8 @@ def fleet_round(torch, label: str, base: Path, trees: list, made: list,
         return out
 
     logical = sum(m["bytes"] for m in made)
-    with patched(fleet.Replica, {"backup": record}):
+    gc_log = GcErrors()
+    with patched(fleet.Replica, {"backup": record}), gc_log:
         r = product_run(torch, f"{label}: {len(trees)} jobs on "
                         f"{FLEET_REPLICAS} replicas", run, FUSED_PER_PASS,
                         SegmentPasses())
@@ -5115,17 +5425,24 @@ def fleet_round(torch, label: str, base: Path, trees: list, made: list,
         raise AssertionError(f"{label}: r00's store crashed "
                              f"{stacks[0][0].crashed}, killed {killed}, "
                              f"{res['failovers']} failovers")
-    # a cycle may fail (outcome "error") and keep its cadence, as when
-    # it reads a snapshot published after its index load; one must run
-    if not gc.outcomes.get("ok"):
-        raise AssertionError(f"{label}: GC outcomes {gc.outcomes}")
+    # the index/snapshot window (ROADMAP queue 3, closed): no job attempt
+    # and no GC cycle may read a snapshot's tree "not in index", and no
+    # GC cycle may fail; one must run
+    stale = [e for e in errors + gc_log.messages if "not in index" in e]
+    if stale or gc.outcomes.get("error") or not gc.outcomes.get("ok"):
+        raise AssertionError(f"{label}: GC outcomes {gc.outcomes} (failed "
+                             f"cycles: {gc_log.messages[:3]}); attempts "
+                             f"that read a tree not in the index: "
+                             f"{stale[:3]}")
     log(f"{label}: {len(done)} jobs, {logical} bytes in {r['secs']:.3f} s "
         f"= {res['gibs']:.4f} GiB/s; {r['passes']} device passes of "
         f"{r['lanes']} segments; completed by replica "
         f"{json.dumps(res['by_replica'])}; {res['failovers']:.0f} "
         f"failovers ({len(hopped)} jobs moved, r00 killed in "
         f"{killed[0]}), {res['sheds']:.0f} sheds, {len(waits)} waits on a "
-        f"shed's hint; GC {gc.cycles} cycles {json.dumps(gc.outcomes)} "
+        f"shed's hint; GC {gc.cycles} cycles, outcomes by kind "
+        f"{json.dumps(gc.outcomes)}, none 'not in index'; failed job "
+        f"attempts by error {json.dumps(Counter(e.split(':')[0] for e in errors))} "
         f"({card})")
 
     # -- the dead writer: stamp left, locks taken over, zombie fenced ---
@@ -5199,17 +5516,52 @@ def fleet_round(torch, label: str, base: Path, trees: list, made: list,
     stamp["time"] = (datetime.now(timezone.utc)
                      - timedelta(seconds=horizon)).isoformat()
     fs.put("fleet/r00", json.dumps(stamp).encode())
-    report = Repository.open(fs, FLEET_PASSWORD, device=DEVICE).repair(
-        grace_seconds=0.5)
-    if "fleet/r00" not in report["stale_markers"] or fs.exists("fleet/r00"):
-        raise AssertionError(f"{label}: repair left r00's stamp")
+    # the repair verb, as an operator runs it after the crash
+    dry = fleet_verb(torch, root, ["repair", "--dry-run"])
+    if dry["rc"] != 0 or dry["report"]["applied"] or \
+            "fleet/r00" not in dry["report"]["stale_markers"] or \
+            not fs.exists("fleet/r00"):
+        raise AssertionError(f"{label}: repair --dry-run gave {dry}")
+    rep = fleet_verb(torch, root, ["repair", "--grace-seconds", "0.5"])
+    report = rep["report"]
+    if rep["rc"] != 0 or not report["applied"] or \
+            "fleet/r00" not in report["stale_markers"] or \
+            fs.exists("fleet/r00") or report["broken_trees"] or \
+            report["unrecoverable_blobs"] or report["gc"] is None:
+        raise AssertionError(f"{label}: repair gave {rep}, r00's stamp "
+                             f"{'left' if fs.exists('fleet/r00') else 'gone'}")
+    res["repair"] = {"dry_run": dry, "apply": rep}
     lap("repair")
     tried = attempts[hopped[0]]
     log(f"{label}: check clean, {len(pick)} restores byte-identical "
         f"({json.dumps(pick)}; {hopped[0]} failed over in {len(tried)} "
-        f"attempts: {tried[:2]}...{tried[-1:]}); repair cleared r00's "
-        f"stamp; seconds after the jobs {json.dumps(steps)} ({card})")
+        f"attempts: {tried[:2]}...{tried[-1:]}); the repair verb "
+        f"(in process): --dry-run exit {dry['rc']} found "
+        f"{len(dry['report']['stale_markers'])} stale markers, then exit "
+        f"{rep['rc']} cleared r00's stamp (gc swept "
+        f"{report['gc']['packs_swept']} packs); seconds after the jobs "
+        f"{json.dumps(steps)} ({card})")
     return res
+
+
+class GcErrors(logging.Handler):
+    """Within a ``with`` block, the messages of the continuous GC's
+    failed cycles (its "gc cycle failed" warnings)."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages: list = []
+        self._log = logging.getLogger("volsync_tpu_torch.fleet.gc")
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        self._log.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self._log.removeHandler(self)
 
 
 def fence(fs, zombie, late: Path, horizon: float, jobs_end: float) -> None:
@@ -6349,21 +6701,23 @@ def main() -> int:
     # script inside its time limit on a slower host (PERF.md, section 4).
     ap.add_argument("--ec-gib", type=float, default=0.5)
     # The delta phase's volume: BASELINE.json configs[0], a 1 GiB PVC
-    # replicated by rsync, not cut. The mover phase syncs the same trees.
-    ap.add_argument("--delta-gib", type=float, default=1.0)
+    # replicated by rsync, cut to 0.5 GiB once the script passed 1,150 s
+    # on a slow host (PERF.md, section 4). The mover phase syncs the same
+    # trees.
+    ap.add_argument("--delta-gib", type=float, default=0.5)
     # The restic entry phase's tree: cut from the 10 GiB PVC, which the
     # backup phase already runs through the same engine.
     ap.add_argument("--restic-mib", type=float, default=256.0)
     # The rclone phase's small files: BASELINE.json configs[2] (many small
     # files) cut in depth, from 100 GiB to ~0.6 GiB with the mid files and
-    # the streamed file, and from 8,192 to 4,096 files once the service
-    # phase came (PERF.md, section 4).
-    ap.add_argument("--rclone-files", type=int, default=4096)
+    # the streamed file, from 8,192 to 4,096 files once the service
+    # phase came, and to 2,048 with the delta cut (PERF.md, section 4).
+    ap.add_argument("--rclone-files", type=int, default=2048)
     # The service phase: BASELINE.json configs[4], 100 concurrent sources,
     # cut in depth to 32 MiB less SERVICE_SHORT a source, one segment
-    # each (PERF.md, section 4).
+    # each, then to 16 MiB with the delta cut (PERF.md, section 4).
     ap.add_argument("--service-tenants", default=SERVICE_TENANTS)
-    ap.add_argument("--service-mib", type=float, default=32.0)
+    ap.add_argument("--service-mib", type=float, default=16.0)
     # The lone-stream batcher turns: the first GiB of the fused stream,
     # cut from the whole 10 GiB once the fleet and syncthing phases came
     # (PERF.md, section 4).
@@ -6380,6 +6734,10 @@ def main() -> int:
     # the two above (the align-64 and align-1 prefixes are MESH_ALIGN64
     # and MESH_ALIGN1).
     ap.add_argument("--mesh-gib", type=float, default=0.5)
+    # Where the flight recorder's dump of the restic entry's first
+    # backup is kept (a Chrome trace for Perfetto); default: removed
+    # with the phase's directory.
+    ap.add_argument("--trace-out", type=Path, default=None)
     args = ap.parse_args()
 
     import torch
@@ -6390,10 +6748,24 @@ def main() -> int:
     from volsync_tpu_torch.ops import _build
     from volsync_tpu_torch.ops.gearcdc import DEFAULT_PARAMS, GearParams
 
+    from volsync_tpu_torch.io import native
+
     t0 = time.perf_counter()
     reports = _build.build_all()
     log(f"build: {len(reports)} CUDA sources compiled in "
         f"{time.perf_counter() - t0:.1f} s")
+    # the native host library: the file reader and the host walk of the
+    # align-64 and align-1 engines; the script measures no Python route
+    # by accident
+    if not native.available():
+        raise AssertionError("the native host library (volsync_tpu_torch/"
+                             "io/native.py) is not available")
+    build_s = native.LOAD_INFO["build_s"]
+    log(f"build: native volio (volsync_tpu_torch/native/volio.cpp, g++ "
+        f"{' '.join(native.GXX_FLAGS)}) "
+        + (f"compiled in {build_s:.2f} s" if build_s is not None
+           else "already built")
+        + f", loaded from {native.LOAD_INFO['path']}")
     for src, rep in reports.items():
         for line in rep.splitlines():
             if any(w in line for w in ("entry function", "registers",
@@ -6476,10 +6848,14 @@ def main() -> int:
 
     vol = volume(int(args.align64_gib * GIB), "align=64")
     split = split_stream_phase(torch, vol, params64)
+    walk_turns(torch, vol, params64, SPLIT_PER_PASS, "align=64 stream",
+               split, card)
     mesh_cells.append(mesh_cell("align=64", params64, vol, MESH_ALIGN64,
                                 split))
     vol = volume(int(args.align1_mib * (1 << 20)), "align=1")
     legacy = legacy_stream_phase(torch, vol, params1)
+    walk_turns(torch, vol, params1, LEGACY_PER_PASS, "align=1 stream",
+               legacy, card)
     mesh_cells.append(mesh_cell("align=1", params1, vol, MESH_ALIGN1, legacy))
     del vol
     pm = pagemajor_stream_phase(
@@ -6588,7 +6964,7 @@ def main() -> int:
         restic = restic_entry_phase(
             torch, base, restic_bytes, args.seed + 5, card,
             mesh_check=lambda b, src, tree: mesh_tree_check(
-                torch, b, src, tree, card))
+                torch, b, src, tree, card), trace_out=args.trace_out)
     finally:
         shutil.rmtree(base, ignore_errors=True)
     log(f"restic entry phase: {time.perf_counter() - t1:.1f} s in all "

@@ -204,6 +204,99 @@ def test_split_stream_phase_on_cpu(monkeypatch):
     assert res["passes"] == 1 and len(res["results"]) > 5
 
 
+@pytest.mark.parametrize("phase,params,per_pass", [
+    ("split_stream_phase", PARAMS_64, chip_smoke.SPLIT_PER_PASS),
+    ("legacy_stream_phase", PARAMS_1, chip_smoke.LEGACY_PER_PASS)],
+    ids=["align64", "align1"])
+def test_walk_turns_on_cpu(monkeypatch, phase, params, per_pass):
+    """The native C walk and the Python walk in turns over a stream:
+    equal chunks every turn, every C turn's segments walked in C."""
+    stream = _tiny_stream(monkeypatch, 2)
+    first = getattr(chip_smoke, phase)(torch, stream, params)
+    walks = chip_smoke.walk_turns(torch, stream, params, per_pass, "tiny",
+                                  first, "cpu")
+    assert len(walks["c"]) == len(walks["py"]) == 2
+    assert all(w > 0 for w in walks["c"] + walks["py"])
+
+
+def test_walk_turns_catch_a_walk_that_differs(monkeypatch):
+    from volsync_tpu_torch.ops import gearcdc
+
+    stream = _tiny_stream(monkeypatch, 2)
+    first = chip_smoke.split_stream_phase(torch, stream, PARAMS_64)
+    real = gearcdc._select_boundaries_py
+
+    def off_by_one(idx_s, idx_l, length, params, **kw):
+        out = real(idx_s, idx_l, length, params, **kw)
+        if len(out) >= 2:  # the first cut one row (64 bytes) early
+            (s0, n0), (s1, n1) = out[:2]
+            out[:2] = [(s0, n0 - 64), (s1 - 64, n1 + 64)]
+        return out
+
+    monkeypatch.setattr(gearcdc, "_select_boundaries_py", off_by_one)
+    with pytest.raises(AssertionError, match="the py walk gave other"):
+        chip_smoke.walk_turns(torch, stream, PARAMS_64,
+                              chip_smoke.SPLIT_PER_PASS, "tiny", first, "cpu")
+
+
+def test_reader_check_on_cpu(tmp_path):
+    p = tmp_path / "big.bin"
+    p.write_bytes(np.random.RandomState(3).bytes((3 << 20) + 12345))
+    rates = chip_smoke.reader_check(p, (2 << 20) + 7, "cpu")
+    assert len(rates["native"]) == len(rates["open"]) == 2
+    with pytest.raises(AssertionError, match="ended"):
+        chip_smoke.reader_check(p, 4 << 20, "cpu")
+
+
+def test_flight_report_of_a_batched_backup_on_cpu(monkeypatch, tmp_path):
+    """The flight recorder around a TreeBackup whose segments go through
+    the shared micro-batcher (forced on here): the dump holds engine.*,
+    repo.seal and ops.batch_dispatch spans of one trace on several
+    threads, nested, and the report reads each thread's busy seconds."""
+    import time
+
+    from volsync_tpu_torch.engine.backup import TreeBackup
+    from volsync_tpu_torch.objstore.store import FsObjectStore
+    from volsync_tpu_torch.repo.repository import Repository
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setenv("VOLSYNC_BATCH_SEGMENTS", "1")
+    src = tmp_path / "src"
+    src.mkdir()
+    rng = np.random.RandomState(9)
+    (src / "a.bin").write_bytes(rng.bytes(150_000))
+    (src / "small.bin").write_bytes(rng.bytes(1000))
+    repo = Repository.init(FsObjectStore(tmp_path / "repo"),
+                           chunker=SMALL_CHUNKER, device="cpu")
+    with chip_smoke.flight_recorder() as root:
+        t0 = time.perf_counter()
+        TreeBackup(repo, workers=1).run(src)
+        rep = chip_smoke.flight_report(root, tmp_path / "flight.json",
+                                       time.perf_counter() - t0, True, True,
+                                       "cpu")
+    assert {"ops.batch_dispatch", "repo.seal"} <= set(rep["names"])
+    assert any(n.startswith("engine.") for n in rep["names"])
+    assert len(rep["threads"]) >= 2
+    assert sum(t["seal_s"] for t in rep["threads"].values()) > 0
+    doc = json.loads((tmp_path / "flight.json").read_text())
+    assert doc["displayTimeUnit"] == "ms"
+    from volsync_tpu_torch import envflags
+    assert envflags.trace_ring_size() == 4096  # the knob is back
+
+
+def test_flight_report_refuses_a_wrapped_ring(monkeypatch, tmp_path):
+    from volsync_tpu_torch import obs
+
+    monkeypatch.setattr(chip_smoke, "TRACE_RING", 16)
+    with chip_smoke.flight_recorder() as root:
+        for _ in range(20):
+            with obs.span("repo.seal"):
+                pass
+        with pytest.raises(AssertionError, match="wrapped"):
+            chip_smoke.flight_report(root, tmp_path / "f.json", 1.0, False,
+                                     False, "cpu")
+
+
 @pytest.mark.parametrize("phase,params", [
     ("legacy_stream_phase", PARAMS_1),
     ("pagemajor_stream_phase", PARAMS)], ids=["align1", "pagemajor"])
@@ -496,8 +589,17 @@ def test_backup_phase_on_cpu(monkeypatch, tmp_path):
                "seed": 0x5EED_CDC1, "align": 4096}
     res = chip_smoke.backup_phase(torch, tmp_path, 300_000, 200_000, 5,
                                   "cpu", chunker=chunker, hole=128 * 1024)
+    # the fused tree's big.bin read through both routes; every backup
+    # file opened through the native reader; the device verify's
+    # restore_verify_fail dump landed for the unencrypted repository
+    assert len(res["fused"]["reader"]["native"]) == 2
+    assert not any(n.startswith("trace-restore_verify_fail")
+                   for n in res["fused"]["trace_dumps"])
+    assert any(n.startswith("trace-restore_verify_fail")
+               for n in res["split"]["trace_dumps"])
     for engine in ("fused", "split"):
         r = res[engine]
+        assert set(r["readers"]) == {"ReadaheadReader"}
         assert r["backup"]["passes"] >= 3
         assert r["check"]["passes"] >= 1 and r["restore"]["passes"] >= 1
         assert r["backup_gibs"] > 0 and r["restore_gibs"] > 0
@@ -740,6 +842,11 @@ def test_restic_entry_phase_on_cpu(monkeypatch, tmp_path):
     monkeypatch.setenv("VOLSYNC_BACKUP_WORKERS", "1")
     monkeypatch.setenv("VOLSYNC_RESTORE_WORKERS", "1")
     res = chip_smoke.restic_entry_phase(torch, tmp_path, 300_000, 5, "cpu")
+    # the flight recorder's dump of the first backup (below min_size
+    # here: seal spans only, on the seal and upload threads)
+    assert res["flight"]["names"]["repo.seal"] >= 1
+    assert len(res["flight"]["threads"]) >= 2
+    assert (tmp_path / "restic-flight.json").is_file()
     for run in ("backup", "backup2", "restore"):
         assert res[run]["gibs"] > 0 and res[run]["busy_s"] is None
     assert res["restore"]["passes"] >= 1
@@ -1050,6 +1157,11 @@ def test_fleet_phase_on_cpu(monkeypatch, tmp_path):
     assert res["batched"]["check"]["out"] == []
     assert "restores" not in res["unbatched"]
     assert calls == [("scrub", 0)]  # the subprocess's stand-in
+    repair = res["batched"]["repair"]  # the repair verb after the crash
+    assert repair["dry_run"]["rc"] == repair["apply"]["rc"] == 0
+    assert repair["dry_run"]["report"]["applied"] is False
+    assert "fleet/r00" in repair["apply"]["report"]["stale_markers"]
+    assert "error" not in res["batched"]["gc"]
     assert res["cli"]["repack"]["rc"] == 0
     assert res["cli"]["scrub_rotted"]["rc"] == 2
     assert res["cli"]["scrub_rotted"]["report"]["unhealable"] == 1

@@ -249,14 +249,22 @@ def test_repack_verb_matches_reference(tmp_path, repack_store, case):
 
 
 def test_dispatcher_routes_only_the_two_verbs(tmp_path):
+    """The dispatcher routes the verbs the reference dispatches before
+    its operator boots (scrub, repack, repair, trace, session) and only
+    those; the name is kept from when it routed scrub and repack."""
     lines: list = []
     assert cli.main([], out=lines.append, device=DEV) == 2
     assert cli.main(["replication", "create", "x"], out=lines.append,
                     device=DEV) == 2
-    assert all(ln.startswith("usage: volsync {scrub,repack,session}")
-               for ln in lines)
-    assert cli.VERBS == ("scrub", "repack", "session")
+    assert all(ln.startswith(
+        "usage: volsync {scrub,repack,repair,trace,session}")
+        for ln in lines)
+    assert cli.VERBS == ("scrub", "repack", "repair", "trace", "session")
+    for verb in ("scrub", "repair"):
+        lines.clear()
+        assert cli.main([verb, str(tmp_path / "none")], out=lines.append,
+                        device=DEV) == 2
+        assert lines[0].startswith("error:")
     lines.clear()
-    assert cli.main(["scrub", str(tmp_path / "none")], out=lines.append,
-                    device=DEV) == 2
-    assert lines[0].startswith("error:")
+    assert cli.main(["trace", "summary"], out=lines.append) == 0
+    assert lines

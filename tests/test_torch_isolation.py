@@ -91,7 +91,13 @@ def test_no_file_imports_jax_or_the_reference():
             "volsync_tpu_torch/objstore/fakeazure.py",
             "volsync_tpu_torch/objstore/swift.py",
             "volsync_tpu_torch/objstore/fakeswift.py",
-            "volsync_tpu_torch/obs.py",
+            "volsync_tpu_torch/obs/__init__.py",
+            "volsync_tpu_torch/obs/tracing.py",
+            "volsync_tpu_torch/obs/copyledger.py",
+            "volsync_tpu_torch/obs/cli.py",
+            "volsync_tpu_torch/io/__init__.py",
+            "volsync_tpu_torch/io/native.py",
+            "volsync_tpu_torch/cli/repair.py",
             "volsync_tpu_torch/analysis/lockcheck.py",
             "volsync_tpu_torch/ops/batcher.py",
             "volsync_tpu_torch/service/__init__.py",
@@ -119,7 +125,7 @@ def test_no_file_imports_jax_or_the_reference():
             "volsync_tpu_torch/parallel/sharded_chunker.py",
             "volsync_tpu_torch/cluster/sessions.py",
             "volsync_tpu_torch/cluster/sessioncli.py"} <= names
-    assert len(_port_files()) >= 89
+    assert len(_port_files()) >= 95
 
 
 def test_importing_the_port_loads_no_jax_module():
@@ -155,6 +161,11 @@ def test_importing_the_port_loads_no_jax_module():
             "volsync_tpu_torch.service.fleet",
             "volsync_tpu_torch.cli.scrub",
             "volsync_tpu_torch.cli.repack",
+            "volsync_tpu_torch.cli.repair",
+            "volsync_tpu_torch.obs.tracing",
+            "volsync_tpu_torch.obs.copyledger",
+            "volsync_tpu_torch.obs.cli",
+            "volsync_tpu_torch.io.native",
             "volsync_tpu_torch.movers.syncthing.entry",
             "volsync_tpu_torch.movers.syncthing.apiclient",
             "volsync_tpu_torch.parallel.sharded_chunker",
@@ -191,6 +202,48 @@ def test_cli_scrub_in_a_subprocess_loads_no_jax(tmp_path):
     assert "CUDA is not available" in err
     assert {"volsync_tpu_torch.cli", "volsync_tpu_torch.cli.scrub",
             "volsync_tpu_torch.repo.scrub"} <= set(added)
+    assert [m for m in added if _forbidden(m)] == []
+    assert not store.exists()
+
+
+@pytest.mark.parametrize("verb", ["repair", "trace"])
+def test_cli_repair_and_trace_in_a_subprocess_load_no_jax(tmp_path, verb):
+    """``python -m volsync_tpu_torch.cli repair STORE`` and ``... trace
+    summary`` in a fresh interpreter with no CUDA: no JAX module and
+    nothing of the JAX package is imported; repair raises before it
+    opens the store, and trace (which takes no device) runs."""
+    store = tmp_path / "store"
+    argv = (["volsync", "repair", str(store), "--dry-run"] if verb == "repair"
+            else ["volsync", "trace", "summary"])
+    code = (
+        "import json, runpy, sys\n"
+        "before = set(sys.modules)\n"
+        f"sys.argv = {argv!r}\n"
+        "err = None\n"
+        "try:\n"
+        "    runpy.run_module('volsync_tpu_torch.cli', run_name='__main__',\n"
+        "                     alter_sys=True)\n"
+        "except RuntimeError as e:\n"
+        "    err = str(e)\n"
+        "except SystemExit as e:\n"
+        "    err = f'exit {e.code}'\n"
+        "print(json.dumps([err, sorted(set(sys.modules) - before)]))\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(tmp_path), timeout=300,
+                         check=True)
+    err, added = json.loads(out.stdout.strip().splitlines()[-1])
+    if verb == "repair":
+        assert "CUDA is not available" in err
+        assert "volsync_tpu_torch.cli.repair" in added
+    else:
+        assert err == "exit 0"
+        assert "no spans recorded" in out.stdout
+        assert "volsync_tpu_torch.obs.cli" in added
     assert [m for m in added if _forbidden(m)] == []
     assert not store.exists()
 
@@ -502,6 +555,9 @@ def test_fleet_gc_cli_and_syncthing_raise_without_cuda(monkeypatch,
                          out=lambda s: None),
         lambda: cli.main(["scrub", str(repo_dir)], out=lambda s: None,
                          device="cuda"),
+        lambda: cli.main(["repair", str(repo_dir)], out=lambda s: None),
+        lambda: cli.main(["repair", str(repo_dir), "--dry-run", "--json"],
+                         out=lambda s: None, device="cuda"),
         lambda: st_entry.syncthing_entrypoint(ctx),
         lambda: st_entry.SyncthingDaemon(ctx),
         lambda: st_entry.FolderIndex(config / "index.json", "dev"),

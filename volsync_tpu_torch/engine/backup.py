@@ -164,14 +164,15 @@ class TreeBackup:
             # before it could reference packs a prune swept in between,
             # and dedup'ing against those would produce a snapshot whose
             # blobs no longer exist (restic reloads after locking too).
-            self.repo.load_index()
+            # The snapshots are listed before the load, so the index
+            # holds the parent's tree.
+            snaps = self.repo._list_then_load()
             return self._run_locked(root, hostname=hostname, tags=tags,
-                                    parent=parent)
+                                    parent=parent, snaps=snaps)
 
-    def _run_locked(self, root, *, hostname, tags, parent):
+    def _run_locked(self, root, *, hostname, tags, parent, snaps):
         root = Path(root)
         stats = BackupStats()
-        snaps = self.repo.list_snapshots()
         if parent is None and snaps:
             parent = snaps[-1][0]
         parent_files = {}

@@ -28,15 +28,17 @@ as ``VOLSYNC_BATCH_SEGMENTS`` forces it. Concurrent workers' segments
 then coalesce into one batched pass; owners that batch for themselves
 (``MoverJaxServer``) clear ``use_shared_batcher``.
 
+Files are read through the native readahead reader
+(``_open_readahead``, ``io/native.py``) when its library is available.
 Not ported yet (see ROADMAP.md): the benchmark hooks ``leaf_device_fn``
-/ ``cand_device_fn`` and the native ``volio`` readahead reader (plain
-``open()`` here).
+/ ``cand_device_fn``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import logging
 import queue
 import threading
 from typing import Callable, Iterator, Optional
@@ -63,6 +65,8 @@ from volsync_tpu_torch.ops.sha256 import (
     sha256_leaves_device,
 )
 from volsync_tpu_torch.repo import blobid
+
+log = logging.getLogger(__name__)
 
 
 def params_from_config(cfg: dict) -> GearParams:
@@ -447,8 +451,18 @@ def hash_spans(buffer, spans: list[tuple[int, int]],
 
 
 def _open_readahead(path, segment_size: int):
-    """Open ``path`` for segment reads (plain ``open()``; the native
-    double-buffered reader is a later slice)."""
+    """Open ``path`` through the native double-buffered readahead
+    (``io/native.py``, ``native/volio.cpp``) when available: disk IO for
+    segment N+1 overlaps the device hashing of segment N. Else plain
+    ``open()``, as the reference (ref :530-543)."""
+    try:
+        from volsync_tpu_torch.io import ReadaheadReader, available
+
+        if available():
+            return ReadaheadReader(path, segment_size)
+    except Exception as ex:  # noqa: BLE001 - native is optional
+        log.debug("native readahead unavailable for %s, using plain "
+                  "open(): %s", path, ex)
     return open(path, "rb")
 
 

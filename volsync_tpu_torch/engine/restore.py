@@ -477,11 +477,14 @@ def restore_snapshot(repo: Repository, dest, *,
     """
     tr = TreeRestore(repo, device=device)
     with repo.lock(exclusive=False):
-        repo.load_index()
+        # select (a listing) before the index load: the index then holds
+        # the selected snapshot's tree (a writer publishes its index
+        # delta before its snapshot)
         selected = repo.select_snapshot(restore_as_of=restore_as_of,
                                         previous=previous)
         if selected is None:
             return None
+        repo.load_index()
         snap_id, manifest = selected
         return tr._run_locked(snap_id, manifest, dest,
                               delete_extra=delete_extra)

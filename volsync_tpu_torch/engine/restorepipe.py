@@ -447,11 +447,12 @@ class RestoreGroup:
         def one(i: int, repo, dest, as_of, previous, delete_extra):
             try:
                 with repo.lock(exclusive=False):
-                    repo.load_index()
+                    # listing before the index load, as restore_snapshot
                     selected = repo.select_snapshot(
                         restore_as_of=as_of, previous=previous)
                     if selected is None:
                         return
+                    repo.load_index()
                     snap_id, manifest = selected
                     tr = TreeRestore(repo, pipeline=True)
                     tr.pack_cache = self.cache_for(repo.store)

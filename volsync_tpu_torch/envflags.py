@@ -7,8 +7,9 @@ the repository's write pipeline, index, locking and retry knobs,
 (``store_resilience_enabled``), the
 backup and restore workers', the scrub's and the repacker's cadence,
 the fault-injection store's seed and spec, the sync-protocol
-planner's and the batched delta scan's, the device trace's directory
-(``trace_dir``), the segment micro-batcher's (``batch_*``), the
+planner's and the batched delta scan's, the flight recorder's
+(``trace_*``), the native host library's (``no_native``, ``volio_so``),
+the segment micro-batcher's (``batch_*``), the
 service plane's (``svc_*``), the fleet's and the continuous GC's
 (``fleet_*``, ``gc_interval_seconds``), the lock detector's switch
 (``lockcheck_enabled``), the session supervisor's
@@ -497,12 +498,52 @@ def lockcheck_enabled() -> bool:
     return env_bool("VOLSYNC_TPU_LOCKCHECK")
 
 
-# -- observability (obs.py) -------------------------------------------------
+# -- observability (obs/tracing.py) ----------------------------------------
 
 def trace_dir() -> Optional[str]:
     """VOLSYNC_TRACE_DIR: where ``obs.device_trace`` writes its
     ``torch.profiler`` traces; None (the default) disables tracing."""
     return env_str("VOLSYNC_TRACE_DIR")
+
+
+def trace_sample() -> float:
+    """VOLSYNC_TRACE_SAMPLE: fraction of new root traces whose spans are
+    recorded into the flight recorder (1.0 = every trace, 0 = flight
+    recorder off; span totals + the stage histogram always record)."""
+    return env_float("VOLSYNC_TRACE_SAMPLE", 1.0, minimum=0.0)
+
+
+def trace_ring_size() -> int:
+    """VOLSYNC_TRACE_RING: span events retained in the in-process
+    flight-recorder ring buffer (oldest evicted first)."""
+    return env_int("VOLSYNC_TRACE_RING", 4096, minimum=16)
+
+
+def trace_dump_dir() -> Optional[str]:
+    """VOLSYNC_TRACE_DUMP: directory where trigger events (shed,
+    breaker-open, injected fault, deadline) auto-dump annotated
+    Chrome-trace JSON files; None (the default) disables auto-dumps
+    (the ring still records)."""
+    return env_str("VOLSYNC_TRACE_DUMP")
+
+
+def trace_trigger_interval() -> float:
+    """VOLSYNC_TRACE_TRIGGER_INTERVAL_S: minimum seconds between
+    auto-dumps for the SAME trigger reason, so a shed storm can't
+    fill the dump dir."""
+    return env_float("VOLSYNC_TRACE_TRIGGER_INTERVAL_S", 30.0, minimum=0.0)
+
+
+# -- native host library (io/native.py) -------------------------------------
+
+def no_native() -> bool:
+    """VOLSYNC_NO_NATIVE=1 skips the native volio accelerator."""
+    return env_bool("VOLSYNC_NO_NATIVE")
+
+
+def volio_so() -> Optional[str]:
+    """Path to a prebuilt libvolio.so (container images ship one)."""
+    return env_str("VOLSYNC_VOLIO_SO")
 
 
 # -- supervised accelerator sessions (cluster/sessions.py) ----------------

@@ -3,13 +3,16 @@
 Ports the part of ``volsync_tpu/metrics.py`` that the port's repository,
 index, resilience, pack-cache, restore, scrub and repack modules, the
 protocol planner, the service plane (admission, scheduler), the fleet,
-the continuous GC and the session supervisor touch:
+the continuous GC, the session supervisor and the flight recorder
+(``obs/``) touch:
 the families of ``GLOBAL`` with the reference's names and label sets,
 each an in-memory counter or gauge with the
-``labels(...).inc/dec/set/observe`` shape. The reference builds
-them on ``prometheus_client``, which the port does not depend on;
-nothing here is exported over HTTP. A family's ``values()`` reads its
-series, keyed by label values.
+``labels(...).inc/dec/set/observe`` shape, and the stage histogram
+``volsync_stage_duration_seconds{stage,outcome}`` with the reference's
+buckets. The reference builds them on ``prometheus_client``, which the
+port does not depend on; nothing here is exported over HTTP. A
+family's ``values()`` reads its series, keyed by label values;
+``clear()`` drops them.
 """
 
 from __future__ import annotations
@@ -60,8 +63,11 @@ class _Family:
         with self._lock:
             child = self._children.get(key)
             if child is None:
-                child = self._children[key] = _Child()
+                child = self._children[key] = self._new_child()
             return child
+
+    def _new_child(self):
+        return _Child()
 
     def _only(self) -> _Child:
         if self.labelnames:
@@ -81,6 +87,54 @@ class _Family:
     def values(self) -> dict:
         with self._lock:
             return {k: c.value for k, c in self._children.items()}
+
+    def clear(self) -> None:
+        """Drop every series (prometheus_client's ``clear()``)."""
+        with self._lock:
+            self._children.clear()
+
+
+#: the stage histogram's upper bounds (``obs/tracing.py`` ``_BUCKETS``)
+STAGE_BUCKETS = (0.001, 0.005, 0.02, 0.05, 0.1, 0.25, 0.5, 1, 2, 5, 15,
+                 60, float("inf"))
+
+
+class _HistChild:
+    """One labelled histogram series: observation count, sum and
+    cumulative bucket counts (one per upper bound)."""
+
+    __slots__ = ("_lock", "_bounds", "count", "sum", "buckets")
+
+    def __init__(self, bounds: tuple):
+        self._lock = threading.Lock()
+        self._bounds = bounds
+        self.count = 0
+        self.sum = 0.0
+        self.buckets = [0] * len(bounds)
+
+    def observe(self, value: float) -> None:
+        with self._lock:
+            self.count += 1
+            self.sum += value
+            for i, bound in enumerate(self._bounds):
+                if value <= bound:
+                    self.buckets[i] += 1
+
+    @property
+    def value(self) -> tuple:
+        return (self.count, self.sum)
+
+
+class _Histogram(_Family):
+    """A histogram family; ``values()`` maps label values to (count,
+    sum)."""
+
+    def __init__(self, name: str, labelnames: tuple, buckets: tuple):
+        super().__init__(name, labelnames)
+        self.bounds = tuple(buckets)
+
+    def _new_child(self) -> _HistChild:
+        return _HistChild(self.bounds)
 
 
 #: attribute -> (reference metric name, label names)
@@ -131,6 +185,8 @@ _FAMILIES = {
                            ("backend", "outcome")),
     "session_fenced_writes": ("volsync_session_fenced_writes_total",
                               ("backend",)),
+    "svc_stage_seconds": ("volsync_svc_stage_seconds", ("tenant", "stage")),
+    "copy_bytes": ("volsync_copy_bytes_total", ("site",)),
 }
 
 
@@ -140,6 +196,9 @@ class Metrics:
     def __init__(self):
         for attr, (name, labels) in _FAMILIES.items():
             setattr(self, attr, _Family(name, labels))
+        self.stage_duration = _Histogram(
+            "volsync_stage_duration_seconds", ("stage", "outcome"),
+            STAGE_BUCKETS)
 
 
 GLOBAL = Metrics()

@@ -24,7 +24,7 @@ from concurrent.futures import Future
 
 from volsync_tpu_torch import envflags, resolve_device
 from volsync_tpu_torch.analysis import lockcheck
-from volsync_tpu_torch.obs import span
+from volsync_tpu_torch.obs import current_context, span, use_context
 from volsync_tpu_torch.ops.gearcdc import GearParams
 
 
@@ -90,7 +90,7 @@ class SegmentMicroBatcher:
         if self._stop.is_set():
             raise BatcherStopped("microbatcher stopped")
         f: Future = Future()
-        self._q.put((data, length, eof, f))
+        self._q.put((data, length, eof, current_context(), f))
         return f
 
     def _run(self):
@@ -130,7 +130,7 @@ class SegmentMicroBatcher:
                     break
             if not acquired:
                 exc = BatcherStopped("microbatcher stopped")
-                for _, _, _, f in batch:
+                for *_, f in batch:
                     if not f.done():
                         f.set_exception(exc)
                 return
@@ -140,17 +140,16 @@ class SegmentMicroBatcher:
         while True:
             batch = self._dq.get()
             try:
-                # One span per coalesced device pass. A batch mixes
-                # segments from many streams, so this span is
-                # context-free; per-stream attribution happens in the
-                # scheduler's svc.batch span around each future.
-                with span("ops.batch_dispatch", lanes=len(batch)):
+                # One span per coalesced device pass, under the lanes'
+                # trace when they all carry one (_pass_context).
+                with use_context(_pass_context(batch)), \
+                        span("ops.batch_dispatch", lanes=len(batch)):
                     results = self._hasher.hash_segments(
-                        [(d, n, e) for d, n, e, _ in batch])
-                for (_, _, _, f), r in zip(batch, results):
+                        [(d, n, e) for d, n, e, *_ in batch])
+                for (*_, f), r in zip(batch, results):
                     f.set_result(r)
             except Exception as exc:  # noqa: BLE001 — per-caller delivery
-                for _, _, _, f in batch:
+                for *_, f in batch:
                     if not f.done():
                         f.set_exception(exc)
             finally:
@@ -176,11 +175,26 @@ class SegmentMicroBatcher:
         # If the collector died abnormally, fail leftovers still queued.
         while True:
             try:
-                _, _, _, f = self._q.get_nowait()
+                *_, f = self._q.get_nowait()
             except queue.Empty:
                 break
             if not f.done():
                 f.set_exception(BatcherStopped("microbatcher stopped"))
+
+
+def _pass_context(batch):
+    """The trace a pass's span runs under: the lanes' own when every
+    lane was submitted under one trace (one backup's hashing workers),
+    so the flight recorder shows the pass inside that trace; else none.
+    The reference keeps every pass context-free: a batch that mixes
+    streams is attributed by the scheduler's svc.batch span around each
+    future, which this keeps."""
+    first = batch[0][3]
+    if first is None or any(item[3] is None
+                            or item[3].trace_id != first.trace_id
+                            for item in batch):
+        return None
+    return first
 
 
 _SHARED: dict = {}

@@ -15,10 +15,11 @@ Ports ``volsync_tpu/ops/gearcdc.py``:
   align=1 engine's), compacted without a host sync by ``nonzero_fixed``;
   ``fetch_candidates`` runs either with the capacity retry and one
   fetch, and ``chunk_buffer`` (ref :338-385) chunks a buffer with it;
-- ``select_boundaries`` (the reference's ``_select_boundaries_py``
-  walk; the reference tries its native walk first, and its golden tests
-  pin the two equal) and ``host_candidates`` in numpy: the host oracle
-  the device path is held against.
+- ``select_boundaries`` (ref :276-311): the C walk of the native host
+  library (``io/native.py``) when it is available, else
+  ``_select_boundaries_py``, the reference's Python walk (the tests pin
+  the two equal); and ``host_candidates`` in numpy: the host oracle the
+  device path is held against.
 
 32-bit arithmetic: torch on the CPU has no uint32 ``+``, ``<<`` or
 ``>>``, so hash words are carried as int64 values in ``[0, 2**32)`` and
@@ -345,11 +346,36 @@ def select_boundaries(idx_s: np.ndarray, idx_l: np.ndarray, length: int,
                       params: GearParams, *, eof: bool = True,
                       base: int = 0) -> list[tuple[int, int]]:
     """FastCDC walk over sorted candidate cut positions ->
-    [(start, length)] (the reference's ``_select_boundaries_py``).
+    [(start, length)].
 
     ``idx_*`` are positions relative to this buffer (cut after position
     i => the chunk ends at i+1); ``base`` is added to emitted starts.
-    With ``eof`` False the unterminated tail is withheld."""
+    With ``eof`` False the unterminated tail is withheld.
+
+    Walks in C (``native/volio.cpp``) when the native library is
+    available, as the reference does; ``_select_boundaries_py`` is the
+    Python walk, and the tests pin their equality."""
+    from volsync_tpu_torch.io.native import select_boundaries_native
+
+    try:
+        out = select_boundaries_native(idx_s, idx_l, length, params, eof,
+                                       base)
+    except Exception:  # noqa: BLE001 - the native walk is a host
+        out = None     # accelerator, not a dependency: any failure
+        #              # walks in Python (the reference's rule; logging
+        #              # here would spam every segment)
+    if out is not None:
+        return out
+    return _select_boundaries_py(idx_s, idx_l, length, params, eof=eof,
+                                 base=base)
+
+
+def _select_boundaries_py(idx_s: np.ndarray, idx_l: np.ndarray,
+                          length: int, params: GearParams, *,
+                          eof: bool = True,
+                          base: int = 0) -> list[tuple[int, int]]:
+    """The Python walk (the reference's ``_select_boundaries_py``; see
+    select_boundaries)."""
     chunks: list[tuple[int, int]] = []
     pos = 0
     while pos < length:

@@ -206,12 +206,14 @@ class RepackService:
         round's victims by dead ratio, then the declared order —
         write stripes, verify, publish, retire, delete expired."""
         repo.flush()
-        repo.load_index()
+        # the deltas a consolidation may delete, listed before the index
+        # load (Repository._prune_locked says why)
         baseline_deltas = set(repo.store.list("index/"))
+        snaps = repo._list_then_load()
         own_mark = len(repo._published_deltas)
         now = datetime.now(timezone.utc)
         locks = repo._live_foreign_locks()
-        reach = repo._referenced_keys()
+        reach = repo._referenced_keys(snaps)
         keys, pack_codes, pack_names = repo._index.snapshot_arrays()
         if reach.size and keys.size:
             pos = np.clip(np.searchsorted(reach, keys), 0,

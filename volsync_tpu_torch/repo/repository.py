@@ -844,6 +844,17 @@ class Repository:
                     ob.meta["id"], "", ob.meta["type"], 0, 0,
                     ob.meta["raw_length"], replace=False)
 
+    def _list_then_load(self) -> list[tuple[str, dict]]:
+        """List the snapshots, THEN (re)load the index; returns the
+        listing. A writer publishes its index delta before its snapshot,
+        so an index loaded after the listing holds every listed
+        snapshot's trees. The other order (the reference's) leaves a
+        window: a backup that lands between the load and the listing is
+        listed, but its tree is "not in index" for the walk."""
+        snaps = self.list_snapshots()
+        self.load_index()
+        return snaps
+
     def _decode_index_delta(self, raw: bytes) -> dict:
         return json.loads(self._zd.decompress(self.box.open(raw)))
 
@@ -1650,21 +1661,24 @@ class Repository:
         """Walk all snapshot trees; returns reachable blob ids (hex)."""
         import numpy as np
 
-        keys = self._referenced_keys()
+        keys = self._referenced_keys(self.list_snapshots())
         # u8-row extraction: S-dtype scalar conversion strips trailing
         # NUL bytes (~1/256 ids end in 0x00 and would truncate).
         rows = keys.view(np.uint8).reshape(-1, 32)
         return {rows[i].tobytes().hex() for i in range(rows.shape[0])}  # lint: ignore[VL106] 32 B ids
 
-    def _referenced_keys(self):
+    def _referenced_keys(self, snaps):
         """Reachable blob ids as a SORTED (N,) ``S32`` numpy array of
         raw 32-byte ids — 32 bytes/blob instead of ~180 for a hex-string
-        set, and O(log n) vectorized membership for prune."""
+        set, and O(log n) vectorized membership for prune.
+
+        ``snaps`` is a listing taken before the index the walk reads
+        through was loaded (``_list_then_load``)."""
         import numpy as np
 
         ids = bytearray()
         seen_trees: set[str] = set()
-        stack = [m["tree"] for _, m in self.list_snapshots()]
+        stack = [m["tree"] for _, m in snaps]
         while stack:
             tree_id = stack.pop()
             if tree_id in seen_trees:
@@ -1848,15 +1862,19 @@ class Repository:
 
         lockcheck.assert_held(self._lock, "prune (repo.state)")
         self.flush()
-        self.load_index()
-        # Every index object visible NOW is superseded by the
+        # Every index object listed NOW is superseded by the
         # consolidated shards written below; deltas concurrent writers
         # publish AFTER this listing are preserved. Own deltas
         # published mid-prune (the rewrite's add_blob calls can trip
-        # _persist_pending) are tracked via _published_deltas.
+        # _persist_pending) are tracked via _published_deltas. The
+        # listing comes before the index load, so the shards hold every
+        # listed delta's entries (listed after the load, a delta
+        # published in between would be deleted unconsolidated: its
+        # snapshot's tree "not in index" for good).
         baseline_deltas = set(self.store.list("index/"))
+        snaps = self._list_then_load()
         own_mark = len(self._published_deltas)
-        reach = self._referenced_keys()
+        reach = self._referenced_keys(snaps)
         now = datetime.now(timezone.utc)
         locks = self._live_foreign_locks()
         # -- sweep triage: which prior manifests are collectable -------
@@ -2053,7 +2071,7 @@ class Repository:
 
     # -- repair -------------------------------------------------------------
 
-    def _walk_trees_tolerant(self) -> tuple[set[str], list[str]]:
+    def _walk_trees_tolerant(self, snaps) -> tuple[set[str], list[str]]:
         """Reachable blob ids (hex) via a tree walk that RECORDS broken
         trees instead of raising — repair must survive exactly the
         damage it exists to diagnose. Any broken tree makes the
@@ -2061,7 +2079,7 @@ class Repository:
         resolution while the list is non-empty."""
         reach: set[str] = set()
         broken: list[str] = []
-        stack = [m["tree"] for _, m in self.list_snapshots()]
+        stack = [m["tree"] for _, m in snaps]
         while stack:
             tree_id = stack.pop()
             if tree_id in reach:
@@ -2112,10 +2130,13 @@ class Repository:
         # lint: ignore[VL101]
         with self.lock(mode=mode), self._lock:
             self.flush()
-            self.load_index()
+            # the deltas a consolidation below may delete: listed before
+            # the index load (see _prune_locked)
+            baseline = set(self.store.list("index/"))
+            snaps = self._list_then_load()
             now = datetime.now(timezone.utc)
             with span("repo.repair.scan"):
-                reach_hex, broken_trees = self._walk_trees_tolerant()
+                reach_hex, broken_trees = self._walk_trees_tolerant(snaps)
                 store_packs = {key.rsplit("/", 1)[1]
                                for key in self.store.list("data/")}
                 indexed = {p for p in self._index.live_packs() if p}
@@ -2189,7 +2210,6 @@ class Repository:
                             self._index.remove(blob_id)
                         dropped = len(drop_ids)
                         self._index.vacuum()
-                        baseline = set(self.store.list("index/"))
                         new_keys = self._write_consolidated_index()
                         for key in baseline - new_keys:
                             self.store.delete(key)
@@ -2332,6 +2352,7 @@ class Repository:
         # Deep reachability: a snapshot is restorable only if its whole
         # tree closure resolves through the index.
         seen: set[str] = set()
+        reloaded = False
         for snap_id, manifest in self.list_snapshots():
             stack = [manifest["tree"]]
             while stack:
@@ -2339,6 +2360,15 @@ class Repository:
                 if tree_id in seen:
                     continue
                 seen.add(tree_id)
+                if tree_id not in entries and not reloaded:
+                    # check reads through the index as it was loaded
+                    # before this listing: a snapshot published since is
+                    # listed without its tree. Reload once; the reloaded
+                    # index (after the listing) holds every listed tree.
+                    reloaded = True
+                    self.load_index()
+                    with self._lock:
+                        entries = self._index.copy()
                 if tree_id not in entries:
                     problems.append(
                         f"snapshot {snap_id}: tree {tree_id} not in index")
