@@ -8,7 +8,9 @@
                           [--rclone-files N] [--service-tenants SPEC]
                           [--service-mib M] [--turns-gib G]
                           [--fleet-mib M] [--syncthing-mib M]
-                          [--mesh-gib G] [--trace-out FILE]
+                          [--mesh-gib G] [--operator-crs N]
+                          [--operator-mib M] [--operator-rounds R]
+                          [--trace-out FILE]
 
 Run from the repository root on a machine with a CUDA card and nvcc. It
 imports nothing of JAX or of the JAX package, and every phase raises on
@@ -323,7 +325,31 @@ a mismatch:
    first backup, ``TreeBackup`` of the restic tree through a 4-shard
    mesh (launches exact) and the restic entry with
    ``VOLSYNC_ENGINE=mesh`` give its root tree;
-16. session (last): ``TorchSessionBackend`` probes the card in a
+16. operator: ``volsync-manager``'s stack, ``OperatorRuntime`` on the
+   card (every mover registered, 16 runner and 8 manager workers as
+   ``bench_scale.py``'s fleet scenario, the listener on an ephemeral
+   port, its storage root under ``build/``, where a second runtime on
+   the same root is refused by the storage lock). BASELINE.json
+   configs[4]: ``--operator-crs`` restic ReplicationSources, each on its
+   own volume of one seeded ``--operator-mib`` MiB file and its own
+   repository, ``--operator-rounds`` manual rounds with a quarter of
+   every file rewritten between them; every CR acks every round,
+   launches exact (the fused kernels once a device pass), the card
+   traced. Then a restic ReplicationDestination restores four of them
+   (byte-identical, one file's blob ids equal to the host oracle's, the
+   verify kernels once a verify pass); an rsync destination and source
+   over a 16 MiB tree, synced twice (equal each time, ``md5_slices``
+   launched by the second); two restic sources sharing one bucket of
+   the port's fake S3 (two snapshots, a clean check, throughput gauges
+   above 0) and an rclone source and destination over 16 MiB of small
+   files through it (equal); a syncthing pair over an 8 MiB folder
+   (converged). No Job attempt may fail (each failure is logged with
+   the runner's traceback). Last, over HTTP: /healthz and /readyz 200,
+   /debug/trace JSON, and /metrics with every fleet CR at 0 missed
+   intervals, in sync, one sync duration a round and a throughput
+   above 0. Logs each round's wall, MiB/s, the p50 and p99 of the CRs'
+   ``last_sync_duration``, passes, launches and busy share;
+17. session (last): ``TorchSessionBackend`` probes the card in a
    subprocess (seconds and the device it names); a ``SessionSupervisor``
    and ``BenchQueue`` run a child that hashes a seeded 64 MiB buffer
    with ``hash_spans`` on the card (blob id equal to hashlib's, its
@@ -339,7 +365,8 @@ phase that runs each kernel, ``md5_slices``' on the delta phase, the
 ``sha256_slices_fixed``'s on the mesh phase's step, max
 difference from the twin, times and bounds; ``product_launches``: each
 kernel's launches in the backup, durability, delta, mover, restic
-entry, rclone, service, fleet, syncthing and mesh phases' runs, on
+entry, rclone, service, fleet, syncthing, mesh and operator phases'
+runs, on
 the entries named as the
 kernel is: a form's entry has none, since its launches count under its
 kernel's name);
@@ -6185,6 +6212,8 @@ MESH_ALIGN1 = 32 << 20
 MESH_STEP = (4, 16 << 20)
 MESH_BLOCK = 64 << 10
 FIXED_SHAPE = (1024, 64 << 10)
+#: The shape sha256_fixed_blocks is held against its twin at.
+FIXED_TWIN_SHAPE = (1024, 4 << 10)
 
 
 def stream_head(stream, total: int):
@@ -6302,10 +6331,15 @@ def host_dense_mask(x: np.ndarray, params) -> np.ndarray:
 
 
 def fixed_blocks_entry(torch, stats, seed: int) -> None:
-    """``sha256_fixed_blocks`` (one ``sha256_slices`` launch) at [B, L]:
-    equal to its twin and to hashlib on seeded blocks, timed by graph
-    replay and eagerly, bounded by its work and its per-warp floor (each
-    lane one L-byte message; [B, L] is ``FIXED_SHAPE``)."""
+    """``sha256_fixed_blocks`` (one ``sha256_slices`` launch) at [B, L]
+    (``FIXED_SHAPE``): every one of its B digests equal to hashlib, an
+    independent exact oracle, on seeded blocks; timed by graph replay and
+    eagerly, bounded by its work and its per-warp floor (each lane one
+    L-byte message). Its twin steps through the message blocks of all
+    lanes one at a time, which at 1,025 blocks a lane costs tens of
+    seconds on the card, so the kernel is held against its twin at
+    ``FIXED_TWIN_SHAPE`` (as many lanes, 65 blocks a lane), where
+    ``plain_ms`` is timed."""
     from volsync_tpu_torch.ops import sha256 as sha
     from volsync_tpu_torch.parallel.engine import sha256_fixed_blocks
 
@@ -6315,25 +6349,31 @@ def fixed_blocks_entry(torch, stats, seed: int) -> None:
     blocks = torch.randint(0, 256, (B, L), dtype=torch.uint8, device=DEVICE,
                            generator=gen)
     got = sha256_fixed_blocks(blocks)
-    starts = torch.arange(B, dtype=torch.int64, device=DEVICE) * L
-    lengths = torch.full((B,), L, dtype=torch.int64, device=DEVICE)
+    host = blocks.cpu().numpy()
+    dig = got.cpu().numpy().view(np.uint32).astype(">u4")
+    for i in range(B):
+        if dig[i].tobytes() != hashlib.sha256(host[i].tobytes()).digest():
+            raise AssertionError(f"sha256_fixed_blocks at {shape}: block {i} "
+                                 f"differs from hashlib")
+    small = blocks[:FIXED_TWIN_SHAPE[0], :FIXED_TWIN_SHAPE[1]].contiguous()
+    tb, tl = small.shape
+    got_small = sha256_fixed_blocks(small)
+    starts = torch.arange(tb, dtype=torch.int64, device=DEVICE) * tl
+    lengths = torch.full((tb,), tl, dtype=torch.int64, device=DEVICE)
     sync(torch)
     t0 = time.perf_counter()
-    want = sha._sha256_chunks_plain(blocks.reshape(-1), starts, lengths,
-                                    max_len=L)
+    want = sha._sha256_chunks_plain(small.reshape(-1), starts, lengths,
+                                    max_len=tl)
     sync(torch)
     plain_s = time.perf_counter() - t0
     st = stats["sha256_slices_fixed"]
-    st["err"] = max(st["err"], max_abs_err(torch, got, want))
-    if not torch.equal(got, want):
-        raise AssertionError(f"sha256_fixed_blocks at {shape} differs from "
-                             f"its twin")
-    host = blocks[:8].cpu().numpy()
-    dig = got[:8].cpu().numpy().view(np.uint32).astype(">u4")
-    for i in range(8):
-        if dig[i].tobytes() != hashlib.sha256(host[i].tobytes()).digest():
-            raise AssertionError(f"sha256_fixed_blocks block {i} differs "
-                                 f"from hashlib")
+    st["err"] = max(st["err"], max_abs_err(torch, got_small, want))
+    if not torch.equal(got_small, want):
+        raise AssertionError(f"sha256_fixed_blocks at [{tb}, {tl}] differs "
+                             f"from its twin")
+    st["plain_shape"] = f"{tb}x{tl}"
+    starts = torch.arange(B, dtype=torch.int64, device=DEVICE) * L
+    lengths = torch.full((B,), L, dtype=torch.int64, device=DEVICE)
 
     def run():
         return sha256_fixed_blocks(blocks)
@@ -6351,8 +6391,10 @@ def fixed_blocks_entry(torch, stats, seed: int) -> None:
                                  + w["pad_blocks"], "floor_ms":
                                  b["floor_ms"]}}
     log(f"sha256_slices (sha256_fixed_blocks, [{B}, {L}]): {B} lanes of "
-        f"{w['longest']} blocks; kernel {ms:.4f} ms (eager {eager:.4f}), "
-        f"twin {plain_s * 1e3:.1f} ms, bound {b['bound_ms']:.4f} ms "
+        f"{w['longest']} blocks, every digest equal to hashlib; kernel "
+        f"{ms:.4f} ms (eager {eager:.4f}); equal to its twin at [{tb}, "
+        f"{tl}], twin {plain_s * 1e3:.1f} ms there; bound "
+        f"{b['bound_ms']:.4f} ms "
         f"({b['bound_kind']}; per-warp floor {b['floor_ms']:.4f} ms, work "
         f"{sha_bound(w['data_blocks'], w['pad_blocks'], w['bytes'])[0]:.4f}"
         f" ms)")
@@ -6567,6 +6609,711 @@ def mesh_tree_check(torch, base: Path, src: Path, want_tree: str,
     return {"secs": secs, "launches": launches, "entry_secs": entry_secs}
 
 
+# -- operator: volsync-manager's stack, CRs reconciled into Jobs on the card --
+
+#: The operator phase's stack: one manager with 8 reconcile workers and one
+#: runner with 16 (``bench_scale.py`` ``scenario_fleet``, the reference's
+#: scale proof of BASELINE.json configs[4]), every mover registered.
+OPERATOR_RUNNER_WORKERS = 16
+OPERATOR_MANAGER_WORKERS = 8
+OPERATOR_MOVERS = "rsync,rclone,restic,syncthing"
+OPERATOR_NS = "default"
+OPERATOR_PASSWORD = "smoke-password"
+#: Fleet CRs whose latest snapshot a restic ReplicationDestination restores.
+OPERATOR_RESTORES = 4
+#: The rsync pair's tree, the rclone pair's small files and the syncthing
+#: pair's folder.
+OPERATOR_RSYNC_BYTES = 16 << 20
+OPERATOR_RCLONE_BYTES = 16 << 20
+OPERATOR_SYNCTHING_BYTES = 8 << 20
+#: How long a round or a pair may take, and ``Cluster.wait_for``'s poll
+#: (the reference's 0.05-0.25 s).
+OPERATOR_TIMEOUT = 600.0
+OPERATOR_POLL = 0.25
+
+
+class _Records(logging.Handler):
+    """A logging handler that keeps each record's text, traceback
+    included."""
+
+    def __init__(self, out: list):
+        super().__init__(logging.WARNING)
+        self.out = out
+
+    def emit(self, record):
+        self.out.append(logging.Formatter(
+            "%(name)s %(levelname)s %(message)s").format(record))
+
+
+class JobFailures:
+    """Within the block, every failed Job attempt and crashed Deployment
+    of ``cluster`` is kept: each status write of a Job with ``failed``
+    above 0, or of a Deployment with a message, and what the runner logs
+    (the traceback of the attempt). The runner retries a failed attempt
+    up to the Job's backoff limit, which would hide a kernel that failed
+    to build or launch; ``check(label)`` raises with them instead."""
+
+    def __init__(self, cluster):
+        self.cluster = cluster
+        self.failed, self.logged = [], []
+        self._handler = _Records(self.logged)
+
+    def __enter__(self):
+        write, failed = self.cluster.update_status, self.failed
+
+        def watched(obj, **kw):
+            if (obj.kind == "Job" and obj.status.failed > 0) or (
+                    obj.kind == "Deployment" and obj.status.message):
+                failed.append(f"{obj.kind} {obj.metadata.name} "
+                              f"failed={getattr(obj.status, 'failed', '-')}"
+                              f": {obj.status.message}")
+            return write(obj, **kw)
+
+        self.cluster.update_status = watched
+        logging.getLogger("volsync_tpu_torch.runner").addHandler(
+            self._handler)
+        return self
+
+    def __exit__(self, *exc):
+        del self.cluster.update_status
+        logging.getLogger("volsync_tpu_torch.runner").removeHandler(
+            self._handler)
+
+    def check(self, label: str) -> None:
+        if self.failed or self.logged:
+            raise AssertionError(
+                f"{label}: failed Job attempts {self.failed}; the runner "
+                "logged:\n" + "\n".join(self.logged))
+
+
+def launches_of(torch, label: str, run, need: tuple, card: str) -> dict:
+    """``run()`` with every launch count set to 0 just before and read
+    just after, the card traced; on the card each kernel of ``need``
+    must have launched. -> {"out", "secs", "launches", "busy_s"}."""
+    from volsync_tpu_torch.ops._build import KERNELS, launch_counts
+
+    for k in KERNELS:
+        k.launches = 0
+    with device_trace(torch) as traced:
+        sync(torch)
+        t0 = time.perf_counter()
+        out = run()
+        sync(torch)
+        secs = time.perf_counter() - t0
+    launches = launch_counts()
+    if DEVICE == "cuda" and any(launches.get(k, 0) == 0 for k in need):
+        raise AssertionError(f"{label}: launches {launches}, none of "
+                             f"{[k for k in need if not launches.get(k)]}")
+    busy = traced["busy_s"]
+    log(f"{label}: {secs:.3f} s, launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}; card busy "
+        + (f"{100 * busy / secs:.2f}%" if busy is not None
+           else "not measured") + f" ({card})")
+    return {"out": out, "secs": secs, "launches": launches, "busy_s": busy}
+
+
+def operator_runtime(base: Path, runner_workers: int = OPERATOR_RUNNER_WORKERS,
+                     manager_workers: int = OPERATOR_MANAGER_WORKERS,
+                     movers: str = OPERATOR_MOVERS):
+    """``OperatorRuntime`` as ``volsync-manager`` boots it, on the phase's
+    device, its storage under ``base``, the listener on an ephemeral
+    port."""
+    from volsync_tpu_torch.operator import OperatorRuntime
+
+    return OperatorRuntime({
+        "storage_path": str(base / "storage"), "metrics_addr": "127.0.0.1",
+        "metrics_port": -1, "runner_workers": runner_workers,
+        "manager_workers": manager_workers, "movers": movers,
+        "device": DEVICE})
+
+
+def landed(cluster, kind: str, name: str, tag: str) -> bool:
+    cr = cluster.try_get(kind, OPERATOR_NS, name)
+    return bool(cr and cr.status and cr.status.last_manual_sync == tag)
+
+
+def wait_landed(cluster, label: str, crs: list, tag: str) -> None:
+    """Every (kind, name) of ``crs`` acks the manual ``tag``, or raise
+    with those that did not."""
+    if cluster.wait_for(lambda: all(landed(cluster, k, n, tag)
+                                    for k, n in crs),
+                        timeout=OPERATOR_TIMEOUT, poll=OPERATOR_POLL):
+        return
+    missing = [n for k, n in crs if not landed(cluster, k, n, tag)]
+    raise AssertionError(f"{label}: {len(missing)} of {len(crs)} CRs missed "
+                         f"{tag!r}: {missing[:8]}")
+
+
+def retrigger(cluster, crs: list, tag: str) -> None:
+    from volsync_tpu_torch.api import ReplicationTrigger
+
+    for kind, name in crs:
+        cr = cluster.get(kind, OPERATOR_NS, name)
+        cr.spec.trigger = ReplicationTrigger(manual=tag)
+        cluster.update(cr)
+
+
+def replace_bytes(path: Path, data: bytes) -> None:
+    """Write ``data`` as ``path`` through a new inode: a volume's
+    point-in-time images are hard links of its files."""
+    tmp = path.with_name(path.name + ".new")
+    tmp.write_bytes(data)
+    os.replace(tmp, path)
+
+
+def image_root(cluster, kind: str, name: str) -> Path:
+    """The directory of a destination CR's latest image."""
+    cr = cluster.get(kind, OPERATOR_NS, name)
+    img = cr.status.latest_image
+    if img is None or img.kind != "VolumeSnapshot":
+        raise AssertionError(f"{name}: latest image {img}")
+    snap = cluster.get("VolumeSnapshot", OPERATOR_NS, img.name)
+    return Path(snap.status.bound_content)
+
+
+def operator_layout(nbytes: int, big: int,
+                    small_max: int = 128 << 10) -> dict:
+    """``make_st_folder``'s layout for a tree of about ``nbytes``: ``big``
+    bytes in ``big.bin``, the rest in small files (log-uniform 1 B to
+    ``small_max``, their count from the mean size), no mid files."""
+    mean = small_max / np.log(small_max + 1)
+    return {"small": max(1, round((nbytes - big) / mean)),
+            "small_max": small_max, "dirs": 8, "n_mid": 0, "mid_min": 0,
+            "mid_max": 0, "big": big}
+
+
+def volume(cluster, name: str):
+    from volsync_tpu_torch.api import ObjectMeta
+    from volsync_tpu_torch.cluster.objects import Volume, VolumeSpec
+
+    vol = cluster.create(Volume(
+        metadata=ObjectMeta(name=name, namespace=OPERATOR_NS),
+        spec=VolumeSpec(capacity=1 << 30)))
+    return Path(vol.status.path)
+
+
+def secret(cluster, name: str, data: dict) -> None:
+    from volsync_tpu_torch.api import ObjectMeta
+    from volsync_tpu_torch.cluster.objects import Secret
+
+    cluster.create(Secret(metadata=ObjectMeta(name=name,
+                                              namespace=OPERATOR_NS),
+                          data={k: v.encode() if isinstance(v, str) else v
+                                for k, v in data.items()}))
+
+
+def restic_source(cluster, name: str, pvc: str, repo_secret: str,
+                  tag: str) -> None:
+    from volsync_tpu_torch.api import (CopyMethod, ObjectMeta,
+                                       ReplicationSource,
+                                       ReplicationSourceResticSpec,
+                                       ReplicationSourceSpec,
+                                       ReplicationTrigger)
+
+    cluster.create(ReplicationSource(
+        metadata=ObjectMeta(name=name, namespace=OPERATOR_NS),
+        spec=ReplicationSourceSpec(
+            source_pvc=pvc, trigger=ReplicationTrigger(manual=tag),
+            restic=ReplicationSourceResticSpec(
+                repository=repo_secret, copy_method=CopyMethod.CLONE))))
+
+
+def operator_fleet(torch, rt, base: Path, crs: int, nbytes: int,
+                   rounds: int, seed: int, card: str) -> dict:
+    """BASELINE.json configs[4] as ``bench_scale.py`` ``scenario_fleet``
+    runs it: ``crs`` restic ReplicationSources (CopyMethod Clone), each
+    on its own volume holding one seeded file of ``nbytes`` and its own
+    encrypted repository, synced ``rounds`` manual rounds with the first
+    quarter of every file rewritten between rounds. Each round has the
+    launch counts set to 0 before and read after, exact (the fused
+    kernels once a device pass, the verify kernels once a verify pass)
+    and the card traced; every CR must ack the round's tag. Logs each
+    round's wall, aggregate MiB/s, the p50 and p99 of the CRs'
+    ``last_sync_duration``, passes and launches, and the busy share."""
+    cluster = rt.cluster
+    rng = np.random.default_rng(seed)
+    names = [f"cr{i:03d}" for i in range(crs)]
+    t0 = time.perf_counter()
+    for name in names:
+        (volume(cluster, f"{name}-d") / "data.bin").write_bytes(
+            rng.bytes(nbytes))
+        secret(cluster, f"{name}-s", {
+            "RESTIC_REPOSITORY": str(base / f"repo-{name}"),
+            "RESTIC_PASSWORD": OPERATOR_PASSWORD})
+    log(f"operator fleet: {crs} volumes of {nbytes} bytes and their "
+        f"repository secrets made in {time.perf_counter() - t0:.1f} s")
+    keys = [("ReplicationSource", n) for n in names]
+    out = {"names": names, "rounds": []}
+    for rnd in range(rounds):
+        tag = f"round-{rnd}"
+        if rnd:
+            for name in names:
+                p = Path(cluster.get("Volume", OPERATOR_NS,
+                                     f"{name}-d").status.path, "data.bin")
+                buf = bytearray(p.read_bytes())
+                buf[: nbytes // 4] = rng.bytes(nbytes // 4)
+                replace_bytes(p, bytes(buf))
+
+        def run(rnd=rnd, tag=tag):
+            if rnd == 0:
+                for name in names:
+                    restic_source(cluster, name, f"{name}-d", f"{name}-s",
+                                  tag)
+            else:
+                retrigger(cluster, keys, tag)
+            wait_landed(cluster, f"operator round {rnd + 1}", keys, tag)
+
+        label = (f"operator round {rnd + 1}: {crs} restic "
+                 f"ReplicationSources of {nbytes} bytes")
+        r = product_run(torch, label, run, FUSED_PER_PASS, SegmentPasses(),
+                        verify_per_pass=VERIFY_PER_PASS)
+        durs = np.array([cluster.get("ReplicationSource", OPERATOR_NS, n)
+                         .status.last_sync_duration.total_seconds()
+                         for n in names])
+        r.update(mibs=crs * nbytes / (1 << 20) / r["secs"],
+                 p50_s=float(np.percentile(durs, 50)),
+                 p99_s=float(np.percentile(durs, 99)))
+        log(f"{label}: wall {r['secs']:.3f} s, {r['mibs']:.2f} MiB/s in all; "
+            f"last_sync_duration p50 {r['p50_s']:.3f} s, p99 "
+            f"{r['p99_s']:.3f} s ({card})")
+        out["rounds"].append(r)
+    return out
+
+
+def file_oracle_ids(data: bytes, params) -> list:
+    """The blob ids of ``data`` as one file: host candidates, the host
+    FastCDC walk and hashlib."""
+    from volsync_tpu_torch.ops.gearcdc import (_select_boundaries_py,
+                                               host_candidates)
+    from volsync_tpu_torch.repo import blobid
+
+    x = np.frombuffer(data, np.uint8)
+    s, lax = host_candidates(x, params, len(x))
+    return [blobid.blob_id(data[o:o + n]) for o, n in
+            _select_boundaries_py(s, lax, len(x), params, eof=True)]
+
+
+def operator_restores(torch, rt, base: Path, names: list, card: str) -> dict:
+    """A restic ReplicationDestination (CopyMethod Snapshot, a fresh
+    volume) for each fleet CR of ``names``, restoring its latest snapshot:
+    the launch counts exact (the verify kernels once a verify pass), each
+    image byte-identical to its source volume, and the first CR's file's
+    blob ids in its repository equal to the host oracle's."""
+    from volsync_tpu_torch.api import (CopyMethod, ObjectMeta,
+                                       ReplicationDestination,
+                                       ReplicationDestinationResticSpec,
+                                       ReplicationDestinationSpec,
+                                       ReplicationTrigger)
+    from volsync_tpu_torch.engine import params_from_config
+    from volsync_tpu_torch.objstore.store import FsObjectStore
+    from volsync_tpu_torch.repo.repository import Repository
+
+    cluster = rt.cluster
+    keys = [("ReplicationDestination", f"{n}-r") for n in names]
+
+    def run():
+        for name in names:
+            cluster.create(ReplicationDestination(
+                metadata=ObjectMeta(name=f"{name}-r", namespace=OPERATOR_NS),
+                spec=ReplicationDestinationSpec(
+                    trigger=ReplicationTrigger(manual="restore"),
+                    restic=ReplicationDestinationResticSpec(
+                        repository=f"{name}-s", capacity=1 << 30,
+                        copy_method=CopyMethod.SNAPSHOT))))
+        wait_landed(cluster, "operator restores", keys, "restore")
+
+    r = product_run(torch, f"operator restores: {len(names)} restic "
+                    f"ReplicationDestinations", run, VERIFY_PER_PASS, None)
+    for name in names:
+        src = Path(cluster.get("Volume", OPERATOR_NS, f"{name}-d")
+                   .status.path)
+        got = st_state(image_root(cluster, "ReplicationDestination",
+                                       f"{name}-r"))
+        if got != st_state(src):
+            raise AssertionError(f"operator restore of {name}: the image "
+                                 f"differs from its source volume")
+    repo = Repository.open(FsObjectStore(base / f"repo-{names[0]}"),
+                           OPERATOR_PASSWORD, device=DEVICE)
+    snaps = repo.list_snapshots()
+    _, meta = max(snaps, key=lambda s: s[1]["time"])
+    tree = json.loads(repo.read_blob(meta["tree"]))
+    (entry,) = [e for e in tree["entries"] if e["name"] == "data.bin"]
+    data = Path(cluster.get("Volume", OPERATOR_NS, f"{names[0]}-d")
+                .status.path, "data.bin").read_bytes()
+    want = file_oracle_ids(data, params_from_config(repo.chunker_params))
+    if entry["content"] != want:
+        raise AssertionError(f"operator: {names[0]}'s blob ids differ from "
+                             f"the host oracle's")
+    log(f"operator restores: {len(names)} images byte-identical; "
+        f"{names[0]}'s {len(want)} blob ids over {len(snaps)} snapshots "
+        f"equal the host oracle's ({card})")
+    return r
+
+
+def operator_rsync(torch, rt, nbytes: int, seed: int, card: str) -> dict:
+    """An rsync ReplicationDestination (CopyMethod Snapshot) and a
+    ReplicationSource (CopyMethod Clone) given the address, port and key
+    secret the destination publishes, over a seeded tree of ``nbytes``
+    (half in ``big.bin``): a first sync into the empty volume, then edits
+    (``big.bin`` overwritten in two places, a small file grown, one added)
+    and a second sync over the basis; after each the destination's image
+    equals the source, and the second launches ``md5_slices``."""
+    from volsync_tpu_torch.api import (CopyMethod, ObjectMeta,
+                                       ReplicationDestination,
+                                       ReplicationDestinationRsyncSpec,
+                                       ReplicationDestinationSpec,
+                                       ReplicationSource,
+                                       ReplicationSourceRsyncSpec,
+                                       ReplicationSourceSpec,
+                                       ReplicationTrigger)
+
+    cluster = rt.cluster
+    rng = np.random.default_rng(seed)
+    src = volume(cluster, "rsync-data")
+    made = make_st_folder(src / "tree", operator_layout(nbytes, nbytes // 2),
+                          seed)
+    keys = [("ReplicationDestination", "rsync-dst"),
+            ("ReplicationSource", "rsync-src")]
+    res = {}
+
+    def first():
+        cluster.create(ReplicationDestination(
+            metadata=ObjectMeta(name="rsync-dst", namespace=OPERATOR_NS),
+            spec=ReplicationDestinationSpec(
+                trigger=ReplicationTrigger(manual="first"),
+                rsync=ReplicationDestinationRsyncSpec(
+                    copy_method=CopyMethod.SNAPSHOT, capacity=1 << 30))))
+
+        def published():
+            cr = cluster.try_get("ReplicationDestination", OPERATOR_NS,
+                                 "rsync-dst")
+            st = cr.status.rsync if cr and cr.status else None
+            return bool(st and st.address and st.port)
+
+        if not cluster.wait_for(published, timeout=OPERATOR_TIMEOUT,
+                                poll=OPERATOR_POLL):
+            raise AssertionError("operator rsync: the destination never "
+                                 "published its address")
+        st = cluster.get("ReplicationDestination", OPERATOR_NS,
+                         "rsync-dst").status.rsync
+        cluster.create(ReplicationSource(
+            metadata=ObjectMeta(name="rsync-src", namespace=OPERATOR_NS),
+            spec=ReplicationSourceSpec(
+                source_pvc="rsync-data",
+                trigger=ReplicationTrigger(manual="first"),
+                rsync=ReplicationSourceRsyncSpec(
+                    address=st.address, port=st.port, ssh_keys=st.ssh_keys,
+                    copy_method=CopyMethod.CLONE))))
+        wait_landed(cluster, "operator rsync first", keys, "first")
+
+    def second():
+        retrigger(cluster, keys, "second")
+        wait_landed(cluster, "operator rsync second", keys, "second")
+
+    for label, run, need in (("first", first, ()),
+                             ("second", second, ("md5_slices",))):
+        if label == "second":
+            big = bytearray((src / "tree" / "big.bin").read_bytes())
+            for at in (len(big) // 5, 3 * len(big) // 4):
+                big[at:at + 4096] = rng.bytes(4096)
+            replace_bytes(src / "tree" / "big.bin", bytes(big))
+            small = src / "tree" / made["small"][1]
+            replace_bytes(small, small.read_bytes() + rng.bytes(5000))
+            (src / "tree" / "d03" / "added.bin").write_bytes(
+                rng.bytes(70_000))
+        res[label] = launches_of(
+            torch, f"operator rsync {label} sync ({nbytes} bytes)", run,
+            need, card)
+        got = st_state(image_root(cluster, "ReplicationDestination",
+                                       "rsync-dst"))
+        if got != st_state(src):
+            raise AssertionError(f"operator rsync {label}: the destination "
+                                 f"differs from the source")
+    return res
+
+
+def operator_s3(torch, rt, base: Path, nbytes: int, rclone_bytes: int,
+                seed: int, card: str) -> dict:
+    """Through one bucket of the port's ``FakeS3Server`` on 127.0.0.1:
+    two restic ReplicationSources sharing one repository (both land, the
+    repository holds two snapshots and checks clean, each CR's
+    throughput gauge is above 0), then an rclone ReplicationSource and
+    ReplicationDestination (a fresh volume) over ``rclone_bytes`` of small
+    files: the image equals the source."""
+    from volsync_tpu_torch.api import (CopyMethod, ObjectMeta,
+                                       ReplicationDestination,
+                                       ReplicationDestinationRcloneSpec,
+                                       ReplicationDestinationSpec,
+                                       ReplicationSource,
+                                       ReplicationSourceRcloneSpec,
+                                       ReplicationSourceSpec,
+                                       ReplicationTrigger)
+    from volsync_tpu_torch.objstore.fakes3 import FakeS3Server
+    from volsync_tpu_torch.objstore.s3 import S3ObjectStore
+    from volsync_tpu_torch.repo.repository import Repository
+
+    cluster = rt.cluster
+    rng = np.random.default_rng(seed)
+    res = {}
+    with FakeS3Server() as s3:
+        secret(cluster, "s3-repo", {
+            "RESTIC_REPOSITORY": f"s3:{s3.endpoint}/bucket/shared",
+            "RESTIC_PASSWORD": OPERATOR_PASSWORD,
+            "AWS_ACCESS_KEY_ID": s3.access_key,
+            "AWS_SECRET_ACCESS_KEY": s3.secret_key,
+            "LOCK_WAIT_SECONDS": "60"})
+        keys = [("ReplicationSource", f"s3-cr{i}") for i in range(2)]
+        for i in range(2):
+            (volume(cluster, f"s3-v{i}") / "data.bin").write_bytes(
+                rng.bytes(nbytes))
+
+        def restic():
+            for i in range(2):
+                restic_source(cluster, f"s3-cr{i}", f"s3-v{i}", "s3-repo",
+                              "go")
+            wait_landed(cluster, "operator s3 restic", keys, "go")
+
+        res["restic"] = launches_of(
+            torch, "operator s3: two restic ReplicationSources into one "
+            "bucket", restic, ("sha256_pages", "fastcdc_walk",
+                               "sha256_slices", "merkle_roots"), card)
+        repo = Repository.open(S3ObjectStore(
+            s3.endpoint, "bucket", "shared", access_key=s3.access_key,
+            secret_key=s3.secret_key), OPERATOR_PASSWORD, device=DEVICE)
+        if len(repo.list_snapshots()) != 2 or repo.check() != []:
+            raise AssertionError("operator s3: the shared repository does "
+                                 "not hold two clean snapshots")
+        gauge = rt.metrics.throughput.values()
+        rates = [gauge.get((f"s3-cr{i}", OPERATOR_NS, "source", "restic"),
+                           0.0) for i in range(2)]
+        if min(rates) <= 0:
+            raise AssertionError(f"operator s3: throughput gauges {rates}")
+
+        src = volume(cluster, "rclone-data")
+        make_st_folder(src / "tree", operator_layout(
+            rclone_bytes, 0, small_max=512 << 10), seed + 1)
+        secret(cluster, "rclone-conf", {"rclone.conf": (
+            f"[bucket]\nurl = s3:{s3.endpoint}/bucket\n"
+            f"access_key_id = {s3.access_key}\n"
+            f"secret_access_key = {s3.secret_key}\n"
+            f"endpoint = {s3.endpoint}\n")})
+        conf = dict(rclone_config_section="bucket",
+                    rclone_dest_path="rclone-pvc",
+                    rclone_config="rclone-conf")
+
+        def up():
+            cluster.create(ReplicationSource(
+                metadata=ObjectMeta(name="rclone-up", namespace=OPERATOR_NS),
+                spec=ReplicationSourceSpec(
+                    source_pvc="rclone-data",
+                    trigger=ReplicationTrigger(manual="up"),
+                    rclone=ReplicationSourceRcloneSpec(
+                        copy_method=CopyMethod.CLONE, **conf))))
+            wait_landed(cluster, "operator rclone up",
+                        [("ReplicationSource", "rclone-up")], "up")
+
+        def down():
+            cluster.create(ReplicationDestination(
+                metadata=ObjectMeta(name="rclone-down",
+                                    namespace=OPERATOR_NS),
+                spec=ReplicationDestinationSpec(
+                    trigger=ReplicationTrigger(manual="down"),
+                    rclone=ReplicationDestinationRcloneSpec(
+                        copy_method=CopyMethod.SNAPSHOT, capacity=1 << 30,
+                        **conf))))
+            wait_landed(cluster, "operator rclone down",
+                        [("ReplicationDestination", "rclone-down")], "down")
+
+        res["rclone_up"] = launches_of(
+            torch, f"operator rclone up ({rclone_bytes} bytes of small "
+            "files)", up, ("sha256_pages",), card)
+        res["rclone_down"] = launches_of(torch, "operator rclone down",
+                                         down, (), card)
+        if st_state(image_root(cluster, "ReplicationDestination",
+                                    "rclone-down")) != st_state(src):
+            raise AssertionError("operator rclone: the destination differs "
+                                 "from the source")
+    log(f"operator s3: two CRs landed in one bucket, 2 snapshots, check "
+        f"clean, throughput gauges {[round(r) for r in rates]} B/s; rclone "
+        f"image equal to its source ({card})")
+    return res
+
+
+def settled_state(root: Path) -> dict | None:
+    """``st_state`` of a daemon's folder without its in-flight pull files;
+    None while a file vanishes under the walk."""
+    from volsync_tpu_torch.movers.syncthing.entry import _TMP_PREFIX
+
+    try:
+        return {k: v for k, v in st_state(root).items()
+                if not Path(k).name.startswith(_TMP_PREFIX)}
+    except FileNotFoundError:
+        return None
+
+
+def operator_syncthing(torch, rt, nbytes: int, seed: int, card: str) -> dict:
+    """Two syncthing ReplicationSources (always-on daemons as
+    Deployments) over a seeded folder of ``nbytes`` on A and an empty one
+    on B: once each publishes its identity, each is given the other as a
+    peer, and B's folder must converge to A's."""
+    from volsync_tpu_torch.api import (ObjectMeta, ReplicationSource,
+                                       ReplicationSourceSpec,
+                                       ReplicationSourceSyncthingSpec,
+                                       SyncthingPeer)
+
+    cluster = rt.cluster
+    roots = {}
+    for name in ("st-a", "st-b"):
+        roots[name] = volume(cluster, f"{name}-data")
+    make_st_folder(roots["st-a"] / "tree",
+                   operator_layout(nbytes, nbytes // 2), seed)
+
+    def identity(name):
+        cr = cluster.try_get("ReplicationSource", OPERATOR_NS, name)
+        st = cr.status.syncthing if cr and cr.status else None
+        return st if st and st.id and st.address else None
+
+    def run():
+        for name in roots:
+            cluster.create(ReplicationSource(
+                metadata=ObjectMeta(name=name, namespace=OPERATOR_NS),
+                spec=ReplicationSourceSpec(
+                    source_pvc=f"{name}-data",
+                    syncthing=ReplicationSourceSyncthingSpec())))
+        if not cluster.wait_for(lambda: all(identity(n) for n in roots),
+                                timeout=OPERATOR_TIMEOUT,
+                                poll=OPERATOR_POLL):
+            raise AssertionError("operator syncthing: no identity published")
+        ids = {n: identity(n) for n in roots}
+        for name, other in (("st-a", "st-b"), ("st-b", "st-a")):
+            cr = cluster.get("ReplicationSource", OPERATOR_NS, name)
+            cr.spec.syncthing.peers = [SyncthingPeer(
+                address=ids[other].address, id=ids[other].id)]
+            cluster.update(cr)
+        want = settled_state(roots["st-a"])
+        deadline = time.monotonic() + ST_TIMEOUT
+        while settled_state(roots["st-b"]) != want:
+            if time.monotonic() > deadline:
+                raise AssertionError("operator syncthing: B never "
+                                     "converged to A")
+            time.sleep(OPERATOR_POLL)
+
+    with env_set("VOLSYNC_ST_MAX_INTERVAL", ST_MAX_INTERVAL):
+        return launches_of(torch, f"operator syncthing pair ({nbytes} "
+                           "bytes) converged", run, ("sha256_pages",), card)
+
+
+def parse_exposition(text: str) -> list:
+    """The samples of a Prometheus text exposition: [(name, labels,
+    value)]."""
+    out = []
+    label = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
+    unescape = {"\\\\": "\\", '\\"': '"', "\\n": "\n"}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        head, value = line.rsplit(" ", 1)
+        name, _, rest = head.partition("{")
+        labels = {k: re.sub(r"\\[\\\"n]", lambda m: unescape[m.group(0)], v)
+                  for k, v in label.findall(rest)}
+        out.append((name, labels, float(value)))
+    return out
+
+
+def operator_listener(rt, names: list, rounds: int, card: str) -> dict:
+    """The metrics and probes listener over HTTP: /healthz and /readyz
+    answer 200, /debug/trace parses as JSON, and /metrics shows every
+    fleet CR with 0 missed intervals, out of sync 0, ``rounds`` sync
+    durations and a throughput above 0."""
+    import urllib.request
+
+    url = f"http://127.0.0.1:{rt.metrics_server.port}"
+
+    def get(path):
+        with urllib.request.urlopen(url + path, timeout=30) as r:
+            return r.status, r.read()
+
+    for path in ("/healthz", "/readyz"):
+        code, _ = get(path)
+        if code != 200:
+            raise AssertionError(f"operator listener: {path} {code}")
+    _, body = get("/debug/trace")
+    trace = json.loads(body)
+    _, body = get("/metrics")
+    samples = parse_exposition(body.decode())
+    by = defaultdict(dict)
+    for name, labels, value in samples:
+        if labels.get("role") == "source" and labels.get("method") == \
+                "restic" and "le" not in labels:
+            by[labels["obj_name"]][name] = value
+    want = {"volsync_missed_intervals_total": 0.0,
+            "volsync_volume_out_of_sync": 0.0,
+            "volsync_sync_duration_seconds_count": float(rounds)}
+    bad = [n for n in names
+           if any(by[n].get(k) != v for k, v in want.items())
+           or not by[n].get("volsync_data_throughput_bytes_per_second", 0) > 0]
+    if bad:
+        raise AssertionError(f"operator listener: /metrics of {bad[:4]}: "
+                             f"{[by[n] for n in bad[:4]]}")
+    log(f"operator listener: /healthz, /readyz 200; /debug/trace "
+        f"{len(trace.get('traceEvents', []))} events; /metrics "
+        f"{len(samples)} samples, every one of {len(names)} fleet CRs at 0 "
+        f"missed intervals, in sync, {rounds} sync durations, throughput "
+        f"above 0 ({card})")
+    return {"samples": len(samples)}
+
+
+def operator_phase(torch, base: Path, crs: int, nbytes: int, rounds: int,
+                   seed: int, card: str) -> dict:
+    """``volsync-manager``'s stack (``OperatorRuntime``) on the card, its
+    storage root under ``base``: a second runtime on the same root is
+    refused by the storage lock; then the fleet rounds, the restores,
+    the rsync pair, the S3 bucket with two restic CRs and the rclone
+    pair, the syncthing pair, and the listener, with no Job attempt
+    failed anywhere (``JobFailures``)."""
+    from volsync_tpu_torch.operator import OperatorRuntime
+
+    t0 = time.perf_counter()
+    rt = operator_runtime(base).start()
+    log(f"operator: OperatorRuntime up in {time.perf_counter() - t0:.2f} s "
+        f"(movers {', '.join(rt.catalog.names())}; runner "
+        f"{rt.runner.max_workers} workers on {rt.runner.device}, manager "
+        f"{rt.manager.workers}; storage {rt.cluster.storage.root})")
+    res = {}
+    try:
+        second = OperatorRuntime({"storage_path": str(base / "storage"),
+                                  "metrics_port": 0, "device": DEVICE})
+        try:
+            second.start()
+        except SystemExit as e:
+            if "already managed" not in str(e):
+                raise
+            log(f"operator: a second manager on {base / 'storage'} is "
+                f"refused by the storage lock (flock)")
+        else:
+            second.stop()
+            raise AssertionError("operator: a second manager took the "
+                                 "storage root")
+        with JobFailures(rt.cluster) as failures:
+            fleet = operator_fleet(torch, rt, base, crs, nbytes, rounds,
+                                   seed, card)
+            res["rounds"] = fleet["rounds"]
+            res["restore"] = operator_restores(
+                torch, rt, base, fleet["names"][:OPERATOR_RESTORES], card)
+            res["rsync"] = operator_rsync(torch, rt, OPERATOR_RSYNC_BYTES,
+                                          seed + 1, card)
+            res["s3"] = operator_s3(torch, rt, base, nbytes,
+                                    OPERATOR_RCLONE_BYTES, seed + 2, card)
+            res["syncthing"] = operator_syncthing(
+                torch, rt, OPERATOR_SYNCTHING_BYTES, seed + 3, card)
+            res["listener"] = operator_listener(rt, fleet["names"], rounds,
+                                                card)
+        failures.check("operator")
+    finally:
+        rt.stop()
+    return res
+
+
 # -- supervised device sessions ------------------------------------------------
 
 #: The session phase's hashing child: a seeded buffer's blob id by
@@ -6734,6 +7481,13 @@ def main() -> int:
     # the two above (the align-64 and align-1 prefixes are MESH_ALIGN64
     # and MESH_ALIGN1).
     ap.add_argument("--mesh-gib", type=float, default=0.5)
+    # The operator phase: BASELINE.json configs[4], 100 concurrent
+    # ReplicationSource CRs, at bench_scale.py's fleet scenario (100 CRs
+    # of 4 MiB) through volsync-manager's stack; its rounds cut from the
+    # scenario's 2 to 1 once the script passed 850 s (PERF.md, section 4).
+    ap.add_argument("--operator-crs", type=int, default=100)
+    ap.add_argument("--operator-mib", type=float, default=4.0)
+    ap.add_argument("--operator-rounds", type=int, default=1)
     # Where the flight recorder's dump of the restic entry's first
     # backup is kept (a Chrome trace for Perfetto); default: removed
     # with the phase's directory.
@@ -7008,6 +7762,25 @@ def main() -> int:
         f"convergence initial {st['initial']['secs']:.3f} s, edits "
         f"{st['edits']['secs']:.3f} s, conflict {st['conflict']['secs']:.3f} "
         f"s ({card})")
+    # the operator's storage root (its volumes, images and repositories)
+    # under build/, where its storage lock is taken
+    base = Path(tempfile.mkdtemp(prefix="chip_smoke_operator.", dir=build))
+    t1 = time.perf_counter()
+    try:
+        op = operator_phase(torch, base, args.operator_crs,
+                            int(args.operator_mib * (1 << 20)),
+                            args.operator_rounds, args.seed + 12, card)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    log(f"operator phase: {time.perf_counter() - t1:.1f} s in all; "
+        + "; ".join(
+            f"round {i + 1} of {args.operator_crs} CRs {r['secs']:.3f} s, "
+            f"{r['mibs']:.2f} MiB/s, last_sync_duration p50 "
+            f"{r['p50_s']:.3f} s p99 {r['p99_s']:.3f} s, {r['passes']} "
+            f"passes of {r['lanes']} segments, card busy "
+            + (f"{100 * r['busy_s'] / r['secs']:.2f}%"
+               if r["busy_s"] is not None else "not measured")
+            for i, r in enumerate(op["rounds"])) + f" ({card})")
     base = Path(tempfile.mkdtemp(prefix="chip_smoke_session.", dir=build))
     t1 = time.perf_counter()
     try:
@@ -7057,6 +7830,14 @@ def main() -> int:
     runs["mesh.fused.default"] = mesh["fused"]["default"]["launches"]
     runs["mesh.step"] = mesh["step"]["launches"]
     runs["mesh.treebackup"] = restic["mesh"]["launches"]
+    for i, r in enumerate(op["rounds"]):
+        runs[f"operator.round{i + 1}"] = r["launches"]
+    runs["operator.restore"] = op["restore"]["launches"]
+    for k in ("first", "second"):
+        runs[f"operator.rsync.{k}"] = op["rsync"][k]["launches"]
+    for k in ("restic", "rclone_up", "rclone_down"):
+        runs[f"operator.s3.{k}"] = op["s3"][k]["launches"]
+    runs["operator.syncthing"] = op["syncthing"]["launches"]
     kernels = []
     for name in ("transpose_u32", "sha256_pages", "sha256_pages_pagemajor",
                  "sha256_lanes", "sha256_slices", "sha256_slices_tail",
@@ -7078,7 +7859,7 @@ def main() -> int:
             "library_ms": float(np.mean(st["lib"])) if st["lib"] else None,
         }
         for extra in ("bound_kind", "threads_ms", "shapes", "one_window_ms",
-                      "split", "round_chain"):
+                      "split", "round_chain", "plain_shape"):
             if extra in st:
                 entry[extra] = st[extra]
         if name in runs["fused.backup"]:

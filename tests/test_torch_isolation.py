@@ -615,3 +615,130 @@ def test_mesh_and_session_entry_points_raise_without_cuda(monkeypatch,
     monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
     with pytest.raises(TransientError, match="CUDA is not available"):
         TorchSessionBackend(probe_timeout=120.0).acquire()
+
+
+OPERATOR_MODULES = [
+    "volsync_tpu_torch/version.py", "volsync_tpu_torch/metrics.py",
+    "volsync_tpu_torch/operator.py", "volsync_tpu_torch/api/__init__.py",
+    "volsync_tpu_torch/api/common.py", "volsync_tpu_torch/api/types.py",
+    "volsync_tpu_torch/api/serde.py", "volsync_tpu_torch/cluster/__init__.py",
+    "volsync_tpu_torch/cluster/objects.py",
+    "volsync_tpu_torch/cluster/cluster.py",
+    "volsync_tpu_torch/cluster/storage.py",
+    "volsync_tpu_torch/cluster/runner.py",
+    "volsync_tpu_torch/controller/__init__.py",
+    "volsync_tpu_torch/controller/cron.py",
+    "volsync_tpu_torch/controller/statemachine.py",
+    "volsync_tpu_torch/controller/utils.py",
+    "volsync_tpu_torch/controller/volumehandler.py",
+    "volsync_tpu_torch/controller/reconcilers.py",
+    "volsync_tpu_torch/controller/manager.py",
+    "volsync_tpu_torch/movers/common.py",
+    "volsync_tpu_torch/movers/restic/builder.py",
+    "volsync_tpu_torch/movers/rsync/builder.py",
+    "volsync_tpu_torch/movers/rclone/builder.py",
+    "volsync_tpu_torch/movers/syncthing/builder.py"]
+
+
+@pytest.mark.parametrize("rel", OPERATOR_MODULES)
+def test_operator_modules_import_no_jax_and_name_their_reference(rel):
+    """Each module of the operator imports no JAX and nothing of the JAX
+    package, and its docstring names the reference file it ports."""
+    path = ROOT / rel
+    tree = ast.parse(path.read_text(), str(path))
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and _forbidden(
+                node.module or ""):
+            found.append(node.module)
+    assert found == []
+    ref = rel.replace("volsync_tpu_torch/", "volsync_tpu/")
+    assert (ROOT / ref).is_file()
+    assert f"``{ref}``" in " ".join(ast.get_docstring(tree).split())
+
+
+def _port_is_free(port: int) -> bool:
+    with socket.socket() as s:
+        try:
+            s.bind(("127.0.0.1", port))
+        except OSError:
+            return False
+    return True
+
+
+def test_operator_raises_without_cuda_before_port_or_lock(monkeypatch,
+                                                          tmp_path):
+    """``JobRunner``, ``OperatorRuntime`` and ``operator.main`` run on
+    CUDA unless asked for the CPU: with no CUDA they raise before a Job
+    is taken, a port bound, storage made or the storage lock taken; with
+    ``device="cpu"`` (or ``VOLSYNC_DEVICE=cpu``) they boot on the CPU."""
+    from volsync_tpu_torch import operator
+    from volsync_tpu_torch.cluster.cluster import Cluster
+    from volsync_tpu_torch.cluster.runner import JobRunner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("VOLSYNC_DEVICE", raising=False)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    storage = tmp_path / "storage"
+    cfg = {"storage_path": str(storage), "metrics_port": port}
+    argv = ["--storage-path", str(storage), "--metrics-port", str(port)]
+    for call in (lambda: JobRunner(Cluster()),
+                 lambda: JobRunner(Cluster(), device="cuda"),
+                 lambda: operator.OperatorRuntime(cfg),
+                 lambda: operator.OperatorRuntime({**cfg,
+                                                   "device": "cuda"}),
+                 lambda: operator.main(argv)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+        assert _port_is_free(port) and not storage.exists()
+    assert JobRunner(Cluster(), device="cpu").device == torch.device("cpu")
+    monkeypatch.setenv("VOLSYNC_DEVICE", "cpu")
+    rt = operator.OperatorRuntime(operator.resolve_config(
+        operator.build_parser().parse_args(argv))).start()
+    try:
+        assert rt.runner.device == torch.device("cpu")
+        assert (storage / ".volsync-manager.lock").exists()
+        assert not _port_is_free(port)
+    finally:
+        rt.stop()
+
+
+def test_operator_in_a_subprocess_loads_no_jax(tmp_path):
+    """The operator in a fresh interpreter: booted on the CPU and stopped,
+    and without CUDA or a device (it raises), its imports add no JAX
+    module and nothing of the JAX package."""
+    code = (
+        "import json, sys\n"
+        "before = set(sys.modules)\n"
+        "from volsync_tpu_torch import operator\n"
+        "err = None\n"
+        "try:\n"
+        "    operator.main(['--metrics-port', '0'])\n"
+        "except RuntimeError as e:\n"
+        "    err = str(e)\n"
+        "rt = operator.OperatorRuntime(operator.resolve_config(\n"
+        "    operator.build_parser().parse_args(\n"
+        "        ['--device', 'cpu', '--metrics-port', '-1',\n"
+        f"         '--storage-path', {str(tmp_path / 's')!r}]))).start()\n"
+        "rt.stop()\n"
+        "print(json.dumps([err, sorted(set(sys.modules) - before)]))\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    env.pop("VOLSYNC_DEVICE", None)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(tmp_path), timeout=300,
+                         check=True)
+    err, added = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "CUDA is not available" in err
+    assert {"volsync_tpu_torch.operator", "volsync_tpu_torch.controller",
+            "volsync_tpu_torch.movers.restic.builder",
+            "volsync_tpu_torch.movers.syncthing.builder",
+            "volsync_tpu_torch.api.serde"} <= set(added)
+    assert [m for m in added if _forbidden(m)] == []

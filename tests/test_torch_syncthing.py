@@ -360,13 +360,15 @@ def test_reference_and_port_daemons_converge_both_ways(daemons):
 
 def test_package_exports_the_daemon_and_no_builder():
     """The port's package carries the daemon, its entry point and the
-    control-API client; the reference's builder, its mover and
-    ``register`` belong to the operator, which the port does not have."""
+    control-API client, and, since the operator was ported, the
+    reference's builder, its mover and ``register`` as well (the name
+    is from before the operator)."""
     import volsync_tpu.movers.syncthing as jpkg
     import volsync_tpu_torch.movers.syncthing as pkg
 
     assert set(pkg.__all__) == {"FolderIndex", "SyncthingConnection",
                                 "SyncthingDaemon", "SyncthingState",
-                                "syncthing_entrypoint", "try_fetch"}
-    assert {"Builder", "SyncthingMover", "register"} <= set(jpkg.__all__)
-    assert not {"Builder", "SyncthingMover", "register"} & set(dir(pkg))
+                                "syncthing_entrypoint", "try_fetch",
+                                "Builder", "SyncthingMover", "register"}
+    assert set(jpkg.__all__) <= set(pkg.__all__)
+    assert all(hasattr(pkg, n) for n in pkg.__all__)

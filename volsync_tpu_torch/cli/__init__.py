@@ -5,9 +5,9 @@ operator boots, so they can run against a store whose operator stack is
 exactly what crashed: ``scrub``, ``repack`` and ``repair``
 (cli/scrub.py, cli/repack.py, cli/repair.py), ``trace``
 (``obs/cli.py``) and ``session`` (``cluster/sessioncli.py``). The
-replication, migration and relationship verbs belong to the operator,
-and ``lint`` to the reference's analysis tools, which the port does not
-have yet (ROADMAP.md).
+replication, migration and relationship verbs (the cluster verbs over
+the port's operator, ``volsync_tpu_torch/operator.py``) and ``lint``
+(the reference's analysis tools) are not ported yet (ROADMAP.md).
 
     python -m volsync_tpu_torch.cli scrub STORE [--password P] [--json]
     python -m volsync_tpu_torch.cli repack STORE [--scheme k+m] [--json]

@@ -1,12 +1,16 @@
 """rclone-equivalent mover: checksum-based bucket mirroring (ports
-``volsync_tpu/movers/rclone/``' data plane: entry.py + sync.py, the
-mover-rclone/active.sh analogue).
+``volsync_tpu/movers/rclone/``).
 
-Only the entry point and the sync functions are exported: the
-reference's builder belongs to the operator, which the port does not
-have.
+Control plane: builder.py (controllers/mover/rclone/).
+Data plane: entry.py + sync.py (mover-rclone/active.sh).
 """
 
+from volsync_tpu_torch.movers.rclone.builder import (
+    Builder,
+    RcloneDestinationMover,
+    RcloneSourceMover,
+    register,
+)
 from volsync_tpu_torch.movers.rclone.entry import rclone_entrypoint
 from volsync_tpu_torch.movers.rclone.sync import (
     SyncError,
@@ -15,5 +19,6 @@ from volsync_tpu_torch.movers.rclone.sync import (
     sync_up,
 )
 
-__all__ = ["SyncError", "hash_files", "rclone_entrypoint", "sync_down",
-           "sync_up"]
+__all__ = ["Builder", "RcloneDestinationMover", "RcloneSourceMover",
+           "SyncError", "hash_files", "rclone_entrypoint", "register",
+           "sync_down", "sync_up"]
