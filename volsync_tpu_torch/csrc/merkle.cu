@@ -35,8 +35,52 @@
 // applied to the table before the launch. Bound: the longest live lane's
 // chain (blocks x one block's dependent latency); a segment's 128 lanes
 // each get a warp, so the card is never full.
+//
+// vt_merkle_roots_split launches the same kernel with clock64 and
+// %globaltimer reads around its phases and writes one MerkleSplit record
+// a warp (never a product path; tools/time_root_calls.py reads it).
 #include "common.cuh"
 #include "sha256.cuh"
+
+// One warp's record in the split instances: where it ran, when, what it
+// hashed and the SM cycles of its phases.
+enum MerkleSplit {
+  kSplitSm,          // %smid
+  kSplitSub,         // %warpid & 3: the SM sub-partition (scheduler)
+  kSplitT0,          // %globaltimer (ns) at the warp's start
+  kSplitT1,          // ... and at its end
+  kSplitCycles,      // clock64 from start to end
+  kSplitLong,        // lanes the warp ran as a warp's chain
+  kSplitLongBlocks,  // their blocks
+  kSplitShort,       // lanes it ran one a thread
+  kSplitShortBlocks, // their longest lanes' blocks, summed over groups
+  kSplitPrologue,    // cycles before the first lane (liveness, placement)
+  kSplitBuild,       // message words, schedules and K+W stores
+  kSplitWait,        // cp.async waits
+  kSplitRounds,      // the chains' rounds
+  kSplitShortCyc,    // the one-a-thread groups
+  kSplitLane,        // the warp's longest lane
+  kSplitLaneBlocks,  // its blocks
+  kSplitN
+};
+
+__device__ __forceinline__ long long vt_globaltimer() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ int vt_smid() {
+  int v;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(v));
+  return v;
+}
+
+__device__ __forceinline__ int vt_warpid() {
+  int v;
+  asm volatile("mov.u32 %0, %%warpid;" : "=r"(v));
+  return v;
+}
 
 static constexpr int kWarps = 2;             // lanes (warps) a block
 static constexpr int kTilePages = 64;
@@ -92,19 +136,25 @@ __device__ __forceinline__ void issue_tile(LaneRing& r, const uint32_t* flat,
   vt_cp_async_commit();
 }
 
-template <bool kPageMajor>
+template <bool kPageMajor, bool kSplit = false>
 __global__ void __launch_bounds__(32 * kWarps)
 merkle_roots_kernel(const uint32_t* __restrict__ flat, long long flat_len,
                     int npp, const int64_t* __restrict__ page0,
                     const int64_t* __restrict__ nleaves,
                     const int64_t* __restrict__ lens,
                     const bool* __restrict__ live, uint32_t* __restrict__ out,
-                    int C, int nb_max) {
+                    int C, int nb_max, long long* __restrict__ split = nullptr) {
   __shared__ LaneRing rings[kWarps];
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (c >= C) return;  // whole warps only; no block-wide barrier below
   LaneRing& r = rings[threadIdx.x >> 5];
+  long long acc[kSplitN] = {};
+  long long c0 = 0, c1 = 0, cs = 0;
+  if (kSplit) {
+    acc[kSplitT0] = vt_globaltimer();
+    c0 = cs = clock64();
+  }
 
   bool any = false;  // the reference runs no block when no lane is live
   for (int base = 0; base < C && !any; base += 32) {
@@ -126,6 +176,9 @@ merkle_roots_kernel(const uint32_t* __restrict__ flat, long long flat_len,
 
   uint32_t s[8];
   sha256_init(s);
+  if (kSplit) {
+    c1 = clock64(); acc[kSplitPrologue] += c1 - c0; c0 = c1;
+  }
   if (nb_run > 0 && nl8 > 0) {
     issue_tile<kPageMajor>(r, flat, flat_len, npp, p0, nl, 0, lane);
   }
@@ -133,6 +186,9 @@ merkle_roots_kernel(const uint32_t* __restrict__ flat, long long flat_len,
     const int k = m0 / kTileBlocks;
     vt_cp_async_wait<0>();
     __syncwarp();  // tile k landed for every thread; last tile's kw read
+    if (kSplit) {
+      c1 = clock64(); acc[kSplitWait] += c1 - c0; c0 = c1;
+    }
     {
       // This thread's block m = m0 + lane: its 16 message words from
       // digest words 16m-4 .. 16m+12, then its schedule, as K + W.
@@ -175,6 +231,9 @@ merkle_roots_kernel(const uint32_t* __restrict__ flat, long long flat_len,
       issue_tile<kPageMajor>(r, flat, flat_len, npp, p0, nl, k + 1, lane);
     }
     const int nblk = nb_run - m0 < kTileBlocks ? nb_run - m0 : kTileBlocks;
+    if (kSplit) {
+      c1 = clock64(); acc[kSplitBuild] += c1 - c0; c0 = c1;
+    }
     for (int b = 0; b < nblk; ++b) {
       uint32_t a = s[0], bb = s[1], cc = s[2], d = s[3];
       uint32_t e = s[4], f = s[5], g = s[6], h = s[7];
@@ -192,6 +251,9 @@ merkle_roots_kernel(const uint32_t* __restrict__ flat, long long flat_len,
       s[0] += a; s[1] += bb; s[2] += cc; s[3] += d;
       s[4] += e; s[5] += f; s[6] += g; s[7] += h;
     }
+    if (kSplit) {
+      c1 = clock64(); acc[kSplitRounds] += c1 - c0; c0 = c1;
+    }
   }
   uint32_t v = s[0];
 #pragma unroll
@@ -199,13 +261,32 @@ merkle_roots_kernel(const uint32_t* __restrict__ flat, long long flat_len,
     if (lane == j) v = s[j];
   }
   if (lane < 8) out[static_cast<size_t>(c) * 8 + lane] = v;
+  if (kSplit) {
+    acc[kSplitCycles] = clock64() - cs;
+    acc[kSplitT1] = vt_globaltimer();
+    acc[kSplitSm] = vt_smid();
+    acc[kSplitSub] = vt_warpid() & 3;
+    acc[kSplitLong] = 1;
+    acc[kSplitLongBlocks] = nb_run;
+    acc[kSplitLane] = c;
+    acc[kSplitLaneBlocks] = nb_run;
+    if (lane < kSplitN) {
+      long long x = 0;
+#pragma unroll
+      for (int j = 0; j < kSplitN; ++j) {
+        if (lane == j) x = acc[j];
+      }
+      split[static_cast<size_t>(c) * kSplitN + lane] = x;
+    }
+  }
 }
 
-VT_EXPORT int vt_merkle_roots(const void* flat, long long flat_len, int npp,
-                              const void* page0, const void* nleaves,
-                              const void* lens, const void* live, void* out,
-                              int C, int nb_max, int pagemajor, int device,
-                              void* stream) {
+template <bool kSplit>
+static int merkle_launch(const void* flat, long long flat_len, int npp,
+                         const void* page0, const void* nleaves,
+                         const void* lens, const void* live, void* out,
+                         int C, int nb_max, int pagemajor, long long* split,
+                         int device, void* stream) {
   int rc = vt_begin(device);
   if (rc != 0) return rc;
   if (C > 0) {
@@ -218,12 +299,41 @@ VT_EXPORT int vt_merkle_roots(const void* flat, long long flat_len, int npp,
     const auto* lv = static_cast<const bool*>(live);
     auto* o = static_cast<uint32_t*>(out);
     if (pagemajor) {
-      merkle_roots_kernel<true><<<grid, 32 * kWarps, 0, st>>>(
-          f, flat_len, npp, p0, nl, ln, lv, o, C, nb_max);
+      merkle_roots_kernel<true, kSplit><<<grid, 32 * kWarps, 0, st>>>(
+          f, flat_len, npp, p0, nl, ln, lv, o, C, nb_max, split);
     } else {
-      merkle_roots_kernel<false><<<grid, 32 * kWarps, 0, st>>>(
-          f, flat_len, npp, p0, nl, ln, lv, o, C, nb_max);
+      merkle_roots_kernel<false, kSplit><<<grid, 32 * kWarps, 0, st>>>(
+          f, flat_len, npp, p0, nl, ln, lv, o, C, nb_max, split);
     }
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+VT_EXPORT int vt_merkle_roots(const void* flat, long long flat_len, int npp,
+                              const void* page0, const void* nleaves,
+                              const void* lens, const void* live, void* out,
+                              int C, int nb_max, int pagemajor, int device,
+                              void* stream) {
+  return merkle_launch<false>(flat, flat_len, npp, page0, nleaves, lens,
+                              live, out, C, nb_max, pagemajor, nullptr,
+                              device, stream);
+}
+
+// The number of MerkleSplit records vt_merkle_roots_split writes (one a
+// warp of the launch).
+VT_EXPORT int vt_merkle_roots_split_warps(int C, int device) {
+  return C;
+}
+
+// vt_merkle_roots with a MerkleSplit record (kSplitN int64) of every warp
+// written to ``split`` ([vt_merkle_roots_split_warps(C), kSplitN]).
+VT_EXPORT int vt_merkle_roots_split(const void* flat, long long flat_len,
+                                    int npp, const void* page0,
+                                    const void* nleaves, const void* lens,
+                                    const void* live, void* out, int C,
+                                    int nb_max, int pagemajor, void* split,
+                                    int device, void* stream) {
+  return merkle_launch<true>(flat, flat_len, npp, page0, nleaves, lens, live,
+                             out, C, nb_max, pagemajor,
+                             static_cast<long long*>(split), device, stream);
 }
