@@ -32,8 +32,10 @@ a mismatch:
    inputs with ``torch.equal`` (K1 also against hashlib per page) and
    times kernel and twin; logs merkle_roots' chain bound (its longest
    lane in blocks x the least time of a block, from the compiled
-   block's instruction issue) and the walk's (its longest lane's chunks
-   x one dependent load, measured by a pointer chase,
+   block's instruction issue), its issue and dependency bounds and the
+   heaviest SM sub-partition's load from its instrumented instance
+   (``tools/time_root_calls.py``), and the walk's (its longest lane's
+   chunks x one dependent load, measured by a pointer chase,
    ``csrc/probe.cu``), and times ``merkle_roots`` on one 1,025-block
    lane alone and the tail form on a 4,095-byte tail (65 blocks). K3
    transpose_u32, off the fused path, is held and timed on [12,288,
@@ -69,7 +71,11 @@ a mismatch:
    the compiled round's dependency chain (``cuobjdump -sass``) and a
    clock64 split of one lane's block loop at the signature, one-window
    and verify shapes (``tools/time_md5_calls.block_split``: an
-   instrumented instance of the kernel, off the launch counts);
+   instrumented instance of the kernel, off the launch counts); then
+   ``merkle_roots`` at its other callers' shapes (the span form, 32
+   lanes of 32 MiB: more live lanes than the card has sub-partitions,
+   the mesh's page-major table, no live lane, and nb_max below a lane's
+   blocks), each against its twin, timed, bounded and split;
 3. stream: sets every launch count to 0, streams a seeded ``--stream-gib``
    GiB + 12,345-byte volume (half of its 64 MiB blocks repeat earlier
    ones; one block is all zero) through ``stream_chunk_batches`` with
@@ -926,8 +932,8 @@ def sass_blocks() -> dict:
                                    ("sha256_slices_tail", "10ChunkTails"),
                                    ("sha256_slices_spans", "9SpanTails"))},
             "merkle_roots": sass_block_counts(dump("merkle.cu"),
-                                              "merkle_roots_kernel", 64,
-                                              "LDS"),
+                                              "merkle_roots_kernelILb0ELb0E",
+                                              16, "LDS"),
             "sha256_lanes": sass_block_counts(sha, "sha256_lanes_kernel", 4,
                                               "LDG"),
             **{name: sass_block_counts(dump("md5.cu"), kernel, loads,
@@ -1183,7 +1189,7 @@ def new_stats() -> defaultdict:
 
 
 def kernel_phase(torch, stream, p, seg_bytes: int, p64, p1,
-                 lat_ns: dict) -> dict:
+                 lat_ns: dict, op_cycles: float) -> dict:
     from volsync_tpu_torch.ops import segment as seg
     from volsync_tpu_torch.ops import sha256 as sha
 
@@ -1251,7 +1257,7 @@ def kernel_phase(torch, stream, p, seg_bytes: int, p64, p1,
             log(f"K1: per-warp floor "
                 f"{warp_floor_ms(npp, sha.PAGES_THREADS):.4f} ms")
         elif name == "merkle_roots":
-            root_checks(torch, seg, st, args, kwargs)
+            root_checks(torch, seg, st, args, kwargs, op_cycles)
         elif name == "sha256_slices_tail":
             tail_checks(torch, stats, args, kwargs)
         else:  # fastcdc_walk: a serial chain of decisions
@@ -1277,10 +1283,47 @@ def kernel_phase(torch, stream, p, seg_bytes: int, p64, p1,
     return stats
 
 
-def root_checks(torch, seg, st, args, kwargs) -> None:
-    """Bound and longest lane of the segment's root launch, and
-    ``merkle_roots`` on one 1,025-block lane alone (its measured time a
-    block, beside the chain floor ``main`` takes from the SASS)."""
+def root_report(torch, label: str, args, kwargs,
+                op_cycles: float | None) -> dict:
+    """A root launch's lanes, its bounds (``tools/time_root_calls.
+    bounds``: the longest lane's issue floor and, given one dependent
+    instruction's cycles, its dependency chain) and the split of one
+    launch of its instrumented instance (the heaviest sub-partition's
+    load, the longest lane's cycles a round); logged."""
+    from volsync_tpu_torch.ops import segment as seg
+    from volsync_tpu_torch.tools import time_root_calls as trc
+
+    _, _, page0, nleaves, _, live = args
+    blocks = trc.lane_blocks(nleaves.cpu().numpy(), live.cpu().numpy(),
+                             kwargs["nb_max"])
+    rep = {"lanes": int(page0.shape[0]), "live": int(live.sum()),
+           "blocks": int(blocks.sum()), "longest": int(blocks.max()),
+           **trc.bounds(int(blocks.max()), op_cycles or 0.0)}
+    if op_cycles is None:
+        rep["chain_ms"] = None
+    if DEVICE == "cuda":
+        sp = trc.launch_split(torch, seg, args, kwargs)
+        if sp is not None:
+            rep["heaviest_sub_partition"] = sp["heaviest_sub_partition"]
+            rep["longest_warp"] = sp["longest"]
+    heavy = rep.get("heaviest_sub_partition")
+    longest = rep.get("longest_warp") or {}
+    log(f"merkle_roots {label}: {rep['lanes']} lanes, {rep['live']} live, "
+        f"longest {rep['longest']} blocks; chain bound "
+        + (f"{rep['chain_ms']:.4f} ms" if op_cycles else "not measured")
+        + f", issue bound {rep['issue_ms']:.4f} ms; "
+        + (f"heaviest sub-partition {heavy['chain_blocks']} chain blocks + "
+           f"{heavy['group_blocks']} in one-a-thread groups; longest lane "
+           f"{longest.get('round_cycles', 0):.2f} cycles a round"
+           if heavy else "no split"))
+    return rep
+
+
+def root_checks(torch, seg, st, args, kwargs, op_cycles: float) -> None:
+    """Bound and longest lane of the segment's root launch, its report
+    (``root_report``), and ``merkle_roots`` on one 1,025-block lane
+    alone (its measured time a block, beside the chain floor ``main``
+    takes from the SASS)."""
     flat, npp, page0, nleaves, lens, live = args
     lanes = root_lane_blocks(torch, nleaves, live, kwargs["nb_max"])
     total, st["longest"] = int(lanes.sum()), int(lanes.max())
@@ -1288,6 +1331,8 @@ def root_checks(torch, seg, st, args, kwargs) -> None:
     nbytes = int(nleaves.sum()) * 32 + C * (3 * 8 + 1) + C * 32
     bound, st["bound_by"] = sha_bound(total, 0, nbytes)
     st["bound"].append(bound)
+    st["split"] = {"fused": root_report(torch, "fused segment", args, kwargs,
+                                        op_cycles)}
 
     one = [flat, npp] + [torch.tensor([v], dtype=torch.int64, device=DEVICE)
                          for v in (0, 2048, 8 << 20)] + [
@@ -1298,6 +1343,101 @@ def root_checks(torch, seg, st, args, kwargs) -> None:
     log(f"merkle_roots: {C} lanes, {int(live.sum())} live, {total} blocks, "
         f"longest lane {st['longest']} blocks; one 1,025-block lane "
         f"{one_ms:.4f} ms = {st['one_lane_block_ms'] * 1e3:.4f} us a block")
+
+
+#: merkle_roots' callers' shapes beyond the fused and service entries
+#: (``tools/time_root_calls.py``): batched passes of 8 and 16 lanes of 32
+#: MiB, 32 such lanes (more live lanes than the card has sub-partitions),
+#: the span form, the mesh's page-major table, a zero-entropy segment, no
+#: live lane.
+ROOT_SHAPES = ("batched8", "batched16", "lanes32", "verify", "mesh", "zero",
+               "dead")
+#: Held against hashlib rather than the twin: four 1,025-block lanes are
+#: 1,025 twin steps (~35 s on the card); ``tests/test_torch_cuda.py``
+#: holds that segment against its twin.
+ROOT_HASHLIB = ("zero",)
+#: The cut that holds nb_max below a lane's block count: the span form's
+#: lanes at this many blocks.
+ROOT_CLAMP = 40
+
+
+def root_union(torch, shapes: dict) -> tuple:
+    """One twin call over several shapes' lanes: their tables stacked
+    page-major (the digests a lane reads do not depend on the layout)
+    -> (args, kwargs, {name: (first lane, lanes)}). Each shape must have
+    a live lane and no lane past its own nb_max, so that each lane's
+    digest is its shape's."""
+    flats, page0s, rest, rows, off, lane0 = [], [], [], {}, 0, 0
+    for name, ((flat, npp, page0, nleaves, lens, live), kw) in shapes.items():
+        pm = flat if kw["pagemajor"] else flat.view(8, npp).t().reshape(-1)
+        flats.append(pm)
+        page0s.append(page0 + off)
+        rest.append((nleaves, lens, live))
+        rows[name] = (lane0, page0.shape[0])
+        off += npp
+        lane0 += page0.shape[0]
+    args = (torch.cat(flats), off, torch.cat(page0s),
+            *(torch.cat(x) for x in zip(*rest)))
+    kw = dict(nb_max=max(kw["nb_max"] for _, kw in shapes.values()),
+              pagemajor=True)
+    return args, kw, rows
+
+
+def root_shape_entries(torch, stats, seed: int, op_cycles: float) -> None:
+    """``merkle_roots`` at ``ROOT_SHAPES`` (built on the card by
+    ``tools/time_root_calls.shapes``) and with nb_max at ``ROOT_CLAMP``
+    on the span form's lanes: each launch held against its twin (the
+    shapes with a live lane in one twin call over their lanes,
+    ``root_union``; ``ROOT_HASHLIB``'s against hashlib), timed (graph
+    replay and eager) and reported (``root_report``) into the kernel's
+    ``shapes``."""
+    from volsync_tpu_torch.ops import segment as seg
+    from volsync_tpu_torch.tools import time_root_calls as trc
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    shapes = trc.shapes(torch, seg, gen, ROOT_SHAPES, DEVICE)
+    verify_args, verify_kw = shapes["verify"]
+    shapes["clamp"] = (verify_args, dict(verify_kw, nb_max=ROOT_CLAMP))
+    st = stats["merkle_roots"]
+    got = {name: seg._root_digests_loop(*a, **kw)
+           for name, (a, kw) in shapes.items()}
+    sync(torch)
+    t0 = time.perf_counter()
+    union = {k: shapes[k] for k in ROOT_SHAPES
+             if k not in ROOT_HASHLIB and bool(shapes[k][0][5].any())}
+    args, kw, rows = root_union(torch, union)
+    want = seg._root_digests_plain(*args, **kw)
+    want = {k: want[a:a + n] for k, (a, n) in rows.items()}
+    for k in set(shapes) - set(union) - set(ROOT_HASHLIB):
+        want[k] = seg._root_digests_plain(*shapes[k][0], **shapes[k][1])
+    for k in ROOT_HASHLIB:  # every lane against hashlib
+        a, kw = shapes[k]
+        trc.check(a, kw, got[k], range(a[2].shape[0]))
+        want[k] = got[k]
+    sync(torch)
+    plain_s = time.perf_counter() - t0
+    for name, (a, kw) in shapes.items():
+        err = max_abs_err(torch, got[name], want[name])
+        if not torch.equal(got[name], want[name]):
+            raise AssertionError(f"merkle_roots at {name} differs from its "
+                                 f"twin (max abs err {err})")
+        st["err"] = max(st["err"], err)
+        rep = root_report(torch, name, a, kw, op_cycles)
+        rep.update(pagemajor=bool(kw["pagemajor"]), nb_max=kw["nb_max"],
+                   max_abs_err=err, ms=None, eager_ms=None)
+        if DEVICE == "cuda":  # a CPU rehearsal times no device
+            rep["ms"], rep["eager_ms"] = (
+                time_ms(torch, lambda: seg._root_digests_loop(*a, **kw), 5,
+                        graph=graph) for graph in (True, False))
+        st.setdefault("shapes", {})[name] = rep
+        ms = ("not measured" if rep["ms"] is None else
+              f"{rep['ms']:.4f} ms (eager {rep['eager_ms']:.4f})")
+        log(f"merkle_roots {name}: equals "
+            + ("hashlib" if name in ROOT_HASHLIB else "twin")
+            + f" (max abs err {err}); kernel {ms}, bound "
+            f"{rep['bound_ms']:.4f} ms ({rep['bound_kind']})")
+    log(f"merkle_roots twins of the other shapes: {plain_s:.1f} s")
 
 
 def slice_work(torch, lengths, n_max: int) -> dict:
@@ -5112,7 +5252,8 @@ BATCHED = {"sha256_pages": "sha256_pages_batched",
            "sha256_slices_tail": "sha256_slices_tail_batched",
            "merkle_roots": "merkle_roots_batched"}
 def batched_kernel_entries(torch, stats, base: np.ndarray, shapes: list,
-                           lat: dict, merkle_floor) -> None:
+                           lat: dict, merkle_floor,
+                           op_cycles: float | None = None) -> None:
     """The fused kernels at the batched pass's shapes, on the lanes the
     service dispatches: each (S, P) of ``shapes`` is S lanes of P bytes,
     lane i source i's whole salted payload (``base`` XOR i + 1, one eof
@@ -5178,6 +5319,8 @@ def batched_kernel_entries(torch, stats, base: np.ndarray, shapes: list,
                     int(blocks.sum()), 0, nbytes)))
                 if merkle_floor:
                     b["chain_ms"] = int(blocks.max()) * merkle_floor
+                st.setdefault("split", {})[f"{S}x{P}"] = root_report(
+                    torch, f"batched {S} lanes", args, kwargs, op_cycles)
             shape = {"lanes": S, "valid_len": n, "ms": ms,
                      "eager_ms": eager,
                      "plain_ms": plain_s * 1e3, "bound_ms": b["bound_ms"],
@@ -7562,14 +7705,20 @@ def main() -> int:
     params64 = GearParams(align=64)
     params1 = GearParams(align=1)
     stream = volume(int(args.stream_gib * GIB), "fused stream")
-    stats = kernel_phase(torch, stream, DEFAULT_PARAMS, SEGMENT_P, params64,
-                         params1, lat)
     md5_lat = md5_round_cycles(torch, args.seed)
     log(f"probe (csrc/probe.cu, one-thread MD5 chain of "
         f"{PROBE_MD5_BLOCKS} blocks): one dependent round "
         f"{md5_lat['cycles']:.2f} SM cycles ({md5_lat['ns']:.3f} ns) "
         f"({card})")
+    # one dependent integer instruction: the MD5 round's 4, over 4
+    op_cycles = md5_lat["cycles"] / 4
+    stats = kernel_phase(torch, stream, DEFAULT_PARAMS, SEGMENT_P, params64,
+                         params1, lat, op_cycles)
     md5_kernel_entries(torch, stats, args.seed, sass, md5_lat["cycles"])
+    t1 = time.perf_counter()
+    root_shape_entries(torch, stats, args.seed, op_cycles)
+    log(f"merkle_roots at its callers' other shapes: "
+        f"{time.perf_counter() - t1:.1f} s ({card})")
     for name, floor in floors.items():
         st = stats[name]
         bound = (f"{st['longest'] * floor:.4f} ms" if floor
@@ -7631,7 +7780,7 @@ def main() -> int:
     most = max(shapes, key=lambda sp: (sp[0] * shapes[sp], sp))
     batched_kernel_entries(torch, stats, svc.pop("base"),
                            [most] + ([(8, most[1])] if most[0] != 8 else []),
-                           lat, floors["merkle_roots"])
+                           lat, floors["merkle_roots"], op_cycles)
     log(f"service phase with the batched-shape kernels: "
         f"{time.perf_counter() - t1:.1f} s ({card})")
 

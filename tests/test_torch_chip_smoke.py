@@ -1189,3 +1189,60 @@ def test_syncthing_phase_on_cpu(monkeypatch, tmp_path):
     assert res["edits_made"] == {"rewrite": 1, "delete": 1, "added": 1,
                                  "turned": 1}
     assert res["conflict"]["pulled"] >= 2  # B may take both versions
+
+
+def test_root_shape_entries_on_cpu(monkeypatch):
+    """merkle_roots' other callers' shapes (batched passes, more live
+    lanes than sub-partitions, the span form, the mesh's page-major
+    table, a zero-entropy segment, no live lane, nb_max below a lane's
+    blocks) at a tiny size: each held against its twin (those with a
+    live lane through one twin call over their stacked page-major
+    tables) or hashlib, each reported with its bounds."""
+    from volsync_tpu_torch.tools import time_root_calls as trc
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(trc, "SEGMENT", 2 << 20)
+    monkeypatch.setattr(trc, "LANE", 128 * 1024)
+    monkeypatch.setattr(trc, "SPAN_BYTES", 2 << 20)
+    monkeypatch.setattr(trc, "ZERO_LEAVES", 40)
+    # the span and mesh lanes' lengths: short, so the twins stay quick
+    monkeypatch.setattr(trc, "chunk_lengths", lambda args: [70_000, 150_000])
+    stats = chip_smoke.new_stats()
+    chip_smoke.root_shape_entries(torch, stats, 3, 4.6)
+    shapes = stats["merkle_roots"]["shapes"]
+    assert set(shapes) == {*chip_smoke.ROOT_SHAPES, "clamp"}
+    assert stats["merkle_roots"]["err"] == 0
+    assert shapes["dead"]["live"] == 0 and shapes["dead"]["longest"] == 0
+    assert shapes["mesh"]["pagemajor"] and not shapes["verify"]["pagemajor"]
+    assert shapes["clamp"]["nb_max"] == chip_smoke.ROOT_CLAMP
+    for name in ("batched8", "batched16", "lanes32", "verify", "mesh",
+                 "zero", "clamp"):
+        r = shapes[name]
+        assert r["live"] > 0 and r["bound_ms"] == max(r["issue_ms"],
+                                                      r["chain_ms"])
+
+
+def test_root_union_keeps_each_shapes_digests():
+    """One twin call over two shapes' lanes, a word-major and a
+    page-major table stacked page-major, gives each shape's own
+    digests."""
+    rng = np.random.RandomState(7)
+
+    def shape(npp, pagemajor, lanes):
+        flat = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, size=8 * npp)
+                                .astype(np.int32))
+        p0, nl, ln = (torch.tensor(c, dtype=torch.int64)
+                      for c in zip(*lanes))
+        return ((flat, npp, p0, nl, ln, nl > 0),
+                dict(nb_max=seg._root_blocks_bound(int(ln.max())),
+                     pagemajor=pagemajor))
+
+    shapes = {"wm": shape(12, False, [(0, 3, 12000), (4, 0, 0),
+                                      (5, 7, 27000)]),
+              "pm": shape(9, True, [(1, 8, 32768), (0, 1, 5)])}
+    args, kw, rows = chip_smoke.root_union(torch, shapes)
+    both = seg._root_digests_plain(*args, **kw)
+    for name, (a, k) in shapes.items():
+        first, n = rows[name]
+        assert torch.equal(both[first:first + n],
+                           seg._root_digests_plain(*a, **k))

@@ -255,6 +255,62 @@ def test_merkle_roots_zero_segment_equals_twin(cuda, pagemajor,
     assert {h for _, _, h in chunks} == {blobid.blob_id(bytes(8 << 20))}
 
 
+def _root_lanes(rng, kind):
+    """(npp, [(page0, nleaves, len)], live, nb_max) of one root case."""
+    def short(n, npp, leaves):
+        nl = rng.choice(leaves, size=n)
+        return [(int(rng.randint(0, npp - k)), int(k),
+                 int(k) * 4096 - int(rng.randint(0, 4096))) for k in nl]
+
+    if kind == "widths":  # chains and one-a-thread lanes side by side
+        lanes = [(3, 0, 55), (5, 1, 100), (7, 2, 7097),
+                 (10, 66, 66 * 4096 - 11)] + short(36, 80, (1, 2, 3))
+        return 80, lanes, [n > 0 for _, n, _ in lanes], None
+    if kind == "clamp":  # nb_max below a live lane's 34 blocks
+        lanes = [(0, 66, 66 * 4096), (70, 22, 22 * 4096 - 9), (1, 0, 3)]
+        return 96, lanes, [True, True, False], 12
+    if kind == "gaps":  # a live mask that is not a prefix
+        lanes = [ln if i % 3 else (0, 0, 0) for i, ln in
+                 enumerate(short(40, 90, (1, 2, 5, 9, 33)))]
+        return 90, lanes, [n > 0 for _, n, _ in lanes], None
+    if kind == "dead":  # no lane live: every lane stays at H0
+        return 16, [(0, 0, 0)] * 100, [False] * 100, None
+    if kind == "many":  # more chains than the card has sub-partitions
+        lanes = short(700, 4096, (40, 80, 160, 300, 600)) \
+            + [(0, 0, 0)] * 300 + short(200, 4096, (1, 2))
+        return 4096, lanes, [n > 0 for _, n, _ in lanes], None
+    if kind == "huge":  # more lanes than the kernel sorts: index order
+        lanes = [(0, 0, 0)] * 17000 + short(60, 4096, (1, 5, 40))
+        return 4096, lanes, [n > 0 for _, n, _ in lanes], None
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind", ["widths", "clamp", "gaps", "dead", "many",
+                                  "huge"])
+@pytest.mark.parametrize("pagemajor", [False, True], ids=["wm", "pm"])
+def test_merkle_roots_lane_mixes_equal_twin(cuda, rng, kind, pagemajor):
+    """merkle_roots == its twin on the lane mixes its placement tells
+    apart: chains beside one-a-thread lanes, nb_max cutting a live
+    lane, dead lanes between live ones, no live lane, 900 live lanes
+    (more than one chain a sub-partition), and more lanes than it sorts
+    in shared memory; one launch each."""
+    npp, lanes, live, nb_max = _root_lanes(rng, kind)
+    flat = _rand_i32(rng, (8 * npp,), cuda)
+    page0, nleaves, lens = (torch.tensor(c, dtype=torch.int64, device=cuda)
+                            for c in zip(*lanes))
+    args = (flat, npp, page0, nleaves, lens,
+            torch.tensor(live, device=cuda))
+    kw = dict(nb_max=nb_max or seg._root_blocks_bound(int(lens.max())),
+              pagemajor=pagemajor)
+    launched = seg.MERKLE_ROOTS.launches
+    got = seg._root_digests_loop(*args, **kw)
+    assert seg.MERKLE_ROOTS.launches == launched + 1
+    assert torch.equal(got, seg._root_digests_plain(*args, **kw))
+    if kind == "dead":
+        np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                      np.broadcast_to(sha._H0, got.shape))
+
+
 @pytest.mark.parametrize("align", [64, 1])
 def test_split_and_legacy_engines_on_card_equal_cpu(cuda, rng, align):
     """The align=64 engine (K2 + tail lanes) and the align=1 engine (a

@@ -367,35 +367,95 @@ def _root_case(rng, npp, lanes, live):
     return flat, page0, nleaves, lens, np.array(live, bool)
 
 
-def _roots_both(flat, npp, page0, nleaves, lens, live, pagemajor):
+def _roots_both(flat, npp, page0, nleaves, lens, live, pagemajor,
+                nb_max=None, ref_live=None):
+    """(reference, twin) digests of one chunk table. ``nb_max`` bounds
+    the twin's blocks (default: the longest length's bound); the
+    reference reads ``ref_live`` where given (its loop runs to the
+    longest LIVE lane, which is how it bounds a lane)."""
     ref = np.asarray(jseg._root_digests_loop(
         jnp.asarray(flat), npp, jnp.asarray(page0, jnp.int32),
         jnp.asarray(nleaves, jnp.int32), jnp.asarray(lens, jnp.int32),
-        jnp.asarray(live), word_index=jseg._word_index_fn(npp, pagemajor)))
+        jnp.asarray(live if ref_live is None else ref_live),
+        word_index=jseg._word_index_fn(npp, pagemajor)))
     got = tseg._root_digests_plain(
         torch.from_numpy(flat.view(np.int32)), npp, torch.from_numpy(page0),
         torch.from_numpy(nleaves), torch.from_numpy(lens),
         torch.from_numpy(live),
-        nb_max=tseg._root_blocks_bound(int(lens.max())),
+        nb_max=nb_max or tseg._root_blocks_bound(int(lens.max())),
         pagemajor=pagemajor)
     return ref, got.numpy().view(np.uint32)
 
 
-@pytest.mark.parametrize("pagemajor", [False, True], ids=["wm", "pm"])
-@pytest.mark.parametrize("any_live", [True, False], ids=["mixed", "none"])
-def test_root_digests_plain_matches_reference(rng, pagemajor, any_live):
+def _short_lanes(rng, n, npp, leaves=(1, 2, 3)):
+    """``n`` seeded (page0, nleaves, len) lanes of a few leaves each."""
+    out = []
+    for _ in range(n):
+        nl = int(rng.choice(leaves))
+        out.append((int(rng.randint(0, npp - nl)), nl,
+                    nl * 4096 - int(rng.randint(0, 4096))))
+    return out
+
+
+def _root_table(rng, kind):
+    """(npp, lanes, live, nb_max, ref_live) of one root case; the
+    kernel (csrc/merkle.cu) runs a lane of more than a quarter of the
+    longest lane's blocks as one warp's chain, a shorter one (every
+    lane of no leaves) one a thread, 32 to a warp, so the cases put
+    both side by side."""
+    if kind in ("mixed", "none"):
+        lanes = [(3, 1, 100), (5, 2, 4097), (0, 0, 0),
+                 (9, 7, 7 * 4096 - 5), (2, 0, 77)]
+        live = [kind == "mixed" and n > 0 for _, n, _ in lanes]
+        return 20, lanes, live, None, None
+    if kind == "widths":
+        # 0, 1, 2 leaves (1, 1, 2 blocks) beside 66 (34 blocks: a chain
+        # that crosses its 32-block tile), then 36 more short lanes
+        # (two groups of one-a-thread lanes)
+        lanes = [(3, 0, 55), (5, 1, 100), (7, 2, 4097 + 3000),
+                 (10, 66, 66 * 4096 - 11)] + _short_lanes(rng, 36, 80)
+        return 80, lanes, [n > 0 for _, n, _ in lanes], None, None
+    if kind == "clamp":
+        # nb_max 12 cuts the 66-leaf lane (34 blocks) to 12: the
+        # reference's loop stops there when its longest live lane has
+        # 12 blocks (22 leaves; its steps of 4 blocks end there too), so
+        # the cut lane is dead in its table
+        lanes = [(0, 66, 66 * 4096), (70, 22, 22 * 4096 - 9), (1, 0, 3)]
+        return 96, lanes, [True, True, False], 12, [False, True, False]
+    if kind == "gaps":
+        # a live mask that is not a prefix (the span form's empty and
+        # padding lanes): dead lanes of no leaves between live ones
+        lanes = []
+        for i, (p0, nl, ln) in enumerate(_short_lanes(rng, 40, 90,
+                                                       (1, 2, 5, 9, 33))):
+            lanes.append((p0, nl, ln) if i % 3 else (0, 0, 0))
+        return 90, lanes, [n > 0 for _, n, _ in lanes], None, None
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind,pagemajor", [
+    pytest.param("mixed", False, id="mixed-wm"),
+    pytest.param("mixed", True, id="mixed-pm"),
+    pytest.param("none", False, id="none-wm"),
+    pytest.param("none", True, id="none-pm"),
+    pytest.param("widths", False, id="widths-wm"),
+    pytest.param("widths", True, id="widths-pm"),
+    pytest.param("clamp", False, id="clamp-wm"),
+    pytest.param("gaps", True, id="gaps-pm"),
+])
+def test_root_digests_plain_matches_reference(rng, kind, pagemajor):
     """merkle_roots' twin == the JAX root loop on a seeded table: lanes
     of 1, 2 and 7 leaves with lengths off the page grid, dead lanes
     (nleaves 0, any length), and a chunk table with no live lane (every
-    lane stays at H0)."""
-    npp = 20
-    lanes = [(3, 1, 100), (5, 2, 4097), (0, 0, 0), (9, 7, 7 * 4096 - 5),
-             (2, 0, 77)]
-    live = [any_live and n > 0 for _, n, _ in lanes]
+    lane stays at H0); then lanes of 0, 1, 2 and 66 leaves side by side
+    with 36 more short ones, nb_max cutting a live lane, and a live mask
+    that is not a prefix."""
+    npp, lanes, live, nb_max, ref_live = _root_table(rng, kind)
     case = _root_case(rng, npp, lanes, live)
-    ref, got = _roots_both(case[0], npp, *case[1:], pagemajor)
+    ref, got = _roots_both(case[0], npp, *case[1:], pagemajor,
+                           nb_max=nb_max, ref_live=ref_live)
     np.testing.assert_array_equal(got, ref)
-    if not any_live:
+    if kind == "none":
         np.testing.assert_array_equal(got, np.broadcast_to(tsha._H0,
                                                            got.shape))
 

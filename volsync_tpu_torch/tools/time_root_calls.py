@@ -3,7 +3,7 @@
 warp of one launch into its parts.
 
     PYTHONPATH=. python3 volsync_tpu_torch/tools/time_root_calls.py \\
-        [--seed N] [--reps R] [--shapes a,b,...]
+        [--seed N] [--reps R]
 
 ``ops.segment._root_digests_loop`` launches ``merkle_roots``
 (``csrc/merkle.cu``) once a pass: the fused and batched passes
@@ -66,6 +66,8 @@ import numpy as np
 LEAF = 4096
 SEGMENT = 48 << 20  # the fused path's padded segment
 LANE = 32 << 20  # a batched pass's lane
+SPAN_BYTES = 64 << 20  # the span form's buffer
+ZERO_LEAVES = 2048  # leaves of a zero-entropy chunk (8 MiB: 1,025 blocks)
 SHORT = 12345  # a service source's shortfall
 SHAPES = ("fused", "batched8", "batched16", "lanes32", "verify", "mesh",
           "zero", "dead")
@@ -84,7 +86,7 @@ H0 = (0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A, 0x510E527F,
 #: its order (csrc/merkle.cu MerkleSplit).
 SPLIT_FIELDS = ("sm", "sub", "t0", "t1", "cycles", "long", "long_blocks",
                 "short", "short_blocks", "prologue", "build", "wait",
-                "rounds", "short_cycles", "lane", "lane_blocks")
+                "rounds", "short_cycles", "lane", "lane_blocks", "pass1")
 
 
 def lane_blocks(nleaves: np.ndarray, live: np.ndarray,
@@ -113,8 +115,9 @@ def split_summary(rec: np.ndarray) -> dict:
     groups), the warp of the longest lane (its blocks, its cycles a
     round in the rounds, a block in builds and waits, its prologue, and
     the other warps with chains of more than one block that ran on its
-    sub-partition while it ran), and the warps that ran only lanes of
-    one block."""
+    sub-partition while it ran), the warps that ran only lanes of one
+    block, and the one-a-thread groups (their warps, lanes and SM cycles
+    a block of their longest lanes)."""
     r = {k: rec[:, i] for i, k in enumerate(SPLIT_FIELDS)}
     ran = (r["long"] + r["short"]) > 0
     span_ns = int(r["t1"][ran].max() - r["t0"][ran].min()) if ran.any() \
@@ -125,11 +128,17 @@ def split_summary(rec: np.ndarray) -> dict:
         lb, sb = load.get(key, (0, 0))
         load[key] = (lb + int(r["long_blocks"][i]),
                      sb + int(r["short_blocks"][i]))
+    grouped = ran & (r["short"] > 0)
     out = {"span_us": span_ns / 1e3, "warps": int(ran.sum()),
            "sub_partitions": len(load),
            "heaviest_sub_partition": None, "longest": None,
            "one_block_warps": int((ran & (r["long_blocks"] <= 1)
-                                   & (r["short"] == 0)).sum())}
+                                   & (r["short"] == 0)).sum()),
+           "groups": {"warps": int(grouped.sum()),
+                      "lanes": int(r["short"].sum()),
+                      "cycles_per_block": (
+                          int(r["short_cycles"].sum())
+                          / max(int(r["short_blocks"].sum()), 1))}}
     if not load:
         return out
     key, (lb, sb) = max(load.items(), key=lambda kv: (kv[1][0], kv[1][1]))
@@ -153,6 +162,7 @@ def split_summary(rec: np.ndarray) -> dict:
             "build_per_block": int(r["build"][w]) / nb,
             "wait_per_block": int(r["wait"][w]) / nb,
             "prologue": int(r["prologue"][w]),
+            "pass1": int(r["pass1"][w]),
             "sharing_chains": int(same.sum()),
             "sharing_blocks": int(r["long_blocks"][same].sum())}
     return out
@@ -223,6 +233,7 @@ def capture_root_call(seg, run) -> tuple:
 
 
 def _pass_kw(seg, P: int) -> dict:
+    """A pass's keyword arguments at DEFAULT_PARAMS for P-byte lanes."""
     from volsync_tpu_torch.ops.gearcdc import DEFAULT_PARAMS as p
 
     cc, kc = seg.segment_caps(P, p)
@@ -241,7 +252,7 @@ def span_args(torch, seg, gen, sizes: list, dev: str) -> tuple:
     """``span_roots_device``'s root launch over ~64 MiB of page-aligned
     spans of ``sizes`` (cycled), one of them empty, in a buffer of
     seeded bytes, as ``hash_spans`` lays them out."""
-    total, spans, k = 64 << 20, [], 0
+    total, spans, k = SPAN_BYTES, [], 0
     pos = 0
     while True:
         n = sizes[k % len(sizes)]
@@ -278,7 +289,7 @@ def shapes(torch, seg, gen, names: tuple, dev: str = "cuda") -> dict:
     valid = SEGMENT - 5 * LEAF - 777
     out["fused"] = capture_root_call(seg, lambda: seg.chunk_hash_segment(
         data, valid, eof=False, **kw))
-    sizes = chunk_lengths(out["fused"][0])
+    sizes = chunk_lengths(out["fused"][0]) or [1 << 20]
     del data
     for name, S in (("batched8", 8), ("batched16", 16), ("lanes32", 32)):
         if name not in names:
@@ -296,7 +307,7 @@ def shapes(torch, seg, gen, names: tuple, dev: str = "cuda") -> dict:
         W, npp = 4, LANE // LEAF
         flat = torch.randint(-2**31, 2**31 - 1, (W * npp * 8,),
                              dtype=torch.int32, device=dev, generator=gen)
-        _, kc = seg.segment_caps(W * LANE, seg_params())
+        kc = _pass_kw(seg, W * LANE)["chunk_cap"]
         starts, lens, pos, k = [], [], 0, 0
         while pos < W * LANE - SHORT and len(starts) < kc:
             n = min(sizes[k % len(sizes)], W * LANE - SHORT - pos)
@@ -315,17 +326,17 @@ def shapes(torch, seg, gen, names: tuple, dev: str = "cuda") -> dict:
                        dict(nb_max=seg._root_blocks_bound(8 << 20),
                             pagemajor=True))
     if "zero" in names:
-        npp = LANE // LEAF
+        npp, n = 4 * ZERO_LEAVES, ZERO_LEAVES * LEAF
         zero = np.frombuffer(hashlib.sha256(bytes(LEAF)).digest(), ">u4")
         flat = torch.from_numpy(np.repeat(zero.astype(np.uint32), npp)
                                 .view(np.int32)).to(dev)  # word-major
         C = 128
         live = torch.arange(C, device=dev) < 4
-        page0 = torch.where(live, torch.arange(C, **i64) * 2048, 0)
-        nl = torch.where(live, 2048, 0).to(torch.int64)
-        ln = torch.where(live, 8 << 20, 0).to(torch.int64)
+        page0 = torch.where(live, torch.arange(C, **i64) * ZERO_LEAVES, 0)
+        nl = torch.where(live, ZERO_LEAVES, 0).to(torch.int64)
+        ln = torch.where(live, n, 0).to(torch.int64)
         out["zero"] = ((flat, npp, page0, nl, ln, live),
-                       dict(nb_max=seg._root_blocks_bound(8 << 20),
+                       dict(nb_max=seg._root_blocks_bound(n),
                             pagemajor=False))
     if "dead" in names:
         C, npp = 2048, 1024
@@ -336,12 +347,6 @@ def shapes(torch, seg, gen, names: tuple, dev: str = "cuda") -> dict:
                        dict(nb_max=seg._root_blocks_bound(8 << 20),
                             pagemajor=False))
     return {k: out[k] for k in names if k in out}
-
-
-def seg_params():
-    from volsync_tpu_torch.ops.gearcdc import DEFAULT_PARAMS
-
-    return DEFAULT_PARAMS
 
 
 def check(args, kw, got, picks) -> None:
@@ -399,7 +404,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--shapes", default=",".join(SHAPES))
     args = ap.parse_args()
 
     import torch
@@ -412,9 +416,6 @@ def main() -> int:
     from volsync_tpu_torch.ops import segment as seg
     from volsync_tpu_torch.tools.time_leaf_calls import call_ms
 
-    names = tuple(n for n in args.shapes.split(",") if n)
-    if set(names) - set(SHAPES):
-        ap.error(f"--shapes: unknown {sorted(set(names) - set(SHAPES))}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=False).stdout.strip()
@@ -424,7 +425,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     res = {}
-    for name, (a, kw) in shapes(torch, seg, gen, names).items():
+    for name, (a, kw) in shapes(torch, seg, gen, SHAPES).items():
         def call(a=a, kw=kw):
             return seg._root_digests_loop(*a, **kw)
 
