@@ -24,7 +24,9 @@ a mismatch:
    the torch and CUDA versions; builds the native host library
    (``io/native.py``: ``native/volio.cpp`` with g++, its build time
    logged) and fails where it is not available, so no run measures
-   the Python routes by accident;
+   the Python routes by accident; lists the port's lint rules through
+   ``volsync lint --list-rules`` (``cli.main.main``, before any runtime
+   boots; exit 0);
 2. kernels: runs one real 48 MiB segment through ``chunk_hash_segment``
    while recording each kernel wrapper's inputs, then holds every
    kernel of that pass (K1 sha256_pages, fastcdc_walk, the tail form of
@@ -343,9 +345,17 @@ a mismatch:
    launches exact (the fused kernels once a device pass), the card
    traced. Then a restic ReplicationDestination restores four of them
    (byte-identical, one file's blob ids equal to the host oracle's, the
-   verify kernels once a verify pass); an rsync destination and source
-   over a 16 MiB tree, synced twice (equal each time, ``md5_slices``
-   launched by the second); two restic sources sharing one bucket of
+   verify kernels once a verify pass); an rsync replication over a
+   16 MiB tree made and driven by the ``volsync replication`` verbs
+   (``cli.main.run`` with the runtime's cluster as the context:
+   create, set-destination, set-source, sync; edits, a second sync;
+   the destination's image equal to the source each time,
+   ``md5_slices`` launched by the second; then schedule and delete,
+   which leaves no labeled object); ``volsync migration`` create,
+   rsync of a 4 MiB tree from this process, edits, a second rsync once
+   the destination listens again (the volume equal to the tree each
+   time, ``md5_slices`` launched by the second), delete; two restic
+   sources sharing one bucket of
    the port's fake S3 (two snapshots, a clean check, throughput gauges
    above 0) and an rclone source and destination over 16 MiB of small
    files through it (equal); a syncthing pair over an 8 MiB folder
@@ -5556,7 +5566,7 @@ def fleet_round(torch, label: str, base: Path, trees: list, made: list,
                     raise
                 with lock:
                     waits.append(rej.retry_after)
-                time.sleep(rej.retry_after)
+                time.sleep(rej.retry_after)  # lint: ignore[VL105] a fleet client honours the retry_after hint; the phase records each wait
         return out
 
     def run():
@@ -6767,6 +6777,8 @@ OPERATOR_RESTORES = 4
 #: The rsync pair's tree, the rclone pair's small files and the syncthing
 #: pair's folder.
 OPERATOR_RSYNC_BYTES = 16 << 20
+#: The tree ``volsync migration rsync`` pushes from this process.
+OPERATOR_MIGRATION_BYTES = 4 << 20
 OPERATOR_RCLONE_BYTES = 16 << 20
 OPERATOR_SYNCTHING_BYTES = 8 << 20
 #: How long a round or a pair may take, and ``Cluster.wait_for``'s poll
@@ -7093,85 +7105,208 @@ def operator_restores(torch, rt, base: Path, names: list, card: str) -> dict:
     return r
 
 
-def operator_rsync(torch, rt, nbytes: int, seed: int, card: str) -> dict:
-    """An rsync ReplicationDestination (CopyMethod Snapshot) and a
-    ReplicationSource (CopyMethod Clone) given the address, port and key
-    secret the destination publishes, over a seeded tree of ``nbytes``
-    (half in ``big.bin``): a first sync into the empty volume, then edits
-    (``big.bin`` overwritten in two places, a small file grown, one added)
-    and a second sync over the basis; after each the destination's image
-    equals the source, and the second launches ``md5_slices``."""
-    from volsync_tpu_torch.api import (CopyMethod, ObjectMeta,
-                                       ReplicationDestination,
-                                       ReplicationDestinationRsyncSpec,
-                                       ReplicationDestinationSpec,
-                                       ReplicationSource,
-                                       ReplicationSourceRsyncSpec,
-                                       ReplicationSourceSpec,
-                                       ReplicationTrigger)
+def cli_verb(cluster, config_dir: Path, *argv) -> list:
+    """One ``volsync`` verb through the port's ``cli.main.run``, with
+    ``cluster`` as the 'default' context and the relationship files under
+    ``config_dir``; raise unless it exits 0. -> its output lines."""
+    from volsync_tpu_torch.cli.main import run
+
+    lines: list = []
+    rc = run(["--config-dir", str(config_dir), *argv],
+             {"default": cluster}, out=lines.append, device=DEVICE)
+    if rc != 0:
+        raise AssertionError(f"volsync {' '.join(argv)}: exit {rc}: {lines}")
+    return lines
+
+
+def relationship_left(cluster, config_dir: Path, name: str, rid: str,
+                      label: str) -> None:
+    """After ``delete``: no object labeled with the relationship ``rid``
+    and no relationship file is left, or raise."""
+    from volsync_tpu_torch.cli.relationship import RELATIONSHIP_LABEL
+
+    left = [(kind, obj.metadata.name)
+            for kind in ("ReplicationSource", "ReplicationDestination",
+                         "Secret", "Volume")
+            for obj in cluster.list(kind, OPERATOR_NS,
+                                    labels={RELATIONSHIP_LABEL: rid})]
+    if left or (config_dir / f"{name}.json").exists():
+        raise AssertionError(f"{label}: delete left {left} "
+                             f"({config_dir / f'{name}.json'})")
+
+
+def port_listening(port: int) -> bool:
+    """Some socket of this host listens on TCP ``port`` (read from
+    /proc/net/tcp{,6}; nothing is connected to it)."""
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        try:
+            rows = Path(table).read_text().splitlines()[1:]
+        except OSError:
+            continue
+        for row in rows:
+            f = row.split()
+            if f[3] == "0A" and int(f[1].rsplit(":", 1)[1], 16) == port:
+                return True
+    return False
+
+
+def edit_tree(tree: Path, made: dict, rng) -> None:
+    """The pairs' edits: ``big.bin`` overwritten in two places, a small
+    file grown, one file added."""
+    big = bytearray((tree / "big.bin").read_bytes())
+    for at in (len(big) // 5, 3 * len(big) // 4):
+        big[at:at + 4096] = rng.bytes(4096)
+    replace_bytes(tree / "big.bin", bytes(big))
+    small = tree / made["small"][1]
+    replace_bytes(small, small.read_bytes() + rng.bytes(5000))
+    (tree / "d03" / "added.bin").write_bytes(rng.bytes(70_000))
+
+
+def operator_rsync(torch, rt, nbytes: int, seed: int, card: str,
+                   config_dir: Path | None = None) -> dict:
+    """An rsync replication made and driven by the port's ``volsync
+    replication`` verbs against the runtime's cluster (relationship files
+    under ``config_dir``, default beside the storage root): ``create``,
+    ``set-destination`` (CopyMethod Snapshot), ``set-source`` (CopyMethod
+    Clone) over a seeded tree of ``nbytes`` (half in ``big.bin``) and a
+    first ``sync`` into the empty volume; then edits and a second
+    ``sync`` over the basis. After each, the destination's latest image
+    equals the source, and the second launches ``md5_slices``. Then
+    ``schedule`` sets the source's cron trigger and ``delete`` leaves no
+    labeled object and no relationship file."""
+    from volsync_tpu_torch.cli.relationship import (TYPE_REPLICATION,
+                                                    Relationship)
 
     cluster = rt.cluster
+    cfg = config_dir or Path(cluster.storage.root).parent / "relationships"
     rng = np.random.default_rng(seed)
     src = volume(cluster, "rsync-data")
     made = make_st_folder(src / "tree", operator_layout(nbytes, nbytes // 2),
                           seed)
-    keys = [("ReplicationDestination", "rsync-dst"),
-            ("ReplicationSource", "rsync-src")]
-    res = {}
+    timeout = str(OPERATOR_TIMEOUT)
+    res, seen = {}, []
 
-    def first():
-        cluster.create(ReplicationDestination(
-            metadata=ObjectMeta(name="rsync-dst", namespace=OPERATOR_NS),
-            spec=ReplicationDestinationSpec(
-                trigger=ReplicationTrigger(manual="first"),
-                rsync=ReplicationDestinationRsyncSpec(
-                    copy_method=CopyMethod.SNAPSHOT, capacity=1 << 30))))
-
-        def published():
+    def new_image() -> None:
+        # the destination runs with no trigger: wait for an image newer
+        # than the last one compared
+        def landed() -> bool:
             cr = cluster.try_get("ReplicationDestination", OPERATOR_NS,
                                  "rsync-dst")
-            st = cr.status.rsync if cr and cr.status else None
-            return bool(st and st.address and st.port)
+            img = cr.status.latest_image if cr and cr.status else None
+            return img is not None and img.name not in seen
 
-        if not cluster.wait_for(published, timeout=OPERATOR_TIMEOUT,
+        if not cluster.wait_for(landed, timeout=OPERATOR_TIMEOUT,
                                 poll=OPERATOR_POLL):
-            raise AssertionError("operator rsync: the destination never "
-                                 "published its address")
-        st = cluster.get("ReplicationDestination", OPERATOR_NS,
-                         "rsync-dst").status.rsync
-        cluster.create(ReplicationSource(
-            metadata=ObjectMeta(name="rsync-src", namespace=OPERATOR_NS),
-            spec=ReplicationSourceSpec(
-                source_pvc="rsync-data",
-                trigger=ReplicationTrigger(manual="first"),
-                rsync=ReplicationSourceRsyncSpec(
-                    address=st.address, port=st.port, ssh_keys=st.ssh_keys,
-                    copy_method=CopyMethod.CLONE))))
-        wait_landed(cluster, "operator rsync first", keys, "first")
+            raise AssertionError("operator rsync: the destination made no "
+                                 "new image")
+
+    def image_equal(label: str) -> None:
+        # an image of an earlier push may land after the sync is acked:
+        # compare each new image until one holds the source
+        want = st_state(src)
+        while True:
+            img = cluster.get("ReplicationDestination", OPERATOR_NS,
+                              "rsync-dst").status.latest_image.name
+            seen.append(img)
+            if st_state(image_root(cluster, "ReplicationDestination",
+                                   "rsync-dst")) == want:
+                return
+            log(f"operator rsync {label}: image {img} is not the source's "
+                f"yet")
+            new_image()
+
+    def first():
+        cli_verb(cluster, cfg, "replication", "create", "rsync")
+        cli_verb(cluster, cfg, "replication", "set-destination", "rsync",
+                 "--dest-name", "rsync-dst", "--copy-method", "Snapshot",
+                 "--capacity", str(1 << 30))
+        cli_verb(cluster, cfg, "replication", "set-source", "rsync",
+                 "--pvcname", "rsync-data", "--copy-method", "Clone")
+        cli_verb(cluster, cfg, "replication", "sync", "rsync",
+                 "--timeout", timeout)
+        new_image()
 
     def second():
-        retrigger(cluster, keys, "second")
-        wait_landed(cluster, "operator rsync second", keys, "second")
+        cli_verb(cluster, cfg, "replication", "sync", "rsync",
+                 "--timeout", timeout)
+        new_image()
 
     for label, run, need in (("first", first, ()),
                              ("second", second, ("md5_slices",))):
         if label == "second":
-            big = bytearray((src / "tree" / "big.bin").read_bytes())
-            for at in (len(big) // 5, 3 * len(big) // 4):
-                big[at:at + 4096] = rng.bytes(4096)
-            replace_bytes(src / "tree" / "big.bin", bytes(big))
-            small = src / "tree" / made["small"][1]
-            replace_bytes(small, small.read_bytes() + rng.bytes(5000))
-            (src / "tree" / "d03" / "added.bin").write_bytes(
-                rng.bytes(70_000))
+            edit_tree(src / "tree", made, rng)
         res[label] = launches_of(
-            torch, f"operator rsync {label} sync ({nbytes} bytes)", run,
-            need, card)
-        got = st_state(image_root(cluster, "ReplicationDestination",
-                                       "rsync-dst"))
-        if got != st_state(src):
-            raise AssertionError(f"operator rsync {label}: the destination "
-                                 f"differs from the source")
+            torch, f"operator rsync {label} sync through volsync "
+            f"replication ({nbytes} bytes)", run, need, card)
+        image_equal(label)
+    rid = Relationship.load(cfg, "rsync", TYPE_REPLICATION).id
+    cli_verb(cluster, cfg, "replication", "schedule", "rsync", "*/5 * * * *")
+    rs = cluster.get("ReplicationSource", OPERATOR_NS, "volsync-rsync")
+    if rs.spec.trigger.schedule != "*/5 * * * *":
+        raise AssertionError(f"operator rsync: schedule set "
+                             f"{rs.spec.trigger}")
+    cli_verb(cluster, cfg, "replication", "delete", "rsync")
+    relationship_left(cluster, cfg, "rsync", rid, "operator rsync")
+    log(f"operator rsync: volsync replication schedule set the source's "
+        f"cron trigger; delete left no labeled object ({card})")
+    return res
+
+
+def operator_migration(torch, rt, base: Path, nbytes: int, seed: int,
+                       card: str) -> dict:
+    """``volsync migration`` against the runtime's cluster: ``create``
+    stands up a CopyMethod Direct destination on an existing volume,
+    ``rsync`` pushes a seeded local tree of ``nbytes`` (half in
+    ``big.bin``) from this process on the phase's device; then edits and
+    a second ``rsync`` once the destination listens again. After each the
+    volume equals the tree, and the second push launches ``md5_slices``;
+    ``delete`` leaves no labeled object and no relationship file."""
+    from volsync_tpu_torch.cli.relationship import (TYPE_MIGRATION,
+                                                    Relationship)
+    from volsync_tpu_torch.movers.common import mover_name
+
+    cluster = rt.cluster
+    cfg = base / "relationships"
+    rng = np.random.default_rng(seed)
+    dst = volume(cluster, "migrated")
+    local = base / "workstation"
+    made = make_st_folder(local, operator_layout(nbytes, nbytes // 2), seed)
+    cli_verb(cluster, cfg, "migration", "create", "mig", "--pvcname",
+             "migrated")
+    rel = Relationship.load(cfg, "mig", TYPE_MIGRATION)
+    port = rel.data["destination"]["port"]
+    rd = cluster.get("ReplicationDestination", OPERATOR_NS,
+                     rel.data["destination"]["name"])
+    job = mover_name("dst", rd)
+    res = {}
+    for label, need in (("first", ()), ("second", ("md5_slices",))):
+        if label == "second":
+            edit_tree(local, made, rng)
+            # the destination serves one push a listener Job: wait for
+            # the next Job's listener on the published port
+            served = uid
+
+            def back() -> bool:
+                j = cluster.try_get("Job", OPERATOR_NS, job)
+                return bool(j and j.metadata.uid != served
+                            and j.status.active and port_listening(port))
+
+            if not cluster.wait_for(back, timeout=OPERATOR_TIMEOUT,
+                                    poll=OPERATOR_POLL):
+                raise AssertionError("operator migration: the destination "
+                                     "did not listen again")
+        uid = cluster.get("Job", OPERATOR_NS, job).metadata.uid
+        res[label] = launches_of(
+            torch, f"operator migration {label} push through volsync "
+            f"migration rsync ({nbytes} bytes)",
+            lambda: cli_verb(cluster, cfg, "migration", "rsync", "mig",
+                             str(local)), need, card)
+        if st_state(dst) != st_state(local):
+            raise AssertionError(f"operator migration {label}: the volume "
+                                 f"differs from the tree")
+    cli_verb(cluster, cfg, "migration", "delete", "mig")
+    relationship_left(cluster, cfg, "mig", rel.id, "operator migration")
+    log(f"operator migration: delete left no labeled object ({card})")
     return res
 
 
@@ -7411,9 +7546,10 @@ def operator_phase(torch, base: Path, crs: int, nbytes: int, rounds: int,
     """``volsync-manager``'s stack (``OperatorRuntime``) on the card, its
     storage root under ``base``: a second runtime on the same root is
     refused by the storage lock; then the fleet rounds, the restores,
-    the rsync pair, the S3 bucket with two restic CRs and the rclone
-    pair, the syncthing pair, and the listener, with no Job attempt
-    failed anywhere (``JobFailures``)."""
+    the rsync pair through ``volsync replication``, the push through
+    ``volsync migration``, the S3 bucket with two restic CRs and the
+    rclone pair, the syncthing pair, and the listener, with no Job
+    attempt failed anywhere (``JobFailures``)."""
     from volsync_tpu_torch.operator import OperatorRuntime
 
     t0 = time.perf_counter()
@@ -7445,6 +7581,8 @@ def operator_phase(torch, base: Path, crs: int, nbytes: int, rounds: int,
                 torch, rt, base, fleet["names"][:OPERATOR_RESTORES], card)
             res["rsync"] = operator_rsync(torch, rt, OPERATOR_RSYNC_BYTES,
                                           seed + 1, card)
+            res["migration"] = operator_migration(
+                torch, rt, base, OPERATOR_MIGRATION_BYTES, seed + 4, card)
             res["s3"] = operator_s3(torch, rt, base, nbytes,
                                     OPERATOR_RCLONE_BYTES, seed + 2, card)
             res["syncthing"] = operator_syncthing(
@@ -7684,6 +7822,16 @@ def main() -> int:
                else ""))
     card = card_line()
     log(card)
+    # the port's lint through its CLI, before any runtime boots
+    from volsync_tpu_torch.cli.main import main as volsync_main
+
+    lines: list = []
+    t1 = time.perf_counter()
+    if volsync_main(["lint", "--list-rules"], out=lines.append) != 0:
+        raise AssertionError(f"volsync lint --list-rules: {lines}")
+    log(f"volsync lint --list-rules: {len(lines)} rules "
+        f"({', '.join(ln.split()[0] for ln in lines)}) in "
+        f"{time.perf_counter() - t1:.2f} s")
     log(f"torch {torch.__version__} CUDA {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     lat = probe_latency_ns(torch, args.seed)
@@ -7984,6 +8132,7 @@ def main() -> int:
     runs["operator.restore"] = op["restore"]["launches"]
     for k in ("first", "second"):
         runs[f"operator.rsync.{k}"] = op["rsync"][k]["launches"]
+        runs[f"operator.migration.{k}"] = op["migration"][k]["launches"]
     for k in ("restic", "rclone_up", "rclone_down"):
         runs[f"operator.s3.{k}"] = op["s3"][k]["launches"]
     runs["operator.syncthing"] = op["syncthing"]["launches"]

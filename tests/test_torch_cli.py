@@ -248,18 +248,20 @@ def test_repack_verb_matches_reference(tmp_path, repack_store, case):
             assert out_t == out_j
 
 
-def test_dispatcher_routes_only_the_two_verbs(tmp_path):
-    """The dispatcher routes the verbs the reference dispatches before
-    its operator boots (scrub, repack, repair, trace, session) and only
-    those; the name is kept from when it routed scrub and repack."""
+def test_dispatcher_routes_only_the_two_verbs(tmp_path, monkeypatch):
+    """The dispatcher routes the reference's whole tree: the verbs the
+    reference dispatches before its operator boots (lint, trace,
+    session, repair, scrub, repack) and the cluster verbs (replication,
+    migration) over a demo-mode runtime; anything else exits 2 with a
+    usage line. The name is kept from when it routed scrub and repack."""
     lines: list = []
     assert cli.main([], out=lines.append, device=DEV) == 2
-    assert cli.main(["replication", "create", "x"], out=lines.append,
-                    device=DEV) == 2
+    assert cli.main(["bogus", "x"], out=lines.append, device=DEV) == 2
     assert all(ln.startswith(
-        "usage: volsync {scrub,repack,repair,trace,session}")
-        for ln in lines)
-    assert cli.VERBS == ("scrub", "repack", "repair", "trace", "session")
+        "usage: volsync {replication,migration,lint,trace,session,repair,"
+        "scrub,repack}") for ln in lines)
+    assert cli.VERBS == ("replication", "migration", "lint", "trace",
+                         "session", "repair", "scrub", "repack")
     for verb in ("scrub", "repair"):
         lines.clear()
         assert cli.main([verb, str(tmp_path / "none")], out=lines.append,
@@ -268,3 +270,20 @@ def test_dispatcher_routes_only_the_two_verbs(tmp_path):
     lines.clear()
     assert cli.main(["trace", "summary"], out=lines.append) == 0
     assert lines
+    lines.clear()
+    assert cli.main(["lint", "--list-rules"], out=lines.append) == 0
+    assert lines[0].startswith("VL001")
+    # the cluster verbs boot the operator runtime on the device asked for
+    monkeypatch.setenv("VOLSYNC_STORAGE_PATH", str(tmp_path / "storage"))
+    monkeypatch.setenv("VOLSYNC_METRICS_PORT", "0")
+    cfg = str(tmp_path / "cfg")
+    lines.clear()
+    assert cli.main(["--config-dir", cfg, "replication", "create", "x"],
+                    out=lines.append, device=DEV) == 0
+    assert lines[0].startswith("created replication relationship x")
+    assert (tmp_path / "cfg" / "x.json").is_file()
+    lines.clear()
+    assert cli.main(["--config-dir", cfg, "migration", "delete", "x"],
+                    out=lines.append, device=DEV) == 1
+    assert lines == ["error: relationship 'x' is a replication, not a "
+                     "migration"]

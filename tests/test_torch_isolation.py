@@ -742,3 +742,102 @@ def test_operator_in_a_subprocess_loads_no_jax(tmp_path):
             "volsync_tpu_torch.movers.syncthing.builder",
             "volsync_tpu_torch.api.serde"} <= set(added)
     assert [m for m in added if _forbidden(m)] == []
+
+
+VERB_AND_LINT_MODULES = [
+    f"volsync_tpu_torch/cli/{m}.py"
+    for m in ("main", "migration", "relationship", "replication")] + [
+    f"volsync_tpu_torch/analysis/{m}.py"
+    for m in ("engine", "cache", "sarif", "rules", "callgraph", "dataflow",
+              "iprules", "lockflow", "guards", "faultflow", "bufflow",
+              "cli", "__main__")]
+
+
+@pytest.mark.parametrize("rel", VERB_AND_LINT_MODULES)
+def test_verb_and_lint_modules_import_no_jax_and_name_their_reference(rel):
+    """Each module of the cluster verbs and of the lint imports no JAX
+    and nothing of the JAX package, names the reference file it ports,
+    and the lint's modules import none of the deferred array-library
+    families (``shapes``, ``absdomain``, VL004's ``TracerSafetyRule``)."""
+    path = ROOT / rel
+    tree = ast.parse(path.read_text(), str(path))
+    found, deferred = [], []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom):
+            if _forbidden(node.module or ""):
+                found.append(node.module)
+            if (node.module or "").rsplit(".", 1)[-1] in ("shapes",
+                                                          "absdomain"):
+                deferred.append(node.module)
+            deferred += [a.name for a in node.names
+                         if a.name in ("TracerSafetyRule",
+                                       "TracerTaintRule")]
+    assert found == [] and deferred == []
+    ref = rel.replace("volsync_tpu_torch/", "volsync_tpu/")
+    assert (ROOT / ref).is_file()
+    assert f"``{ref}``" in " ".join(ast.get_docstring(tree).split())
+
+
+def test_cli_main_raises_without_cuda_before_storage(monkeypatch, tmp_path):
+    """``cli.main`` with no ``device`` boots its demo runtime on CUDA:
+    without CUDA a cluster verb raises before storage is made, a port
+    bound or a relationship file written, while ``lint`` and ``trace``
+    dispatch without touching a device."""
+    from volsync_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("VOLSYNC_DEVICE", raising=False)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    storage, cfg = tmp_path / "storage", tmp_path / "cfg"
+    monkeypatch.setenv("VOLSYNC_STORAGE_PATH", str(storage))
+    monkeypatch.setenv("VOLSYNC_METRICS_PORT", str(port))
+    for argv in (["--config-dir", str(cfg), "replication", "create", "x"],
+                 ["--config-dir", str(cfg), "migration", "rsync", "x",
+                  str(tmp_path)]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(argv, out=lambda s: None)
+        assert _port_is_free(port)
+        assert not storage.exists() and not cfg.exists()
+    touched = []
+    monkeypatch.setattr(torch, "device",
+                        lambda *a, **k: touched.append(a))
+    mod = tmp_path / "m.py"
+    mod.write_text("X = 1\n")
+    lines: list = []
+    assert cli.main(["lint", str(mod), "--no-baseline"],
+                    out=lines.append) == 0
+    assert cli.main(["trace", "summary"], out=lines.append) == 0
+    assert touched == []
+
+
+def test_cli_lint_in_a_subprocess_loads_no_jax(tmp_path):
+    """``python -m volsync_tpu_torch.cli lint`` and ``python -m
+    volsync_tpu_torch.analysis`` in a fresh interpreter lint a file and
+    import no JAX module and nothing of the JAX package."""
+    mod = tmp_path / "m.py"
+    mod.write_text("X = 1\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    for argv in (["volsync_tpu_torch.cli", "lint", str(mod), "--no-baseline"],
+                 ["volsync_tpu_torch.analysis", str(mod), "--no-baseline"]):
+        code = ("import json, runpy, sys\n"
+                f"sys.argv = {argv!r}\n"
+                "rc = None\n"
+                "try:\n"
+                f"    runpy.run_module({argv[0]!r}, run_name='__main__')\n"
+                "except SystemExit as e:\n"
+                "    rc = e.code\n"
+                "print(json.dumps([rc, sorted(sys.modules)]))\n")
+        out = subprocess.run([sys.executable, "-c", code],
+                             capture_output=True, text=True, env=env,
+                             cwd=str(tmp_path), timeout=300, check=True)
+        rc, mods = json.loads(out.stdout.strip().splitlines()[-1])
+        assert rc == 0
+        assert [m for m in mods if _forbidden(m)] == []
+        assert "volsync_tpu_torch.analysis.engine" in mods

@@ -323,8 +323,7 @@ class FaultStore:
         out = bytearray(data)
         for i in range(max(1, nbytes)):
             h = hashlib.blake2b(
-                # schedule is set once in __init__ and never reassigned
-                f"{self.schedule.seed}:bitflip:{key}:{n}:{i}".encode(),
+                f"{self.schedule.seed}:bitflip:{key}:{n}:{i}".encode(),  # lint: ignore[VL402] schedule is set once in __init__ and never reassigned
                 digest_size=8).digest()
             pos = int.from_bytes(h[:6], "big") % len(out)
             out[pos] ^= h[6] | 0x01

@@ -26,10 +26,11 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 
 import torch
+
+from volsync_tpu_torch.analysis import lockcheck
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -37,8 +38,8 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
-_count_lock = threading.Lock()  # launch counts of concurrent callers
+_lock = lockcheck.make_lock("ops.build")
+_count_lock = lockcheck.make_lock("ops.launch_counts")  # concurrent callers
 _libs: dict = {}  # source file name -> ctypes.CDLL
 
 #: Every kernel wrapper of the port, in definition order.

@@ -165,7 +165,7 @@ def md5_pack_host(chunks: list[bytes]):
         buf[i, :L] = np.frombuffer(c, dtype=np.uint8)
         buf[i, L] = 0x80
         buf[i, nb[i] * 64 - 8 : nb[i] * 64] = np.frombuffer(
-            np.array([L * 8], dtype="<u8").tobytes(), dtype=np.uint8
+            np.array([L * 8], dtype="<u8").tobytes(), dtype=np.uint8  # lint: ignore[VL106] 8 B length field
         )
     words = buf.reshape(B, N, 16, 4).astype(np.uint32)
     blocks = (
@@ -182,7 +182,7 @@ def state_bytes(states) -> list[bytes]:
     if isinstance(states, torch.Tensor):
         states = states.cpu().numpy().view(np.uint32)
     le = np.asarray(states).astype("<u4")
-    return [le[i].tobytes() for i in range(le.shape[0])]
+    return [le[i].tobytes() for i in range(le.shape[0])]  # lint: ignore[VL106] 16 B digests
 
 
 def md5_many(chunks: list[bytes], *, device=None) -> list[bytes]:

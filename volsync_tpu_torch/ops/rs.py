@@ -32,12 +32,12 @@ the k+m shards reconstruct the body: m arbitrary losses survive at
 from __future__ import annotations
 
 import functools
-import threading
 
 import numpy as np
 import torch
 
 from volsync_tpu_torch import resolve_device
+from volsync_tpu_torch.analysis import lockcheck
 from volsync_tpu_torch.obs import record_copy
 
 _GF_POLY = 0x11D  # x^8 + x^4 + x^3 + x^2 + 1, primitive over GF(2)
@@ -63,7 +63,7 @@ class CallCount:
     """Calls of ``gf_matmul`` (any device), counted under a lock."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = lockcheck.make_lock("ops.rs_calls")
         self.n = 0
 
     def add(self) -> None:

@@ -678,7 +678,7 @@ def decode_segment(packed, chunk_cap: int
     starts = packed[4: 4 + chunk_cap].astype(np.int64)
     lens = packed[4 + chunk_cap: 4 + 2 * chunk_cap].astype(np.int64)
     roots = packed[4 + 2 * chunk_cap:].reshape(chunk_cap, 8).astype(">u4")
-    out = [(int(starts[c]), int(lens[c]), roots[c].tobytes().hex())
+    out = [(int(starts[c]), int(lens[c]), roots[c].tobytes().hex())  # lint: ignore[VL106] 32 B digests
            for c in range(count)]
     return out, consumed, n_cand, n_leaves
 

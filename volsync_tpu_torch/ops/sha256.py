@@ -293,7 +293,7 @@ def digest_bytes(digests) -> list[bytes]:
     if isinstance(digests, torch.Tensor):
         digests = digests.cpu().numpy().view(np.uint32)
     d = np.asarray(digests).astype(">u4")
-    return [d[i].tobytes() for i in range(d.shape[0])]
+    return [d[i].tobytes() for i in range(d.shape[0])]  # lint: ignore[VL106] 32 B digests
 
 
 def sha256_many(chunks: list, device=None) -> list[bytes]:

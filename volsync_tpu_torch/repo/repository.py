@@ -1298,7 +1298,7 @@ class Repository:
         # The port's single flight: readers of one pack (check's pool,
         # the serial restore's workers) wait for one decode and take it
         # from the memo.
-        with flight:
+        with flight:  # lint: ignore[VL101] single flight: readers wait for the one decode by design
             with self._ec_memo_lock:
                 body = self._ec_memo.get(pack_id)
             try:

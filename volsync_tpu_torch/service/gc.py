@@ -81,7 +81,7 @@ class ContinuousGC:
         self.cycles = 0
         # single-writer: only the cycle thread (or a test calling
         # run_once synchronously) mutates; readers join() via stop()
-        self.outcomes: dict[str, int] = {}
+        self.outcomes: dict[str, int] = {}  # lint: ignore[VL404] single writer: the cycle thread; readers join() via stop()
         self.last_report: Optional[dict] = None
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
