@@ -190,8 +190,8 @@ a mismatch:
    once a verify batch), ``gf_matmul``'s calls and the packs decoded,
    and traces the card;
 9. delta: the rsync mover's data plane (BASELINE.json configs[0], a
-   1 GiB PVC replicated by rsync; ``--delta-gib``, 0.5: the counts
-   below halve). Seeded destination
+   1 GiB PVC replicated by rsync; ``--delta-gib``, 0.25: the counts
+   below are a quarter). Seeded destination
    and source trees on disk: a file of half the volume with 16 scattered
    1 KiB overwrites, a 37-byte insertion a third of the way in and a
    12,345-byte append; 64 files of 4 MiB and 240 of 1 MiB, in turns
@@ -7105,17 +7105,26 @@ def operator_restores(torch, rt, base: Path, names: list, card: str) -> dict:
     return r
 
 
+def relationships_dir(rt) -> Path:
+    """Where the smoke's ``volsync`` verbs keep their relationship files:
+    beside the runtime's storage root."""
+    return Path(rt.cluster.storage.root).parent / "relationships"
+
+
 def cli_verb(cluster, config_dir: Path, *argv) -> list:
     """One ``volsync`` verb through the port's ``cli.main.run``, with
     ``cluster`` as the 'default' context and the relationship files under
-    ``config_dir``; raise unless it exits 0. -> its output lines."""
+    ``config_dir``; raise unless it exits 0, log its wall. -> its output
+    lines."""
     from volsync_tpu_torch.cli.main import run
 
     lines: list = []
+    t0 = time.perf_counter()
     rc = run(["--config-dir", str(config_dir), *argv],
              {"default": cluster}, out=lines.append, device=DEVICE)
     if rc != 0:
         raise AssertionError(f"volsync {' '.join(argv)}: exit {rc}: {lines}")
+    log(f"volsync {' '.join(argv[:3])}: {time.perf_counter() - t0:.3f} s")
     return lines
 
 
@@ -7162,83 +7171,94 @@ def edit_tree(tree: Path, made: dict, rng) -> None:
     (tree / "d03" / "added.bin").write_bytes(rng.bytes(70_000))
 
 
-def operator_rsync(torch, rt, nbytes: int, seed: int, card: str,
-                   config_dir: Path | None = None) -> dict:
+def operator_rsync(torch, rt, nbytes: int, seed: int, card: str) -> dict:
     """An rsync replication made and driven by the port's ``volsync
-    replication`` verbs against the runtime's cluster (relationship files
-    under ``config_dir``, default beside the storage root): ``create``,
+    replication`` verbs against the runtime's cluster: ``create``,
     ``set-destination`` (CopyMethod Snapshot), ``set-source`` (CopyMethod
     Clone) over a seeded tree of ``nbytes`` (half in ``big.bin``) and a
     first ``sync`` into the empty volume; then edits and a second
-    ``sync`` over the basis. After each, the destination's latest image
-    equals the source, and the second launches ``md5_slices``. Then
-    ``schedule`` sets the source's cron trigger and ``delete`` leaves no
-    labeled object and no relationship file."""
+    ``sync`` over the basis. Each round is timed up to its sync's own
+    image: the source runs without a trigger until the first ``sync``
+    sets one, so that round may also land images of earlier pushes of
+    the same tree, which are counted; the second round must land exactly
+    one push and one image. Each round's image equals the source, and
+    the second launches ``md5_slices``. Then ``schedule`` sets the
+    source's cron trigger and ``delete`` leaves no labeled object and no
+    relationship file."""
     from volsync_tpu_torch.cli.relationship import (TYPE_REPLICATION,
                                                     Relationship)
+    from volsync_tpu_torch.movers.common import mover_name
 
     cluster = rt.cluster
-    cfg = config_dir or Path(cluster.storage.root).parent / "relationships"
+    cfg = relationships_dir(rt)
     rng = np.random.default_rng(seed)
     src = volume(cluster, "rsync-data")
     made = make_st_folder(src / "tree", operator_layout(nbytes, nbytes // 2),
                           seed)
     timeout = str(OPERATOR_TIMEOUT)
-    res, seen = {}, []
+    keys = (("volsync-rsync", OPERATOR_NS, "source", "rsync"),
+            ("rsync-dst", OPERATOR_NS, "destination", "rsync"))
 
-    def new_image() -> None:
-        # the destination runs with no trigger: wait for an image newer
-        # than the last one compared
-        def landed() -> bool:
-            cr = cluster.try_get("ReplicationDestination", OPERATOR_NS,
-                                 "rsync-dst")
-            img = cr.status.latest_image if cr and cr.status else None
-            return img is not None and img.name not in seen
+    def syncs() -> tuple:
+        # completed syncs: the source's pushes, the destination's images
+        done = rt.metrics.sync_durations.values()
+        return tuple(done.get(k, (0, 0.0))[0] for k in keys)
 
-        if not cluster.wait_for(landed, timeout=OPERATOR_TIMEOUT,
+    def settled() -> bool:
+        # every push has its image, and the destination's next listener
+        # Job exists: it is made only after the last image is written
+        pushes, images = syncs()
+        rd = cluster.try_get("ReplicationDestination", OPERATOR_NS,
+                             "rsync-dst")
+        job = rd and cluster.try_get("Job", OPERATOR_NS,
+                                     mover_name("dst", rd))
+        return (pushes == images > 0 and job is not None
+                and not job.status.succeeded)
+
+    def sync_round(label: str) -> float:
+        t0 = datetime.now(timezone.utc)
+        if label == "first":
+            cli_verb(cluster, cfg, "replication", "create", "rsync")
+            cli_verb(cluster, cfg, "replication", "set-destination", "rsync",
+                     "--dest-name", "rsync-dst", "--copy-method", "Snapshot",
+                     "--capacity", str(1 << 30))
+            cli_verb(cluster, cfg, "replication", "set-source", "rsync",
+                     "--pvcname", "rsync-data", "--copy-method", "Clone")
+        cli_verb(cluster, cfg, "replication", "sync", "rsync",
+                 "--timeout", timeout)
+        if not cluster.wait_for(settled, timeout=OPERATOR_TIMEOUT,
                                 poll=OPERATOR_POLL):
-            raise AssertionError("operator rsync: the destination made no "
-                                 "new image")
+            raise AssertionError(f"operator rsync {label}: pushes and "
+                                 f"images {syncs()} did not settle")
+        landed = cluster.get("ReplicationDestination", OPERATOR_NS,
+                             "rsync-dst").status.last_sync_time
+        return (landed - t0).total_seconds()
 
-    def image_equal(label: str) -> None:
-        # an image of an earlier push may land after the sync is acked:
-        # compare each new image until one holds the source
-        want = st_state(src)
-        while True:
-            img = cluster.get("ReplicationDestination", OPERATOR_NS,
-                              "rsync-dst").status.latest_image.name
-            seen.append(img)
-            if st_state(image_root(cluster, "ReplicationDestination",
-                                   "rsync-dst")) == want:
-                return
-            log(f"operator rsync {label}: image {img} is not the source's "
-                f"yet")
-            new_image()
-
-    def first():
-        cli_verb(cluster, cfg, "replication", "create", "rsync")
-        cli_verb(cluster, cfg, "replication", "set-destination", "rsync",
-                 "--dest-name", "rsync-dst", "--copy-method", "Snapshot",
-                 "--capacity", str(1 << 30))
-        cli_verb(cluster, cfg, "replication", "set-source", "rsync",
-                 "--pvcname", "rsync-data", "--copy-method", "Clone")
-        cli_verb(cluster, cfg, "replication", "sync", "rsync",
-                 "--timeout", timeout)
-        new_image()
-
-    def second():
-        cli_verb(cluster, cfg, "replication", "sync", "rsync",
-                 "--timeout", timeout)
-        new_image()
-
-    for label, run, need in (("first", first, ()),
-                             ("second", second, ("md5_slices",))):
+    res, done = {}, (0, 0)
+    for label, need in (("first", ()), ("second", ("md5_slices",))):
         if label == "second":
             edit_tree(src / "tree", made, rng)
-        res[label] = launches_of(
+        r = res[label] = launches_of(
             torch, f"operator rsync {label} sync through volsync "
-            f"replication ({nbytes} bytes)", run, need, card)
-        image_equal(label)
+            f"replication ({nbytes} bytes; up to the next listener)",
+            lambda: sync_round(label), need, card)
+        now = syncs()
+        pushes, images = (now[0] - done[0], now[1] - done[1])
+        done = now
+        if label == "second" and (pushes, images) != (1, 1):
+            raise AssertionError(f"operator rsync second: {pushes} pushes "
+                                 f"and {images} images, not one of each")
+        img = cluster.get("ReplicationDestination", OPERATOR_NS,
+                          "rsync-dst").status.latest_image.name
+        if st_state(image_root(cluster, "ReplicationDestination",
+                               "rsync-dst")) != st_state(src):
+            raise AssertionError(f"operator rsync {label}: image {img} of "
+                                 f"the sync differs from the source")
+        r.update(image_s=r["out"], images=images)
+        log(f"operator rsync {label}: {images} new image(s) of {pushes} "
+            f"push(es), {images - 1} of them before the sync's own; its "
+            f"image {img} landed {r['image_s']:.3f} s after the round's "
+            f"first verb and equals the source ({card})")
     rid = Relationship.load(cfg, "rsync", TYPE_REPLICATION).id
     cli_verb(cluster, cfg, "replication", "schedule", "rsync", "*/5 * * * *")
     rs = cluster.get("ReplicationSource", OPERATOR_NS, "volsync-rsync")
@@ -7266,7 +7286,7 @@ def operator_migration(torch, rt, base: Path, nbytes: int, seed: int,
     from volsync_tpu_torch.movers.common import mover_name
 
     cluster = rt.cluster
-    cfg = base / "relationships"
+    cfg = relationships_dir(rt)
     rng = np.random.default_rng(seed)
     dst = volume(cluster, "migrated")
     local = base / "workstation"
@@ -7278,7 +7298,7 @@ def operator_migration(torch, rt, base: Path, nbytes: int, seed: int,
     rd = cluster.get("ReplicationDestination", OPERATOR_NS,
                      rel.data["destination"]["name"])
     job = mover_name("dst", rd)
-    res = {}
+    res, waited = {}, {}
     for label, need in (("first", ()), ("second", ("md5_slices",))):
         if label == "second":
             edit_tree(local, made, rng)
@@ -7291,16 +7311,21 @@ def operator_migration(torch, rt, base: Path, nbytes: int, seed: int,
                 return bool(j and j.metadata.uid != served
                             and j.status.active and port_listening(port))
 
+            t0 = time.perf_counter()
             if not cluster.wait_for(back, timeout=OPERATOR_TIMEOUT,
                                     poll=OPERATOR_POLL):
                 raise AssertionError("operator migration: the destination "
                                      "did not listen again")
+            waited = {"listener_s": time.perf_counter() - t0}
+            log(f"operator migration: the next listener Job listened "
+                f"{waited['listener_s']:.3f} s after the edits")
         uid = cluster.get("Job", OPERATOR_NS, job).metadata.uid
         res[label] = launches_of(
             torch, f"operator migration {label} push through volsync "
             f"migration rsync ({nbytes} bytes)",
             lambda: cli_verb(cluster, cfg, "migration", "rsync", "mig",
                              str(local)), need, card)
+        res[label].update(waited)
         if st_state(dst) != st_state(local):
             raise AssertionError(f"operator migration {label}: the volume "
                                  f"differs from the tree")
@@ -7730,9 +7755,9 @@ def main() -> int:
     ap.add_argument("--ec-gib", type=float, default=0.5)
     # The delta phase's volume: BASELINE.json configs[0], a 1 GiB PVC
     # replicated by rsync, cut to 0.5 GiB once the script passed 1,150 s
-    # on a slow host (PERF.md, section 4). The mover phase syncs the same
-    # trees.
-    ap.add_argument("--delta-gib", type=float, default=0.5)
+    # on a slow host, and to 0.25 GiB once it passed 1,000 s (PERF.md,
+    # section 4). The mover phase syncs the same trees.
+    ap.add_argument("--delta-gib", type=float, default=0.25)
     # The restic entry phase's tree: cut from the 10 GiB PVC, which the
     # backup phase already runs through the same engine.
     ap.add_argument("--restic-mib", type=float, default=256.0)

@@ -769,7 +769,8 @@ def _stream(reader, params: GearParams, segment_size: int, hasher,
                 return
             # A non-eof pass over more than max_size bytes always emits
             # at least one chunk (max_size forces a cut).
-            assert consumed > 0, "chunker made no progress"
+            if consumed <= 0:
+                raise AssertionError("chunker made no progress")
     finally:
         if ra is not None:
             ra.close()
