@@ -165,7 +165,7 @@ def test_sarif_has_vl5_catalogue_and_regions(tmp_path):
     doc = json.loads(out.read_text())
     run = doc["runs"][0]
     rule_ids = {r["id"] for r in run["tool"]["driver"]["rules"]}
-    assert rule_ids == {"VL503", "VL505"}
+    assert rule_ids == {"VL501", "VL502", "VL503", "VL504", "VL505"}
     regions = [r["locations"][0]["physicalLocation"]["region"]
                for r in run["results"]]
     assert regions

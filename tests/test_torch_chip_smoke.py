@@ -1191,6 +1191,42 @@ def test_syncthing_phase_on_cpu(monkeypatch, tmp_path):
     assert res["conflict"]["pulled"] >= 2  # B may take both versions
 
 
+def test_st_indexed_waits_for_the_index_to_catch_up(tmp_path):
+    """The syncthing runs' wait: an index that a scan left partway
+    through an edit (a file turned into a directory, a rewrite at a new
+    size, a delete, an add) does not describe the folder until a later
+    scan catches up; a pull's temp file is not indexed."""
+    from volsync_tpu_torch.movers.syncthing.entry import (
+        _TMP_PREFIX,
+        FolderIndex,
+    )
+
+    root = tmp_path / "data"
+    (root / "d").mkdir(parents=True)
+    (root / "d" / "a.bin").write_bytes(b"a" * 100)
+    (root / "m.bin").write_bytes(b"m" * 5000)
+    (root / "e").write_bytes(b"")
+    os.symlink("d/a.bin", root / "link")
+    index = FolderIndex(tmp_path / "index.json", "dev", "cpu")
+
+    def settled():
+        return chip_smoke.st_indexed(root, index.snapshot())
+
+    assert index.scan(root) and settled()
+    (root / (_TMP_PREFIX + "pull")).write_bytes(b"x")
+    assert settled()
+    edits = [lambda: ((root / "m.bin").unlink(), (root / "m.bin").mkdir(),
+                      (root / "m.bin" / "inside.bin").write_bytes(b"i")),
+             lambda: (root / "d" / "a.bin").write_bytes(b"a" * 101),
+             lambda: (root / "e").unlink(),
+             lambda: (root / "d" / "new.bin").write_bytes(b"n")]
+    for edit in edits:
+        edit()
+        assert not settled()
+        assert index.scan(root) and settled()
+    assert not chip_smoke.st_indexed(tmp_path / "gone", index.snapshot())
+
+
 def test_root_shape_entries_on_cpu(monkeypatch):
     """merkle_roots' other callers' shapes (batched passes, more live
     lanes than sub-partitions, the span form, the mesh's page-major
@@ -1246,3 +1282,32 @@ def test_root_union_keeps_each_shapes_digests():
         first, n = rows[name]
         assert torch.equal(both[first:first + n],
                            seg._root_digests_plain(*a, **k))
+
+
+def test_process_device_phase_on_cpu(monkeypatch):
+    """chip_smoke's process_device phase rehearsed on the CPU at a 4 MiB
+    segment: both aligns equal to process and hashlib, the split phase's
+    hooks each called once."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "PD_BYTES", (4 << 20) - 12345)
+    out = chip_smoke.process_device_phase(torch, 3, "cpu")
+    assert out[64]["hook_calls"] == {"leaf": 1, "cand": 1}
+    assert out[4096]["hook_calls"] == {"leaf": 0, "cand": 0}
+    assert out[64]["chunks"] > 1 and out[4096]["chunks"] > 1
+
+
+def test_lint_probe_pieces_on_cpu(monkeypatch, tmp_path):
+    """The probe's lint reading flags the flagged function and not its
+    twin, and its uint32 probe on CPU tensors reproduces absdomain's CPU
+    table exactly (the capture probe needs the card)."""
+    from volsync_tpu_torch.analysis import absdomain
+    from volsync_tpu_torch.analysis.cli import _all_rules
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    lines = chip_smoke.vl004_lint_lines(tmp_path)
+    assert lines == {"flagged": [5, 6, 8], "clean": []}
+    got = chip_smoke.uint32_probe(torch)
+    assert {k for k, v in got.items() if v != "ok"} == \
+        absdomain.UINT32_CPU_REFUSED
+    assert set(chip_smoke.ARRAY_LINT_CODES) <= {
+        r.code for rules in _all_rules() for r in rules}

@@ -144,11 +144,21 @@ def daemons(tmp_path):
         d.thread.join(timeout=10.0)
 
 
+class _Moving(Exception):
+    """A path vanished or changed between a tree walk and its read: the
+    tree is still moving, so the snapshot is not settled."""
+
+
 def wait(pred, timeout=TIMEOUT):
+    """Poll ``pred`` until it holds; a snapshot of a tree that moved
+    under it (``_Moving``) counts as not settled and is polled again."""
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
-        if pred():
-            return
+        try:
+            if pred():
+                return
+        except _Moving:
+            pass
         time.sleep(0.05)
     raise AssertionError("timed out")
 
@@ -167,22 +177,57 @@ def _has(d, rel, data):
 
 
 def _tree(root) -> dict:
-    """rel -> (kind, bytes or link target, mode, mtime_ns)."""
+    """rel -> (kind, bytes or link target, mode, mtime_ns). Raises
+    ``_Moving`` when a walked path vanishes or changes kind before it is
+    read (a daemon renamed or deleted it): no entry is skipped, so a
+    partial tree is never compared."""
     out = {}
     for dirpath, dirnames, filenames in os.walk(root):
         for name in dirnames + filenames:
             p = os.path.join(dirpath, name)
             rel = os.path.relpath(p, root)
-            st = os.lstat(p)
-            if os.path.islink(p):
-                out[rel] = ("link", os.readlink(p))
-            elif os.path.isdir(p):
-                out[rel] = ("dir", st.st_mode & 0o7777)
-            else:
-                with open(p, "rb") as f:
-                    out[rel] = ("file", f.read(), st.st_mode & 0o7777,
-                                st.st_mtime_ns)
+            try:
+                st = os.lstat(p)
+                if os.path.islink(p):
+                    out[rel] = ("link", os.readlink(p))
+                elif os.path.isdir(p):
+                    out[rel] = ("dir", st.st_mode & 0o7777)
+                else:
+                    with open(p, "rb") as f:
+                        out[rel] = ("file", f.read(), st.st_mode & 0o7777,
+                                    st.st_mtime_ns)
+            except (FileNotFoundError, NotADirectoryError,
+                    IsADirectoryError) as e:
+                raise _Moving(p) from e
     return out
+
+
+def test_tree_snapshot_of_a_moving_tree_is_polled_again(tmp_path,
+                                                        monkeypatch):
+    """A path that vanishes between the walk and its ``lstat`` makes the
+    snapshot unsettled: ``wait`` polls again instead of failing or
+    comparing a partial tree."""
+    for side in ("a", "b"):
+        (tmp_path / side / "d").mkdir(parents=True)
+        (tmp_path / side / "d" / "f.bin").write_bytes(b"z" * 100)
+        os.utime(tmp_path / side / "d" / "f.bin", ns=(10**18, 10**18))
+    real = os.lstat
+    calls = {"n": 0, "raised": 0}
+
+    def flaky(p, *a, **k):
+        calls["n"] += 1
+        if calls["raised"] == 0 and str(p).endswith("f.bin"):
+            calls["raised"] += 1
+            raise FileNotFoundError(p)
+        return real(p, *a, **k)
+
+    monkeypatch.setattr(os, "lstat", flaky)
+    wait(lambda: _tree(tmp_path / "a") == _tree(tmp_path / "b"),
+         timeout=5.0)
+    assert calls["raised"] == 1 and calls["n"] > 2
+    calls["raised"] = 0
+    with pytest.raises(_Moving):
+        _tree(tmp_path / "a")
 
 
 def test_mesh_sync_and_connections(daemons):

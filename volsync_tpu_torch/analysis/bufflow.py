@@ -1,34 +1,54 @@
-"""Buffer-provenance dataflow analysis, host half (VL503, VL505).
+"""Buffer-provenance and device-boundary dataflow analysis (VL5xx).
 
-Ports the host half of ``volsync_tpu/analysis/bufflow.py``. The
-zero-copy data plane moves payload bytes as pooled buffers
-(engine/bufpool.py) and memoryviews; the copy ledger
-(obs/copyledger.py) accounts for the sanctioned host copies that
-remain.  VL106 guards that contract syntactically; this module proves
-it semantically: an abstract provenance lattice per value —
+Ports ``volsync_tpu/analysis/bufflow.py``. The zero-copy data plane
+moves payload bytes as pooled buffers (engine/bufpool.py) and
+memoryviews; the copy ledger (obs/copyledger.py) accounts for the
+sanctioned host copies that remain.  VL106 guards that contract
+syntactically; this module proves it semantically: an abstract
+provenance lattice per value —
 
 * ``pooled``  — a buffer from a BufferPool ``acquire()``;
 * ``mview``   — a memoryview/slice over a pooled buffer;
+* ``device``  — a tensor on the card.  A tensor's device is a run-time
+  value and the port's twins run the same ops on CPU tensors, so a
+  value is ``device`` only where the code says so: ``.cuda()``;
+  ``.to(x)`` or a factory's ``device=x`` where ``x`` is not literally
+  ``"cpu"`` (and ``.to``'s argument is not a dtype); the result of one
+  of the port's kernel wrappers (a function that launches a
+  ``Kernel`` of ops/_build.py); a ``torch.*`` op or a Tensor method
+  applied to a device operand;
 * ``host``    — materialized host bytes (``np.asarray`` fetch,
-  ``bytes``, ``.tobytes``);
+  ``.cpu()``, ``.numpy()``, ``bytes``, ``.tobytes``);
 * ``unknown`` — everything else (never produces a finding);
 
 propagated through per-function summaries (returns / param
 materializations) over the callgraph, each fact carrying a hop chain
-back to its origin.  Two rules ride the model:
+back to its origin.  Five rules ride the model:
 
+* **VL501** implicit device→host sync in a hot scope (``float``/
+  ``int``/``bool``/``.item()``/``.tolist()``/``.cpu()``/``.numpy()``/
+  ``np.asarray`` on a device value in engine/, ops/ or repo/).  A
+  function that ledgers a sanctioned copy (``record_copy(site, n)``
+  with ``site`` in ``SANCTIONED_SITES``) is an explicit staging site
+  and is exempt — that is where the batched fetch is *supposed* to
+  happen.
+* **VL502** device dispatch inside a per-item Python loop: a ``torch``
+  op, Tensor method or kernel wrapper yielding a device value whose
+  operand derives from the loop variable — the anti-pattern the
+  batched kernels exist to kill.  Loops in a compiled function or in a
+  body handed to ``torch.cond``/``while_loop``/``scan`` (VL004's
+  notion) run at trace time and are exempt.
 * **VL503** semantic copy: a materialization (``bytes(x)``,
   ``x.tobytes()``, ``b"".join``) whose operand has pooled/mview
   provenance — locally or via a parameter — is a finding unless the
   statement (or an adjacent sibling within ``_SANCTION_SPAN`` lines)
   ledgers it with a sanctioned ``record_copy`` site.
+* **VL504** use-after-donate: registered with the reference's code,
+  name and description, and silent: torch has no buffer donation and
+  the port donates nothing (``UseAfterDonateRule``).
 * **VL505** ledger⊆sanction drift: every ``record_copy`` call site
   must name a literal site in ``SANCTIONED_SITES``, and every
   sanctioned site must have at least one call site.
-
-The reference's device half (the ``device`` tag and VL501 implicit
-syncs, VL502 per-item dispatches, VL504 use-after-donate) recognises
-``jnp``/``lax``/``jax.jit`` calls and is not ported yet (ROADMAP.md).
 
 ``SANCTIONED_SITES`` is resolved from the AST of ``obs/copyledger.py``
 in the linted tree (never hardcoded), falling back to the installed
@@ -47,6 +67,7 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Iterator, Optional
 
+from volsync_tpu_torch.analysis.absdomain import canon_dtype
 from volsync_tpu_torch.analysis.callgraph import (
     FunctionInfo,
     ModuleInfo,
@@ -55,18 +76,19 @@ from volsync_tpu_torch.analysis.callgraph import (
 )
 from volsync_tpu_torch.analysis.engine import Finding, finding_at
 from volsync_tpu_torch.analysis.iprules import _ScopeMaps, _walk_skip_defs
-from volsync_tpu_torch.analysis.rules import _const_str
+from volsync_tpu_torch.analysis.rules import TracerSafetyRule, _const_str
 
 # -- provenance lattice ------------------------------------------------------
 
 POOLED = "pooled"
 MVIEW = "mview"
+DEVICE = "device"
 HOST = "host"
 UNKNOWN = "unknown"
 
 #: join order: a pooled verdict must survive merging with anything
 #: weaker, and any concrete tag beats the symbolic param:<i> tags.
-_RANK = {POOLED: 5, MVIEW: 4, HOST: 2, UNKNOWN: 0}
+_RANK = {POOLED: 5, MVIEW: 4, DEVICE: 3, HOST: 2, UNKNOWN: 0}
 
 
 @dataclass(frozen=True)
@@ -236,7 +258,7 @@ def sanctioned_lines(tree: ast.Module,
     return out
 
 
-# -- pool / host-fetch classification ------------------------------------
+# -- device / pool / host-fetch classification -----------------------------
 
 def _expand_chain(chain: list, mod: ModuleInfo) -> str:
     """Dotted name with the leading alias expanded: with ``import
@@ -259,6 +281,142 @@ def _is_host_fetch(call: ast.Call, mod: ModuleInfo) -> bool:
     if not chain:
         return False
     return _expand_chain(chain, mod) in ("numpy.asarray", "numpy.array")
+
+
+#: ``torch.*`` callables that are not ops on tensors (device handles,
+#: host constructors, dtype queries) and namespaces of runtime services
+_NON_OPS = frozenset({
+    "torch.device", "torch.from_numpy", "torch.frombuffer", "torch.Size",
+    "torch.is_tensor", "torch.get_default_dtype", "torch.set_num_threads",
+    "torch.get_num_threads", "torch.manual_seed", "torch.promote_types",
+    "torch.result_type", "torch.no_grad", "torch.inference_mode",
+    "torch.iinfo", "torch.finfo", "torch.Generator", "torch.compile",
+})
+_NON_OP_PREFIXES = ("torch.cuda.", "torch.distributed.", "torch.utils.",
+                    "torch.backends.", "torch.profiler.", "torch.jit.",
+                    "torch.autograd.", "torch.library.", "torch.testing.",
+                    "torch.multiprocessing.")
+
+#: Tensor methods whose result is on the host (the VL501 sinks among
+#: them) or is no tensor at all
+_HOST_METHODS = ("cpu", "numpy", "tolist", "item", "tobytes",
+                 "data_ptr", "dim", "size", "numel", "element_size",
+                 "is_contiguous", "stride", "storage_offset")
+
+
+def _is_cpu_literal(expr: ast.AST, mod: ModuleInfo) -> bool:
+    """``"cpu"`` or ``torch.device("cpu"[, ...])``."""
+    if isinstance(expr, ast.Constant):
+        return expr.value == "cpu"
+    if isinstance(expr, ast.Call) and expr.args:
+        chain = attr_chain(expr.func)
+        if chain and _expand_chain(chain, mod) == "torch.device":
+            return _is_cpu_literal(expr.args[0], mod)
+    return False
+
+
+def _is_dtype_expr(expr: ast.AST, mod: ModuleInfo) -> bool:
+    """``torch.int64``-style dtype constants and ``x.dtype`` reads."""
+    chain = attr_chain(expr)
+    if not chain:
+        return False
+    if chain[-1] == "dtype" and len(chain) > 1:
+        return True
+    root, _, leaf = _expand_chain(chain, mod).rpartition(".")
+    return root == "torch" and canon_dtype(leaf) is not None
+
+
+def _device_move(call: ast.Call, mod: ModuleInfo) -> Optional[str]:
+    """Label when ``call`` puts a tensor on the card by the code's own
+    word: ``.cuda()``, ``.to(x)`` / ``.to(device=x)`` or a ``torch.*``
+    factory's ``device=x`` with ``x`` not literally ``"cpu"`` (and
+    ``.to``'s positional argument not a dtype)."""
+    f = call.func
+    dev_kw = next((kw.value for kw in call.keywords if kw.arg == "device"),
+                  None)
+    if isinstance(f, ast.Attribute) and f.attr == "cuda":
+        return ".cuda()"
+    if isinstance(f, ast.Attribute) and f.attr == "to":
+        target = dev_kw if dev_kw is not None else (
+            call.args[0] if call.args else None)
+        if target is None or _is_cpu_literal(target, mod) \
+                or _is_dtype_expr(target, mod):
+            return None
+        return ".to()"
+    if dev_kw is not None and not _is_cpu_literal(dev_kw, mod) \
+            and _is_torch_op(call, mod) is not None:
+        return f"{'.'.join(attr_chain(f))}(device=)"
+    return None
+
+
+def _is_torch_op(call: ast.Call, mod: ModuleInfo) -> Optional[str]:
+    """The dotted name of a ``torch.*`` op call, else None."""
+    chain = attr_chain(call.func)
+    if not chain:
+        return None
+    dotted = _expand_chain(chain, mod)
+    if not dotted.startswith("torch.") or dotted in _NON_OPS \
+            or dotted.startswith(_NON_OP_PREFIXES):
+        return None
+    return ".".join(chain)
+
+
+def _kernel_objects(index: ProjectIndex) -> set:
+    """Dotted names of module-level ``Kernel(...)`` bindings: the
+    launchers of ops/_build.py."""
+    out: set = set()
+    for mod in index.modules.values():
+        for node in mod.ctx.tree.body:
+            if not (isinstance(node, ast.Assign)
+                    and isinstance(node.value, ast.Call)):
+                continue
+            chain = attr_chain(node.value.func)
+            if chain and _expand_chain(chain, mod).endswith(
+                    "_build.Kernel"):
+                for t in node.targets:
+                    if isinstance(t, ast.Name):
+                        out.add(f"{mod.name}.{t.id}")
+    return out
+
+
+def _launches(fi: FunctionInfo, mod: ModuleInfo,
+              kernels: set) -> Optional[str]:
+    """The kernel a function launches directly (``K.launch(...)`` on a
+    ``Kernel`` binding), making it one of the port's kernel wrappers."""
+    for node in _walk_skip_defs(fi.node):
+        if not (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "launch"):
+            continue
+        chain = attr_chain(node.func.value)
+        if not chain:
+            continue
+        dotted = _expand_chain(chain, mod)
+        if dotted in kernels or f"{mod.name}.{dotted}" in kernels:
+            return chain[-1]
+    return None
+
+
+def _const_iterable(it: ast.AST) -> bool:
+    """True for an iterable that is a literal constant sequence —
+    ``(1, 2, 4, 8, 16)`` or ``range(16)`` — i.e. a bounded structural
+    unroll (the log-depth doubling kernels), not a per-data-item loop."""
+    if isinstance(it, (ast.Tuple, ast.List)):
+        return bool(it.elts) and all(
+            isinstance(e, ast.Constant) for e in it.elts)
+    if (isinstance(it, ast.Call) and isinstance(it.func, ast.Name)
+            and it.func.id == "range" and it.args):
+        return all(isinstance(a, ast.Constant) for a in it.args)
+    return False
+
+
+_SYNC_BUILTINS = {"float", "int", "bool"}
+
+#: VL501's Tensor-method sinks: each leaves the card
+_SYNC_METHODS = ("item", "tolist", "cpu", "numpy")
+
+#: VL501 hot scopes — the zero-copy data plane proper
+_HOT_PARTS = ("engine", "ops", "repo")
 
 
 _MAT_KINDS = {"bytes": "bytes(...)", "tobytes": ".tobytes()",
@@ -316,6 +474,10 @@ class BufModel:
         self.sites: dict[str, ast.AST] = {}  # sanctioned site -> elt node
         self.ledger: Optional[ModuleInfo] = None
         self.site_set: frozenset = frozenset()
+        # kernel wrappers: qualname -> the Kernel binding it launches
+        self.wrappers: dict[str, str] = {}
+        # ids of the FunctionDefs torch runs under capture/compilation
+        self.traced: set = set()
         self.record_sites: dict[str, list] = {}  # site -> [(relpath, line)]
         self.nonliteral: list = []  # (relpath, Call) record_copy sites
         self.summaries: dict[str, FnSummary] = {}
@@ -337,16 +499,24 @@ class BufModel:
             self.site_set = frozenset(self.sites)
         else:
             self.site_set = installed_sanctioned_sites()
+        kernels = _kernel_objects(self.index)
         for rp in sorted(self.index.by_relpath):
             mod = self.index.by_relpath[rp]
             self.maps[rp] = _ScopeMaps(mod)
+            self.traced.update(TracerSafetyRule.traced_functions(
+                mod.ctx.tree))
+        for qual in sorted(self.index.functions):
+            fi = self.index.functions[qual]
+            kernel = _launches(fi, self.index.modules[fi.module], kernels)
+            if kernel is not None:
+                self.wrappers[qual] = kernel
         for rp in sorted(self.index.by_relpath):
             self._collect_records(self.index.by_relpath[rp])
         for qual in sorted(self.index.functions):
             self.summary_of(qual)
         # module-level code (scripts, benches) runs at import time and
-        # copies too — analyze each module body as a param-less
-        # pseudo-function so VL503 covers script paths
+        # dispatches too — analyze each module body as a param-less
+        # pseudo-function so VL501/VL502/VL503 cover script paths
         for rp in sorted(self.index.by_relpath):
             mod = self.index.by_relpath[rp]
             shim = FunctionInfo(
@@ -384,6 +554,12 @@ class BufModel:
             summary = self._analyze_fn(qual, fi)
         finally:
             self._in_progress.discard(qual)
+        if qual in self.wrappers:  # launches a kernel: a card tensor
+            summary.returns = Prov(
+                DEVICE, (f"device tensor from kernel wrapper "
+                         f"{fi.node.name}() ({fi.relpath}:"
+                         f"{fi.node.lineno})",))
+            summary.ret_param = None
         self.summaries[qual] = summary
         return summary
 
@@ -393,13 +569,16 @@ class BufModel:
         summary = FnSummary()
         env: dict[str, Prov] = {
             p: Prov(f"param:{i}") for i, p in enumerate(fi.params)}
-        # one function-level pre-scan: the sanctioned record_copy sites
-        # ANYWHERE in the body (the function's "buf" summary facts)
+        hot = any(p in mod.ctx.scope_dirs() for p in _HOT_PARTS)
+        # one function-level pre-scan: a sanctioned record_copy
+        # ANYWHERE in the body marks the whole function as an explicit
+        # staging site (the VL501 exemption), order-independent
         for node in _walk_skip_defs(fi.node):
             if isinstance(node, ast.Call) and _is_record_copy(node):
                 site = _record_site(node)
                 if site is not None and site in self.site_set:
                     summary.sanctions.append((site, node.lineno))
+        fn_sanctioned = bool(summary.sanctions)
 
         def site_of(node: ast.AST) -> str:
             return f"{fi.relpath}:{node.lineno}"
@@ -418,8 +597,23 @@ class BufModel:
                 if pv is not None:
                     return Prov(f"paramview:{pv[0]}", base.chain)
                 return base
+            if isinstance(expr, ast.Attribute):
+                base = eval_expr(expr.value)
+                return base if base.tag == DEVICE else UNK
             if isinstance(expr, ast.IfExp):
                 return join(eval_expr(expr.body), eval_expr(expr.orelse))
+            if isinstance(expr, ast.BinOp):
+                lt, rt = eval_expr(expr.left), eval_expr(expr.right)
+                if DEVICE in (lt.tag, rt.tag):
+                    return lt if lt.tag == DEVICE else rt
+                return UNK
+            if isinstance(expr, (ast.List, ast.Tuple)):
+                # a sequence of card tensors (torch.cat's operand)
+                for e in expr.elts:
+                    prov = eval_expr(e)
+                    if prov.tag == DEVICE:
+                        return prov
+                return UNK
             if isinstance(expr, (ast.Starred, ast.Await)):
                 return eval_expr(expr.value)
             return UNK
@@ -443,10 +637,30 @@ class BufModel:
             mat = _materialization(call)
             if mat is not None:
                 return Prov(HOST, (f"{mat[0]} at {site_of(call)}",))
+            f = call.func
+            if isinstance(f, ast.Attribute) and f.attr in _HOST_METHODS:
+                return Prov(HOST, (f".{f.attr}() at {site_of(call)}",)) \
+                    if f.attr in ("cpu", "numpy") else UNK
+            move = _device_move(call, mod)
+            if move is not None:
+                return Prov(DEVICE, (
+                    f"device tensor from {move} at {site_of(call)}",))
             site = self.index.site_by_node.get(id(call))
             if site is not None and site.callee is not None:
                 return self._call_result(call, site.callee, eval_expr,
                                          site_of(call))
+            op = _is_torch_op(call, mod)
+            if op is not None:
+                operands = list(call.args) + [kw.value
+                                              for kw in call.keywords]
+                if any(eval_expr(a).tag == DEVICE for a in operands):
+                    return Prov(DEVICE, (
+                        f"device tensor from {op} at {site_of(call)}",))
+                return UNK
+            if isinstance(f, ast.Attribute):
+                base = eval_expr(f.value)
+                if base.tag == DEVICE:
+                    return base  # device method chain (.view, .reshape)
             return UNK
 
         def scan_stmt(stmt: ast.stmt) -> None:
@@ -465,6 +679,8 @@ class BufModel:
                     continue
                 self._scan_materialization(node, stmt, maps, fi, qual,
                                            eval_expr)
+                if hot and not fn_sanctioned:
+                    self._scan_sync(node, mod, fi, eval_expr)
                 self._record_flows(node, qual, eval_expr)
 
         def walk_block(stmts: list) -> None:
@@ -491,6 +707,11 @@ class BufModel:
                                 item.context_expr)
                     walk_block(stmt.body)
                 elif isinstance(stmt, (ast.For, ast.AsyncFor)):
+                    if eval_expr(stmt.iter).tag == DEVICE:
+                        for name in _target_names(stmt.target):
+                            env[name] = Prov(DEVICE, (
+                                f"row of a device tensor at "
+                                f"{site_of(stmt)}",))
                     walk_block(stmt.body)
                     walk_block(stmt.orelse)
                 elif isinstance(stmt, (ast.If, ast.While)):
@@ -504,6 +725,7 @@ class BufModel:
                     walk_block(stmt.finalbody)
 
         walk_block(fi.node.body)
+        self._check_loop_dispatch(fi, mod, eval_expr, env)
         return summary
 
     # -- statement scanners -------------------------------------------------
@@ -534,6 +756,31 @@ class BufModel:
             f"(record_copy(site, n), site in SANCTIONED_SITES) or keep "
             f"the view", severity="error"))
 
+    def _scan_sync(self, call, mod, fi, eval_expr) -> None:
+        f = call.func
+        operand = None
+        what = None
+        if (isinstance(f, ast.Name) and f.id in _SYNC_BUILTINS
+                and len(call.args) == 1):
+            operand, what = call.args[0], f"{f.id}()"
+        elif isinstance(f, ast.Attribute) and f.attr in _SYNC_METHODS:
+            operand, what = f.value, f".{f.attr}()"
+        elif _is_host_fetch(call, mod) and call.args:
+            operand, what = call.args[0], "np.asarray()"
+        if operand is None:
+            return
+        prov = eval_expr(operand)
+        if prov.tag != DEVICE:
+            return
+        self.findings.append(finding_at(
+            fi.relpath, call, "VL501",
+            f"{what} on a device-provenance value forces an implicit "
+            f"device->host sync in a hot scope "
+            f"[{_hops(prov.chain)}] — batch the fetch at an explicit "
+            f"staging site (a function that ledgers a sanctioned "
+            f"record_copy) or keep the value on device",
+            severity="error"))
+
     def _record_flows(self, call, caller_qual, eval_expr) -> None:
         """Positional-arg provenance flowing into callee params — the
         edges the param-provenance fixpoint solves over."""
@@ -559,8 +806,97 @@ class BufModel:
             pv = _param_of(prov)
             if pv is not None:
                 slot.append(("param", caller_qual, pv[0], hop))
-            elif prov.tag in (POOLED, MVIEW):
+            elif prov.tag in (POOLED, MVIEW, DEVICE):
                 slot.append(("const", Prov(prov.tag, prov.chain + (hop,))))
+
+    # -- per-function post passes -------------------------------------------
+
+    def _trace_context(self, fi) -> bool:
+        """Is ``fi``'s body executed at trace time (so Python loops
+        unroll into one compiled program, not per-item dispatches)?
+        True for compiled functions and for bodies handed to
+        ``torch.cond``/``while_loop``/``scan`` (VL004's notion),
+        walking up through lexically enclosing functions."""
+        seen = set()
+        cur = fi
+        while cur is not None and cur.qualname not in seen:
+            seen.add(cur.qualname)
+            if id(cur.node) in self.traced:
+                return True
+            cur = self.index.functions.get(cur.parent) \
+                if cur.parent is not None else None
+        return False
+
+    def _check_loop_dispatch(self, fi, mod, eval_expr, env) -> None:
+        if self._trace_context(fi):
+            return
+        for loop in _walk_skip_defs(fi.node):
+            if isinstance(loop, (ast.For, ast.AsyncFor)):
+                if _const_iterable(loop.iter):
+                    continue  # structural unroll over a literal
+                tainted = _target_names(loop.target)
+                iters = [(loop.target, loop.iter)]
+                body: list = loop.body
+            elif isinstance(loop, (ast.ListComp, ast.SetComp,
+                                   ast.GeneratorExp, ast.DictComp)):
+                tainted = set()
+                iters = []
+                for gen in loop.generators:
+                    if not _const_iterable(gen.iter):
+                        tainted |= _target_names(gen.target)
+                        iters.append((gen.target, gen.iter))
+                body = []
+            else:
+                continue
+            if not tainted:
+                continue
+            exprs: list = []
+            for stmt in body:
+                for node in [stmt, *_walk_skip_defs(stmt)]:
+                    if isinstance(node, ast.Assign) and (
+                            _names_in(node.value) & tainted):
+                        for t in node.targets:
+                            tainted |= _target_names(t)
+                    if isinstance(node, ast.Call):
+                        exprs.append(node)
+            if not body:  # comprehension: scan its element/conditions
+                exprs = [n for n in ast.walk(loop)
+                         if isinstance(n, ast.Call)]
+            # a loop over a card tensor hands out card rows
+            saved = {}
+            for target, it in iters:
+                if eval_expr(it).tag == DEVICE:
+                    for name in _target_names(target):
+                        saved.setdefault(name, env.get(name))
+                        env[name] = Prov(DEVICE, (
+                            f"row of a device tensor at "
+                            f"{fi.relpath}:{it.lineno}",))
+            try:
+                for call in exprs:
+                    if eval_expr(call).tag != DEVICE:
+                        continue  # no dispatch on the card
+                    args_names: set = set()
+                    operands = list(call.args) + [kw.value
+                                                  for kw in call.keywords]
+                    if isinstance(call.func, ast.Attribute):
+                        operands.append(call.func.value)
+                    for a in operands:
+                        args_names |= _names_in(a)
+                    if args_names & tainted:
+                        self.findings.append(finding_at(
+                            fi.relpath, call, "VL502",
+                            f"device dispatch inside a per-item Python "
+                            f"loop (operand derives from loop variable "
+                            f"{sorted(args_names & tainted)}) — batch the "
+                            f"items into one padded dispatch "
+                            f"(ops/segment.py batched kernels) or hoist "
+                            f"it out of the loop", severity="error"))
+            finally:
+                for name, prev in saved.items():
+                    if prev is None:
+                        env.pop(name, None)
+                    else:
+                        env[name] = prev
 
     # -- interprocedural solving --------------------------------------------
 
@@ -607,7 +943,7 @@ class BufModel:
                     else:
                         _, src_qual, src_idx, hop = contrib
                         src = self.param_prov.get((src_qual, src_idx), UNK)
-                        if src.tag in (POOLED, MVIEW):
+                        if src.tag in (POOLED, MVIEW, DEVICE):
                             best = join(best, Prov(
                                 src.tag, src.chain + (hop,)))
                 if best.tag != cur.tag:
@@ -670,6 +1006,18 @@ class BufModel:
         return None
 
 
+def _target_names(t: ast.AST) -> set:
+    out: set = set()
+    for n in ast.walk(t):
+        if isinstance(n, ast.Name):
+            out.add(n.id)
+    return out
+
+
+def _names_in(expr: ast.AST) -> set:
+    return {n.id for n in ast.walk(expr) if isinstance(n, ast.Name)}
+
+
 def _scan_roots(stmt: ast.stmt) -> list:
     """The expression parts a statement owns directly.  Compound
     statements own only their headers (test / iter / context
@@ -708,6 +1056,25 @@ class _BufRule:
                 yield f
 
 
+class HostSyncRule(_BufRule):
+    code = "VL501"
+    name = "implicit-host-sync"
+    severity = "error"
+    description = ("float()/int()/bool()/.item()/.tolist()/.cpu()/"
+                   ".numpy()/np.asarray() on a device-provenance value in "
+                   "engine/, ops/ or repo/ outside an explicit (ledgered) "
+                   "staging site")
+
+
+class LoopDispatchRule(_BufRule):
+    code = "VL502"
+    name = "per-item-device-dispatch"
+    severity = "error"
+    description = ("torch op/kernel-wrapper call on the card inside a "
+                   "per-item Python loop with an operand derived from "
+                   "the loop variable — batch it")
+
+
 class SemanticCopyRule(_BufRule):
     code = "VL503"
     name = "unledgered-pooled-copy"
@@ -716,6 +1083,25 @@ class SemanticCopyRule(_BufRule):
                    "or memoryview-of-pooled value (tracked "
                    "interprocedurally) without a sanctioned "
                    "record_copy on the statement")
+
+
+class UseAfterDonateRule(_BufRule):
+    """VL504, kept for the reference's rule catalogue and silent: torch
+    has no buffer donation (no ``donate_argnums``; an op writes into a
+    tensor only through an explicit ``out=`` or in-place method, which
+    the caller names), and the port donates nothing, so no value can be
+    read after its buffer was handed away."""
+
+    code = "VL504"
+    name = "use-after-donate"
+    severity = "error"
+    description = ("value passed to a donated-argument jit twin "
+                   "(directly, via a helper, or via a conditional twin "
+                   "binding) and read again — XLA may have reused the "
+                   "buffer")
+
+    def check_project(self, index: ProjectIndex) -> Iterator[Finding]:
+        return iter(())
 
 
 class LedgerDriftRule(_BufRule):
@@ -728,7 +1114,8 @@ class LedgerDriftRule(_BufRule):
 
 
 def default_buf_rules() -> list:
-    return [SemanticCopyRule(), LedgerDriftRule()]
+    return [HostSyncRule(), LoopDispatchRule(), SemanticCopyRule(),
+            UseAfterDonateRule(), LedgerDriftRule()]
 
 
 # -- cache fact kind ---------------------------------------------------------

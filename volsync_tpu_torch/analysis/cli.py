@@ -28,11 +28,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="volsync lint",
         description="Repo-invariant AST lint for volsync-tpu's "
-                    "PyTorch port (per-file rules VL001-VL003, VL005, "
-                    "VL105, VL106 and VL301, interprocedural rules "
-                    "VL101-VL103, static concurrency rules "
-                    "VL401-VL404, buffer-provenance rules VL503 and "
-                    "VL505, fault-path rules VL601-VL605; "
+                    "PyTorch port (per-file rules VL001-VL005, VL105, "
+                    "VL106 and VL301, interprocedural rules "
+                    "VL101-VL104, shape/dtype rules VL201-VL205, "
+                    "static concurrency rules VL401-VL404, "
+                    "buffer-provenance rules VL501-VL505, fault-path "
+                    "rules VL601-VL605; "
                     "see docs/development.md)")
     parser.add_argument(
         "paths", nargs="*",
@@ -98,8 +99,9 @@ def build_parser() -> argparse.ArgumentParser:
 def _all_rules():
     from volsync_tpu_torch.analysis.iprules import default_project_rules
     from volsync_tpu_torch.analysis.rules import default_rules
+    from volsync_tpu_torch.analysis.shapes import default_shape_rules
 
-    return default_rules(), default_project_rules()
+    return default_rules(), default_project_rules() + default_shape_rules()
 
 
 def _split_prefixes(raw: Optional[str]) -> Optional[list]:

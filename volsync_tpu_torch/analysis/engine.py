@@ -1,8 +1,7 @@
 """AST lint engine: file walker, rule runner, baseline, reporting.
 
 Ports ``volsync_tpu/analysis/engine.py``; scope decisions key on the
-last ``volsync_tpu_torch`` path component, and a project run registers
-the rule families ported so far (ROADMAP.md lists the rest).
+last ``volsync_tpu_torch`` path component.
 
 The engine is deliberately tiny and dependency-free (stdlib ``ast``
 only): it parses each ``.py`` file once, hands the tree + source lines
@@ -204,8 +203,9 @@ def run_project(paths: Iterable[str],
         rules = default_rules()
     if project_rules is None:
         from volsync_tpu_torch.analysis.iprules import default_project_rules
+        from volsync_tpu_torch.analysis.shapes import default_shape_rules
 
-        project_rules = default_project_rules()
+        project_rules = default_project_rules() + default_shape_rules()
 
     errors: list[str] = []
     blobs: list[tuple[Path, str, bytes]] = []  # (path, relpath, bytes)
@@ -276,9 +276,19 @@ def run_project(paths: Iterable[str],
                 if not _suppressed(ctx, f):
                     fresh[f.path].append(f)
 
+    # shape summaries ride the cache so a warm run can show them (and
+    # the cache tests can assert summary-edit invalidation) without
+    # re-running the interpreter; only computed when VL2xx rules ran
+    shape_sum: dict = {}
+    if any(str(getattr(r, "code", "")).startswith("VL2")
+           for r in project_rules):
+        from volsync_tpu_torch.analysis.shapes import summaries_for
+
+        shape_sum = summaries_for(index)
+
     # lock facts (acquisition sites, order edges, guarded-field stats)
-    # are cached per file so a warm run replays them without
-    # rebuilding the lock model
+    # are the VL4xx analogue of the shape summaries: cached per file so
+    # a warm run replays them without rebuilding the lock model
     lock_sum: dict = {}
     if any(str(getattr(r, "code", "")).startswith("VL4")
            for r in project_rules):
@@ -288,8 +298,8 @@ def run_project(paths: Iterable[str],
 
         lock_sum = lock_summaries(index)
 
-    # buffer-provenance facts (per-function return provenance,
-    # sanctioned/record sites) are the VL5xx analogue: cached
+    # buffer-provenance facts (per-function return provenance, donated
+    # params, sanctioned/record sites) are the VL5xx analogue: cached
     # per file so a warm run skips the provenance pass entirely
     buf_sum: dict = {}
     if any(str(getattr(r, "code", "")).startswith("VL5")
@@ -318,12 +328,15 @@ def run_project(paths: Iterable[str],
         old_entry = (cached or {}).get(relpath, {})
         if relpath in dirty:
             file_findings = fresh.get(relpath, [])
+            shapes_entry = shape_sum.get(relpath, {})
             locks_entry = lock_sum.get(relpath, {})
             buf_entry = buf_sum.get(relpath, {})
             fx_entry = fx_sum.get(relpath, {})
         else:
             file_findings = [_finding_from_row(relpath, row)
                              for row in old_entry.get("findings", [])]
+            shapes_entry = old_entry.get("shapes",
+                                         shape_sum.get(relpath, {}))
             locks_entry = old_entry.get("locks",
                                         lock_sum.get(relpath, {}))
             buf_entry = old_entry.get("buf", buf_sum.get(relpath, {}))
@@ -337,6 +350,7 @@ def run_project(paths: Iterable[str],
                          for f in sorted(
                              file_findings,
                              key=lambda f: (f.line, f.code, f.message))],
+            "shapes": shapes_entry,
             "locks": locks_entry,
             "buf": buf_entry,
             "fx": fx_entry,

@@ -4,9 +4,10 @@ Ports ``volsync_tpu/analysis/iprules.py``, pointed at the PyTorch port.
 
 These rules see what the per-file rules (analysis/rules.py) structurally
 cannot: a blocking call two call-hops below a ``with lock:`` region, a
-thread started in ``start()`` and joined (or not) in ``stop()``. Each
-consumes the ``ProjectIndex`` from analysis/callgraph.py and the
-fixpoint from analysis/dataflow.py.
+thread started in ``start()`` and joined (or not) in ``stop()``, tracer
+taint flowing through a helper into a Python branch. Each consumes the
+``ProjectIndex`` from analysis/callgraph.py and the fixpoints from
+analysis/dataflow.py.
 
 VL101  blocking-call-under-lock: any path from a lockcheck-built lock
        region in repo/engine/objstore to store I/O, socket/HTTP, or
@@ -20,9 +21,13 @@ VL102  thread/future lifecycle: threads started without a name,
        argument are fine).
 VL103  exception-path resource leak: .acquire()/open() outside a with
        or try-finally in the data-plane modules.
-
-The reference's VL104 (tracer taint through helper calls) models the
-array library and is not ported yet (ROADMAP.md).
+VL104  interprocedural tracer-taint: a traced value inside a compiled
+       ops/ kernel passed to a helper whose parameter reaches a
+       concretizing sink (Python branch, int()/float()/bool()),
+       or a Python branch on a tainted local derived from traced args.
+       VL004 remains the per-function fallback for unresolved calls;
+       both share its notion of a compiled function and of its traced
+       parameters (``rules.TracerSafetyRule``).
 """
 
 from __future__ import annotations
@@ -35,9 +40,14 @@ from volsync_tpu_torch.analysis.callgraph import (
     ProjectIndex,
     attr_chain,
 )
-from volsync_tpu_torch.analysis.dataflow import reverse_reach
+from volsync_tpu_torch.analysis.dataflow import (
+    ParamSink,
+    map_call_args,
+    param_sink_fixpoint,
+    reverse_reach,
+)
 from volsync_tpu_torch.analysis.engine import Finding
-from volsync_tpu_torch.analysis.rules import _const_str
+from volsync_tpu_torch.analysis.rules import TracerSafetyRule, _const_str
 
 _LOCK_CTORS = {"make_lock", "make_rlock"}
 
@@ -612,6 +622,215 @@ class ResourceLeakRule:
                         severity=self.severity)
 
 
+class TracerTaintRule:
+    """VL104 — tracer taint followed through resolved helper calls."""
+
+    code = "VL104"
+    name = "interprocedural-tracer-taint"
+    severity = "error"
+    description = ("traced value from a compiled ops/ kernel flows "
+                   "through "
+                   "helper calls into Python control flow or an "
+                   "int()/float()/bool() sink")
+
+    SCOPE_PARTS = ("ops",)
+
+    # -- taint-use policy ---------------------------------------------------
+
+    @classmethod
+    def _uses(cls, node: ast.AST, names: set) -> set:
+        """Which of ``names`` are used as VALUES in ``node``. Exempt:
+        .shape/.dtype/.ndim/.device metadata, ``is (not) None`` checks,
+        and len() (static on tensors — it is shape[0])."""
+        if (isinstance(node, ast.Attribute)
+                and node.attr in ("shape", "dtype", "ndim", "device")):
+            return set()
+        if (isinstance(node, ast.Compare)
+                and all(isinstance(op, (ast.Is, ast.IsNot))
+                        for op in node.ops)):
+            return set()
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+                and node.func.id == "len"):
+            return set()
+        if isinstance(node, ast.Name):
+            return {node.id} & names
+        out: set = set()
+        for child in ast.iter_child_nodes(node):
+            out |= cls._uses(child, names)
+        return out
+
+    # -- per-function direct sinks -----------------------------------------
+
+    def _direct_param_sinks(self, fi) -> dict[str, ParamSink]:
+        params = {p for p in fi.params + fi.kwonly
+                  if p not in ("self", "cls")}
+        if not params:
+            return {}
+        out: dict[str, ParamSink] = {}
+
+        def add(names: set, desc: str, lineno: int) -> None:
+            for pname in sorted(names):
+                out.setdefault(pname, ParamSink(
+                    desc, fi.relpath, lineno, (fi.qualname,)))
+
+        for node in _walk_skip_defs(fi.node):
+            if isinstance(node, (ast.If, ast.While)):
+                add(self._uses(node.test, params),
+                    f"branches on it ({fi.relpath}:{node.lineno})",
+                    node.lineno)
+            elif isinstance(node, ast.Call):
+                f = node.func
+                if (isinstance(f, ast.Name)
+                        and f.id in ("float", "int", "bool")
+                        and len(node.args) == 1):
+                    add(self._uses(node.args[0], params),
+                        f"concretizes it with {f.id}() "
+                        f"({fi.relpath}:{node.lineno})", node.lineno)
+                elif (isinstance(f, ast.Attribute)
+                      and f.attr in ("item", "tolist")):
+                    add(self._uses(f.value, params),
+                        f"host-transfers it with .{f.attr}() "
+                        f"({fi.relpath}:{node.lineno})", node.lineno)
+        return out
+
+    # -- driver -------------------------------------------------------------
+
+    def check_project(self, index: ProjectIndex) -> Iterator[Finding]:
+        traced_by_mod: dict[str, dict[int, set]] = {}
+        jit_statics: dict[str, Optional[set]] = {}
+        for qual, fi in index.functions.items():
+            mod = index.modules.get(fi.module)
+            if mod is None or not isinstance(fi.node, ast.FunctionDef):
+                jit_statics[qual] = None
+                continue
+            if mod.name not in traced_by_mod:
+                traced_by_mod[mod.name] = \
+                    TracerSafetyRule.traced_functions(mod.ctx.tree)
+            jit_statics[qual] = traced_by_mod[mod.name].get(id(fi.node))
+
+        direct: dict[str, dict[str, ParamSink]] = {}
+        for qual in sorted(index.functions):
+            if jit_statics.get(qual) is not None:
+                continue  # compiled bodies are VL004's jurisdiction
+            d = self._direct_param_sinks(index.functions[qual])
+            if d:
+                direct[qual] = d
+
+        sinks = param_sink_fixpoint(
+            index, direct, self._uses,
+            skip=lambda q: jit_statics.get(q) is not None)
+
+        for qual in sorted(index.functions):
+            statics = jit_statics.get(qual)
+            if statics is None:
+                continue
+            fi = index.functions[qual]
+            mod = index.modules.get(fi.module)
+            if mod is None or not _in_scope(mod, self.SCOPE_PARTS):
+                continue
+            yield from self._check_jit_fn(index, mod, fi, statics, sinks,
+                                          jit_statics)
+
+    def _check_jit_fn(self, index: ProjectIndex, mod: ModuleInfo, fi,
+                      statics: set, sinks, jit_statics
+                      ) -> Iterator[Finding]:
+        traced = {p for p in fi.params + fi.kwonly
+                  if p not in statics and p not in ("self", "cls")}
+        if not traced:
+            return
+
+        # forward pass: locals derived from traced values are tainted
+        tainted = set(traced)
+
+        def scan_stmts(body: list[ast.stmt]) -> None:
+            for stmt in body:
+                if isinstance(stmt, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                     ast.ClassDef)):
+                    continue
+                if isinstance(stmt, ast.Assign):
+                    if self._uses(stmt.value, tainted):
+                        for t in stmt.targets:
+                            if isinstance(t, ast.Name):
+                                tainted.add(t.id)
+                            elif isinstance(t, ast.Tuple):
+                                tainted.update(
+                                    e.id for e in t.elts
+                                    if isinstance(e, ast.Name))
+                elif isinstance(stmt, (ast.AnnAssign, ast.AugAssign)):
+                    if (stmt.value is not None
+                            and self._uses(stmt.value, tainted)
+                            and isinstance(stmt.target, ast.Name)):
+                        tainted.add(stmt.target.id)
+                for attr in ("body", "orelse", "finalbody"):
+                    sub = getattr(stmt, attr, None)
+                    if isinstance(sub, list):
+                        scan_stmts(sub)
+                for handler in getattr(stmt, "handlers", []) or []:
+                    scan_stmts(handler.body)
+
+        scan_stmts(fi.node.body)
+        derived = tainted - traced
+
+        # (a) tainted arguments into helpers whose params reach a sink
+        reported: set[tuple] = set()
+        for site in index.calls.get(fi.qualname, ()):
+            if site.callee is None:
+                continue  # unresolved: VL004's in-function fallback
+            if jit_statics.get(site.callee) is not None:
+                continue
+            callee_sinks = sinks.get(site.callee)
+            if not callee_sinks:
+                continue
+            for pname, arg in map_call_args(site, index):
+                ps = callee_sinks.get(pname)
+                if ps is None or not self._uses(arg, tainted):
+                    continue
+                key = (site.lineno, site.callee)
+                if key in reported:
+                    continue
+                reported.add(key)
+                short = site.callee.rsplit(".", 1)[-1]
+                via = ""
+                if len(ps.chain) > 1:
+                    via = (" via " + " -> ".join(
+                        q.rsplit(".", 1)[-1] + "()" for q in ps.chain))
+                yield Finding(
+                    mod.relpath, site.lineno, self.code,
+                    f"traced value passed to {short}(... {pname}=) "
+                    f"inside compiled {fi.node.name}() — it {ps.desc}"
+                    f"{via}; hoist the host logic out of the kernel or "
+                    f"mark the argument static",
+                    severity=self.severity)
+                break
+
+        # (b) Python control flow / concretization on DERIVED taint
+        # (direct traced-param uses are VL004's findings — no dupes)
+        if not derived:
+            return
+        for node in _walk_skip_defs(fi.node):
+            if isinstance(node, (ast.If, ast.While)):
+                used = self._uses(node.test, derived)
+                if used and not self._uses(node.test, traced):
+                    yield Finding(
+                        mod.relpath, node.lineno, self.code,
+                        f"Python branch on tracer-derived value(s) "
+                        f"{sorted(used)} inside compiled {fi.node.name}() "
+                        f"— use torch.where/torch.cond",
+                        severity=self.severity)
+            elif (isinstance(node, ast.Call)
+                  and isinstance(node.func, ast.Name)
+                  and node.func.id in ("float", "int", "bool")
+                  and len(node.args) == 1):
+                used = self._uses(node.args[0], derived)
+                if used and not self._uses(node.args[0], traced):
+                    yield Finding(
+                        mod.relpath, node.lineno, self.code,
+                        f"{node.func.id}() on tracer-derived value(s) "
+                        f"{sorted(used)} inside compiled {fi.node.name}() "
+                        f"— forces a host sync or fails at trace time",
+                        severity=self.severity)
+
+
 def default_project_rules() -> list:
     from volsync_tpu_torch.analysis.guards import (
         CheckThenActRule,
@@ -623,6 +842,6 @@ def default_project_rules() -> list:
     from volsync_tpu_torch.analysis.lockflow import LockOrderRule
 
     return [LockRegionRule(), ThreadLifecycleRule(), ResourceLeakRule(),
-            LockOrderRule(), GuardedFieldRule(),
+            TracerTaintRule(), LockOrderRule(), GuardedFieldRule(),
             CheckThenActRule(), UnsyncPublicationRule(),
             *default_buf_rules(), *default_fx_rules()]

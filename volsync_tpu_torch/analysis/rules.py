@@ -8,6 +8,7 @@ baselines and suppression comments):
 VL001  VOLSYNC_* env reads outside envflags.py
 VL002  gated third-party imports (zstandard, cryptography) outside shim
 VL003  broad except that swallows silently (no log / re-raise)
+VL004  tracer-unsafe host ops inside compiled functions (ops/ kernels)
 VL005  direct threading.Lock/RLock in data-plane modules (bypasses
        lockcheck instrumentation)
 VL105  ad-hoc retry: time.sleep inside an except handler or a retry
@@ -22,9 +23,6 @@ VL301  span/trace names must be literal, dotted, lowercase strings at
        the call site (no f-strings/concatenation/variables) — span
        names become Prometheus label values, so dynamic names are
        unbounded metric cardinality
-
-The reference's VL004 (tracer-unsafe host ops inside jit'd kernels)
-models the array library and is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -190,6 +188,219 @@ class SilentExceptRule:
                     "re-raise, narrow the type, or log it "
                     "(`# lint: ignore[VL003]` with a reason if "
                     "intentional)")
+
+
+#: callables whose function arguments torch runs under capture or
+#: compilation: dotted name -> positions of those arguments
+_TRACING_CALLS = {
+    "torch.compile": (0,),
+    "torch.jit.script": (0,),
+    "torch.cuda.make_graphed_callables": (0,),
+    "torch.cond": (1, 2),
+    "torch._higher_order_ops.cond": (1, 2),
+    "torch._higher_order_ops.while_loop": (0, 1),
+    "torch._higher_order_ops.scan": (0,),
+}
+
+#: decorators that compile the function they wrap
+_COMPILE_DECORATORS = ("torch.compile", "torch.jit.script")
+
+#: a parameter annotated with one of these is a Python value torch.compile
+#: specializes on (guards), not a traced tensor
+_STATIC_ANNOTATIONS = ("int", "float", "bool", "str", "bytes")
+
+
+def module_aliases(tree: ast.Module) -> dict[str, str]:
+    """Local name -> dotted target for every import in ``tree`` (function
+    bodies included), as ``import torch._higher_order_ops as h`` or
+    ``from torch import cond`` bind them."""
+    out: dict[str, str] = {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                if a.asname:
+                    out[a.asname] = a.name
+                else:
+                    head = a.name.split(".")[0]
+                    out.setdefault(head, head)
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and not node.level:
+            for a in node.names:
+                out[a.asname or a.name] = f"{node.module}.{a.name}"
+    return out
+
+
+def dotted_name(node: ast.AST, aliases: dict[str, str]) -> Optional[str]:
+    """``node`` as a dotted name with its head alias expanded, or None."""
+    parts: list[str] = []
+    while isinstance(node, ast.Attribute):
+        parts.append(node.attr)
+        node = node.value
+    if not isinstance(node, ast.Name):
+        return None
+    parts.append(aliases.get(node.id, node.id))
+    return ".".join(reversed(parts))
+
+
+class TracerSafetyRule:
+    """Host-side ops on traced values inside a compiled function either
+    fail under capture or silently bake a traced value into the
+    compiled graph — both are kernel bugs. Heuristic, scoped to ops/.
+
+    A function is *traced* (compiled) when torch runs its body under
+    capture or compilation: it is decorated with ``torch.compile`` or
+    ``torch.jit.script`` (called or not, or through
+    ``functools.partial``), or its name is passed as the function
+    argument of ``torch.compile(fn)``, ``torch.jit.script(fn)``,
+    ``torch.cuda.make_graphed_callables(fn, ...)``, or as a body of
+    ``torch.cond`` / ``torch._higher_order_ops.while_loop`` / ``scan``
+    in the same file. Under CUDA graph capture ``.item()``,
+    ``.tolist()`` and ``float()`` on a tensor raise, and a Python branch
+    on a tensor's value is frozen at capture: the two failure modes of
+    a JAX tracer.
+
+    Which parameters are traced: every parameter but ``self``/``cls``
+    and the *static* ones, which torch.compile specializes on instead of
+    tracing: a parameter annotated ``int``, ``float``, ``bool``, ``str``
+    or ``bytes``, or one whose default is a constant other than None.
+    Two uses stay exempt even on a traced tensor: ``.shape`` /
+    ``.dtype`` / ``.ndim`` / ``.device`` metadata, and ``is (not) None``
+    checks."""
+
+    code = "VL004"
+    name = "jit-tracer-safety"
+    description = ("float()/int()/bool()/.item()/.tolist() or Python "
+                   "branching on a traced arg inside a compiled function")
+
+    SCOPE_PARTS = ("ops",)
+
+    @staticmethod
+    def _is_compile_expr(node: ast.AST, aliases: dict[str, str]) -> bool:
+        return dotted_name(node, aliases) in _COMPILE_DECORATORS
+
+    @classmethod
+    def _decorated(cls, fn, aliases: dict[str, str]) -> bool:
+        for dec in fn.decorator_list:
+            if cls._is_compile_expr(dec, aliases):
+                return True
+            if not isinstance(dec, ast.Call):
+                continue
+            if cls._is_compile_expr(dec.func, aliases):
+                return True  # @torch.compile(mode=...)
+            f = dec.func
+            is_partial = ((isinstance(f, ast.Name) and f.id == "partial")
+                          or (isinstance(f, ast.Attribute)
+                              and f.attr == "partial"))
+            if is_partial and dec.args \
+                    and cls._is_compile_expr(dec.args[0], aliases):
+                return True
+        return False
+
+    @staticmethod
+    def _static_params(fn) -> set[str]:
+        a = fn.args
+        out: set[str] = set()
+        positional = a.posonlyargs + a.args
+        defaults = [None] * (len(positional) - len(a.defaults)) \
+            + list(a.defaults)
+        pairs = list(zip(positional, defaults)) \
+            + list(zip(a.kwonlyargs, a.kw_defaults))
+        for arg, default in pairs:
+            ann = arg.annotation
+            if isinstance(ann, ast.Name) and ann.id in _STATIC_ANNOTATIONS:
+                out.add(arg.arg)
+            elif (isinstance(default, ast.Constant)
+                  and default.value is not None):
+                out.add(arg.arg)
+        return out
+
+    @classmethod
+    def traced_functions(cls, tree: ast.Module) -> dict[int, set[str]]:
+        """id(FunctionDef) -> its static parameter names, for every
+        traced function in ``tree`` (the class docstring's notion)."""
+        aliases = module_aliases(tree)
+        handed: set[str] = set()
+        for node in ast.walk(tree):
+            if not isinstance(node, ast.Call):
+                continue
+            where = _TRACING_CALLS.get(dotted_name(node.func, aliases) or "")
+            if where is None:
+                continue
+            for i in where:
+                arg = node.args[i] if i < len(node.args) else None
+                for e in (arg.elts if isinstance(arg, (ast.Tuple, ast.List))
+                          else [arg]):
+                    if isinstance(e, ast.Name):
+                        handed.add(e.id)
+        out: dict[int, set[str]] = {}
+        for fn in ast.walk(tree):
+            if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                continue
+            if fn.name in handed or cls._decorated(fn, aliases):
+                out[id(fn)] = cls._static_params(fn) | {"self", "cls"}
+        return out
+
+    @classmethod
+    def _traced_uses(cls, node: ast.AST, traced: set[str]) -> set[str]:
+        """Traced params used as VALUES in ``node``. Two uses are
+        static even on a traced tensor and excluded: ``.shape/.dtype/
+        .ndim/.device`` metadata access, and ``is (not) None`` identity
+        checks (the optional-tensor-arg idiom)."""
+        if (isinstance(node, ast.Attribute)
+                and node.attr in ("shape", "dtype", "ndim", "device")):
+            return set()
+        if (isinstance(node, ast.Compare)
+                and all(isinstance(op, (ast.Is, ast.IsNot))
+                        for op in node.ops)):
+            return set()
+        if isinstance(node, ast.Name):
+            return {node.id} & traced
+        out: set[str] = set()
+        for child in ast.iter_child_nodes(node):
+            out |= cls._traced_uses(child, traced)
+        return out
+
+    def check(self, ctx: FileContext) -> Iterator[Finding]:
+        parts = ctx.scope_dirs()
+        if not any(p in parts for p in self.SCOPE_PARTS):
+            return
+        traced_fns = self.traced_functions(ctx.tree)
+        for fn in ast.walk(ctx.tree):
+            if not isinstance(fn, ast.FunctionDef):
+                continue
+            statics = traced_fns.get(id(fn))
+            if statics is None:
+                continue
+            a = fn.args
+            params = {p.arg for p in (a.posonlyargs + a.args + a.kwonlyargs)}
+            traced = params - statics
+            for node in ast.walk(fn):
+                if isinstance(node, ast.Call):
+                    f = node.func
+                    if (isinstance(f, ast.Name)
+                            and f.id in ("float", "int", "bool")
+                            and len(node.args) == 1
+                            and not isinstance(node.args[0], ast.Constant)
+                            and self._traced_uses(node.args[0], traced)):
+                        yield finding_at(
+                            ctx.relpath, node, self.code,
+                            f"{f.id}() on a traced value inside compiled "
+                            f"{fn.name}() — forces a host sync or fails "
+                            f"at trace time")
+                    elif (isinstance(f, ast.Attribute)
+                          and f.attr in ("item", "tolist")):
+                        yield finding_at(
+                            ctx.relpath, node, self.code,
+                            f".{f.attr}() inside compiled {fn.name}() — "
+                            f"host transfer of a traced value")
+                elif isinstance(node, (ast.If, ast.While)):
+                    hot = self._traced_uses(node.test, traced)
+                    if hot:
+                        yield finding_at(
+                            ctx.relpath, node, self.code,
+                            f"Python branch on traced arg(s) "
+                            f"{sorted(hot)} inside compiled {fn.name}() — "
+                            f"use torch.where/torch.cond")
 
 
 class DirectLockRule:
@@ -443,5 +654,5 @@ class SpanNameLiteralRule:
 
 def default_rules() -> list:
     return [EnvFlagRule(), ImportGateRule(), SilentExceptRule(),
-            DirectLockRule(), AdHocRetryRule(),
+            TracerSafetyRule(), DirectLockRule(), AdHocRetryRule(),
             HotPathCopyRule(), SpanNameLiteralRule()]

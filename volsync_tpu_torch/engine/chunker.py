@@ -30,8 +30,10 @@ then coalesce into one batched pass; owners that batch for themselves
 
 Files are read through the native readahead reader
 (``_open_readahead``, ``io/native.py``) when its library is available.
-Not ported yet (see ROADMAP.md): the benchmark hooks ``leaf_device_fn``
-/ ``cand_device_fn``.
+``process_device`` runs the device pipeline on a segment already on the
+card, and the class attributes ``leaf_device_fn`` / ``cand_device_fn``
+replace the split-phase path's two fused launches (ref :215-262): the
+benchmark hooks.
 """
 
 from __future__ import annotations
@@ -207,7 +209,8 @@ class DeviceChunkHasher:
             return PendingSegment.fused_segment(self.fused, dev, length,
                                                 inflight, eof)
         with span("engine.candidates"):
-            idx_s, idx_l = fetch_candidates(dev, p, length)
+            idx_s, idx_l = fetch_candidates(dev, p, length,
+                                            cand_fn=self.cand_device_fn)
         with span("engine.boundary_walk"):
             chunks = select_boundaries(idx_s, idx_l, length, p, eof=eof)
         if not chunks:
@@ -215,12 +218,30 @@ class DeviceChunkHasher:
         if p.align >= 64:
             with span("engine.leaf_dispatch"):
                 plan = _leaf_plan(chunks)
-                inflight = _dispatch_leaves(dev, *plan[:3])
+                inflight = _dispatch_leaves(dev, *plan[:3],
+                                            leaf_fn=self.leaf_device_fn)
             return PendingSegment.split_phase(chunks, plan, inflight)
         with span("engine.leaf_roots"):
             hexes = device_span_roots(dev, chunks)
         return PendingSegment([(s, l, h)
                                for (s, l), h in zip(chunks, hexes)])
+
+    def process_device(self, dev: torch.Tensor, length: int, *,
+                       eof: bool = True) -> list[tuple[int, int, str]]:
+        """The device pipeline on an already-resident bucket-padded
+        buffer — what ``process`` runs after its upload, and what a
+        benchmark measures: the segment's launches plus their result
+        fetch (ref :215-221)."""
+        return self.begin_device(dev, length, eof=eof).finish()
+
+    #: Override points for the split-phase path's two fused launches
+    #: (benchmarks compose a content salt into the same programs; None =
+    #: the library's ``sha256_leaves_device`` / the aligned
+    #: ``cdc_candidates_aligned_packed``). ``leaf_device_fn(dev, rows,
+    #: tail_starts, tail_lengths, leaf_len=...)`` and
+    #: ``cand_device_fn(dev, cap)`` take the library calls' arguments.
+    leaf_device_fn = None
+    cand_device_fn = None
 
 
 def device_leaf_digests(dev: torch.Tensor, leaf_starts: list[int],
@@ -237,7 +258,7 @@ def device_leaf_digests(dev: torch.Tensor, leaf_starts: list[int],
     digests = sha256_chunks_device(
         dev, torch.from_numpy(starts).to(dev.device),
         torch.from_numpy(lengths).to(dev.device), max_len=LEAF_SIZE)
-    flat = digests.cpu().numpy().view(np.uint32).astype(">u4").tobytes()  # lint: ignore[VL106] 32 B/leaf digest wire form, metadata not payload
+    flat = digests.cpu().numpy().view(np.uint32).astype(">u4").tobytes()  # lint: ignore[VL106,VL501] 32 B/leaf digest wire form, metadata not payload; one batched 32 B/lane digest download — this helper's contract
     return [flat[32 * k: 32 * (k + 1)] for k in range(len(leaf_starts))]
 
 
@@ -273,10 +294,11 @@ def _leaf_plan(chunks: list[tuple[int, int]]):
 
 
 def _dispatch_leaves(dev: torch.Tensor, full_rows, short_starts,
-                     short_lengths):
-    """Launch the segment's one leaf dispatch -> (the in-flight [F + T,
-    8] digests, F). Full-leaf lanes pad to a pow2 >= 128 with row 0,
-    tail lanes to a pow2 >= 8 with empty slices."""
+                     short_lengths, leaf_fn=None):
+    """Launch the segment's one leaf dispatch (``leaf_fn``, default
+    ``sha256_leaves_device``) -> (the in-flight [F + T, 8] digests, F).
+    Full-leaf lanes pad to a pow2 >= 128 with row 0, tail lanes to a
+    pow2 >= 8 with empty slices."""
     lanes_f = _pow2ceil(len(full_rows), 128)
     lanes_t = _pow2ceil(max(len(short_starts), 1), 8)
     rows = np.zeros((lanes_f,), np.int32)
@@ -285,8 +307,9 @@ def _dispatch_leaves(dev: torch.Tensor, full_rows, short_starts,
     tl = np.zeros((lanes_t,), np.int32)
     ts[: len(short_starts)] = short_starts
     tl[: len(short_lengths)] = short_lengths
-    on_dev = [torch.from_numpy(a).to(dev.device) for a in (rows, ts, tl)]
-    return sha256_leaves_device(dev, *on_dev, leaf_len=LEAF_SIZE), lanes_f
+    on_dev = [torch.from_numpy(a).to(dev.device) for a in (rows, ts, tl)]  # lint: ignore[VL502] a fixed three-array unroll (full rows, tail starts, tail lengths) for the segment's one leaf dispatch
+    return (leaf_fn or sha256_leaves_device)(
+        dev, *on_dev, leaf_len=LEAF_SIZE), lanes_f
 
 
 def _assemble_roots(chunks, plan, digests: np.ndarray,
@@ -444,7 +467,7 @@ def hash_spans(buffer, spans: list[tuple[int, int]],
     roots = span_roots_device(
         _upload_padded(buffer, dev), torch.from_numpy(starts),
         torch.from_numpy(lengths), max_len=int(max(lengths.max(), 0)))
-    roots = roots.cpu().numpy().view(np.uint32).astype(">u4")
+    roots = roots.cpu().numpy().view(np.uint32).astype(">u4")  # lint: ignore[VL501] one batched 32 B/span root download — metadata, not payload
     empty_id = blobid.blob_id(b"")
     return [empty_id if empty[i] else roots[i].tobytes().hex()  # lint: ignore[VL106] 32 B span-root ids, metadata not payload
             for i in range(len(spans))]

@@ -292,13 +292,13 @@ def delta_scan_batch(items, *, device=None) -> list[list[Op]]:
         nscan = np.array([ln - block_len + 1 for ln in lens], np.int64)
         width = L - block_len + 1
         # One upload and one match ladder per block-length group.
-        buf = _to_device(data, dev)
-        sw_dev = torch.from_numpy(sorted_weak).to(dev)
-        nb_dev = torch.from_numpy(nb).to(dev)
-        ns_dev = torch.from_numpy(nscan).to(dev)
+        buf = _to_device(data, dev)  # lint: ignore[VL502] per-bucket batch upload
+        sw_dev = torch.from_numpy(sorted_weak).to(dev)  # lint: ignore[VL502] per-bucket batch upload
+        nb_dev = torch.from_numpy(nb).to(dev)  # lint: ignore[VL502] per-bucket batch upload
+        ns_dev = torch.from_numpy(nscan).to(dev)  # lint: ignore[VL502] per-bucket batch upload
         cap = max(1024, _pow2ceil(sum(ln // block_len for ln in lens) * 4))
         while True:
-            cand_dev, count = match_offsets_batch(
+            cand_dev, count = match_offsets_batch(  # lint: ignore[VL502] one dispatch per bucket batch
                 buf, sw_dev, nb_dev, ns_dev, window=block_len,
                 max_candidates=cap)
             total = int(count)

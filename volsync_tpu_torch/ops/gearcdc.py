@@ -263,22 +263,26 @@ def cdc_candidates(data: torch.Tensor, *, seed: int, mask_s: int,
 
 
 def fetch_candidates(dev: torch.Tensor, params: GearParams,
-                     length: int) -> tuple[np.ndarray, np.ndarray]:
+                     length: int, *, cand_fn=None
+                     ) -> tuple[np.ndarray, np.ndarray]:
     """(strict, lax) sorted cut positions below ``length`` of a resident
     buffer, as host arrays (ref ``DeviceChunkHasher._candidates``).
     align > 1: ``cdc_candidates_aligned_packed`` from 4096 slots, one
     fetch per try. align == 1: ``cdc_candidates`` from L/64 slots, which
     covers any mask down to 2^-6 density; one fetch of the counts, one
     of the candidates. Denser (adversarial) data retries with a doubled
-    capacity, so the result never depends on the capacity."""
+    capacity, so the result never depends on the capacity.
+    ``cand_fn(dev, cap)`` replaces the aligned launch (the bench hook
+    ``DeviceChunkHasher.cand_device_fn``; None: the library's)."""
     p = params
     if p.align > 1:
+        cand = cand_fn or (
+            lambda d, cap: cdc_candidates_aligned_packed(
+                d, seed=p.seed, mask_s=p.mask_s, mask_l=p.mask_l,
+                align=p.align, max_candidates=cap, valid_len=length))
         cap = 4096
         while True:
-            packed = cdc_candidates_aligned_packed(
-                dev, seed=p.seed, mask_s=p.mask_s, mask_l=p.mask_l,
-                align=p.align, max_candidates=cap,
-                valid_len=length).cpu().numpy()
+            packed = cand(dev, cap).cpu().numpy()
             c = int(packed[-1])
             if c <= cap:
                 break

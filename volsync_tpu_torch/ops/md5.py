@@ -107,7 +107,7 @@ def _compress(state: list, m: list) -> list:
 
 
 def _a0_state(shape, device) -> list:
-    return [torch.full(shape, int(v), dtype=torch.int64, device=device)
+    return [torch.full(shape, int(v), dtype=torch.int64, device=device)  # lint: ignore[VL502] a fixed unroll over the four initial-state words
             for v in _A0]
 
 

@@ -624,7 +624,7 @@ def page_digests(dev: torch.Tensor) -> np.ndarray:
     layout gate is read once, so the table and its decode agree."""
     F = dev.shape[0] // LEAF_SIZE
     pm = envflags.pagemajor()
-    flat = _page_digests_flat(dev, F, pm).cpu().numpy().view(np.uint32)
+    flat = _page_digests_flat(dev, F, pm).cpu().numpy().view(np.uint32)  # lint: ignore[VL501] bounded batched digest staging
     j, p = np.meshgrid(np.arange(8), np.arange(F), indexing="xy")
     return flat[_word_index_fn(F, pm)(j, p)]  # [F, 8]
 
@@ -649,7 +649,7 @@ def span_roots_device(data: torch.Tensor, starts: torch.Tensor,
     live = lens > 0
     lens_c = lens.clamp(min=0)
     if max_len is None:
-        max_len = int(lens_c.max()) if lens_c.numel() else 0
+        max_len = int(lens_c.max()) if lens_c.numel() else 0  # lint: ignore[VL501] one host sync for the root bound when the caller passes no max_len (the docstring's contract)
 
     flat = _page_digests_flat(data, npp, pagemajor)
     flat = tail_leaves_into(flat, npp, data, starts, lens,

@@ -160,7 +160,7 @@ def _compress(state: list, w: list) -> list:
 
 
 def _h0_state(shape, device) -> list:
-    return [torch.full(shape, int(v), dtype=torch.int64, device=device)
+    return [torch.full(shape, int(v), dtype=torch.int64, device=device)  # lint: ignore[VL502] a fixed unroll over the eight initial-state words
             for v in _H0]
 
 

@@ -154,13 +154,13 @@ class MeshChunkHasher:
             piece = np.ascontiguousarray(
                 buffer[k * shard_len: min((k + 1) * shard_len, length)])
             if piece.shape[0] == shard_len:
-                rows.append(_to_device(piece, dev))
+                rows.append(_to_device(piece, dev))  # lint: ignore[VL502] per-shard phase: one dispatch a local mesh shard, the port's form of shard_map's per-device body
                 continue
-            row = torch.zeros((shard_len,), dtype=torch.uint8, device=dev)
+            row = torch.zeros((shard_len,), dtype=torch.uint8, device=dev)  # lint: ignore[VL502] per-shard phase: one dispatch a local mesh shard, the port's form of shard_map's per-device body
             if piece.shape[0]:
                 if not piece.flags.writeable:
                     piece = piece.copy()
-                row[: piece.shape[0]].copy_(torch.from_numpy(piece))
+                row[: piece.shape[0]].copy_(torch.from_numpy(piece))  # lint: ignore[VL502] per-shard phase: one dispatch a local mesh shard, the port's form of shard_map's per-device body
             rows.append(row)
         return rows, shard_len
 
@@ -195,10 +195,10 @@ class MeshChunkHasher:
         R = shard_len // align
         tables, lpos, spos, nls = [], [], [], []
         for k, row in zip(mesh.local, rows):
-            tables.append(sha256_pages(row, npp, pagemajor=True))
-            pos, is_s, is_l = self._aligned_masks(k, row, shard_len, length)
-            ridx = nonzero_fixed(is_l, cand_cap, R)
-            safe = ridx.clamp(max=R - 1)
+            tables.append(sha256_pages(row, npp, pagemajor=True))  # lint: ignore[VL502] per-shard phase: one dispatch a local mesh shard, the port's form of shard_map's per-device body
+            pos, is_s, is_l = self._aligned_masks(k, row, shard_len, length)  # lint: ignore[VL502] per-shard phase: one dispatch a local mesh shard, the port's form of shard_map's per-device body
+            ridx = nonzero_fixed(is_l, cand_cap, R)  # lint: ignore[VL502] per-shard phase: one dispatch a local mesh shard, the port's form of shard_map's per-device body
+            safe = ridx.clamp(max=R - 1)  # lint: ignore[VL502] per-shard phase: one dispatch a local mesh shard, the port's form of shard_map's per-device body
             hit = ridx < R
             lp = torch.where(hit, pos[safe], _SENTINEL)
             lpos.append(lp)
@@ -282,7 +282,7 @@ class MeshChunkHasher:
             if k == 0:
                 g[:_HALO] = 0  # the true stream start: h starts from 0
             h = gear_doubling(g)[_HALO:]
-            pos = k * shard_len + torch.arange(
+            pos = k * shard_len + torch.arange(  # lint: ignore[VL502] per-shard phase: one dispatch a local mesh shard, the port's form of shard_map's per-device body
                 shard_len, dtype=torch.int64, device=row.device)
             ok = pos < length
             masks.append((((h & p.mask_s) == 0) & ok,
@@ -294,8 +294,8 @@ class MeshChunkHasher:
                                  for s, l in masks])  # [S, 2]
         cap = _pow2ceil(int(cnt.max()), _pow2ceil(shard_len // 64, 1024))
         idx = self._gather_host([
-            torch.stack([nonzero_fixed(s, cap, shard_len),
-                         nonzero_fixed(l, cap, shard_len)])
+            torch.stack([nonzero_fixed(s, cap, shard_len),  # lint: ignore[VL502] per-shard phase: one dispatch a local mesh shard, the port's form of shard_map's per-device body
+                         nonzero_fixed(l, cap, shard_len)])  # lint: ignore[VL502] per-shard phase: one dispatch a local mesh shard, the port's form of shard_map's per-device body
             for s, l in masks])  # [S, 2, cap]
         # Shards are contiguous byte ranges in order: concatenation sorts.
         out = [np.concatenate([idx[i, j, : cnt[i, j]] + i * shard_len
@@ -308,15 +308,15 @@ class MeshChunkHasher:
         positions, sorted."""
         align = self.params.align
         R = shard_len // align
-        flags = [self._aligned_masks(k, row, shard_len, length)[1:]
+        flags = [self._aligned_masks(k, row, shard_len, length)[1:]  # lint: ignore[VL502] per-shard phase: one dispatch a local mesh shard, the port's form of shard_map's per-device body
                  for k, row in zip(self.mesh.local, rows)]
         cnt = self._gather_host([l.sum() for _, l in flags])  # [S]
         cap = _pow2ceil(int(cnt.max()), 1024)  # the lists' capacity
         parts = []
         for is_s, is_l in flags:
-            ridx = nonzero_fixed(is_l, cap, R)
-            strict = (ridx < R) & is_s[ridx.clamp(max=R - 1)]
-            parts.append(torch.stack([ridx, strict.to(torch.int64)]))
+            ridx = nonzero_fixed(is_l, cap, R)  # lint: ignore[VL502] per-shard phase: one dispatch a local mesh shard, the port's form of shard_map's per-device body
+            strict = (ridx < R) & is_s[ridx.clamp(max=R - 1)]  # lint: ignore[VL502] per-shard phase: one dispatch a local mesh shard, the port's form of shard_map's per-device body
+            parts.append(torch.stack([ridx, strict.to(torch.int64)]))  # lint: ignore[VL502] per-shard phase: one dispatch a local mesh shard, the port's form of shard_map's per-device body
         got = self._gather_host(parts)  # [S, 2, cap]
         out_s, out_l = [], []
         for i in range(self.n_shards):
@@ -364,9 +364,9 @@ class MeshChunkHasher:
                 starts[slot] = off
                 lengths[slot] = llen
             at = row.device
-            digests.append(sha256_chunks_device(
-                torch.cat([row, halo]), torch.from_numpy(starts).to(at),
-                torch.from_numpy(lengths).to(at), max_len=_LEAF))
+            digests.append(sha256_chunks_device(  # lint: ignore[VL502] per-shard phase: one dispatch a local mesh shard, the port's form of shard_map's per-device body
+                torch.cat([row, halo]), torch.from_numpy(starts).to(at),  # lint: ignore[VL502] per-shard phase: one dispatch a local mesh shard, the port's form of shard_map's per-device body
+                torch.from_numpy(lengths).to(at), max_len=_LEAF))  # lint: ignore[VL502] per-shard phase: one dispatch a local mesh shard, the port's form of shard_map's per-device body
         flat = self._gather_host(digests).view(np.uint32).astype(
             ">u4").tobytes()  # [S, cap, 8] big-endian
 

@@ -130,11 +130,11 @@ def main() -> int:
     data = torch.from_numpy(host).to("cuda")
     res = {}
     for name, (starts, lengths) in lanes(rng, BUFFER).items():
-        s = torch.from_numpy(starts).to("cuda")
-        n = torch.from_numpy(lengths).to("cuda")
+        s = torch.from_numpy(starts).to("cuda")  # lint: ignore[VL502] one upload per lane shape under test (set-up, untimed)
+        n = torch.from_numpy(lengths).to("cuda")  # lint: ignore[VL502] one upload per lane shape under test (set-up, untimed)
 
         def call():
-            return sha256_chunks_device(data, s, n, max_len=LEAF)
+            return sha256_chunks_device(data, s, n, max_len=LEAF)  # lint: ignore[VL502] the timed call of one lane shape
 
         check(host, starts, lengths, call().cpu().numpy())
         res[name] = {"lanes": int(starts.shape[0]),
