@@ -11,8 +11,9 @@ and on the port's own candidate arrays; a backup through the native
 reader equals one through ``open()`` (and the reference's); the
 library is built from the port's own copy of ``native/volio.cpp``
 (byte for byte), under a name keyed by its hash; a prebuilt ``.so``
-(``VOLSYNC_VOLIO_SO``) loads, and ``VOLSYNC_NO_NATIVE=1`` turns the
-library off, in fresh interpreters.
+(``VOLSYNC_VOLIO_SO``) loads, ``VOLSYNC_NATIVE_CACHE`` moves the build
+out of the package, and ``VOLSYNC_NO_NATIVE=1`` turns the library off,
+in fresh interpreters.
 """
 
 import os
@@ -280,6 +281,51 @@ def test_prebuilt_native_so(tmp_path):
         " native.LOAD_INFO['build_s'])\n", VOLSYNC_VOLIO_SO=str(so))
     assert out.returncode == 0, out.stderr[-500:]
     assert f"prebuilt {so} None" in out.stdout
+
+
+def test_native_cache_dir_takes_the_build(tmp_path):
+    """VOLSYNC_NATIVE_CACHE names the build directory: a fresh loader
+    builds the hash-keyed library there and adds nothing to the
+    package's ``_build/``."""
+    assert available()  # the package's own build exists before the run
+    before = sorted(native.BUILD_DIR.iterdir())
+    cache = tmp_path / "cache"
+    out = _fresh(
+        "from volsync_tpu_torch.io import native\n"
+        "assert native.available(), 'cache-dir build did not load'\n"
+        "print('built', native.LOAD_INFO['path'],"
+        " native.LOAD_INFO['build_s'] is not None)\n",
+        VOLSYNC_NATIVE_CACHE=str(cache), VOLSYNC_VOLIO_SO="",
+        VOLSYNC_NO_NATIVE="")
+    assert out.returncode == 0, out.stderr[-500:]
+    so = cache / native.library_path().name
+    assert out.stdout.strip() == f"built {so} True"
+    assert so.is_file()
+    assert [p.name for p in cache.iterdir()] == [so.name]
+    assert sorted(native.BUILD_DIR.iterdir()) == before
+
+
+@pytest.mark.parametrize("knob", ["VOLSYNC_VOLIO_SO", "VOLSYNC_NO_NATIVE"])
+def test_native_cache_dir_yields_to_the_other_knobs(tmp_path, knob):
+    """A prebuilt library or the off switch wins over the cache dir,
+    as in the reference: the cache dir stays untouched."""
+    value = "1"
+    if knob == "VOLSYNC_VOLIO_SO":
+        value = str(tmp_path / "libvolio.so")
+        r = subprocess.run(["g++", *native.GXX_FLAGS, "-o", value,
+                            str(native._SRC)], capture_output=True)
+        assert r.returncode == 0, r.stderr[-500:]
+    cache = tmp_path / "cache"
+    out = _fresh(
+        "from volsync_tpu_torch.io import native\n"
+        "print(native.available(), native.LOAD_INFO.get('path'))\n",
+        **{"VOLSYNC_NATIVE_CACHE": str(cache), "VOLSYNC_VOLIO_SO": "",
+           "VOLSYNC_NO_NATIVE": "", knob: value})
+    assert out.returncode == 0, out.stderr[-500:]
+    want = {"VOLSYNC_VOLIO_SO": f"True {value}",
+            "VOLSYNC_NO_NATIVE": "False None"}[knob]
+    assert out.stdout.strip() == want
+    assert not cache.exists()
 
 
 def test_no_native_turns_the_library_off():

@@ -8,7 +8,8 @@ the repository's write pipeline, index, locking and retry knobs,
 backup and restore workers', the scrub's and the repacker's cadence,
 the fault-injection store's seed and spec, the sync-protocol
 planner's and the batched delta scan's, the flight recorder's
-(``trace_*``), the native host library's (``no_native``, ``volio_so``),
+(``trace_*``), the native host library's (``no_native``, ``volio_so``,
+``native_cache_dir``),
 the segment micro-batcher's (``batch_*``), the
 service plane's (``svc_*``), the fleet's and the continuous GC's
 (``fleet_*``, ``gc_interval_seconds``), the lock detector's switch
@@ -544,6 +545,11 @@ def no_native() -> bool:
 def volio_so() -> Optional[str]:
     """Path to a prebuilt libvolio.so (container images ship one)."""
     return env_str("VOLSYNC_VOLIO_SO")
+
+
+def native_cache_dir() -> Optional[str]:
+    """Build cache dir for the self-compiled native library."""
+    return env_str("VOLSYNC_NATIVE_CACHE")
 
 
 # -- supervised accelerator sessions (cluster/sessions.py) ----------------

@@ -6,11 +6,12 @@ reader (disk IO overlapped with device hashing) and the C FastCDC
 boundary walk. The library is built at first use from the port's own
 copy of the source (``volsync_tpu_torch/native/volio.cpp``, byte for
 byte the reference's ``native/volio.cpp``) with ``g++ -O2 -shared
--fPIC -pthread -std=c++17`` into ``volsync_tpu_torch/_build/``
-(git-ignored). The file name carries the source's hash, as
-``ops/_build.py`` keys the CUDA libraries, so a stale library is never
-loaded. ``VOLSYNC_VOLIO_SO`` loads a prebuilt library instead and
-``VOLSYNC_NO_NATIVE=1`` disables the library outright.
+-fPIC -pthread -std=c++17`` into ``VOLSYNC_NATIVE_CACHE`` where it is
+set, else into ``volsync_tpu_torch/_build/`` (git-ignored). The file
+name carries the source's hash, as ``ops/_build.py`` keys the CUDA
+libraries, so a stale library is never loaded. ``VOLSYNC_VOLIO_SO``
+loads a prebuilt library instead and ``VOLSYNC_NO_NATIVE=1`` disables
+the library outright; both take precedence over the cache dir.
 
 This is host code, and its pure-Python routes (``open()``,
 ``ops/gearcdc._select_boundaries_py``) are the reference's own design
@@ -50,9 +51,11 @@ LOAD_INFO: dict = {}
 
 
 def library_path() -> Path:
-    """Where the library of the current source lives (hash-keyed)."""
+    """Where the library of the current source lives (hash-keyed), in
+    ``VOLSYNC_NATIVE_CACHE`` or else ``BUILD_DIR``."""
     digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libvolio-{digest}.so"
+    cache = Path(envflags.native_cache_dir() or BUILD_DIR)
+    return cache / f"libvolio-{digest}.so"
 
 
 def _build(src: Path, out: Path) -> bool:
@@ -98,7 +101,7 @@ def _load() -> Optional[ctypes.CDLL]:
         so = library_path()
         build_s = None
         if not so.is_file():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            so.parent.mkdir(parents=True, exist_ok=True)
             # Build to a temp name and rename into place: concurrent
             # processes sharing the build dir must never dlopen a half-
             # written .so.
