@@ -281,7 +281,7 @@ def test_flight_report_of_a_batched_backup_on_cpu(monkeypatch, tmp_path):
     doc = json.loads((tmp_path / "flight.json").read_text())
     assert doc["displayTimeUnit"] == "ms"
     from volsync_tpu_torch import envflags
-    assert envflags.trace_ring_size() == 4096  # the knob is back
+    assert envflags.trace_ring_size() == 1 << 17  # the knob is back
 
 
 def test_flight_report_refuses_a_wrapped_ring(monkeypatch, tmp_path):

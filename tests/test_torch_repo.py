@@ -477,7 +477,8 @@ def test_trace_context_crosses_threads_only_when_carried(pkg):
         assert seen[tag].trace_id == ctx.trace_id
         assert seen[tag].tenant == f"t-{pkg}"
         assert seen[tag].span_id != ctx.span_id  # the span is the parent
-    by_tenant = obs.stage_seconds_by_tenant()
+    by_tenant = (TMETRICS.svc_stage_seconds.values() if pkg == "port"
+                 else obs.stage_seconds_by_tenant())
     assert (f"t-{pkg}", f"seam.{pkg}.carried") in by_tenant
     assert (f"t-{pkg}", f"seam.{pkg}.bare") not in by_tenant
     assert obs.carry_context(probe) is probe  # nothing to carry

@@ -214,10 +214,10 @@ def test_trace_header_and_tenant_attribution():
         pass
     assert {k: n for k, (n, _) in obs.span_totals().items()} == {
         "svc.batch": 1, "svc.emit": 1, "ops.batch_dispatch": 1}
-    assert set(obs.stage_seconds_by_tenant()) == {("gold", "svc.batch"),
-                                                  ("gold", "svc.emit")}
+    by_tenant = METRICS.svc_stage_seconds.values
+    assert set(by_tenant()) == {("gold", "svc.batch"), ("gold", "svc.emit")}
     obs.reset_spans()
-    assert obs.span_totals() == {} and obs.stage_seconds_by_tenant() == {}
+    assert obs.span_totals() == {} and by_tenant() == {}
 
 
 # -- tenancy model -----------------------------------------------------------

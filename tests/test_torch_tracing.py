@@ -19,6 +19,7 @@ recorded under its lanes' one trace.
 import glob
 import json
 import os
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -43,7 +44,6 @@ from volsync_tpu_torch.obs import (
     reset_trace,
     span,
     span_totals,
-    stage_seconds_by_tenant,
     trace_context,
     trace_events,
     use_context,
@@ -103,12 +103,11 @@ def test_reset_spans_clears_histogram_and_tenant_counter():
             pass
     assert _hist_count("engine.read", "ok") == 1
     assert M.svc_stage_seconds.values()[("gold", "engine.read")] > 0
-    assert stage_seconds_by_tenant()[("gold", "engine.read")] > 0
 
     reset_spans()
 
     assert span_totals() == {}
-    assert stage_seconds_by_tenant() == {}
+    assert M.svc_stage_seconds.values() == {}
     assert _hist_count("engine.read", "ok") is None
     assert ("gold", "engine.read") not in M.svc_stage_seconds.values()
 
@@ -195,7 +194,7 @@ def test_sampling_disables_ring_but_not_totals(monkeypatch):
             pass
     assert trace_events() == []
     assert span_totals()["engine.read"][0] == 1
-    assert stage_seconds_by_tenant()[("t4", "engine.read")] > 0
+    assert M.svc_stage_seconds.values()[("t4", "engine.read")] > 0
 
 
 def test_disabled_ring_records_nothing(monkeypatch):
@@ -483,3 +482,153 @@ def test_batched_pass_records_under_its_lanes_trace():
     assert traced["args"]["parent_span_id"] == seg["args"]["span_id"]
     assert traced["tid"] != seg["tid"]
     assert span_totals()["ops.batch_dispatch"][0] == 2
+
+
+# -- one clock, a ring that holds a window, the restic Job's trace ---------
+
+def test_span_lands_on_the_profilers_clock():
+    """A span around a ``torch.profiler.record_function`` region starts
+    and ends within 1 ms of it: the ring's ``ts`` is realtime, the
+    profiler's clock."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with trace_context():
+            with span("test.clock"), record_function("test.region"):
+                torch.ones(64).sum()
+                time.sleep(0.005)
+    (region,) = [(e.start_ns(), e.end_ns())
+                 for e in prof.profiler.kineto_results.events()
+                 if e.name() == "test.region"]
+    (ev,) = [e for e in trace_events() if e["name"] == "test.clock"]
+    start_ns, end_ns = ev["ts"] * 1e3, (ev["ts"] + ev["dur"]) * 1e3
+    assert abs(start_ns - region[0]) < 1e6
+    assert abs(end_ns - region[1]) < 1e6
+    assert abs(ev["ts"] / 1e6 - time.time()) < 60
+
+
+def test_ring_follows_a_drifting_realtime_clock(monkeypatch):
+    """Realtime running 0.5% fast against perf_counter (ten times what NTP
+    may slew): each span still lands where realtime read inside it, and
+    nested spans stay nested, as the recorder pairs the clocks while it
+    records and interpolates between the pairs."""
+    from volsync_tpu_torch.obs import tracing
+
+    base = time.time_ns() - int(time.perf_counter() * 1e9)
+
+    def drifting_ns():
+        return base + int(time.perf_counter() * 1.005e9)
+
+    monkeypatch.setattr(tracing, "_PAIR_EVERY_S", 0.01)
+    monkeypatch.setattr(tracing.time, "time_ns", drifting_ns)
+    seen = {}
+    with trace_context():
+        with span("test.outer"):
+            for i in range(20):
+                with span("test.inner", i=i):
+                    time.sleep(0.01)
+                    seen[i] = drifting_ns() / 1e3
+    events = trace_events()
+    (outer,) = [e for e in events if e["name"] == "test.outer"]
+    inner = [e for e in events if e["name"] == "test.inner"]
+    for e in inner:
+        assert e["ts"] - 20 <= seen[e["args"]["i"]] <= e["ts"] + e["dur"] + 20
+        assert outer["ts"] <= e["ts"]
+        assert e["ts"] + e["dur"] <= outer["ts"] + outer["dur"]
+    assert [e["ts"] for e in inner] == sorted(e["ts"] for e in inner)
+
+
+def test_ring_keeps_n_events_in_order_and_reports_its_oldest(monkeypatch):
+    monkeypatch.setenv("VOLSYNC_TRACE_RING", "32")
+    reset_trace()
+    assert obs.ring_stats() == {"capacity": 32, "held": 0, "recorded": 0,
+                                "oldest_ts": None}
+    with trace_context():
+        for i in range(50):
+            with span("engine.read", i=i):
+                pass
+    events = trace_events()
+    assert [e["args"]["i"] for e in events] == list(range(18, 50))
+    assert [e["ts"] for e in events] == sorted(e["ts"] for e in events)
+    stats = obs.ring_stats()
+    assert (stats["capacity"], stats["held"], stats["recorded"]) == \
+        (32, 32, 50)
+    assert stats["oldest_ts"] == pytest.approx(events[0]["ts"], abs=100)
+    assert obs.ring_stats()["oldest_ts"] < events[1]["ts"]
+
+
+def test_seal_keeps_compression_only_where_it_pays():
+    """``repo.seal.compress`` says whether the compressed form is kept:
+    not for a random blob, yes for a text blob; ``repo.seal.cipher``
+    follows it inside ``repo.seal``."""
+    from volsync_tpu_torch.objstore.store import MemObjectStore
+    from volsync_tpu_torch.repo.repository import Repository
+
+    repo = Repository.init(MemObjectStore(), password="pw", device="cpu")
+    rand = np.random.default_rng(3).bytes(1 << 16)
+    text = b"".join(b"row %06d of the log\n" % i for i in range(3000))
+    with trace_context():
+        repo._encode_blob(rand)
+        repo._encode_blob(text)
+    comp = [e for e in trace_events() if e["name"] == "repo.seal.compress"]
+    assert [(e["args"]["raw"], e["args"]["kept"]) for e in comp] == [
+        (len(rand), False), (len(text), True)]
+    seals = [e for e in trace_events() if e["name"] == "repo.seal"]
+    ciphers = [e for e in trace_events() if e["name"] == "repo.seal.cipher"]
+    for c, s in zip(comp + ciphers, seals + seals):
+        assert c["args"]["parent_span_id"] == s["args"]["span_id"]
+    assert span_totals()["repo.seal.cipher"][0] == 2
+
+
+#: the spans a restic backup Job records inside the port, besides the
+#: existing engine.*, repo.seal, repo.pack_upload and ops.batch_dispatch
+JOB_SPANS = ("mover.restic.open", "repo.kdf", "repo.lock",
+             "repo.list_then_load", "repo.seal.compress", "repo.seal.cipher",
+             "repo.seal_wait", "repo.index_write", "repo.save_snapshot",
+             "repo.unlock", "ops.batch_stage", "device.h2d", "engine.read")
+
+
+def test_restic_backup_job_is_one_trace_on_every_thread(monkeypatch,
+                                                        tmp_path):
+    """A tiny backup through ``restic_entrypoint`` on the CPU (the
+    shared micro-batcher forced on, every seal slowed so that the flush
+    waits for one): every new span is in ``span_totals()`` and in the
+    ring, all under one trace whose ``stream_id`` is the Job's name,
+    from the entry, readahead, batcher and seal threads at least."""
+    import threading
+
+    from volsync_tpu_torch.cluster.runner import JobContext
+    from volsync_tpu_torch.movers.restic.entry import restic_entrypoint
+    from volsync_tpu_torch.repo import crypto
+
+    monkeypatch.setenv("VOLSYNC_BATCH_SEGMENTS", "1")
+    seal_parts = crypto.SecretBox.seal_parts
+
+    def slow_seal(self, parts):
+        time.sleep(0.05)
+        return seal_parts(self, parts)
+
+    monkeypatch.setattr(crypto.SecretBox, "seal_parts", slow_seal)
+    src = tmp_path / "src"
+    (src / "sub").mkdir(parents=True)
+    rng = np.random.default_rng(7)
+    (src / "big.bin").write_bytes(rng.bytes(700_000))
+    (src / "sub" / "log.txt").write_bytes(b"a line of text\n" * 5000)
+    env = {"RESTIC_REPOSITORY": f"file://{tmp_path / 'repo'}",
+           "RESTIC_PASSWORD": "pw", "HOSTNAME": "h"}
+    assert restic_entrypoint(JobContext(
+        name="src-job", namespace="ns", env=env, mounts={"data": src},
+        secrets={}, stop_event=threading.Event(), device="cpu")) == 0
+    totals = span_totals()
+    spans = [e for e in trace_events() if e["ph"] == "X"]
+    assert not [n for n in JOB_SPANS if n not in totals]
+    assert not [n for n in JOB_SPANS if n not in {e["name"] for e in spans}]
+    assert len({e["args"]["trace_id"] for e in spans}) == 1
+    assert {e["args"]["stream_id"] for e in spans} == {"src-job"}
+    names = {e["tid"]: e["args"]["name"]
+             for e in chrome_trace()["traceEvents"] if e["ph"] == "M"}
+    threads = {names[e["tid"]] for e in spans}
+    assert len(threads) >= 3
+    assert any(t.startswith("vtpk-seal") for t in threads)
+    assert any(t.startswith("segment-batch") for t in threads)
+    assert "vtpt-readahead" in threads

@@ -200,7 +200,9 @@ class TreeBackup:
                 # carry_context: worker-thread spans (repo store spans)
                 # keep the caller's tenant/trace context instead of
                 # starting orphaned.
-                with ThreadPoolExecutor(self.workers) as pool:
+                with ThreadPoolExecutor(
+                        self.workers,
+                        thread_name_prefix="backup-hash") as pool:
                     for rel, resolved in pool.map(
                             carry_context(
                                 lambda j: self._hash_file(*j, stats)),

@@ -50,7 +50,7 @@ import torch
 
 from volsync_tpu_torch import envflags, resolve_device
 from volsync_tpu_torch.engine import bufpool
-from volsync_tpu_torch.obs import record_copy, span
+from volsync_tpu_torch.obs import carry_context, record_copy, span
 from volsync_tpu_torch.ops.gearcdc import (
     GearParams,
     fetch_candidates,
@@ -113,7 +113,8 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     pooled host buffer is recycled once the segment finishes)."""
     if not arr.flags.writeable:
         arr = arr.copy()
-    return torch.from_numpy(arr).to(device=device, copy=True)
+    with span("device.h2d"):
+        return torch.from_numpy(arr).to(device=device, copy=True)
 
 
 class DeviceChunkHasher:
@@ -647,8 +648,11 @@ class _SegmentReadahead:
         self._fill = fill
         self._q: queue.Queue = queue.Queue(maxsize=max(1, depth))
         self._stop = threading.Event()
+        # carry_context: the reads' engine.read spans join the trace of
+        # the stream they fill
         self._thread = threading.Thread(
-            target=self._produce, daemon=True, name="vtpt-readahead")
+            target=carry_context(self._produce), daemon=True,
+            name="vtpt-readahead")
         self._thread.start()
 
     def _produce(self):

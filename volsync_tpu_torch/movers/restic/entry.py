@@ -15,6 +15,12 @@ the card's engine, applies FORGET_* retention, and optionally prunes;
 ``restore`` selects a snapshot via RESTORE_AS_OF / SELECT_PREVIOUS and
 materializes it. Config arrives exclusively via env + mounts, preserving
 the reference's process boundary.
+
+Each Job is one trace (``obs``): it runs under the active trace context
+or, without one, a fresh root, with ``stream_id`` the Job's name and
+sampled by ``VOLSYNC_TRACE_SAMPLE``, so that every thread of its sync
+records into the flight recorder under one trace id. The repository's
+open (scrypt inside, ``repo.kdf``) is the span ``mover.restic.open``.
 """
 
 from __future__ import annotations
@@ -28,7 +34,13 @@ from volsync_tpu_torch.engine.backup import TreeBackup
 from volsync_tpu_torch.engine.restore import restore_snapshot
 from volsync_tpu_torch.movers.base import normalize_protocol
 from volsync_tpu_torch.objstore.store import open_store
-from volsync_tpu_torch.obs import device_trace, span
+from volsync_tpu_torch.obs import (
+    current_context,
+    device_trace,
+    new_trace,
+    span,
+    trace_context,
+)
 from volsync_tpu_torch.repo.repository import (
     DEFAULT_CHUNKER,
     RepoError,
@@ -58,42 +70,49 @@ def _parse_within(value: str) -> timedelta:
 
 
 def _open_or_init(env: dict, device=None) -> Repository:
-    # env carries the full Secret passthrough (AWS_* credentials included),
-    # exactly like the reference's mover pod (restic/mover.go:317-364).
-    store = open_store(env["RESTIC_REPOSITORY"], env=env)
-    password = env.get("RESTIC_PASSWORD") or None
-    # Per-repo chunker-alignment knob (VOLSYNC_CHUNKER_ALIGN, set at
-    # CREATION only — existing repos keep their stored config forever).
-    # The default align=4096 runs the fused single-dispatch engine but
-    # makes cuts content-defined only modulo the 4 KiB phase: inserting
-    # a non-page-multiple length desynchronizes the rest of the file
-    # from the parent's chunks. Insert-heavy workloads can pick align=1
-    # (fully shift-invariant, classic engine) or 64 (split-phase).
-    # See docs/usage.md "Chunker alignment".
-    chunker = None
-    if env.get("VOLSYNC_CHUNKER_ALIGN"):
-        align = int(env["VOLSYNC_CHUNKER_ALIGN"])
-        if align not in (1, 64, 4096):
-            raise ValueError(
-                f"VOLSYNC_CHUNKER_ALIGN={align}: must be 1 (shift-"
-                "invariant), 64 (split-phase), or 4096 (fused page grid)")
-        chunker = {**DEFAULT_CHUNKER, "align": align}
-    try:
-        repo = Repository.open(store, password=password, device=device)
-    except RepoError:
-        log.info("repository not initialized; creating (entry.sh:52-57)")
+    with span("mover.restic.open"):
+        # env carries the full Secret passthrough (AWS_* credentials
+        # included), exactly like the reference's mover pod
+        # (restic/mover.go:317-364).
+        store = open_store(env["RESTIC_REPOSITORY"], env=env)
+        password = env.get("RESTIC_PASSWORD") or None
+        # Per-repo chunker-alignment knob (VOLSYNC_CHUNKER_ALIGN, set at
+        # CREATION only — existing repos keep their stored config
+        # forever). The default align=4096 runs the fused single-dispatch
+        # engine but makes cuts content-defined only modulo the 4 KiB
+        # phase: inserting a non-page-multiple length desynchronizes the
+        # rest of the file from the parent's chunks. Insert-heavy
+        # workloads can pick align=1 (fully shift-invariant, classic
+        # engine) or 64 (split-phase). See docs/usage.md "Chunker
+        # alignment".
+        chunker = None
+        if env.get("VOLSYNC_CHUNKER_ALIGN"):
+            align = int(env["VOLSYNC_CHUNKER_ALIGN"])
+            if align not in (1, 64, 4096):
+                raise ValueError(
+                    f"VOLSYNC_CHUNKER_ALIGN={align}: must be 1 (shift-"
+                    "invariant), 64 (split-phase), or 4096 (fused page "
+                    "grid)")
+            chunker = {**DEFAULT_CHUNKER, "align": align}
         try:
-            repo = Repository.init(store, password=password,
-                                   chunker=chunker, device=device)
-        except RepoError:
-            # Lost the init race to a concurrent mover sharing this
-            # repository: open the winner's (init is atomic, so the
-            # config is whole).
             repo = Repository.open(store, password=password, device=device)
-    # Wait out a concurrent holder instead of failing the sync on first
-    # contention (shared repositories across CRs are supported).
-    repo.default_lock_wait = float(env.get("LOCK_WAIT_SECONDS", "120"))
-    return repo
+        except RepoError:
+            log.info("repository not initialized; creating "
+                     "(entry.sh:52-57)")
+            try:
+                repo = Repository.init(store, password=password,
+                                       chunker=chunker, device=device)
+            except RepoError:
+                # Lost the init race to a concurrent mover sharing this
+                # repository: open the winner's (init is atomic, so the
+                # config is whole).
+                repo = Repository.open(store, password=password,
+                                       device=device)
+        # Wait out a concurrent holder instead of failing the sync on
+        # first contention (shared repositories across CRs are
+        # supported).
+        repo.default_lock_wait = float(env.get("LOCK_WAIT_SECONDS", "120"))
+        return repo
 
 
 def _forget_kwargs(env: dict) -> dict:
@@ -153,8 +172,12 @@ def restic_entrypoint(ctx) -> int:
         if required not in env:
             log.error("missing env %s (entry.sh:232-240)", required)
             return 2
+    parent = current_context()
+    job = (parent.evolve(stream_id=ctx.name) if parent is not None
+           else new_trace(stream_id=ctx.name))
     try:
-        return _dispatch(ctx, env, direction)
+        with trace_context(job):
+            return _dispatch(ctx, env, direction)
     except RepoLockedError as ex:
         # Two CRs sharing one repository collide (shared backup vs
         # exclusive forget/prune): fail this attempt cleanly and let the

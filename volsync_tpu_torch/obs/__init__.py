@@ -3,7 +3,9 @@ recorder, the copy ledger and the device trace.
 
 Ports ``volsync_tpu/obs/__init__.py``: the same names, re-exported
 from ``obs/tracing.py`` and ``obs/copyledger.py``, plus the port's
-``triggers()`` and ``copy_totals()``.
+``triggers()``, ``copy_totals()`` and ``ring_stats()``. The
+reference's ``stage_seconds_by_tenant()`` mirror is not ported: its
+numbers are ``metrics.GLOBAL.svc_stage_seconds``.
 """
 
 from volsync_tpu_torch.obs.copyledger import (
@@ -29,9 +31,9 @@ from volsync_tpu_torch.obs.tracing import (
     record_trigger,
     reset_spans,
     reset_trace,
+    ring_stats,
     span,
     span_totals,
-    stage_seconds_by_tenant,
     trace_context,
     trace_events,
     trace_instant,
@@ -59,9 +61,9 @@ __all__ = [
     "reset_copies",
     "reset_spans",
     "reset_trace",
+    "ring_stats",
     "span",
     "span_totals",
-    "stage_seconds_by_tenant",
     "total_copied",
     "trace_context",
     "trace_events",

@@ -11,13 +11,17 @@ reference:
   port does not depend on ``prometheus_client``). Spans are
   hierarchical when a :class:`TraceContext` is active: each span
   becomes the parent of spans opened inside it, and tenant-tagged
-  contexts also feed ``volsync_svc_stage_seconds{tenant,stage}`` and
-  ``stage_seconds_by_tenant()``.
+  contexts also feed ``volsync_svc_stage_seconds{tenant,stage}``.
+  A span's attributes may be set while it is open (``h.set(...)``).
 - **Flight recorder**: when the active context is sampled
   (``VOLSYNC_TRACE_SAMPLE``), finished spans land in a bounded
-  in-process ring (``VOLSYNC_TRACE_RING``, default 4096) exported as
+  in-process ring (``VOLSYNC_TRACE_RING``, default 131,072 events:
+  six 50 s benchmark windows of 1 GiB restic syncs) exported as
   Chrome-trace-event JSON (Perfetto-loadable) via :func:`dump_trace`
-  and ``volsync trace dump``. The ring is sampled; the totals are not.
+  and ``volsync trace dump``. The ring holds compact tuples; the
+  Chrome dicts are built only when it is read (:func:`trace_events`,
+  :func:`chrome_trace`), and :func:`ring_stats` says how much of the
+  past it still holds. The ring is sampled; the totals are not.
   :func:`record_trigger` marks shed / breaker-open / injected-fault /
   deadline (and the port's other operational) events in the ring and
   auto-dumps an annotated trace file when ``VOLSYNC_TRACE_DUMP`` is set
@@ -31,17 +35,37 @@ reference:
   else the host's torch operators, and writes one Chrome trace under
   ``<VOLSYNC_TRACE_DIR>/<label>/``, also when the region raises.
 
+One clock: the recorder's ``ts`` is microseconds since the Unix epoch
+on CLOCK_REALTIME, the clock ``torch.profiler`` stamps host and device
+events with, so a :func:`dump_trace` file and a profiler trace load
+side by side in Perfetto on one timeline, and a span can be set beside
+a device operation. Spans are timed with ``time.perf_counter()``
+(CLOCK_MONOTONIC, which NTP does not step), and ``span_totals()`` and
+the histograms keep those seconds. A ring tuple keeps the perf_counter
+reading; while events are recorded the recorder pairs a perf_counter
+reading with a realtime one at most once a second, and a read maps each
+event's start and end by linear interpolation between the pairs around
+it, as the profiler maps its own clock to realtime. The mapping only
+rises, so events keep their order and nesting, and NTP's slewing of
+realtime (up to 500 ppm) moves no event by more than the clocks drift
+in a second.
+
 Context propagation: the current :class:`TraceContext` lives in a
 ``contextvars.ContextVar``. It does NOT cross thread boundaries by
 itself: every pipeline seam hands it over explicitly
-(:func:`carry_context` for pool submissions, :func:`use_context` when a
-consumer thread processes an item that carried its producer's context)
-and the gRPC client sends it to the server in ``x-volsync-trace``
-metadata (:func:`format_trace_header` / :func:`parse_trace_header`).
+(:func:`carry_context` for pool submissions and threads, :func:`use_context`
+when a consumer thread processes an item that carried its producer's
+context) and the gRPC client sends it to the server in
+``x-volsync-trace`` metadata (:func:`format_trace_header` /
+:func:`parse_trace_header`). A mover Job is one trace: the restic entry
+runs each Job under a context whose ``stream_id`` is the Job's name,
+and its file-hash pool, readahead thread, seal and upload pools and the
+micro-batcher's passes carry it.
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import contextvars
 import dataclasses
@@ -66,14 +90,18 @@ _lock = lockcheck.make_lock("obs.spans")
 _totals: dict = defaultdict(lambda: [0, 0.0])  # name -> [n, secs]
 # (name, outcome) -> [n, secs]; outcome is "ok" or "error"
 _outcomes: dict = defaultdict(lambda: [0, 0.0])
-_tenant_stage: dict = defaultdict(float)  # (tenant, stage) -> seconds
 
-# Flight-recorder state. Events are stored ready-made in Chrome trace
-# event format so export is a snapshot + json.dump. Timestamps are
-# microseconds since this module's perf_counter epoch.
-_EPOCH = time.perf_counter()
+# Flight-recorder state. The ring holds one compact tuple an event,
+# ``(ph, name, perf_counter seconds, tid, ctx, ...)``: a span
+# ("X") adds its seconds, span id, outcome and attributes; a copy ("i")
+# or trigger ("g") instant its args. ``_event`` builds the Chrome dict.
 _PID = os.getpid()
 _ring: deque = deque(maxlen=envflags.trace_ring_size())
+_recorded = [0]  # events appended since the last reset_trace()
+# (perf_counter s, realtime us) read together, at most once a second
+# while the ring records: what a read maps perf_counter to realtime by
+_PAIR_EVERY_S = 1.0
+_pairs: deque = deque(maxlen=4096)
 _thread_names: dict = {}
 _trigger_last: dict = {}  # reason -> perf_counter of last dump
 _dump_seq = [0]
@@ -208,7 +236,9 @@ def parse_trace_header(value: Optional[str]) -> Optional[TraceContext]:
 # -- spans ----------------------------------------------------------------
 
 def _note_thread(tid: int) -> None:
-    """Name ``tid`` for the trace's thread_name records (under _lock)."""
+    """Name ``tid`` for the trace's thread_name records (under _lock).
+    Events carry the kernel's thread id, as the profiler's do: Python's
+    ``get_ident`` is reused as soon as a thread exits."""
     if tid not in _thread_names:
         _thread_names[tid] = threading.current_thread().name
 
@@ -228,6 +258,10 @@ class _SpanHandle:
         self._done = False
         self.t0 = time.perf_counter()
 
+    def set(self, **attrs) -> None:
+        """Add attributes known only once the span's work has run."""
+        self.attrs = {**(self.attrs or {}), **attrs}
+
     def finish(self, outcome: str = "ok") -> None:
         if self._done:
             return
@@ -241,23 +275,13 @@ class _SpanHandle:
             oacc = _outcomes[(self.name, outcome)]
             oacc[0] += 1
             oacc[1] += dt
-            if ctx is not None and ctx.tenant:
-                _tenant_stage[(ctx.tenant, self.name)] += dt
             if ctx is not None and ctx.sampled:
-                tid = threading.get_ident()
+                tid = threading.get_native_id()
                 _note_thread(tid)
-                args = {"trace_id": ctx.trace_id, "span_id": self.span_id,
-                        "parent_span_id": ctx.span_id, "outcome": outcome}
-                if ctx.tenant:
-                    args["tenant"] = ctx.tenant
-                if ctx.stream_id:
-                    args["stream_id"] = ctx.stream_id
-                if self.attrs:
-                    args.update(self.attrs)
-                _ring.append({
-                    "name": self.name, "cat": "span", "ph": "X",
-                    "ts": (self.t0 - _EPOCH) * 1e6, "dur": dt * 1e6,
-                    "pid": _PID, "tid": tid, "args": args})
+                _ring.append(("X", self.name, self.t0, tid, ctx, dt,
+                              self.span_id, outcome, self.attrs))
+                _recorded[0] += 1
+                _note_pair(self.t0 + dt)
         GLOBAL_METRICS.stage_duration.labels(
             stage=self.name, outcome=outcome).observe(dt)
         if ctx is not None and ctx.tenant:
@@ -310,14 +334,6 @@ def span_totals(by_outcome: bool = False) -> dict:
         return {k: (v[0], v[1]) for k, v in _totals.items()}
 
 
-def stage_seconds_by_tenant() -> dict:
-    """``{(tenant, stage): seconds}`` for spans finished under a
-    tenant-tagged context: the in-process mirror of
-    ``volsync_svc_stage_seconds`` that benches read."""
-    with _lock:
-        return dict(_tenant_stage)
-
-
 def reset_spans() -> None:
     """Zero the span registry AND the metric series it populated
     (volsync_stage_duration_seconds / volsync_svc_stage_seconds) so
@@ -325,7 +341,6 @@ def reset_spans() -> None:
     with _lock:
         _totals.clear()
         _outcomes.clear()
-        _tenant_stage.clear()
     GLOBAL_METRICS.stage_duration.clear()
     GLOBAL_METRICS.svc_stage_seconds.clear()
 
@@ -342,21 +357,96 @@ def trace_instant(name: str, **args) -> None:
     ctx = _CTX.get()
     if ctx is None or not ctx.sampled:
         return
-    tid = threading.get_ident()
+    t = time.perf_counter()
+    tid = threading.get_native_id()
     with _lock:
         _note_thread(tid)
-        _ring.append({
-            "name": name, "cat": "copy", "ph": "i", "s": "t",
-            "ts": (time.perf_counter() - _EPOCH) * 1e6,
-            "pid": _PID, "tid": tid,
-            "args": {**args, "trace_id": ctx.trace_id,
-                     "parent_span_id": ctx.span_id}})
+        _ring.append(("i", name, t, tid, ctx, args))
+        _recorded[0] += 1
+        _note_pair(t)
+
+
+def _note_pair(t: float) -> None:
+    """Pair the two clocks when the last pair is a second older than
+    ``t``, a perf_counter reading (under _lock). Of a few tries, the
+    realtime reading whose perf_counter bracket is tightest."""
+    if _pairs and t - _pairs[-1][0] < _PAIR_EVERY_S:
+        return
+    best = None
+    for _ in range(3):
+        a = time.perf_counter()
+        r = time.time_ns()
+        b = time.perf_counter()
+        if best is None or b - a < best[0]:
+            best = (b - a, (a + b) / 2, r / 1e3)
+    _pairs.append(best[1:])
+
+
+def _snapshot() -> tuple:
+    """(ring tuples, thread names, perf_counter -> realtime us) now."""
+    with _lock:
+        _note_pair(time.perf_counter())
+        recs = list(_ring)
+        threads = dict(_thread_names)
+        pairs = list(_pairs)
+    at = [p for p, _ in pairs]
+
+    def realtime_us(t: float) -> float:
+        i = bisect.bisect_right(at, t)
+        if i in (0, len(pairs)):  # outside the pairs: the nearest's offset
+            p, r = pairs[min(i, len(pairs) - 1)]
+            return r + (t - p) * 1e6
+        (p0, r0), (p1, r1) = pairs[i - 1], pairs[i]
+        return r0 + (t - p0) * (r1 - r0) / (p1 - p0)
+
+    return recs, threads, realtime_us
+
+
+def _event(rec: tuple, realtime_us) -> dict:
+    """One ring tuple as a Chrome trace event on realtime."""
+    ph, name, t, tid, ctx = rec[:5]
+    ev = {"name": name, "cat": "span", "ph": ph, "ts": realtime_us(t),
+          "pid": _PID, "tid": tid}
+    if ph == "X":
+        dt, span_id, outcome, attrs = rec[5:]
+        args = {"trace_id": ctx.trace_id, "span_id": span_id,
+                "parent_span_id": ctx.span_id, "outcome": outcome}
+        if ctx.tenant:
+            args["tenant"] = ctx.tenant
+        if ctx.stream_id:
+            args["stream_id"] = ctx.stream_id
+        if attrs:
+            args.update(attrs)
+        ev["dur"] = realtime_us(t + dt) - ev["ts"]
+    elif ph == "i":
+        ev.update(cat="copy", s="t")
+        args = {**rec[5], "trace_id": ctx.trace_id,
+                "parent_span_id": ctx.span_id}
+    else:
+        ev.update(cat="trigger", ph="i", s="g")
+        args = dict(rec[5])
+    ev["args"] = args
+    return ev
 
 
 def trace_events() -> list:
     """Snapshot of the ring buffer (Chrome trace events, oldest first)."""
+    recs, _, realtime_us = _snapshot()
+    return [_event(r, realtime_us) for r in recs]
+
+
+def ring_stats() -> dict:
+    """The ring's ``capacity``, the events it ``held``, the events
+    ``recorded`` since the last :func:`reset_trace` (more than held once
+    it wrapped), and ``oldest_ts``: the realtime microseconds of its
+    oldest event (None when empty). A reader of a window finds every
+    sampled event of it only where ``oldest_ts`` is before the window."""
+    recs, _, realtime_us = _snapshot()
     with _lock:
-        return list(_ring)
+        out = {"capacity": _ring.maxlen, "held": len(_ring),
+               "recorded": _recorded[0]}
+    out["oldest_ts"] = realtime_us(recs[0][2]) if recs else None
+    return out
 
 
 def chrome_trace(trigger: Optional[str] = None,
@@ -364,9 +454,8 @@ def chrome_trace(trigger: Optional[str] = None,
     """The ring buffer as a Chrome-trace-event JSON document (load in
     Perfetto / chrome://tracing). ``trigger`` stamps a top-level
     annotation describing why the dump was taken."""
-    with _lock:
-        events = list(_ring)
-        threads = dict(_thread_names)
+    recs, threads, realtime_us = _snapshot()
+    events = [_event(r, realtime_us) for r in recs]
     meta = [{"name": "thread_name", "ph": "M", "pid": _PID, "tid": tid,
              "args": {"name": tname}}
             for tid, tname in sorted(threads.items())]
@@ -411,11 +500,12 @@ def record_trigger(reason: str, /, **annotations) -> Optional[str]:
     now = time.perf_counter()
     ctx = _CTX.get()
     with _lock:
-        tid = threading.get_ident()
+        tid = threading.get_native_id()
         _note_thread(tid)
-        _ring.append({"name": "trigger." + reason, "cat": "trigger",
-                      "ph": "i", "s": "g", "ts": (now - _EPOCH) * 1e6,
-                      "pid": _PID, "tid": tid, "args": dict(annotations)})
+        _ring.append(("g", "trigger." + reason, now, tid, None,
+                      dict(annotations)))
+        _recorded[0] += 1
+        _note_pair(now)
         _triggers.append({
             "reason": reason, "time": time.time(),
             "thread": threading.current_thread().name,
@@ -450,6 +540,8 @@ def reset_trace() -> None:
     global _ring
     with _lock:
         _ring = deque(maxlen=envflags.trace_ring_size())
+        _recorded[0] = 0
+        _pairs.clear()
         _thread_names.clear()
         _trigger_last.clear()
 

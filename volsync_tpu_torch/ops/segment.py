@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from volsync_tpu_torch import envflags, resolve_device
-from volsync_tpu_torch.obs import record_copy
+from volsync_tpu_torch.obs import record_copy, span
 from volsync_tpu_torch.ops._build import Kernel, check_cuda
 from volsync_tpu_torch.ops.gearcdc import (
     GearParams,
@@ -786,20 +786,25 @@ class BatchedSegmentHasher:
         p = self.params
         cand_cap, chunk_cap = segment_caps(P, p)
         S = _pow2ceil(len(items), 1)
-        rows = np.zeros((S, P), dtype=np.uint8)
-        lens = np.zeros((S,), dtype=np.int64)
-        eofs = np.zeros((S,), dtype=bool)
-        staged = 0
-        for i, (buf, n, eof) in enumerate(items):
-            arr = np.frombuffer(buf, dtype=np.uint8, count=len(buf))
-            rows[i, : arr.shape[0]] = arr
-            staged += arr.shape[0]
-            lens[i] = n
-            eofs[i] = eof
-        record_copy("device.stage", staged)
-        dev_rows = torch.from_numpy(rows).to(self.device)
+        with span("ops.batch_stage"):
+            rows = np.zeros((S, P), dtype=np.uint8)
+            lens = np.zeros((S,), dtype=np.int64)
+            eofs = np.zeros((S,), dtype=bool)
+            staged = 0
+            for i, (buf, n, eof) in enumerate(items):
+                arr = np.frombuffer(buf, dtype=np.uint8, count=len(buf))
+                rows[i, : arr.shape[0]] = arr
+                staged += arr.shape[0]
+                lens[i] = n
+                eofs[i] = eof
+            record_copy("device.stage", staged)
+        # the lane table rides with the rows: no upload hides in the pass
+        with span("device.h2d"):
+            dev_rows = torch.from_numpy(rows).to(self.device)
+            dev_lens = torch.from_numpy(lens).to(self.device)
+            dev_eofs = torch.from_numpy(eofs).to(self.device)
         packed = chunk_hash_segments(
-            dev_rows, lens.tolist(), eofs.tolist(), min_size=p.min_size,
+            dev_rows, dev_lens, dev_eofs, min_size=p.min_size,
             avg_size=p.avg_size, max_size=p.max_size, seed=p.seed,
             mask_s=p.mask_s, mask_l=p.mask_l, align=p.align,
             cand_cap=cand_cap, chunk_cap=chunk_cap).cpu().numpy()

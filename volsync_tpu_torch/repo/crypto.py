@@ -23,6 +23,8 @@ import hmac as hmac_mod
 import os
 from typing import Optional
 
+from volsync_tpu_torch.obs import span
+
 try:
     from cryptography.hazmat.primitives.ciphers import (Cipher, algorithms,
                                                         modes)
@@ -146,8 +148,9 @@ class PlainBox:
 def derive_keys(password: str, salt: bytes, *, n: int = 2**15, r: int = 8,
                 p: int = 1) -> SecretBox:
     """scrypt(password) -> 64 bytes -> (enc_key, mac_key)."""
-    km = hashlib.scrypt(password.encode(), salt=salt, n=n, r=r, p=p,
-                        maxmem=256 * 1024 * 1024, dklen=64)
+    with span("repo.kdf"):
+        km = hashlib.scrypt(password.encode(), salt=salt, n=n, r=r, p=p,
+                            maxmem=256 * 1024 * 1024, dklen=64)
     return SecretBox(km[:32], km[32:])
 
 

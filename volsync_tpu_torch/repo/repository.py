@@ -74,7 +74,13 @@ from volsync_tpu_torch import envflags, resolve_device
 from volsync_tpu_torch.analysis import lockcheck
 from volsync_tpu_torch.metrics import GLOBAL as GLOBAL_METRICS
 from volsync_tpu_torch.objstore.store import NoSuchKey, ObjectStore
-from volsync_tpu_torch.obs import carry_context, record_copy, record_trigger, span
+from volsync_tpu_torch.obs import (
+    begin_span,
+    carry_context,
+    record_copy,
+    record_trigger,
+    span,
+)
 from volsync_tpu_torch.repo import blobid, crypto
 from volsync_tpu_torch.repo.shardedindex import ShardedBlobIndex
 from volsync_tpu_torch.repo.compress import Compressor, Decompressor
@@ -629,7 +635,9 @@ class Repository:
         with one prune-mode holder; "exclusive" excludes everything.
 
         Raises RepoLockedError if a conflicting lock persists past
-        ``wait_seconds`` (default: ``self.default_lock_wait``).
+        ``wait_seconds`` (default: ``self.default_lock_wait``). The
+        acquisition is the span ``repo.lock`` (contention waits
+        included), the release ``repo.unlock``.
         """
         if mode is None:
             mode = "exclusive" if exclusive else "shared"
@@ -637,6 +645,7 @@ class Repository:
             raise ValueError(f"unknown lock mode {mode!r}")
         if wait_seconds is None:
             wait_seconds = self.default_lock_wait
+        acquiring = begin_span("repo.lock")
         own: Optional[str] = self._write_lock(mode)
         stop = threading.Event()
         refresher = None
@@ -714,20 +723,23 @@ class Repository:
                                          name="repo-lock-refresh",
                                          daemon=True)
             refresher.start()
+            acquiring.finish()
             yield
         finally:
-            stop.set()
-            if own is not None:
-                self._held_locks.discard(own)
-            if refresher is not None:
-                # The refresher deletes the lock when it exits; the join
-                # just bounds how long release waits for that.
-                refresher.join(timeout=10.0)
-            elif own is not None:
-                try:
-                    self.store.delete(own)
-                except NoSuchKey:
-                    pass
+            acquiring.finish("error")  # a no-op once acquired
+            with span("repo.unlock"):
+                stop.set()
+                if own is not None:
+                    self._held_locks.discard(own)
+                if refresher is not None:
+                    # The refresher deletes the lock when it exits; the
+                    # join just bounds how long release waits for that.
+                    refresher.join(timeout=10.0)
+                elif own is not None:
+                    try:
+                        self.store.delete(own)
+                    except NoSuchKey:
+                        pass
 
     # -- writer generations / fencing ---------------------------------------
 
@@ -851,9 +863,10 @@ class Repository:
         snapshot's trees. The other order (the reference's) leaves a
         window: a backup that lands between the load and the listing is
         listed, but its tree is "not in index" for the walk."""
-        snaps = self.list_snapshots()
-        self.load_index()
-        return snaps
+        with span("repo.list_then_load"):
+            snaps = self.list_snapshots()
+            self.load_index()
+            return snaps
 
     def _decode_index_delta(self, raw: bytes) -> dict:
         return json.loads(self._zd.decompress(self.box.open(raw)))
@@ -972,12 +985,18 @@ class Repository:
         segment). ``data`` is any buffer — the chunker's pooled
         memoryviews flow through compress/seal_parts uncopied; on the
         PlainBox + incompressible path the caller's view itself becomes
-        a part and rides down to the store PUT."""
+        a part and rides down to the store PUT. Inside ``repo.seal``,
+        ``repo.seal.compress`` (``raw`` bytes in, ``kept``: whether the
+        compressed form is stored) and ``repo.seal.cipher`` split it."""
         with span("repo.seal"):
-            comp = self._zc.compress(data)
-            if len(comp) <= len(data) * _COMPRESS_MIN_GAIN:
-                return self.box.seal_parts((b"\x01", comp))
-            return self.box.seal_parts((b"\x00", data))
+            with span("repo.seal.compress", raw=len(data)) as h:
+                comp = self._zc.compress(data)
+                kept = len(comp) <= len(data) * _COMPRESS_MIN_GAIN
+                h.set(kept=kept)
+            with span("repo.seal.cipher"):
+                if kept:
+                    return self.box.seal_parts((b"\x01", comp))
+                return self.box.seal_parts((b"\x00", data))
 
     @staticmethod
     def _seg_len(seg: list) -> int:
@@ -1144,7 +1163,11 @@ class Repository:
         the pack when the sealed size crosses PACK_TARGET."""
         lockcheck.assert_held(self._lock, "repo seal queue (_pl_open)")
         ob = self._pl_open.pop(0)
-        seg = ob.fut.result()
+        if ob.fut.done():
+            seg = ob.fut.result()
+        else:
+            with span("repo.seal_wait"):
+                seg = ob.fut.result()
         stored = self._seg_len(seg)
         self._cur_entries.append({
             "id": ob.meta["id"], "type": ob.meta["type"],
@@ -1498,7 +1521,8 @@ class Repository:
             # under repo.state so no new blob lands between the join
             # and the delta write. Pool workers never take this lock.
             self._flush_data()
-            self._persist_pending()
+            with span("repo.index_write"):
+                self._persist_pending()
 
     # -- read path ----------------------------------------------------------
 
@@ -1560,17 +1584,19 @@ class Repository:
     # -- snapshots ----------------------------------------------------------
 
     def save_snapshot(self, manifest: dict) -> str:
-        manifest.setdefault("time", datetime.now(timezone.utc).isoformat())
-        payload = self.box.seal(json.dumps(manifest).encode())
-        snap_id = hashlib.sha256(payload).hexdigest()
-        self._guard_publish("snapshot publish")
-        self.store.put(f"snapshots/{snap_id}", payload)
-        try:
+        with span("repo.save_snapshot"):
+            manifest.setdefault("time",
+                                datetime.now(timezone.utc).isoformat())
+            payload = self.box.seal(json.dumps(manifest).encode())
+            snap_id = hashlib.sha256(payload).hexdigest()
             self._guard_publish("snapshot publish")
-        except StaleWriterError:
-            self.store.delete(f"snapshots/{snap_id}")  # fenced mid-put
-            raise
-        return snap_id
+            self.store.put(f"snapshots/{snap_id}", payload)
+            try:
+                self._guard_publish("snapshot publish")
+            except StaleWriterError:
+                self.store.delete(f"snapshots/{snap_id}")  # fenced mid-put
+                raise
+            return snap_id
 
     def list_snapshots(self) -> list[tuple[str, dict]]:
         out = []

@@ -192,8 +192,8 @@ def run_closed_loop(*, tenants: list[dict], requests_per_client: int = 3,
     client's chunk lists of the timed phase, by client index, and
     ``base``, the unsalted payload. ``around_timed()`` is a context
     manager entered around the timed phase only (a device trace)."""
-    from volsync_tpu_torch.obs import (reset_spans, span_totals,
-                                       stage_seconds_by_tenant)
+    from volsync_tpu_torch.metrics import GLOBAL
+    from volsync_tpu_torch.obs import reset_spans, span_totals
     from volsync_tpu_torch.ops.gearcdc import GearParams
     from volsync_tpu_torch.repo import blobid
     from volsync_tpu_torch.resilience import CircuitBreaker, TransientError
@@ -285,7 +285,7 @@ def run_closed_loop(*, tenants: list[dict], requests_per_client: int = 3,
                                         streams)
                 result.update(_report_load_phase(
                     tenants, tallies, wall, dispatch_log,
-                    stage_seconds_by_tenant()))
+                    GLOBAL.svc_stage_seconds.values()))
                 after = _admission_counts()
                 result["admitted_by_tenant"], result["shed_by_tenant"] = (
                     {t: v - b.get(t, 0.0) for t, v in a.items()
